@@ -1,0 +1,111 @@
+"""The port imports torch, numpy and the standard library only: nothing of
+jax, flax, optax, aiohttp or the JAX package fishnet_tpu, and its entry
+points never fall back to the CPU on their own.
+
+The import check runs in a subprocess: this test process has imported
+jax already (tests/conftest.py)."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "aiohttp", "fishnet_tpu")
+
+_BLOCKED_RUN = r"""
+import importlib, io, pkgutil, runpy, sys
+
+BLOCKED = %r
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+import fishnet_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(
+    fishnet_tpu_torch.__path__, "fishnet_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+print("imported", len(names), "modules", flush=True)
+sys.argv = ["fishnet_tpu_torch", "uci", "--device", "cpu",
+            "--microbatch", "64"]
+try:
+    runpy.run_module("fishnet_tpu_torch", run_name="__main__")
+except SystemExit as exit_:
+    assert exit_.code == 0, exit_.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("clean", flush=True)
+"""
+
+
+def test_port_imports_and_serves_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN % (BLOCKED,)],
+        input="uci\nisready\nquit\n", capture_output=True, text=True,
+        cwd=ROOT, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "imported" in out and "clean" in out
+    assert "id name fishnet-tpu-torch" in out
+    assert "uciok" in out and "readyok" in out
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_import_anywhere_in_the_port():
+    files = sorted((ROOT / "fishnet_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [
+        (str(f.relative_to(ROOT)), root)
+        for f in files for root in _imported_roots(f) if root in BLOCKED
+    ]
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    import torch
+
+    from fishnet_tpu_torch.device import resolve_device
+    from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.search.service import SearchService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchService(weights=NnueWeights.random(seed=0), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    w = NnueWeights.random(seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_weights(w)
+    assert resolve_device("cpu") == torch.device("cpu")
+    # The scalar backend evaluates on the host and needs no device.
+    svc = SearchService(weights=w, backend="scalar", pool_slots=8,
+                        batch_capacity=64, tt_bytes=1 << 20)
+    try:
+        assert svc.device is None
+    finally:
+        svc.close()
