@@ -19,8 +19,8 @@ Two arithmetic hazards of the port:
   int8 x int8 -> int32 products run in float32, which is exact here:
   every operand is an integer and every partial sum stays below
   126 * 128 * 1024 < 2**24, float32's exact-integer range — provided
-  TF32 is off (TF32 keeps 10 mantissa bits and rounds these sums). The
-  same float path runs on the CPU, so the CPU tests exercise the
+  TF32 is off (TF32 keeps 10 mantissa bits and rounds these sums;
+  ``params_from_numpy`` turns it off for the process). The same float path runs on the CPU, so the CPU tests exercise the
   arithmetic the card runs.
 """
 
@@ -51,6 +51,10 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray],
     ``{k: np.asarray(v) for k, v in jax_params.items()}`` and get the
     same tensors, bit for bit, on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
+    # The head's integer products run as float32 matmuls (_int8_products),
+    # exact only at full float32 precision: TF32 would round their sums.
+    # Every evaluator's parameters pass through here, so pin it once.
+    torch.backends.cuda.matmul.allow_tf32 = False
     missing = [k for k in PARAM_KEYS if k not in arrays]
     if missing:
         raise ValueError(f"missing parameters: {missing}")
@@ -94,9 +98,6 @@ def _int8_products(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bi,koi->bko")`` of int8-range integers with an exact
     int32 result, through a float32 matmul (see the module docstring
     for why that is exact). x [B, I] in 0..127, w [K, O, I] int8."""
-    # TF32 would round the float32 sums; pin full precision on every
-    # call so no other code's setting can leak into the integer path.
-    torch.backends.cuda.matmul.allow_tf32 = False
     k, o, i = w.shape
     y = x.to(torch.float32) @ w.reshape(k * o, i).to(torch.float32).T
     return y.to(torch.int32).reshape(-1, k, o)

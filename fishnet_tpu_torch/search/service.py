@@ -145,7 +145,24 @@ MIN_BATCH_CAPACITY = 40
 #: kernel, "xla" the plain torch version (the CPU path), and
 #: "host-material" ships the pool's material term on the wire (the
 #: kernel, or the plain version on the CPU, then runs without PSQT).
+#: The device decides between the first two; only "host-material" is
+#: ever requested.
 PSQT_PATHS = ("fused", "xla", "host-material")
+
+#: The entry-bucket ladder's first rung, as in the JAX package.
+MIN_EVAL_BUCKET = 64
+
+
+def eval_bucket_sizes(capacity: int, first: int = MIN_EVAL_BUCKET) -> List[int]:
+    """Entry-count buckets of a group: a step ships the smallest power
+    of two from ``first`` that holds its entries, capped at the group
+    ``capacity`` (padding entries are all-sentinel fulls)."""
+    sizes = {capacity}
+    s = first
+    while s < capacity:
+        sizes.add(s)
+        s *= 2
+    return sorted(sizes)
 
 #: The native search's skill level for analysis: 20 searches at full
 #: strength (below 20 it samples among near-best lines, for play jobs
@@ -174,27 +191,23 @@ class SearchService:
         CUDA request raises). ``backend="scalar"`` evaluates them one at
         a time with the native core's C++ evaluator and uses no device.
 
-        ``psqt_path`` picks an eval-path rung (PSQT_PATHS); None takes
-        "fused" on CUDA and "xla" on the CPU. The device decides which
-        executor runs the feature transformer, so "fused" is refused on
-        the CPU and "xla" on CUDA. All rungs give bit-identical results.
+        ``psqt_path="host-material"`` ships the material term on the
+        wire; None computes it on the device. ``self.psqt_path`` reports
+        the rung that runs (PSQT_PATHS): "host-material", or the one the
+        device picks — "fused" on CUDA, "xla" on the CPU. All rungs give
+        bit-identical results.
         """
         if backend not in ("torch", "scalar"):
             raise ValueError(f"unknown backend: {backend!r}")
-        if psqt_path not in (None, *PSQT_PATHS):
+        if psqt_path not in (None, "host-material"):
             raise ValueError(f"unknown psqt_path request: {psqt_path!r}")
         self.device = None if backend == "scalar" else resolve_device(device)
-        if self.device is not None:
-            on_cuda = self.device.type == "cuda"
-            if psqt_path is None:
-                psqt_path = "fused" if on_cuda else "xla"
-            elif psqt_path == ("xla" if on_cuda else "fused"):
-                raise ValueError(
-                    f"psqt_path {psqt_path!r} does not run on "
-                    f"{self.device.type}: the device picks the executor "
-                    "(fused = the CUDA kernel, xla = the CPU's plain path)"
-                )
-        self.psqt_path = psqt_path if self.device is not None else None
+        if self.device is None:
+            self.psqt_path = None
+        elif psqt_path is None:
+            self.psqt_path = "fused" if self.device.type == "cuda" else "xla"
+        else:
+            self.psqt_path = psqt_path
         self._lib = load()
         _bind_pool_api(self._lib)
 
@@ -238,18 +251,7 @@ class SearchService:
         self._group_capacity = max(
             MIN_BATCH_CAPACITY, cap // self.pipeline_depth
         )
-        # Entry-count buckets: a step ships the smallest power of two
-        # from 8 that holds its entries, capped at the group capacity
-        # (padding entries are all-sentinel fulls). Eager torch compiles
-        # nothing per shape, so the ladder starts at 8 (the JAX package
-        # starts at 64 to bound its compiles): a sequential search's
-        # steps carry a handful of entries.
-        sizes = {self._group_capacity}
-        s = 8
-        while s < self._group_capacity:
-            sizes.add(s)
-            s *= 2
-        self._eval_sizes = sorted(sizes)
+        self._eval_sizes = eval_bucket_sizes(self._group_capacity)
 
         self._params = None
         self._anchor_tabs: List[torch.Tensor] = []

@@ -59,6 +59,16 @@ def test_params_from_numpy_carries_jax_params_over(nets):
         assert torch.equal(carried[k], params[k]), k
 
 
+def test_params_from_numpy_pins_tf32_off(nets, monkeypatch):
+    """The head's float32 integer products are exact only without TF32;
+    building the parameters turns it off, whatever it was before."""
+    _, _, params, _ = nets
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    torch_eval.params_from_numpy(
+        {k: v.numpy() for k, v in params.items()}, CPU)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
 def _random_boards(n, seed):
     from fishnet_tpu.chess import Board
 

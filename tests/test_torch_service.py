@@ -69,11 +69,13 @@ def test_port_matches_jax_service_and_scalar(monkeypatch, depth):
     for hatch in ("FISHNET_NO_COALESCE", "FISHNET_NO_EVAL_CACHE",
                   "FISHNET_NO_BOUNDS"):
         monkeypatch.setenv(hatch, "1")
-    port = asyncio.run(_results(
-        SearchService(weights=NnueWeights.random(seed=21), device="cpu",
-                      **KW), fens, depth))
-    ref = asyncio.run(_results(
-        JaxService(weights=JaxWeights.random(seed=21), **KW), fens, depth))
+    port_svc = SearchService(weights=NnueWeights.random(seed=21),
+                             device="cpu", **KW)
+    ref_svc = JaxService(weights=JaxWeights.random(seed=21), **KW)
+    # The same entry-bucket ladder, so the same padded step shapes.
+    assert port_svc._eval_sizes == ref_svc._eval_sizes
+    port = asyncio.run(_results(port_svc, fens, depth))
+    ref = asyncio.run(_results(ref_svc, fens, depth))
     scalar = asyncio.run(_results(
         SearchService(weights=NnueWeights.random(seed=21), backend="scalar",
                       **KW), fens, depth))
@@ -118,9 +120,9 @@ def test_pipelined_groups_and_counters():
 
 def test_device_and_rung_requests_are_checked():
     w = NnueWeights.random(seed=21)
-    with pytest.raises(ValueError, match="does not run on cpu"):
-        SearchService(weights=w, device="cpu", psqt_path="fused", **KW)
-    with pytest.raises(ValueError, match="unknown psqt_path"):
-        SearchService(weights=w, device="cpu", psqt_path="bogus", **KW)
+    # The device picks "fused" or "xla"; only "host-material" is a request.
+    for rung in ("fused", "xla", "bogus"):
+        with pytest.raises(ValueError, match="unknown psqt_path"):
+            SearchService(weights=w, device="cpu", psqt_path=rung, **KW)
     with pytest.raises(ValueError, match="unknown backend"):
         SearchService(weights=w, backend="jax", device="cpu", **KW)
