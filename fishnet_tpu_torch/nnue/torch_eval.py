@@ -3,9 +3,11 @@
 
 Exact integer semantics, bit-identical to the JAX evaluator and to the
 C++ scalar oracle (cpp/src/nnue.cpp). The feature-transformer gather
-runs in the hand CUDA kernel on the GPU (ops/ft_gather.py); everything
-else here — wire expansion, parent decoding, the anchor-table scatter,
-the int8 head — is plain torch, as it was XLA code in the JAX package.
+runs in the hand CUDA kernel on the GPU (ops/ft_gather.py); on the
+anchored packed path that one launch also reads the wire and stores the
+anchor tables (on the CPU: expand_packed and store_anchors, the plain
+versions). The int8 head is plain torch, as it was XLA code in the JAX
+package.
 
 Input convention: ``indices`` is integer [B, 2, MAX_ACTIVE] of
 HalfKAv2_hm feature indices — perspective 0 is the side to move —
@@ -34,7 +36,12 @@ import torch
 from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue.weights import NnueWeights
-from fishnet_tpu_torch.ops.ft_gather import decode_parent, ft_accumulate
+from fishnet_tpu_torch.ops.ft_gather import (  # noqa: F401 - re-exported
+    expand_packed,
+    ft_accumulate,
+    ft_accumulate_packed,
+    is_delta as _is_delta,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -147,7 +154,7 @@ def evaluate_batch(
 def _evaluate_from_acc(
     params: Params,
     acc: torch.Tensor,
-    indices: torch.Tensor,
+    indices: Optional[torch.Tensor],
     buckets: torch.Tensor,
     parent: Optional[torch.Tensor],
     material: Optional[torch.Tensor],
@@ -223,45 +230,6 @@ def _evaluate_from_acc(
     return _trunc_div(positional + material, spec.FV_SCALE).to(torch.int32)
 
 
-def _widen_wire(packed: torch.Tensor) -> torch.Tensor:
-    """int32 view of a wire row stream. The wire is uint16; torch has few
-    uint16 kernels, so it may arrive as int16 carrying the same bits,
-    which widen with a 16-bit mask."""
-    if packed.dtype == torch.int16:
-        return packed.to(torch.int32) & 0xFFFF
-    return packed.to(torch.int32)
-
-
-def expand_packed(packed: torch.Tensor, offsets: torch.Tensor,
-                  parent: torch.Tensor) -> torch.Tensor:
-    """Expand the COMPACT WIRE FORMAT back to dense [B, 2, 32] indices.
-
-    ``packed`` [R, 2, 8] rows (uint16 bits, see _widen_wire),
-    ``offsets`` int [B] row offsets: a full entry owns 4 consecutive
-    rows — its 32 slots per perspective, 8 at a time; a delta entry owns
-    ONE row (its 2*DELTA_SLOTS live slots) and its slots [8, 32) are the
-    sentinel by wire contract."""
-    packed = _widen_wire(packed)
-    rows = offsets.long()[:, None] + torch.arange(4, device=packed.device)
-    rows = rows.clamp(0, packed.shape[0] - 1)
-    g = packed[rows]  # [B, 4, 2, 8]
-    dense = g.permute(0, 2, 1, 3).reshape(-1, 2, 4 * 8)  # [B, 2, 32]
-    tail = torch.where(
-        _is_delta(parent)[:, None, None],
-        torch.full_like(dense[:, :, 8:], spec.NUM_FEATURES),
-        dense[:, :, 8:],
-    )
-    return torch.cat([dense[:, :, :8], tail], dim=2)
-
-
-def _is_delta(parent: torch.Tensor) -> torch.Tensor:
-    """True for one-row (delta) entries under the wire's parent codes:
-    in-batch refs (>= 0) and persistent anchor deltas (<= -2 with the
-    delta bit); plain fulls (-1) and full anchor (re)seeds own 4 rows."""
-    in_batch, persistent, _, _, _, _ = decode_parent(parent)
-    return in_batch | persistent
-
-
 def evaluate_packed_anchored(
     params: Params,
     packed: torch.Tensor,
@@ -271,6 +239,8 @@ def evaluate_packed_anchored(
     anchor_tab: torch.Tensor,
     n_rows: int,
     psqt_tab: torch.Tensor,
+    *,
+    offsets: Optional[torch.Tensor] = None,
 ):
     """evaluate_batch over the compact wire with PERSISTENT device-
     resident anchors: ``anchor_tab`` [A, 2, L1] int32 holds one feature-
@@ -288,15 +258,18 @@ def evaluate_packed_anchored(
     ``(values, anchor_tab, psqt_tab)``, with the tables being the very
     tensors passed in.
 
-    Row offsets are derived here (4 rows per full entry, 1 per delta:
-    the exclusive cumsum) and clamped to ``n_rows``, the emitted row
-    count, where the caller writes one sentinel block: padding entries'
-    cumsum runs past the stream into stale rows whose contents can
-    exceed the table bounds."""
+    Row offsets are derived here when ``offsets`` is None (4 rows per
+    full entry, 1 per delta: the exclusive cumsum) and clamped to
+    ``n_rows``, the emitted row count, where the caller writes one
+    sentinel block: padding entries' cumsum runs past the stream into
+    stale rows whose contents can exceed the table bounds. A caller that
+    has the pool's offsets (int32 [B], padding entries already pointing
+    at ``n_rows``) passes them instead and saves the derivation."""
     parent = parent.to(torch.int32)
-    rows_per = torch.where(_is_delta(parent), 1, 4).to(torch.int32)
-    offsets = torch.cumsum(rows_per, 0, dtype=torch.int32) - rows_per
-    offsets = offsets.clamp(max=int(n_rows))
+    if offsets is None:
+        rows_per = torch.where(_is_delta(parent), 1, 4).to(torch.int32)
+        offsets = torch.cumsum(rows_per, 0, dtype=torch.int32) - rows_per
+        offsets = offsets.clamp(max=int(n_rows))
     return _packed_anchored_core(
         params, packed, offsets, buckets, parent, material,
         anchor_tab, psqt_tab,
@@ -313,50 +286,25 @@ def _packed_anchored_core(
     anchor_tab: torch.Tensor,
     psqt_tab: torch.Tensor,
 ):
-    """Expand the row stream, accumulate with table resolution, evaluate
-    the head, and store anchor entries' resolved accumulators (and PSQT
-    twins) to their table rows, in place."""
-    dense = expand_packed(packed, offsets, parent)
+    """Accumulate over the row stream with table resolution and the
+    anchor stores (one kernel launch on CUDA; expand_packed,
+    ft_accumulate_plain and store_anchors on the CPU), then evaluate the
+    head."""
     psqt = None
     if material is None:
-        acc, psqt = ft_accumulate(
-            params["ft_w"], params["ft_b"], dense,
-            delta_base=spec.DELTA_BASE, parent=parent,
-            anchor_tab=anchor_tab, ft_psqt=params["ft_psqt"],
-            psqt_tab=psqt_tab,
+        acc, psqt = ft_accumulate_packed(
+            params["ft_w"], params["ft_b"], packed, offsets, parent,
+            anchor_tab, ft_psqt=params["ft_psqt"], psqt_tab=psqt_tab,
         )
     else:
-        acc = ft_accumulate(
-            params["ft_w"], params["ft_b"], dense,
-            delta_base=spec.DELTA_BASE, parent=parent,
-            anchor_tab=anchor_tab,
+        acc = ft_accumulate_packed(
+            params["ft_w"], params["ft_b"], packed, offsets, parent,
+            anchor_tab,
         )
     values = _evaluate_from_acc(
-        params, acc, dense, buckets, parent, material, psqt=psqt
+        params, acc, None, buckets, parent, material, psqt=psqt
     )
-    _store_anchors(anchor_tab, acc, parent)
-    if psqt is not None:
-        _store_anchors(psqt_tab, psqt, parent)
     return values, anchor_tab, psqt_tab
-
-
-def _store_anchors(tab: torch.Tensor, acc: torch.Tensor,
-                   parent: torch.Tensor) -> None:
-    """``tab[aid[b]] = acc[b]`` for every anchor entry b, in place. Rows
-    are unique within a batch (one block per pool slot per step). Non-
-    anchor entries aim at a sink index past the table, so no boolean
-    mask — and no device-to-host sync on the GPU — is needed to find
-    the store rows; rows past the table drop, as JAX's ``mode="drop"``
-    does."""
-    _, _, stores, _, _, aid = decode_parent(parent)
-    n_tab = tab.shape[0]
-    row = torch.where(stores & (aid < n_tab), aid, n_tab).long()
-    has = torch.zeros(n_tab + 1, dtype=torch.bool, device=tab.device)
-    has.scatter_(0, row, True)
-    owner = torch.zeros(n_tab + 1, dtype=torch.long, device=tab.device)
-    owner.scatter_(0, row, torch.arange(row.shape[0], device=tab.device))
-    has, owner = has[:n_tab], owner[:n_tab]
-    tab.copy_(torch.where(has[:, None, None], acc[owner], tab))
 
 
 def expand_packed_np(packed, offsets, parent):

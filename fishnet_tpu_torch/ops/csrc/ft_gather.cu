@@ -1,41 +1,71 @@
-// NNUE feature-transformer gather-accumulate for Hopper (sm_90a).
+// NNUE feature-transformer gather-accumulate for Hopper (sm_90a): one
+// launch per call, one block per batch entry.
 //
 // Replaces: fishnet_tpu/ops/ft_gather.py:_kernel (the Pallas TPU kernel
-// launched by _pallas_ft_accumulate, selected by ft_accumulate).
+// launched by _pallas_ft_accumulate, selected by ft_accumulate), and the
+// XLA ops that surrounded it on the TPU: the wire expansion
+// (jax_eval.expand_packed) and the anchor-table store
+// (jax_eval._packed_anchored_core's scatter).
 //
 // What it computes, for every entry b and perspective p (see
 // fishnet_tpu_torch/ops/ft_gather.py for the plain PyTorch version it is
 // held against bit for bit):
 //   acc[b,p,:]  = ft_b + sum_k ft_w[idx[b,p,k]]          (int16 -> int32)
 //   psqt[b,p,:] =        sum_k ft_psqt[idx[b,p,k]]       (no bias)
-// with the wire's parent codes (decode_parent): sparse (delta) entries
-// read only the 2*DELTA_SLOTS live slots, decode removals
-// (idx >= delta_base subtracts row idx - delta_base) and carry no bias;
-// persistent deltas add the perspective-swapped anchor_tab[aid] row
-// (and psqt_tab[aid]); in-batch deltas add the perspective-swapped
-// accumulator of the entry they reference.
+// with the wire's parent codes (decode_parent): delta entries read only
+// the 2*DELTA_SLOTS live slots, decode removals (idx >= delta_base
+// subtracts row idx - delta_base) and carry no bias; persistent deltas
+// add the perspective-swapped anchor_tab[aid] row (and psqt_tab[aid]);
+// in-batch deltas add the perspective-swapped accumulator of the entry
+// they reference. In packed mode the indices come straight from the
+// compact wire (uint16 rows [R, 2, 8]: 4 rows per full entry, 1 per
+// delta, at each entry's row offset, clamped into the stream) and every
+// anchor entry's result is stored back to its anchor_tab / psqt_tab row
+// in place; dense mode reads int32 [B, 2, 32] indices and leaves the
+// tables alone.
 //
-// What bounds it on this card: bytes read from HBM. Each live slot pulls
-// one 2 KiB int16 row of the 46 MB table at a data-dependent address and
-// does 1024 integer adds with it (0.5 add per byte), far below the
-// ~300 operations per byte where the H100's compute would become the
-// limit. The design therefore only spends effort on the row traffic:
-//   * one block per (entry, perspective), 128 threads, each owning 8 of
-//     the 1024 int32 lanes and reading its 16 B slice of a row with one
-//     vector load, so a warp reads 512 contiguous bytes per row;
-//   * the slot list is compacted once per block (warp ballot): the zero
-//     sentinel row and unused delta slots are never fetched, so a full
-//     entry reads only its ~26 real rows and a delta entry its few;
-//   * no intermediate [B, 2, 32, L1] gather lands in HBM (the plain
-//     version's cost): rows are reduced in registers.
-// CUDA blocks run in no order, so the TPU kernel's running in-VMEM
-// anchor (carried across grid steps and 512-entry chunks) has no
-// counterpart: in-batch deltas resolve by their explicit reference in a
-// second launch, after the first has finished every anchor entry.
+// What bounds it on this card: latency, not bandwidth. A serving step
+// moves a few MB (mostly one 2 KiB table row per live slot, from a
+// 46 MB table that stays in the 50 MB L2 between steps) — about 2 us at
+// HBM rate — and does 0.5 integer add per byte read. What costs time is
+// the chain of dependent memory round trips each entry walks. The design
+// cuts the chain, not the bytes:
+//   * one launch: delta resolution, wire decode and table store are in
+//     the kernel, so nothing waits for a second launch to drain;
+//   * one block per entry covering both perspectives (L1/4 threads, 8
+//     int32 lanes and one 16 B row slice each): a persistent delta with
+//     swap reads anchor_tab[aid][p ^ 1] while the same entry stores
+//     anchor_tab[aid][p], so the block reads both rows before it stores
+//     either (a __syncthreads between);
+//   * the slot list is compacted once per perspective (warp ballot):
+//     the zero sentinel row and unused delta slots are never fetched;
+//     then up to 8 rows per thread are loaded before the first add, so
+//     a delta entry's rows are all in flight at once (a full entry's
+//     up to 32 rows take up to 4 such batches: 64 registers a thread
+//     keep 4 blocks, the B=512 serving step, resident on each SM);
+//   * entries are claimed in wire order through a ticket (atomicAdd on
+//     a device counter), not by blockIdx: the pool's anchor protocol
+//     makes every in-batch delta reference an EARLIER anchor entry, so
+//     that anchor's block is already resident when the delta waits on
+//     it. A delta sums its own rows first, then spins (one thread,
+//     acquire) on the anchor's ready word and adds swap(acc[ref]) from
+//     L2; the anchor publishes its word with release semantics after
+//     storing acc and PSQT. Anchor entries never wait, so the waits
+//     cannot deadlock. A reference the wire contract forbids (ref >= b,
+//     or to an entry that is not an anchor) is counted and never
+//     waited on, and a wait also gives up (counted) after a bounded
+//     spin, so no input can hang the kernel;
+//   * no memset launch and no second atomic: the ticket is one 64-bit
+//     device word, the launch's epoch in its high half and the next
+//     entry in its low half; the block that claims the last entry rolls
+//     it over to (epoch + 1, 0). Ready words hold the epoch, so they
+//     need no reset either. Because the epoch lives on the device, a
+//     launch replayed from a CUDA graph gets a new one too. Calls that
+//     share a device's state must be stream-ordered.
 //
 // Every decoded index is checked against the table's row count; an
 // out-of-range index (or a malformed parent reference) is never read and
-// is counted in the device-side error word `err` instead.
+// is counted in the state's error word instead.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,11 +74,38 @@ namespace {
 
 constexpr int kSlots = 32;       // spec.MAX_ACTIVE_FEATURES
 constexpr int kDeltaSlots = 4;   // spec.DELTA_SLOTS
+constexpr int kWireRow = 8;      // slots per wire row and perspective
 constexpr int kLanes = 8;        // int32 lanes per thread (one 16 B load)
 constexpr int kPsqtBuckets = 8;  // spec.NUM_PSQT_BUCKETS
+constexpr int kInFlight = 8;     // table rows loaded before the first add
+constexpr int kSpinLimit = 1 << 24;
+constexpr int kBulkMaxL1 = 1024;
+
+// Device state (int32 [4], zeroed once by the wrapper): words 0-1 the
+// 64-bit ticket (low: next entry, high: epoch), word 3 the error count.
+constexpr int kErrors = 3;
+
+struct Args {
+  const int16_t* ft_w;
+  int n_rows, l1;
+  const int16_t* ft_b;
+  const int32_t* ft_psqt;     // NULL: no PSQT
+  const int32_t* idx;         // dense mode [batch, 2, 32]
+  const uint16_t* wire;       // packed mode [n_wire, 2, 8]
+  int n_wire;
+  const int32_t* offsets;     // packed mode [batch]
+  const int32_t* parent;      // [batch] or NULL (every entry plain full)
+  int32_t* anchor_tab;        // [n_anchor, 2, l1] or NULL
+  int32_t* psqt_tab;          // [n_anchor, 2, 8] or NULL
+  int n_anchor, store, delta_base, batch;
+  int32_t* acc;               // [batch, 2, l1]
+  int32_t* psqt;              // [batch, 2, 8] (with PSQT)
+  int32_t* state;             // int32 [4], 16-byte aligned
+  int32_t* ready;             // [>= batch]
+};
 
 struct Parent {
-  bool in_batch, persistent;
+  bool in_batch, persistent, stores;
   int ref, swap, aid;
 };
 
@@ -58,13 +115,25 @@ struct Parent {
 __device__ __forceinline__ Parent decode_parent(int code) {
   Parent d;
   const int v = -code - 2;
-  const bool stores = code <= -2;
+  d.stores = code <= -2;
   d.in_batch = code >= 0;
-  d.persistent = stores && (v & 2);
+  d.persistent = d.stores && (v & 2);
   d.ref = d.in_batch ? (code >> 1) : 0;
-  d.swap = d.in_batch ? (code & 1) : (stores ? (v & 1) : 0);
-  d.aid = stores ? (v >> 2) : 0;
+  d.swap = d.in_batch ? (code & 1) : (d.stores ? (v & 1) : 0);
+  d.aid = d.stores ? (v >> 2) : 0;
   return d;
+}
+
+__device__ __forceinline__ int ld_acquire(const int32_t* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int32_t* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void add_row16(int32_t (&a)[kLanes], int4 v,
@@ -79,10 +148,12 @@ __device__ __forceinline__ void add_row16(int32_t (&a)[kLanes], int4 v,
   }
 }
 
-__device__ __forceinline__ void add_row32(int32_t (&a)[kLanes],
-                                          const int32_t* src) {
-  const int4 lo = *reinterpret_cast<const int4*>(src);
-  const int4 hi = *reinterpret_cast<const int4*>(src + 4);
+// Rows written during this launch (anchor accumulators, table rows) are
+// read through L2 (ld.cg), never the non-coherent path.
+__device__ __forceinline__ void add_row32_l2(int32_t (&a)[kLanes],
+                                             const int32_t* src) {
+  const int4 lo = __ldcg(reinterpret_cast<const int4*>(src));
+  const int4 hi = __ldcg(reinterpret_cast<const int4*>(src + 4));
   a[0] += lo.x; a[1] += lo.y; a[2] += lo.z; a[3] += lo.w;
   a[4] += hi.x; a[5] += hi.y; a[6] += hi.z; a[7] += hi.w;
 }
@@ -93,189 +164,329 @@ __device__ __forceinline__ void store_row32(int32_t* dst,
   *reinterpret_cast<int4*>(dst + 4) = make_int4(a[4], a[5], a[6], a[7]);
 }
 
-// Launch 1: gather, removal decode, bias and persistent-anchor resolve.
-// Grid: one block per (entry, perspective); blockDim.x * kLanes == l1.
-template <bool kWithPsqt>
-__global__ void ft_gather_kernel(
-    const int16_t* __restrict__ ft_w, int n_rows, int l1,
-    const int16_t* __restrict__ ft_b,
-    const int32_t* __restrict__ ft_psqt,
-    const int32_t* __restrict__ idx,
-    const int32_t* __restrict__ parent,
-    const int32_t* __restrict__ anchor_tab,
-    const int32_t* __restrict__ psqt_tab, int n_anchor,
-    int delta_base,
-    int32_t* __restrict__ acc, int32_t* __restrict__ psqt,
-    int32_t* __restrict__ err) {
-  __shared__ int s_row[kSlots];
-  __shared__ int s_sign[kSlots];
-  __shared__ int s_live;
+// -- bulk asynchronous row copies (global -> shared, mbarrier) -------------
 
-  const int b = blockIdx.x >> 1;
-  const int p = blockIdx.x & 1;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred P;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, P;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// -- the kernel -------------------------------------------------------------
+
+template <bool kPacked, bool kWithPsqt, bool kBulk>
+__global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
+  __shared__ int s_row[2][kSlots];
+  __shared__ int s_sign[2][kSlots];
+  __shared__ int s_live[2];
+  __shared__ int s_b, s_epoch, s_follow, s_ready;
+  __shared__ int s_code, s_slot[2][kSlots];
+
   const int tid = threadIdx.x;
-  const Parent d = decode_parent(parent != nullptr ? parent[b] : -1);
-  const bool sparse = d.in_batch || d.persistent;
-  const int n_slots = sparse ? 2 * kDeltaSlots : kSlots;
+  const int tpp = a.l1 / kLanes;  // threads per perspective
+  const int p = tid >= tpp ? 1 : 0;
+  const int pt = tid - p * tpp;
+  const int lane0 = pt * kLanes;
+  const bool psqt_lane = kWithPsqt && pt < kPsqtBuckets;
+  int32_t* err = a.state + kErrors;
 
-  // Decode and compact the slot list in warp 0: live slots (a real row,
-  // in range) move to the front, so the row loop below has no holes.
-  if (tid < kSlots) {
-    int f = 0, sign = 0;
-    if (tid < n_slots) {
-      f = idx[(static_cast<int64_t>(b) * 2 + p) * kSlots + tid];
-      sign = 1;
-      if (delta_base >= 0 && f >= delta_base) {
-        f -= delta_base;
-        sign = -1;
-      }
-      if (f < 0 || f >= n_rows) {
-        atomicAdd(err, 1);  // never read an out-of-range row
-        sign = 0;
-      } else if (f == n_rows - 1) {
-        sign = 0;  // the zero sentinel row: nothing to add
-      }
-    }
-    const unsigned live = __ballot_sync(0xffffffffu, sign != 0);
-    if (sign != 0) {
-      const int pos = __popc(live & ((1u << tid) - 1u));
-      s_row[pos] = f;
-      s_sign[pos] = sign;
-    }
-    if (tid == 0) s_live = __popc(live);
+  if (tid == 0) {
+    auto* ticket = reinterpret_cast<unsigned long long*>(a.state);
+    const unsigned long long t = atomicAdd(ticket, 1ull);
+    s_b = static_cast<int>(t & 0xffffffffu);
+    // Epochs count from 1, so a zeroed ready word never matches one.
+    s_epoch = static_cast<int>(t >> 32) + 1;
+    if (s_b == a.batch - 1)  // the last claimant: (epoch + 1, 0)
+      atomicAdd(ticket, (1ull << 32) - static_cast<unsigned>(a.batch));
   }
   __syncthreads();
-  const int n_live = s_live;
+  const int b = s_b;
+  const int epoch = s_epoch;
 
-  // The anchor-table row this entry resolves against (persistent deltas).
-  bool use_tab = false;
-  int64_t tab_row = 0;
-  if (d.persistent) {
-    if (anchor_tab == nullptr || d.aid >= n_anchor ||
-        (kWithPsqt && psqt_tab == nullptr)) {
-      if (tid == 0) atomicAdd(err, 1);
-    } else {
-      use_tab = true;
-      tab_row = static_cast<int64_t>(d.aid) * 2 + (p ^ d.swap);
+  if (b < a.batch) {
+    // The parent code and the slot indices load together: every slot a
+    // full entry could own, masked below once the code is known.
+    if (pt < kSlots) {
+      if (tid == 0) s_code = a.parent != nullptr ? __ldg(a.parent + b) : -1;
+      if constexpr (kPacked) {
+        int row = __ldg(a.offsets + b) + pt / kWireRow;
+        row = min(max(row, 0), a.n_wire - 1);
+        s_slot[p][pt] = __ldg(a.wire + (static_cast<int64_t>(row) * 2 + p) *
+                                           kWireRow + pt % kWireRow);
+      } else {
+        s_slot[p][pt] =
+            __ldg(a.idx + (static_cast<int64_t>(b) * 2 + p) * kSlots + pt);
+      }
     }
-  }
+    __syncthreads();
+    const int code = s_code;
+    const Parent d = decode_parent(code);
+    const bool sparse = d.in_batch || d.persistent;
+    const int n_slots = sparse ? 2 * kDeltaSlots : kSlots;
 
-  const int lane0 = tid * kLanes;
-  int32_t a[kLanes];
-  if (sparse) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) a[j] = 0;
-  } else {
-    const int4 bias = *reinterpret_cast<const int4*>(ft_b + lane0);
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) a[j] = 0;
-    add_row16(a, bias, 1);
-  }
-#pragma unroll 4
-  for (int k = 0; k < n_live; ++k) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(
-        ft_w + static_cast<int64_t>(s_row[k]) * l1 + lane0));
-    add_row16(a, v, s_sign[k]);
-  }
-  if (use_tab) add_row32(a, anchor_tab + tab_row * l1 + lane0);
-  store_row32(acc + (static_cast<int64_t>(b) * 2 + p) * l1 + lane0, a);
+    // Decode and compact each perspective's slot list in its first
+    // warp: live slots (a real row, in range) move to the front.
+    if (pt < kSlots) {
+      int f = 0, sign = 0;
+      if (pt < n_slots) {
+        f = s_slot[p][pt];
+        sign = 1;
+        if (a.delta_base >= 0 && f >= a.delta_base) {
+          f -= a.delta_base;
+          sign = -1;
+        }
+        if (f < 0 || f >= a.n_rows) {
+          atomicAdd(err, 1);  // never read an out-of-range row
+          sign = 0;
+        } else if (f == a.n_rows - 1) {
+          sign = 0;  // the zero sentinel row: nothing to add
+        }
+      }
+      const unsigned live = __ballot_sync(0xffffffffu, sign != 0);
+      if (sign != 0) {
+        const int pos = __popc(live & ((1u << pt) - 1u));
+        s_row[p][pos] = f;
+        s_sign[p][pos] = sign;
+      }
+      if (pt == 0) s_live[p] = __popc(live);
+      if (tid == 0 && d.in_batch) {
+        // The wire contract: an in-batch delta references an EARLIER
+        // entry that is an anchor. Anything else is counted, never
+        // waited on (a later entry's block may not be resident).
+        const bool ok = d.ref < b && __ldg(a.parent + d.ref) < 0;
+        if (!ok) atomicAdd(err, 1);
+        s_follow = ok;
+      }
+    }
+    __syncthreads();
+    const int n_live = s_live[p];
+    const bool follow = d.in_batch && s_follow;
 
-  if (kWithPsqt && tid < kPsqtBuckets) {
-    int32_t s = 0;
-    for (int k = 0; k < n_live; ++k)
-      s += s_sign[k] *
-           __ldg(ft_psqt + static_cast<int64_t>(s_row[k]) * kPsqtBuckets + tid);
-    if (use_tab) s += psqt_tab[tab_row * kPsqtBuckets + tid];
-    psqt[(static_cast<int64_t>(b) * 2 + p) * kPsqtBuckets + tid] = s;
+    // The anchor-table row a persistent delta resolves against.
+    bool use_tab = false;
+    int64_t tab_row = 0;
+    if (d.persistent) {
+      if (a.anchor_tab == nullptr || d.aid >= a.n_anchor ||
+          (kWithPsqt && a.psqt_tab == nullptr)) {
+        if (tid == 0) atomicAdd(err, 1);
+      } else {
+        use_tab = true;
+        tab_row = static_cast<int64_t>(d.aid) * 2 + (p ^ d.swap);
+      }
+    }
+
+    int32_t acc[kLanes];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) acc[j] = 0;
+    int32_t ps = 0;
+    if (use_tab) {
+      add_row32_l2(acc, a.anchor_tab + tab_row * a.l1 + lane0);
+      if (psqt_lane) ps += __ldcg(a.psqt_tab + tab_row * kPsqtBuckets + pt);
+    }
+    if (!sparse)
+      add_row16(acc, __ldg(reinterpret_cast<const int4*>(a.ft_b + lane0)), 1);
+
+    if constexpr (!kBulk) {
+      for (int k0 = 0; k0 < n_live; k0 += kInFlight) {
+        int4 v[kInFlight];
+        int32_t q[kInFlight];
+#pragma unroll
+        for (int j = 0; j < kInFlight; ++j) {
+          if (k0 + j < n_live) {
+            const int64_t r = s_row[p][k0 + j];
+            v[j] = __ldg(reinterpret_cast<const int4*>(a.ft_w + r * a.l1 +
+                                                       lane0));
+            if (psqt_lane) q[j] = __ldg(a.ft_psqt + r * kPsqtBuckets + pt);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kInFlight; ++j) {
+          if (k0 + j < n_live) {
+            const int sg = s_sign[p][k0 + j];
+            add_row16(acc, v[j], sg);
+            if (psqt_lane) ps += sg * q[j];
+          }
+        }
+      }
+    } else {
+      // One thread per perspective copies up to kInFlight whole rows
+      // into shared memory with bulk asynchronous copies completing on
+      // an mbarrier; every thread then reads its slice from there.
+      __shared__ __align__(128) int16_t s_buf[2][kInFlight][kBulkMaxL1];
+      __shared__ __align__(8) uint64_t s_bar[2];
+      if (tid == 0) {
+        mbar_init(&s_bar[0]);
+        mbar_init(&s_bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      }
+      __syncthreads();
+      const int most = max(s_live[0], s_live[1]);
+      const uint32_t row_bytes = static_cast<uint32_t>(a.l1) * 2;
+      for (int k0 = 0, phase = 0; k0 < most; k0 += kInFlight, phase ^= 1) {
+        const int n = min(max(n_live - k0, 0), kInFlight);
+        if (pt == 0) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect(&s_bar[p], n * row_bytes);
+          for (int j = 0; j < n; ++j)
+            bulk_copy(&s_buf[p][j][0],
+                      a.ft_w + static_cast<int64_t>(s_row[p][k0 + j]) * a.l1,
+                      row_bytes, &s_bar[p]);
+        }
+        int32_t q[kInFlight];
+#pragma unroll
+        for (int j = 0; j < kInFlight; ++j)
+          if (j < n && psqt_lane)
+            q[j] = __ldg(a.ft_psqt +
+                         static_cast<int64_t>(s_row[p][k0 + j]) *
+                             kPsqtBuckets + pt);
+        mbar_wait(&s_bar[p], phase);
+#pragma unroll
+        for (int j = 0; j < kInFlight; ++j) {
+          if (j < n) {
+            const int sg = s_sign[p][k0 + j];
+            add_row16(acc, *reinterpret_cast<const int4*>(
+                               &s_buf[p][j][lane0]), sg);
+            if (psqt_lane) ps += sg * q[j];
+          }
+        }
+        __syncthreads();  // the buffer is refilled next round
+      }
+    }
+
+    if (follow) {
+      // In-batch delta: wait for the referenced anchor entry, then add
+      // its perspective-swapped accumulator.
+      if (tid == 0) {
+        int spins = 0;
+        while (ld_acquire(a.ready + d.ref) != epoch && spins < kSpinLimit)
+          ++spins;
+        s_ready = spins < kSpinLimit;
+        if (!s_ready) atomicAdd(err, 1);
+      }
+      __syncthreads();
+      if (s_ready) {
+        const int64_t src = static_cast<int64_t>(d.ref) * 2 + (p ^ d.swap);
+        add_row32_l2(acc, a.acc + src * a.l1 + lane0);
+        if (psqt_lane) ps += __ldcg(a.psqt + src * kPsqtBuckets + pt);
+      }
+    }
+
+    const int64_t dst = static_cast<int64_t>(b) * 2 + p;
+    store_row32(a.acc + dst * a.l1 + lane0, acc);
+    if (psqt_lane) a.psqt[dst * kPsqtBuckets + pt] = ps;
+    if (a.store && d.stores && d.aid < a.n_anchor && a.anchor_tab != nullptr) {
+      // Every thread has read its anchor row (p ^ swap) into registers
+      // before any thread overwrites row p of the same entry.
+      __syncthreads();
+      const int64_t row = static_cast<int64_t>(d.aid) * 2 + p;
+      store_row32(a.anchor_tab + row * a.l1 + lane0, acc);
+      if (psqt_lane && a.psqt_tab != nullptr)
+        a.psqt_tab[row * kPsqtBuckets + pt] = ps;
+    }
+
+    // Publish an anchor entry (the only kind a delta may reference):
+    // every thread's stores, then the ready word with release semantics.
+    if (a.parent != nullptr && code < 0) {
+      __syncthreads();
+      if (tid == 0) st_release(a.ready + b, epoch);
+    }
+  } else if (tid == 0) {
+    atomicAdd(err, 1);  // more tickets than entries: corrupt state
   }
 }
 
-// Launch 2: in-batch deltas add the perspective-swapped result of the
-// entry they reference. That entry is an anchor entry (full or
-// persistent), which launch 1 finished and this launch never writes, so
-// reads and writes cannot race; a reference to a non-anchor entry or
-// past the batch breaks the wire contract and is counted, not followed.
-template <bool kWithPsqt>
-__global__ void ft_resolve_kernel(const int32_t* __restrict__ parent,
-                                  int batch, int l1,
-                                  int32_t* __restrict__ acc,
-                                  int32_t* __restrict__ psqt,
-                                  int32_t* __restrict__ err) {
-  const int b = blockIdx.x >> 1;
-  const int p = blockIdx.x & 1;
-  const int tid = threadIdx.x;
-  const int code = parent[b];
-  if (code < 0) return;
-  const int ref = code >> 1;
-  if (ref >= batch || parent[ref] >= 0) {
-    if (tid == 0 && p == 0) atomicAdd(err, 1);
-    return;
-  }
-  const int64_t src = static_cast<int64_t>(ref) * 2 + (p ^ (code & 1));
-  const int64_t dst = static_cast<int64_t>(b) * 2 + p;
-  const int lane0 = tid * kLanes;
-  int32_t a[kLanes];
-  const int4 lo = *reinterpret_cast<const int4*>(acc + dst * l1 + lane0);
-  const int4 hi = *reinterpret_cast<const int4*>(acc + dst * l1 + lane0 + 4);
-  a[0] = lo.x; a[1] = lo.y; a[2] = lo.z; a[3] = lo.w;
-  a[4] = hi.x; a[5] = hi.y; a[6] = hi.z; a[7] = hi.w;
-  add_row32(a, acc + src * l1 + lane0);
-  store_row32(acc + dst * l1 + lane0, a);
-  if (kWithPsqt && tid < kPsqtBuckets)
-    psqt[dst * kPsqtBuckets + tid] += psqt[src * kPsqtBuckets + tid];
-}
-
-template <bool kWithPsqt>
-void launch(const int16_t* ft_w, int n_rows, int l1, const int16_t* ft_b,
-            const int32_t* ft_psqt, const int32_t* idx, int batch,
-            const int32_t* parent, const int32_t* anchor_tab,
-            const int32_t* psqt_tab, int n_anchor, int delta_base,
-            int32_t* acc, int32_t* psqt, int32_t* err, cudaStream_t stream) {
-  const dim3 grid(2 * batch), block(l1 / kLanes);
-  ft_gather_kernel<kWithPsqt><<<grid, block, 0, stream>>>(
-      ft_w, n_rows, l1, ft_b, ft_psqt, idx, parent, anchor_tab, psqt_tab,
-      n_anchor, delta_base, acc, psqt, err);
-  if (parent != nullptr)
-    ft_resolve_kernel<kWithPsqt><<<grid, block, 0, stream>>>(
-        parent, batch, l1, acc, psqt, err);
+template <bool kPacked, bool kWithPsqt>
+void launch(const Args& a, bool bulk, cudaStream_t stream) {
+  const dim3 grid(a.batch), block(a.l1 / 4);
+  if (bulk)
+    ft_kernel<kPacked, kWithPsqt, true><<<grid, block, 0, stream>>>(a);
+  else
+    ft_kernel<kPacked, kWithPsqt, false><<<grid, block, 0, stream>>>(a);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes by fishnet_tpu_torch/ops/ft_gather.py.
 // Shapes: ft_w [n_rows, l1] int16 (last row the zero sentinel); ft_b [l1]
-// int16; ft_psqt [n_rows, 8] int32 or NULL (no PSQT output); idx
-// [batch, 2, 32] int32; parent [batch] int32 or NULL (every entry full);
-// anchor_tab [n_anchor, 2, l1] / psqt_tab [n_anchor, 2, 8] int32 or NULL;
-// delta_base < 0 disables removal decoding. Outputs acc [batch, 2, l1]
-// and psqt [batch, 2, 8] int32; err is one int32 counter. l1 must be a
-// multiple of 8 and at most 8192, every pointer 16-byte aligned (the
-// wrapper checks). Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// int16; ft_psqt [n_rows, 8] int32 or NULL (no PSQT output). Dense mode:
+// idx [batch, 2, 32] int32 and wire NULL. Packed mode: wire [n_wire, 2,
+// 8] uint16 and offsets [batch] int32, idx NULL. parent [batch] int32 or
+// NULL (every entry full); anchor_tab [n_anchor, 2, l1] / psqt_tab
+// [n_anchor, 2, 8] int32 or NULL; store != 0 writes anchor entries back
+// to them; delta_base < 0 disables removal decoding. Outputs acc [batch,
+// 2, l1] and psqt [batch, 2, 8] int32. state is the device's int32 [4]
+// (64-bit ticket, unused, errors), zeroed before its first use;
+// ready holds at least batch int32. l1 must be a multiple of 256 and at
+// most 4096, every pointer 16-byte aligned (the wrapper checks). bulk
+// selects the bulk-copy row path (l1 <= 1024). Launches once on
+// `stream` without synchronising and returns cudaGetLastError().
 extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
                             const void* ft_b, const void* ft_psqt,
-                            const void* idx, int batch, const void* parent,
-                            const void* anchor_tab, const void* psqt_tab,
-                            int n_anchor, int delta_base, void* acc,
-                            void* psqt, void* err, void* stream) {
+                            const void* idx, const void* wire, int n_wire,
+                            const void* offsets, int batch,
+                            const void* parent, void* anchor_tab,
+                            void* psqt_tab, int n_anchor, int store,
+                            int delta_base, void* acc, void* psqt,
+                            void* state, void* ready, int bulk,
+                            void* stream) {
   if (batch > 0) {
-    const auto* w = static_cast<const int16_t*>(ft_w);
-    const auto* bias = static_cast<const int16_t*>(ft_b);
-    const auto* pq = static_cast<const int32_t*>(ft_psqt);
-    const auto* ix = static_cast<const int32_t*>(idx);
-    const auto* par = static_cast<const int32_t*>(parent);
-    const auto* tab = static_cast<const int32_t*>(anchor_tab);
-    const auto* ptab = static_cast<const int32_t*>(psqt_tab);
-    auto* out = static_cast<int32_t*>(acc);
-    auto* pout = static_cast<int32_t*>(psqt);
-    auto* e = static_cast<int32_t*>(err);
+    Args a;
+    a.ft_w = static_cast<const int16_t*>(ft_w);
+    a.n_rows = n_rows;
+    a.l1 = l1;
+    a.ft_b = static_cast<const int16_t*>(ft_b);
+    a.ft_psqt = static_cast<const int32_t*>(ft_psqt);
+    a.idx = static_cast<const int32_t*>(idx);
+    a.wire = static_cast<const uint16_t*>(wire);
+    a.n_wire = n_wire;
+    a.offsets = static_cast<const int32_t*>(offsets);
+    a.parent = static_cast<const int32_t*>(parent);
+    a.anchor_tab = static_cast<int32_t*>(anchor_tab);
+    a.psqt_tab = static_cast<int32_t*>(psqt_tab);
+    a.n_anchor = n_anchor;
+    a.store = store;
+    a.delta_base = delta_base;
+    a.batch = batch;
+    a.acc = static_cast<int32_t*>(acc);
+    a.psqt = static_cast<int32_t*>(psqt);
+    a.state = static_cast<int32_t*>(state);
+    a.ready = static_cast<int32_t*>(ready);
+    const bool packed = wire != nullptr;
+    const bool with_psqt = ft_psqt != nullptr;
+    const bool use_bulk = bulk != 0 && l1 <= kBulkMaxL1;
     auto s = static_cast<cudaStream_t>(stream);
-    if (pq != nullptr)
-      launch<true>(w, n_rows, l1, bias, pq, ix, batch, par, tab, ptab,
-                   n_anchor, delta_base, out, pout, e, s);
-    else
-      launch<false>(w, n_rows, l1, bias, pq, ix, batch, par, tab, ptab,
-                    n_anchor, delta_base, out, pout, e, s);
+    if (packed && with_psqt) launch<true, true>(a, use_bulk, s);
+    else if (packed) launch<true, false>(a, use_bulk, s);
+    else if (with_psqt) launch<false, true>(a, use_bulk, s);
+    else launch<false, false>(a, use_bulk, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,19 +9,26 @@ they carry a few added and removed rows and resolve against an anchor —
 another entry of the batch, or a row of the persistent per-slot anchor
 table that lives on the device across steps.
 
-Two executors compute the same integers:
+Two modes, one kernel (``csrc/ft_gather.cu``, the port of the Pallas
+TPU kernel ``fishnet_tpu/ops/ft_gather.py:_kernel``), one launch per
+call:
 
-* ``ft_accumulate_cuda`` launches the hand kernel
-  (``csrc/ft_gather.cu``), the port of the Pallas TPU kernel
-  ``fishnet_tpu/ops/ft_gather.py:_kernel``. It counts its launches in
-  ``ft_accumulate_cuda.launches``.
-* ``ft_accumulate_plain`` is the port of the JAX package's XLA twin
-  (``_xla_ft_accumulate``, ``_xla_psqt_accumulate``,
-  ``_xla_resolve_parents``): gather, sum, resolve by explicit reference.
+* dense — ``ft_accumulate``: int32 [B, 2, 32] indices in, accumulators
+  out, the anchor tables only read;
+* packed — ``ft_accumulate_packed``: the compact wire in (rows at each
+  entry's offset, see ``expand_packed``), accumulators out, and every
+  anchor entry's result stored back to its table rows in place. This is
+  the serving path; on the TPU the expansion and the store were XLA ops
+  around the kernel.
 
-``ft_accumulate`` picks by the device of its inputs: the kernel for
-CUDA tensors (it launches or raises; there is no fallback) and the plain
-version for CPU tensors.
+Each mode has three functions: ``*_cuda`` launches the kernel and counts
+its launches in ``*_cuda.launches``; ``*_plain`` is the plain version
+(the JAX package's XLA twin: ``_xla_ft_accumulate``,
+``_xla_psqt_accumulate``, ``_xla_resolve_parents``, then
+``expand_packed`` and the table scatter around it); the undecorated
+name picks by the device of its inputs: the kernel for CUDA tensors (it
+launches or raises; there is no fallback) and the plain version for CPU
+tensors.
 
 Poison versus raise: the JAX package poisons persistent codes that
 arrive without a table when they are traced (``_POISON_ACC``) and
@@ -37,14 +44,25 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from fishnet_tpu_torch.nnue.spec import MAX_ACTIVE_FEATURES
+from fishnet_tpu_torch.nnue.spec import (
+    DELTA_BASE,
+    MAX_ACTIVE_FEATURES,
+    NUM_FEATURES,
+)
 
 __all__ = [
     "decode_parent",
+    "error_word",
+    "expand_packed",
     "ft_accumulate",
     "ft_accumulate_cuda",
+    "ft_accumulate_packed",
+    "ft_accumulate_packed_cuda",
+    "ft_accumulate_packed_plain",
     "ft_accumulate_plain",
+    "is_delta",
     "kernel_errors",
+    "store_anchors",
 ]
 
 _PERSISTENT_NO_TABLE = (
@@ -107,6 +125,64 @@ def decode_parent(parent: torch.Tensor):
     return in_batch, persistent, stores, ref, swap, aid
 
 
+def is_delta(parent: torch.Tensor) -> torch.Tensor:
+    """True for one-row (delta) entries under the wire's parent codes:
+    in-batch refs (>= 0) and persistent anchor deltas (<= -2 with the
+    delta bit); plain fulls (-1) and full anchor (re)seeds own 4 rows."""
+    in_batch, persistent, _, _, _, _ = decode_parent(parent)
+    return in_batch | persistent
+
+
+def _widen_wire(packed: torch.Tensor) -> torch.Tensor:
+    """int32 view of a wire row stream. The wire is uint16; torch has few
+    uint16 kernels, so it may arrive as int16 carrying the same bits,
+    which widen with a 16-bit mask."""
+    if packed.dtype == torch.int16:
+        return packed.to(torch.int32) & 0xFFFF
+    return packed.to(torch.int32)
+
+
+def expand_packed(packed: torch.Tensor, offsets: torch.Tensor,
+                  parent: torch.Tensor) -> torch.Tensor:
+    """Expand the COMPACT WIRE FORMAT back to dense [B, 2, 32] indices.
+
+    ``packed`` [R, 2, 8] rows (uint16 bits, see _widen_wire),
+    ``offsets`` int [B] row offsets: a full entry owns 4 consecutive
+    rows — its 32 slots per perspective, 8 at a time; a delta entry owns
+    ONE row (its 2*DELTA_SLOTS live slots) and its slots [8, 32) are the
+    sentinel by wire contract."""
+    packed = _widen_wire(packed)
+    rows = offsets.long()[:, None] + torch.arange(4, device=packed.device)
+    rows = rows.clamp(0, packed.shape[0] - 1)
+    g = packed[rows]  # [B, 4, 2, 8]
+    dense = g.permute(0, 2, 1, 3).reshape(-1, 2, 4 * 8)  # [B, 2, 32]
+    tail = torch.where(
+        is_delta(parent)[:, None, None],
+        torch.full_like(dense[:, :, 8:], NUM_FEATURES),
+        dense[:, :, 8:],
+    )
+    return torch.cat([dense[:, :, :8], tail], dim=2)
+
+
+def store_anchors(tab: torch.Tensor, acc: torch.Tensor,
+                  parent: torch.Tensor) -> None:
+    """``tab[aid[b]] = acc[b]`` for every anchor entry b, in place. Rows
+    are unique within a batch (one block per pool slot per step). Non-
+    anchor entries aim at a sink index past the table, so no boolean
+    mask — and no device-to-host sync on the GPU — is needed to find
+    the store rows; rows past the table drop, as JAX's ``mode="drop"``
+    does."""
+    _, _, stores, _, _, aid = decode_parent(parent)
+    n_tab = tab.shape[0]
+    row = torch.where(stores & (aid < n_tab), aid, n_tab).long()
+    has = torch.zeros(n_tab + 1, dtype=torch.bool, device=tab.device)
+    has.scatter_(0, row, True)
+    owner = torch.zeros(n_tab + 1, dtype=torch.long, device=tab.device)
+    owner.scatter_(0, row, torch.arange(row.shape[0], device=tab.device))
+    has, owner = has[:n_tab], owner[:n_tab]
+    tab.copy_(torch.where(has[:, None, None], acc[owner], tab))
+
+
 def _plain_resolve_parents(acc: torch.Tensor, bias,
                            parent: torch.Tensor,
                            anchor_tab: Optional[torch.Tensor] = None
@@ -137,8 +213,8 @@ def ft_accumulate_plain(
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
 ):
-    """The plain PyTorch version of the kernel (the JAX package's XLA
-    twin), on any device. Same arguments and result as
+    """The plain PyTorch version of the kernel's dense mode (the JAX
+    package's XLA twin), on any device. Same arguments and result as
     ``ft_accumulate``, whose checks it assumes were made."""
     acc = _plain_ft_rows(ft_w, ft_b, indices, delta_base)
     if parent is not None:
@@ -153,13 +229,47 @@ def ft_accumulate_plain(
     return acc, psqt
 
 
+def ft_accumulate_packed_plain(
+    ft_w: torch.Tensor,
+    ft_b: torch.Tensor,
+    packed: torch.Tensor,
+    offsets: torch.Tensor,
+    parent: torch.Tensor,
+    anchor_tab: torch.Tensor,
+    *,
+    ft_psqt: Optional[torch.Tensor] = None,
+    psqt_tab: Optional[torch.Tensor] = None,
+):
+    """The plain version of the kernel's packed mode, on any device:
+    ``expand_packed`` -> ``ft_accumulate_plain`` -> the anchor stores
+    (``store_anchors``, in place). Same arguments and result as
+    ``ft_accumulate_packed``, whose checks it assumes were made."""
+    parent = parent.to(torch.int32)
+    dense = expand_packed(packed, offsets, parent)
+    out = ft_accumulate_plain(
+        ft_w, ft_b, dense, delta_base=DELTA_BASE, parent=parent,
+        anchor_tab=anchor_tab, ft_psqt=ft_psqt, psqt_tab=psqt_tab,
+    )
+    acc, psqt = out if ft_psqt is not None else (out, None)
+    store_anchors(anchor_tab, acc, parent)
+    if psqt is not None:
+        store_anchors(psqt_tab, psqt, parent)
+    return out
+
+
 # -- the hand kernel --------------------------------------------------------
 
 _launch_lock = threading.Lock()
-#: Per-device int32 error word the kernel bumps for every out-of-range
-#: index and malformed parent reference it refuses to follow.
-_error_words: Dict[int, torch.Tensor] = {}
+#: Per-device kernel state: int32 [4] (a 64-bit ticket — next entry and
+#: launch epoch —, an unused word, and the error count the kernel bumps
+#: for every out-of-range index and malformed parent reference it
+#: refuses to follow) and the int32 ready words of the in-batch
+#: resolution, one per entry.
+_states: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 _lib: Optional[ctypes.CDLL] = None
+#: Row path of the kernel: 0 unrolled 16 B loads, 1 bulk copies through
+#: shared memory (compared in chip_smoke.py's timing phase).
+_bulk_rows = 0
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -171,10 +281,14 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.fc_ft_gather.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # ft_w, rows, l1
             ctypes.c_void_p, ctypes.c_void_p,  # ft_b, ft_psqt
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # idx, B, parent
+            ctypes.c_void_p,  # idx
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # wire, R, offs
+            ctypes.c_int, ctypes.c_void_p,  # B, parent
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # tables, A
-            ctypes.c_int,  # delta_base
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outs, err
+            ctypes.c_int, ctypes.c_int,  # store, delta_base
+            ctypes.c_void_p, ctypes.c_void_p,  # acc, psqt
+            ctypes.c_void_p, ctypes.c_void_p,  # state, ready
+            ctypes.c_int,  # bulk row path
             ctypes.c_void_p,  # stream
         ]
         lib.fc_ft_gather.restype = ctypes.c_int
@@ -182,42 +296,109 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _error_word(device: torch.device) -> torch.Tensor:
+def _device_state(device: torch.device, batch: int):
+    """The device's kernel state and ready words (at least ``batch``).
+    Allocated zeroed on first use; the kernel keeps them consistent from
+    launch to launch without a reset of its own."""
     index = device.index if device.index is not None else 0
     with _launch_lock:
-        word = _error_words.get(index)
-        if word is None:
-            word = torch.zeros(1, dtype=torch.int32, device=device)
-            _error_words[index] = word
-        return word
+        state, ready = _states.get(index, (None, None))
+        if state is None:
+            state = torch.zeros(4, dtype=torch.int32, device=device)
+        if ready is None or ready.shape[0] < batch:
+            # Zeros never equal a launch epoch (epochs count from 1).
+            ready = torch.zeros(max(batch, 4096), dtype=torch.int32,
+                                device=device)
+        _states[index] = (state, ready)
+        return state, ready
+
+
+def error_word(device) -> torch.Tensor:
+    """The device's int32 [1] count of out-of-range indices and malformed
+    references the kernel refused, as a view that a caller may copy
+    without synchronising."""
+    state, _ = _device_state(torch.device(device), 0)
+    return state[3:4]
 
 
 def kernel_errors(device=None, reset: bool = False) -> int:
     """Out-of-range indices and malformed references the kernel refused
     on ``device`` since the last reset (synchronises the device)."""
-    word = _error_word(torch.device("cuda" if device is None else device))
+    word = error_word(torch.device("cuda" if device is None else device))
     count = int(word.item())
     if reset:
         word.zero_()
     return count
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           shape: Tuple[Optional[int], ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+def _check(t: torch.Tensor, name: str, dtypes, shape: Tuple[Optional[int], ...],
+           device: torch.device) -> None:
+    """Refuse what the kernel does not take: wrong dtype, shape, layout
+    or alignment, then a tensor on another device (so the checks run the
+    same on CPU tensors, which the wrappers refuse last)."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be {dtypes[0]}, got {t.dtype}")
     if t.dim() != len(shape) or any(
         want is not None and got != want for got, want in zip(t.shape, shape)
     ):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _check_tables(ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device):
+    """Shared checks of the weights and tables; returns (R, L1, A)."""
+    n_rows, l1 = ft_w.shape
+    if l1 % 256 or not 256 <= l1 <= 4096:
+        raise ValueError(f"L1={l1} must be a multiple of 256 in [256, 4096]")
+    _check(ft_w, "ft_w", torch.int16, (n_rows, l1), device)
+    _check(ft_b, "ft_b", torch.int16, (l1,), device)
+    n_anchor = 0
+    if anchor_tab is not None:
+        n_anchor = anchor_tab.shape[0]
+        _check(anchor_tab, "anchor_tab", torch.int32, (n_anchor, 2, l1),
+               device)
+    if ft_psqt is not None:
+        _check(ft_psqt, "ft_psqt", torch.int32, (n_rows, 8), device)
+        if psqt_tab is not None:
+            rows = n_anchor if anchor_tab is not None else None
+            _check(psqt_tab, "psqt_tab", torch.int32, (rows, 2, 8), device)
+    return n_rows, l1, n_anchor
+
+
+def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
+            anchor_tab, psqt_tab, n_anchor, store, delta_base, ft_psqt,
+            device):
+    """One kernel launch on the current stream; returns (acc, psqt)."""
+    acc = torch.empty((batch, 2, l1), dtype=torch.int32, device=device)
+    psqt = (
+        torch.empty((batch, 2, 8), dtype=torch.int32, device=device)
+        if ft_psqt is not None else None
+    )
+    if batch == 0:
+        return acc, psqt
+    state, ready = _device_state(device, batch)
+    lib = _kernel_lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.fc_ft_gather(
+        ft_w.data_ptr(), n_rows, l1, ft_b.data_ptr(), _ptr(ft_psqt),
+        _ptr(idx), _ptr(wire), 0 if wire is None else wire.shape[0],
+        _ptr(offsets), batch, _ptr(parent),
+        _ptr(anchor_tab), _ptr(psqt_tab), n_anchor, int(store),
+        -1 if delta_base is None else int(delta_base),
+        acc.data_ptr(), _ptr(psqt), state.data_ptr(), ready.data_ptr(),
+        _bulk_rows, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ft_gather kernel launch failed: CUDA error {rc}")
+    return acc, psqt
 
 
 def ft_accumulate_cuda(
@@ -231,60 +412,93 @@ def ft_accumulate_cuda(
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
 ):
-    """Launch the hand kernel (``csrc/ft_gather.cu``) on the current
-    stream. All inputs on one CUDA device, contiguous: ``ft_w`` int16
-    [R, L1] (L1 a multiple of 8, 256..8192), ``ft_b`` int16 [L1],
-    ``indices`` int32 [B, 2, 32], ``parent`` int32 [B], tables int32,
-    ``ft_psqt`` int32 [R, 8]. Raises on anything else, and when the
-    launch is refused. Same result as ``ft_accumulate_plain``."""
+    """Launch the hand kernel's dense mode (``csrc/ft_gather.cu``) on the
+    current stream. All inputs on one CUDA device, contiguous: ``ft_w``
+    int16 [R, L1] (L1 a multiple of 256, at most 4096), ``ft_b`` int16
+    [L1], ``indices`` int32 [B, 2, 32], ``parent`` int32 [B], tables
+    int32 (read only), ``ft_psqt`` int32 [R, 8]. Raises on anything
+    else, and when the launch is refused. Same result as
+    ``ft_accumulate_plain``."""
     device = indices.device
-    if device.type != "cuda":
-        raise ValueError(f"ft_accumulate_cuda needs CUDA tensors, got {device}")
-    n_rows, l1 = ft_w.shape
     batch = indices.shape[0]
-    if l1 % 8 or not 256 <= l1 <= 8192:
-        raise ValueError(f"L1={l1} must be a multiple of 8 in [256, 8192]")
-    _check(ft_w, "ft_w", torch.int16, (n_rows, l1), device)
-    _check(ft_b, "ft_b", torch.int16, (l1,), device)
+    n_rows, l1, n_anchor = _check_tables(
+        ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device)
     _check(indices, "indices", torch.int32,
            (batch, 2, MAX_ACTIVE_FEATURES), device)
     if parent is not None:
         _check(parent, "parent", torch.int32, (batch,), device)
-    n_anchor = 0
-    if anchor_tab is not None:
-        n_anchor = anchor_tab.shape[0]
-        _check(anchor_tab, "anchor_tab", torch.int32, (n_anchor, 2, l1), device)
-    with_psqt = ft_psqt is not None
-    if with_psqt:
-        _check(ft_psqt, "ft_psqt", torch.int32, (n_rows, 8), device)
-        if psqt_tab is not None:
-            rows = n_anchor if anchor_tab is not None else None
-            _check(psqt_tab, "psqt_tab", torch.int32, (rows, 2, 8), device)
-    acc = torch.empty((batch, 2, l1), dtype=torch.int32, device=device)
-    psqt = (
-        torch.empty((batch, 2, 8), dtype=torch.int32, device=device)
-        if with_psqt else None
+    if device.type != "cuda":
+        raise ValueError(f"ft_accumulate_cuda needs CUDA tensors, got {device}")
+    acc, psqt = _launch(
+        ft_w, ft_b, n_rows=n_rows, l1=l1, batch=batch, idx=indices,
+        wire=None, offsets=None, parent=parent, anchor_tab=anchor_tab,
+        psqt_tab=psqt_tab if ft_psqt is not None else None,
+        n_anchor=n_anchor, store=False, delta_base=delta_base,
+        ft_psqt=ft_psqt, device=device,
     )
-    err = _error_word(device)
-    lib = _kernel_lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.fc_ft_gather(
-        ft_w.data_ptr(), n_rows, l1, ft_b.data_ptr(), _ptr(ft_psqt),
-        indices.data_ptr(), batch, _ptr(parent),
-        _ptr(anchor_tab), _ptr(psqt_tab), n_anchor,
-        -1 if delta_base is None else int(delta_base),
-        acc.data_ptr(), _ptr(psqt), err.data_ptr(), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"ft_gather kernel launch failed: CUDA error {rc}")
-    with _launch_lock:
-        ft_accumulate_cuda.launches += 1
-    return (acc, psqt) if with_psqt else acc
+    if batch > 0:
+        with _launch_lock:
+            ft_accumulate_cuda.launches += 1
+    return (acc, psqt) if ft_psqt is not None else acc
 
 
-#: Wrapper calls that launched the kernel (one per call; the call's
-#: gather and in-batch resolve launches count together).
+#: Kernel launches by this wrapper (one per call with a non-empty batch).
 ft_accumulate_cuda.launches = 0
+
+
+def _wire_dtypes():
+    return (torch.int16,) + (
+        (torch.uint16,) if hasattr(torch, "uint16") else ())
+
+
+def ft_accumulate_packed_cuda(
+    ft_w: torch.Tensor,
+    ft_b: torch.Tensor,
+    packed: torch.Tensor,
+    offsets: torch.Tensor,
+    parent: torch.Tensor,
+    anchor_tab: torch.Tensor,
+    *,
+    ft_psqt: Optional[torch.Tensor] = None,
+    psqt_tab: Optional[torch.Tensor] = None,
+):
+    """Launch the hand kernel's packed mode on the current stream: the
+    wire ``packed`` (int16 or uint16 [R, 2, 8], uint16 bits), the row
+    ``offsets`` (int32 [B]) and ``parent`` (int32 [B]) in; the
+    accumulators out, and every anchor entry's result stored to its
+    ``anchor_tab`` row (int32 [A, 2, L1]) and, with ``ft_psqt``, its
+    ``psqt_tab`` row (int32 [A, 2, 8]), in place. Weights as in
+    ``ft_accumulate_cuda``. Raises on anything else, and when the launch
+    is refused. Same result as ``ft_accumulate_packed_plain``."""
+    device = packed.device
+    if ft_psqt is not None and psqt_tab is None:
+        raise ValueError("ft_psqt needs psqt_tab in packed mode")
+    n_rows, l1, n_anchor = _check_tables(
+        ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device)
+    _check(packed, "packed", _wire_dtypes(), (None, 2, 8), device)
+    if packed.shape[0] == 0:
+        raise ValueError("packed holds no rows")
+    _check(parent, "parent", torch.int32, (None,), device)
+    batch = parent.shape[0]
+    _check(offsets, "offsets", torch.int32, (batch,), device)
+    if device.type != "cuda":
+        raise ValueError(
+            f"ft_accumulate_packed_cuda needs CUDA tensors, got {device}")
+    acc, psqt = _launch(
+        ft_w, ft_b, n_rows=n_rows, l1=l1, batch=batch, idx=None,
+        wire=packed, offsets=offsets, parent=parent, anchor_tab=anchor_tab,
+        psqt_tab=psqt_tab if ft_psqt is not None else None,
+        n_anchor=n_anchor, store=True, delta_base=DELTA_BASE,
+        ft_psqt=ft_psqt, device=device,
+    )
+    if batch > 0:
+        with _launch_lock:
+            ft_accumulate_packed_cuda.launches += 1
+    return (acc, psqt) if ft_psqt is not None else acc
+
+
+#: Kernel launches by this wrapper (one per call with a non-empty batch).
+ft_accumulate_packed_cuda.launches = 0
 
 
 def ft_accumulate(
@@ -310,10 +524,10 @@ def ft_accumulate(
     the result is every entry's complete accumulator. In-batch deltas
     resolve against the entry they reference, persistent codes against
     row ``aid`` of ``anchor_tab`` ([A, 2, L1] int32, read-only here;
-    callers store anchor entries back). With ``ft_psqt`` ([rows, 8]
-    int32, same sentinel last row) the result is ``(acc, psqt)``: the
-    [B, 2, 8] PSQT accumulator from the same index stream, persistent
-    codes resolving against ``psqt_tab`` [A, 2, 8].
+    ``ft_accumulate_packed`` stores anchor entries back). With
+    ``ft_psqt`` ([rows, 8] int32, same sentinel last row) the result is
+    ``(acc, psqt)``: the [B, 2, 8] PSQT accumulator from the same index
+    stream, persistent codes resolving against ``psqt_tab`` [A, 2, 8].
 
     CUDA inputs run the hand kernel, CPU inputs the plain version; both
     give the same integers. Persistent codes without a table raise
@@ -336,3 +550,39 @@ def ft_accumulate(
     if indices.device.type != "cpu":
         raise ValueError(f"unsupported device: {indices.device}")
     return ft_accumulate_plain(ft_w, ft_b, indices, **kwargs)
+
+
+def ft_accumulate_packed(
+    ft_w: torch.Tensor,
+    ft_b: torch.Tensor,
+    packed: torch.Tensor,
+    offsets: torch.Tensor,
+    parent: torch.Tensor,
+    anchor_tab: torch.Tensor,
+    *,
+    ft_psqt: Optional[torch.Tensor] = None,
+    psqt_tab: Optional[torch.Tensor] = None,
+):
+    """``ft_accumulate`` over the compact wire, with the anchor stores:
+    ``packed`` [R, 2, 8] wire rows (uint16 bits, as int16 or uint16),
+    ``offsets`` int [B] each entry's first row (see ``expand_packed``;
+    entries past the emitted stream must point into a sentinel block),
+    ``parent`` int32 [B] with removals at spec.DELTA_BASE. Persistent
+    codes resolve against ``anchor_tab`` [A, 2, L1] int32 (and, with
+    ``ft_psqt``, ``psqt_tab`` [A, 2, 8] int32, then required), and every
+    anchor entry's resolved result is stored to its rows of both tables
+    IN PLACE. Returns ``acc``, or ``(acc, psqt)`` with ``ft_psqt``.
+
+    CUDA inputs run the hand kernel (one launch), CPU inputs the plain
+    version; both give the same integers and the same tables."""
+    if ft_psqt is not None and psqt_tab is None:
+        raise ValueError("ft_psqt needs psqt_tab in packed mode")
+    parent = parent.to(torch.int32).contiguous()
+    offsets = offsets.to(torch.int32).contiguous()
+    kwargs = dict(ft_psqt=ft_psqt, psqt_tab=psqt_tab)
+    args = (ft_w, ft_b, packed.contiguous(), offsets, parent, anchor_tab)
+    if packed.device.type == "cuda":
+        return ft_accumulate_packed_cuda(*args, **kwargs)
+    if packed.device.type != "cpu":
+        raise ValueError(f"unsupported device: {packed.device}")
+    return ft_accumulate_packed_plain(*args, **kwargs)

@@ -13,12 +13,14 @@ device (``evaluate_packed_anchored``), ``fc_pool_provide`` wakes the
 fibers. Results resolve asyncio futures back on the event loop.
 
 Pipelining: each driver thread owns ``pipeline_depth`` slot groups.
-A group's step uploads its packed rows, buckets and parents from pinned
-host buffers with ``non_blocking`` copies, queues the evaluation and
-the copy of the values back into a pinned buffer on the current CUDA
-stream, records an event and moves on to step the next group's fibers
-on the CPU while the device works; the values are read when the event
-has fired (``_resolve_eval``), just before that group's next step.
+A group's step uploads its packed rows, row offsets, buckets and
+parents from pinned host buffers with ``non_blocking`` copies, queues
+the evaluation and the copy of the values — and of the kernel's error
+word — back into pinned buffers on the current CUDA stream, records an
+event and moves on to step the next group's fibers on the CPU while the
+device works; the values are read when the event has fired
+(``_resolve_eval``), just before that group's next step. A step whose
+error word has grown (an index the kernel refused to read) raises.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from fishnet_tpu_torch.chess.core import NativeCoreError, load
 from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue.weights import NnueWeights
+from fishnet_tpu_torch.ops.ft_gather import error_word, kernel_errors
 from fishnet_tpu_torch.protocol.types import Variant
 
 
@@ -275,7 +278,10 @@ class SearchService:
         self._packed_buf = self._packed_t.numpy().view(np.uint16)
         self._bucket_buf = self._bucket_t.numpy()
         self._parent_buf = self._parent_t.numpy()
-        self._offset_buf = np.empty((k, cap), dtype=np.int32)
+        # The pool's row offsets ship with the wire (padding entries
+        # point at the sentinel block), so the device derives none.
+        self._offset_t = host((k, cap), torch.int32)
+        self._offset_buf = self._offset_t.numpy()
         self._slot_buf = np.empty((k, cap), dtype=np.int32)
         if self.device is not None:
             from fishnet_tpu_torch.nnue.torch_eval import (
@@ -303,6 +309,11 @@ class SearchService:
                 for _ in range(k)
             ]
             self._lib.fc_pool_set_anchors(self._pool, 1)
+            if on_gpu:
+                # Each group's copy of the kernel's error word, read with
+                # its values; the count at warm-up is the baseline.
+                self._err_t = host((k, 1), torch.int32)
+                self._err_base = 0
             if self.psqt_path == "host-material":
                 self._material_t = host((k, cap), torch.int32)
                 self._material_buf = self._material_t.numpy()
@@ -397,9 +408,11 @@ class SearchService:
             values, _, _ = self._eval_fn(
                 self._params, packed, zeros, parents,
                 zeros if self._material_buf is not None else None,
-                self._anchor_tabs[0], 0, self._psqt_tabs[0],
+                self._anchor_tabs[0], 0, self._psqt_tabs[0], offsets=zeros,
             )
             values.cpu()
+            if self.device.type == "cuda":
+                self._err_base = kernel_errors(self.device)
             self._warmed = True
 
     def poke(self) -> None:
@@ -497,15 +510,17 @@ class SearchService:
         material = (
             None if self._material_buf is None else self._material_buf[group]
         )
-        # Padding entries: plain fulls whose offsets clamp (n_rows) into
-        # the 4 sentinel rows appended past the emitted stream.
+        # Padding entries: plain fulls whose offsets point (n_rows) at the
+        # 4 sentinel rows appended past the emitted stream.
         packed[rows: rows + 4] = spec.NUM_FEATURES
+        self._offset_buf[group, n:size] = rows
         buckets[n:size] = 0
         parents[n:size] = -1
         if material is not None:
             material[n:size] = 0
         dev = self.device
         pk = self._packed_t[group, : rows + 4].to(dev, non_blocking=True)
+        of = self._offset_t[group, :size].to(dev, non_blocking=True)
         bk = self._bucket_t[group, :size].to(dev, non_blocking=True)
         pa = self._parent_t[group, :size].to(dev, non_blocking=True)
         mat = (
@@ -514,27 +529,36 @@ class SearchService:
         )
         acct = (
             size,
-            (rows + 4) * 2 * 8 * 2 + size * 2 * 4,
+            (rows + 4) * 2 * 8 * 2 + size * 3 * 4,
             0 if mat is None else size * 4,
         )
         values, _, _ = self._eval_fn(
             self._params, pk, bk, pa, mat,
             self._anchor_tabs[group], rows, self._psqt_tabs[group],
+            offsets=of,
         )
         out = self._values_t[group, :size]
         if dev.type != "cuda":
             out.copy_(values)
-            return (None, out), acct
+            return (None, out, None), acct
         out.copy_(values, non_blocking=True)
+        err = self._err_t[group]
+        err.copy_(error_word(dev), non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return (done, out), acct
+        return (done, out, err), acct
 
     def _resolve_eval(self, n: int, handle) -> np.ndarray:
-        """Block until a dispatched eval is done; contiguous int32 [n]."""
-        done, out = handle
+        """Block until a dispatched eval is done; contiguous int32 [n].
+        Raises if the kernel refused an index or reference meanwhile."""
+        done, out, err = handle
         if done is not None:
             done.synchronize()
+        if err is not None and int(err[0]) > self._err_base:
+            raise NativeCoreError(
+                f"ft_gather kernel refused {int(err[0]) - self._err_base} "
+                "out-of-range indices or malformed references"
+            )
         return np.array(out.numpy()[:n], dtype=np.int32)
 
     # -- driver thread ----------------------------------------------------

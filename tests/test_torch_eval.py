@@ -250,3 +250,32 @@ def test_trunc_div_truncates_toward_zero():
     got = torch_eval._trunc_div(a, 2)
     assert got.tolist() == [-3, 0, 0, 0, 3]
     assert got.dtype == torch.int32
+
+
+@pytest.mark.parametrize("host_material", [False, True])
+def test_evaluate_packed_anchored_with_given_offsets_matches_jax(
+        nets, host_material):
+    """The serving call: the pool's row offsets passed in (padding at the
+    sentinel block) instead of derived; same values and tables as the
+    JAX package, which derives them."""
+    _, _, params, jparams = nets
+    rng = np.random.default_rng(16)
+    packed, buckets, parent, rows, tab, ptab, material = _wire_batch(rng)
+    mat = material if host_material else None
+    jv, jtab, jptab = jax_eval.evaluate_packed_anchored(
+        jparams, jnp.asarray(packed), jnp.asarray(buckets),
+        jnp.asarray(parent), None if mat is None else jnp.asarray(mat),
+        jnp.asarray(tab), jnp.asarray(np.array([rows], np.int32)),
+        jnp.asarray(ptab),
+    )
+    offsets = jax_eval.derive_offsets_np(parent, rows)
+    ttab, tptab = torch.from_numpy(tab.copy()), torch.from_numpy(ptab.copy())
+    pv, _, _ = torch_eval.evaluate_packed_anchored(
+        params, torch.from_numpy(packed.view(np.int16)),
+        torch.from_numpy(buckets), torch.from_numpy(parent),
+        None if mat is None else torch.from_numpy(mat), ttab, rows, tptab,
+        offsets=torch.from_numpy(offsets),
+    )
+    assert np.array_equal(pv.numpy(), np.asarray(jv))
+    assert np.array_equal(ttab.numpy(), np.asarray(jtab))
+    assert np.array_equal(tptab.numpy(), np.asarray(jptab))

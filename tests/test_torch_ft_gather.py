@@ -289,3 +289,175 @@ def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+# -- packed mode: the wire in, the anchor tables stored -----------------------
+
+from fishnet_tpu.nnue import jax_eval  # noqa: E402
+from fishnet_tpu_torch.nnue import spec  # noqa: E402
+
+#: Features of the packed cases: the wire's sentinel and removal base are
+#: the spec's, so the tables keep the spec's row count; only the first
+#: rows are non-zero, which keeps them cheap to make.
+PACKED_LIVE = 512
+
+
+def _packed_tables(rng):
+    ft_w = np.zeros((spec.NUM_FEATURES + 1, L1), np.int16)
+    ft_w[:PACKED_LIVE] = rng.integers(-200, 200, (PACKED_LIVE, L1))
+    ft_b = rng.integers(-100, 100, (L1,)).astype(np.int16)
+    ft_psqt = np.zeros((spec.NUM_FEATURES + 1, 8), np.int32)
+    ft_psqt[:PACKED_LIVE] = rng.integers(-3000, 3000, (PACKED_LIVE, 8))
+    return ft_w, ft_b, ft_psqt
+
+
+def _packed_wire(rng, n_tab=6):
+    """A wire batch with every entry kind, as cpp/src/pool.cpp emits it:
+    a plain full, full anchor stores, persistent deltas with and without
+    swap, in-batch deltas (swapped and not) against the most recent
+    anchor, two padding entries that point at the sentinel block, and
+    out-of-table garbage in the stale rows past it. Returns (packed
+    uint16, offsets, parent, n_rows, anchor_tab, psqt_tab)."""
+    nf, db = spec.NUM_FEATURES, spec.DELTA_BASE
+    kinds = [("store", 0), ("in_batch", 0), ("in_batch", 0),
+             ("persistent", 3, 1), ("in_batch", 3), ("full",),
+             ("in_batch", 5), ("persistent", 2, 0), ("in_batch", 7),
+             ("persistent", 5, 1)]
+    size = len(kinds) + 2
+    packed = np.full((4 * size + 8, 2, 8), nf, np.uint16)
+    parent = np.full((size,), -1, np.int32)
+    rows = 0
+    for e, kind in enumerate(kinds):
+        if kind[0] in ("store", "full"):
+            live = int(rng.integers(20, 33))
+            slots = np.full((2, 32), nf, np.int64)
+            slots[:, :live] = rng.integers(0, PACKED_LIVE, (2, live))
+            packed[rows: rows + 4] = slots.reshape(2, 4, 8).transpose(1, 0, 2)
+            parent[e] = _pers_code(kind[1], False) if kind[0] == "store" else -1
+            rows += 4
+            continue
+        for p in range(2):
+            n_add, n_rem = int(rng.integers(0, 5)), int(rng.integers(0, 5))
+            packed[rows, p, :n_add] = rng.integers(0, PACKED_LIVE, n_add)
+            packed[rows, p, 4:4 + n_rem] = db + rng.integers(
+                0, PACKED_LIVE, n_rem)
+            packed[rows, p, 4 + n_rem:] = db + nf
+        if kind[0] == "in_batch":
+            parent[e] = (kind[1] << 1) | int(rng.integers(0, 2))
+        else:
+            parent[e] = _pers_code(kind[1], True, swap=kind[2])
+        rows += 1
+    packed[rows + 4:] = 60000  # stale rows past the sentinel block
+    offsets = jax_eval.derive_offsets_np(parent, rows)
+    tab = rng.integers(-5000, 5000, (n_tab, 2, L1)).astype(np.int32)
+    ptab = rng.integers(-4000, 4000, (n_tab, 2, 8)).astype(np.int32)
+    return packed, offsets, parent, rows, tab, ptab
+
+
+def _jax_packed(ft_w, ft_b, ft_psqt, packed, offsets, parent, tab, ptab,
+                with_psqt, **executor):
+    """The JAX package's packed path: expand_packed -> ft_accumulate ->
+    the table update of evaluate_packed_anchored."""
+    dense = jax_eval.expand_packed(
+        jnp.asarray(packed), jnp.asarray(offsets), jnp.asarray(parent))
+    kw = dict(delta_base=spec.DELTA_BASE, parent=jnp.asarray(parent),
+              anchor_tab=jnp.asarray(tab))
+    if with_psqt:
+        kw.update(ft_psqt=jnp.asarray(ft_psqt), psqt_tab=jnp.asarray(ptab))
+    out = jax_ft.ft_accumulate(
+        jnp.asarray(ft_w), jnp.asarray(ft_b), dense, **kw, **executor)
+    acc, psqt = out if with_psqt else (out, None)
+    _, _, stores, _, _, aid = jax_ft.decode_parent(jnp.asarray(parent))
+    row = jnp.where(stores, aid, tab.shape[0])
+    new_tab = jnp.asarray(tab).at[row].set(acc, mode="drop")
+    new_ptab = (jnp.asarray(ptab).at[row].set(psqt, mode="drop")
+                if with_psqt else jnp.asarray(ptab))
+    return [np.asarray(acc)] + ([np.asarray(psqt)] if with_psqt else []) + [
+        np.asarray(new_tab), np.asarray(new_ptab)]
+
+
+@pytest.mark.parametrize("executor,with_psqt", [
+    ("xla", False), ("xla", True),
+    ("pallas-interpret", False), ("pallas-interpret", True),
+])
+def test_packed_matches_jax(executor, with_psqt):
+    """ft_accumulate_packed on the CPU (the plain version: expand_packed,
+    ft_accumulate_plain, store_anchors) against the JAX package's packed
+    path, bit for bit on the accumulators and both tables, over every
+    entry kind including swapped persistent deltas."""
+    rng = np.random.default_rng(21 + with_psqt)
+    ft_w, ft_b, ft_psqt = _packed_tables(rng)
+    packed, offsets, parent, _, tab, ptab = _packed_wire(rng)
+    assert ((parent <= -2) & (((-parent - 2) & 3) == 3)).any()  # swapped
+    jkw = ({"use_pallas": False} if executor == "xla"
+           else {"interpret": True})
+    ref = _jax_packed(ft_w, ft_b, ft_psqt, packed, offsets, parent, tab,
+                      ptab, with_psqt, **jkw)
+    ttab, tptab = torch.from_numpy(tab.copy()), torch.from_numpy(ptab.copy())
+    out = port_ft.ft_accumulate_packed(
+        torch.from_numpy(ft_w), torch.from_numpy(ft_b),
+        torch.from_numpy(packed.view(np.int16)), torch.from_numpy(offsets),
+        torch.from_numpy(parent), ttab,
+        **({"ft_psqt": torch.from_numpy(ft_psqt), "psqt_tab": tptab}
+           if with_psqt else {}),
+    )
+    got = (list(out) if with_psqt else [out]) + [ttab, tptab]
+    _assert_same(tuple(g.numpy() for g in got), tuple(ref))
+    # The stores happened (rows 0, 3, 2 and 5) and the rest stayed.
+    assert not np.array_equal(ttab.numpy()[3], tab[3])
+    assert np.array_equal(ttab.numpy()[1], tab[1])
+    assert np.array_equal(tptab.numpy(), ptab) != with_psqt
+
+
+def _packed_cuda_args(rng):
+    ft_w, ft_b, ft_psqt = _packed_tables(rng)
+    packed, offsets, parent, _, tab, ptab = _packed_wire(rng)
+    return dict(
+        ft_w=torch.from_numpy(ft_w), ft_b=torch.from_numpy(ft_b),
+        packed=torch.from_numpy(packed.view(np.int16)),
+        offsets=torch.from_numpy(offsets), parent=torch.from_numpy(parent),
+        anchor_tab=torch.from_numpy(tab), ft_psqt=torch.from_numpy(ft_psqt),
+        psqt_tab=torch.from_numpy(ptab),
+    )
+
+
+def _misaligned(t):
+    """The same values, contiguous, starting 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype)
+    view = flat[1: 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"),
+    ("packed_dtype", "packed must be"),
+    ("packed_shape", "packed has shape"),
+    ("offsets_length", "offsets has shape"),
+    ("parent_dtype", "parent must be"),
+    ("misaligned_bias", "16-byte aligned"),
+    ("psqt_without_table", "psqt_tab"),
+])
+def test_packed_cuda_wrapper_refuses(case, match):
+    """The packed kernel's wrapper never runs the plain version: it
+    launches on CUDA tensors or raises, before any launch, on CPU
+    tensors and on the dtypes, shapes and layouts the kernel does not
+    take."""
+    kw = _packed_cuda_args(np.random.default_rng(6))
+    if case == "packed_dtype":
+        kw["packed"] = kw["packed"].to(torch.int32)
+    elif case == "packed_shape":
+        kw["packed"] = kw["packed"].reshape(-1, 4, 4)
+    elif case == "offsets_length":
+        kw["offsets"] = kw["offsets"][:-1].contiguous()
+    elif case == "parent_dtype":
+        kw["parent"] = kw["parent"].long()
+    elif case == "misaligned_bias":
+        kw["ft_b"] = _misaligned(kw["ft_b"])
+    elif case == "psqt_without_table":
+        kw["psqt_tab"] = None
+    with pytest.raises(ValueError, match=match):
+        port_ft.ft_accumulate_packed_cuda(**kw)
+    assert port_ft.ft_accumulate_packed_cuda.launches == 0
+    assert port_ft.ft_accumulate_cuda.launches == 0

@@ -12,6 +12,7 @@ against the scalar evaluator (value, is_mate, best_move)."""
 import asyncio
 import random
 
+import numpy as np
 import pytest
 
 from fishnet_tpu.chess import Board
@@ -126,3 +127,35 @@ def test_device_and_rung_requests_are_checked():
             SearchService(weights=w, device="cpu", psqt_path=rung, **KW)
     with pytest.raises(ValueError, match="unknown backend"):
         SearchService(weights=w, backend="jax", device="cpu", **KW)
+
+
+def test_shipped_offsets_equal_the_derived_ones():
+    """The service ships the pool's row offsets (fc_pool_step writes
+    them; padding entries point at the sentinel block at n_rows) in
+    place of the device-side derivation: on every step they equal
+    derive_offsets_np of the same parent codes, padding clamp included."""
+    from fishnet_tpu.nnue import jax_eval
+
+    svc = SearchService(weights=NnueWeights.random(seed=21), device="cpu",
+                        **KW)
+    seen = []
+    evaluate = svc._eval_fn
+
+    def recorder(params, packed, buckets, parent, material, tab, n_rows,
+                 ptab, *, offsets):
+        seen.append((parent.numpy().copy(), int(n_rows),
+                     offsets.numpy().copy()))
+        return evaluate(params, packed, buckets, parent, material, tab,
+                        n_rows, ptab, offsets=offsets)
+
+    svc._eval_fn = recorder
+    results = asyncio.run(_results(svc, DEPTH4_FENS[:2], 3))
+    assert all(r[2] for r in results)
+    steps = [s for s in seen if s[1] > 0]  # past the warm-up's empty wire
+    assert steps
+    padded = 0
+    for parent, n_rows, offsets in steps:
+        assert np.array_equal(
+            offsets, jax_eval.derive_offsets_np(parent, n_rows))
+        padded += int((offsets == n_rows).sum())
+    assert padded > 0  # padding entries were shipped and clamped
