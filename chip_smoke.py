@@ -22,9 +22,11 @@ checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing; default
 all four) limits a run to some phases while iterating on one of them.
-Two extra phases run only on request: ``profile`` traces a loaded burst
-with torch.profiler, and ``ladder`` times the UCI session and the burst
-with the entry-bucket ladder starting at 64 and at 8.
+Three extra phases run only on request: ``profile`` traces a loaded
+burst with torch.profiler, ``anatomy`` (after ``serve``) times the
+kernel with one part of its work removed at a time, and ``ladder``
+times the UCI session and the burst with the entry-bucket ladder
+starting at 64 and at 8.
 """
 
 from __future__ import annotations
@@ -782,9 +784,11 @@ def graph_time_ms(torch, fn, reps: int = 10, replays: int = 20) -> float:
 def single_call_ms(torch, fn, flush=None, reps: int = 50) -> float:
     """Device time of one ``fn()`` call, timed alone between CUDA events
     (one call captured in a graph, so the launch is one quick replay),
-    the mean over ``reps``. With ``flush`` (a buffer larger than the
-    50 MB L2) the buffer is written before each call, outside the graph,
-    so the call finds its table cold in HBM."""
+    the mean over ``reps``. Before each call the device is kept busy for
+    some 50 us, so the events do not time the host's launch. With
+    ``flush`` (a buffer larger than the 50 MB L2) the buffer is also
+    written before each call, outside the graph, so the call finds its
+    table cold in HBM."""
     graph = _graph(torch, fn, 1)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -792,6 +796,7 @@ def single_call_ms(torch, fn, flush=None, reps: int = 50) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.fill_(1)
+        torch.cuda._sleep(100_000)
         start.record()
         graph.replay()
         end.record()
@@ -911,19 +916,16 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
     dkw = dict(delta_base=spec.DELTA_BASE, parent=par,
                anchor_tab=step["tab"], ft_psqt=fp, psqt_tab=step["ptab"])
 
-    def exact(what):
-        got = ft_gather.ft_accumulate_cuda(w, b, dense, **dkw)
-        ref = ft_gather.ft_accumulate_plain(w, b, dense, **dkw)
-        diffs = [max_diff(got, ref), max_diff(
-            packed_outputs(torch, ft_gather.ft_accumulate_packed_cuda,
-                           params, wire, True),
-            packed_outputs(torch, ft_gather.ft_accumulate_packed_plain,
-                           params, wire, True))]
-        check(max(diffs) == 0, f"captured step ({what}): kernel != plain "
-                               f"{diffs} (dense, packed)")
-        return diffs
-
-    diffs = exact("loads") + ([] if worst is None else [worst])
+    got = ft_gather.ft_accumulate_cuda(w, b, dense, **dkw)
+    ref = ft_gather.ft_accumulate_plain(w, b, dense, **dkw)
+    diffs = [max_diff(got, ref), max_diff(
+        packed_outputs(torch, ft_gather.ft_accumulate_packed_cuda,
+                       params, wire, True),
+        packed_outputs(torch, ft_gather.ft_accumulate_packed_plain,
+                       params, wire, True))]
+    check(max(diffs) == 0, f"captured step: kernel != plain {diffs} "
+                           "(dense, packed)")
+    diffs += [] if worst is None else [worst]
     p = par.cpu().numpy()
     mix = {"entries": len(p), "full": int((p == -1).sum()),
            "anchor_codes": int((p <= -2).sum()), "in_batch": int((p >= 0).sum())}
@@ -941,14 +943,6 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
         "dense": graph_time_ms(torch, dense_call),
         "packed": graph_time_ms(torch, packed_call),
     }
-    # The rows read through shared memory with bulk copies, in turns.
-    ft_gather._bulk_rows = 1
-    try:
-        diffs += exact("bulk copies")
-        bulk = {"dense": graph_time_ms(torch, dense_call),
-                "packed": graph_time_ms(torch, packed_call)}
-    finally:
-        ft_gather._bulk_rows = 0
     again = {"dense": graph_time_ms(torch, dense_call),
              "packed": graph_time_ms(torch, packed_call)}
     plain_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_plain(
@@ -1044,7 +1038,6 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_bytes": nbytes, "bound_ops": ops,
         },
-        "bulk_copy_rows": bulk,
         "all_full": {
             "entries": 512, "ms": full_ms, "plain_ms": full_plain_ms,
             "library_ms": library_ms, "bound_ms": full_bound_ms,
@@ -1056,11 +1049,11 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
         },
     }
     log(f"  captured step {mix}: packed kernel {times['packed']:.6f} / "
-        f"{again['packed']:.6f} ms (bulk copies {bulk['packed']:.6f}), plain "
+        f"{again['packed']:.6f} ms, plain "
         f"{packed_plain_ms:.6f} ms, bound {pbound_ms:.6f} ms ({pbytes} B); "
         f"cold L2 {cold_ms:.6f} ms, warm alone {single_ms:.6f} ms")
     log(f"  captured step, dense: kernel {times['dense']:.6f} / "
-        f"{again['dense']:.6f} ms (bulk copies {bulk['dense']:.6f}), plain "
+        f"{again['dense']:.6f} ms, plain "
         f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({nbytes} B)")
     log(f"  all-full B=512: dense kernel {full_ms:.6f} ms, plain "
         f"{full_plain_ms:.6f} ms, embedding_bag {library_ms:.6f} ms, bound "
@@ -1068,6 +1061,84 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
         f"{full_packed_ms:.6f} ms, plain {full_packed_plain_ms:.6f} ms, "
         f"bound {fpb_ms:.6f} ms ({fpb_bytes} B)")
     return entry
+
+
+#: Timing-only variants of the kernel source for the anatomy phase:
+#: (name, [(text in csrc/ft_gather.cu, replacement)]). Each removes one
+#: part of the work; its results are wrong by design and never checked.
+ANATOMY = [
+    ("as shipped", []),
+    ("no ticket (blockIdx order; deltas do not wait)", [
+        ("atomicAdd(ticket, 1ull);",
+         "(static_cast<unsigned long long>(__ldcg(a.state + 1)) << 32)"
+         " | blockIdx.x;"),
+        ("    if (s_b == a.batch - 1)  // the last claimant: (epoch + 1, 0)",
+         "    if (false)"),
+    ]),
+    ("no anchor wait", [("    if (follow) {", "    if (false) {")]),
+    ("rows capped at one batch of 8", [
+        ("    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {",
+         "    for (int k0 = 0; k0 < min(n_live, kInFlight); k0 += kInFlight) {")]),
+    ("no table rows", [
+        ("    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {",
+         "    for (int k0 = 0; k0 < 0; k0 += kInFlight) {")]),
+    ("no table rows, no anchor wait", [
+        ("    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {",
+         "    for (int k0 = 0; k0 < 0; k0 += kInFlight) {"),
+        ("    if (follow) {", "    if (false) {")]),
+]
+
+
+def phase_anatomy(torch, params, dev, serve) -> None:
+    """Where the kernel's time goes on the captured step: the kernel
+    source built again with one part of the work removed at a time
+    (ANATOMY), all variants compiled in parallel, each timed in both
+    modes as the timing phase times the kernel. Not part of the default
+    run."""
+    import subprocess as sp
+
+    from fishnet_tpu_torch.nnue import spec
+    from fishnet_tpu_torch.ops import _build, ft_gather
+
+    step = serve["step"]
+    pk, off, par = step["packed"], step["offsets"], step["parent"]
+    w, b, fp = params["ft_w"], params["ft_b"], params["ft_psqt"]
+    dense = ft_gather.expand_packed(pk, off, par)
+    dkw = dict(delta_base=spec.DELTA_BASE, parent=par,
+               anchor_tab=step["tab"], ft_psqt=fp, psqt_tab=step["ptab"])
+    tab, ptab = step["tab"].clone(), step["ptab"].clone()
+    source = (_build.CSRC_DIR / "ft_gather.cu").read_text()
+    out_dir = _build.BUILD_DIR / "anatomy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    builds = []
+    for i, (name, patches) in enumerate(ANATOMY):
+        text = source
+        for old, new in patches:
+            check(text.count(old) == 1, f"anatomy {name!r}: patch site moved")
+            text = text.replace(old, new)
+        cu, so = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
+        cu.write_text(text)
+        builds.append((name, so, sp.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=sp.PIPE, stderr=sp.STDOUT, text=True)))
+    shipped = ft_gather._kernel_lib()
+    try:
+        for name, so, proc in builds:
+            text, _ = proc.communicate()
+            check(proc.returncode == 0, f"anatomy {name!r}: nvcc failed\n{text}")
+            lib = ctypes.CDLL(str(so))
+            lib.fc_ft_gather.argtypes = shipped.fc_ft_gather.argtypes
+            lib.fc_ft_gather.restype = ctypes.c_int
+            ft_gather._lib = lib
+            dense_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_cuda(
+                w, b, dense, **dkw))
+            packed_ms = graph_time_ms(
+                torch, lambda: ft_gather.ft_accumulate_packed_cuda(
+                    w, b, pk, off, par, tab, ft_psqt=fp, psqt_tab=ptab))
+            log(f"  {name:48s} dense {dense_ms:.6f} ms, packed "
+                f"{packed_ms:.6f} ms")
+    finally:
+        ft_gather._lib = shipped
 
 
 def main() -> int:
@@ -1132,6 +1203,9 @@ def main() -> int:
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler")
         phase_profile(torch, weights, dev)
+    if "anatomy" in phases and serve is not None:
+        log("[anatomy] the kernel with one part of its work removed at a time")
+        phase_anatomy(torch, params, dev, serve)
     if "ladder" in phases:
         log("[ladder] entry buckets from 64 vs from 8, one call")
         phase_ladder(weights, dev)

@@ -79,7 +79,6 @@ constexpr int kLanes = 8;        // int32 lanes per thread (one 16 B load)
 constexpr int kPsqtBuckets = 8;  // spec.NUM_PSQT_BUCKETS
 constexpr int kInFlight = 8;     // table rows loaded before the first add
 constexpr int kSpinLimit = 1 << 24;
-constexpr int kBulkMaxL1 = 1024;
 
 // Device state (int32 [4], zeroed once by the wrapper): words 0-1 the
 // 64-bit ticket (low: next entry, high: epoch), word 3 the error count.
@@ -164,45 +163,9 @@ __device__ __forceinline__ void store_row32(int32_t* dst,
   *reinterpret_cast<int4*>(dst + 4) = make_int4(a[4], a[5], a[6], a[7]);
 }
 
-// -- bulk asynchronous row copies (global -> shared, mbarrier) -------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred P;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, P;\n}"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // -- the kernel -------------------------------------------------------------
 
-template <bool kPacked, bool kWithPsqt, bool kBulk>
+template <bool kPacked, bool kWithPsqt>
 __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
   __shared__ int s_row[2][kSlots];
   __shared__ int s_sign[2][kSlots];
@@ -314,70 +277,25 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
     if (!sparse)
       add_row16(acc, __ldg(reinterpret_cast<const int4*>(a.ft_b + lane0)), 1);
 
-    if constexpr (!kBulk) {
-      for (int k0 = 0; k0 < n_live; k0 += kInFlight) {
-        int4 v[kInFlight];
-        int32_t q[kInFlight];
+    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {
+      int4 v[kInFlight];
+      int32_t q[kInFlight];
 #pragma unroll
-        for (int j = 0; j < kInFlight; ++j) {
-          if (k0 + j < n_live) {
-            const int64_t r = s_row[p][k0 + j];
-            v[j] = __ldg(reinterpret_cast<const int4*>(a.ft_w + r * a.l1 +
-                                                       lane0));
-            if (psqt_lane) q[j] = __ldg(a.ft_psqt + r * kPsqtBuckets + pt);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kInFlight; ++j) {
-          if (k0 + j < n_live) {
-            const int sg = s_sign[p][k0 + j];
-            add_row16(acc, v[j], sg);
-            if (psqt_lane) ps += sg * q[j];
-          }
+      for (int j = 0; j < kInFlight; ++j) {
+        if (k0 + j < n_live) {
+          const int64_t r = s_row[p][k0 + j];
+          v[j] = __ldg(reinterpret_cast<const int4*>(a.ft_w + r * a.l1 +
+                                                     lane0));
+          if (psqt_lane) q[j] = __ldg(a.ft_psqt + r * kPsqtBuckets + pt);
         }
       }
-    } else {
-      // One thread per perspective copies up to kInFlight whole rows
-      // into shared memory with bulk asynchronous copies completing on
-      // an mbarrier; every thread then reads its slice from there.
-      __shared__ __align__(128) int16_t s_buf[2][kInFlight][kBulkMaxL1];
-      __shared__ __align__(8) uint64_t s_bar[2];
-      if (tid == 0) {
-        mbar_init(&s_bar[0]);
-        mbar_init(&s_bar[1]);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      }
-      __syncthreads();
-      const int most = max(s_live[0], s_live[1]);
-      const uint32_t row_bytes = static_cast<uint32_t>(a.l1) * 2;
-      for (int k0 = 0, phase = 0; k0 < most; k0 += kInFlight, phase ^= 1) {
-        const int n = min(max(n_live - k0, 0), kInFlight);
-        if (pt == 0) {
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          mbar_expect(&s_bar[p], n * row_bytes);
-          for (int j = 0; j < n; ++j)
-            bulk_copy(&s_buf[p][j][0],
-                      a.ft_w + static_cast<int64_t>(s_row[p][k0 + j]) * a.l1,
-                      row_bytes, &s_bar[p]);
-        }
-        int32_t q[kInFlight];
 #pragma unroll
-        for (int j = 0; j < kInFlight; ++j)
-          if (j < n && psqt_lane)
-            q[j] = __ldg(a.ft_psqt +
-                         static_cast<int64_t>(s_row[p][k0 + j]) *
-                             kPsqtBuckets + pt);
-        mbar_wait(&s_bar[p], phase);
-#pragma unroll
-        for (int j = 0; j < kInFlight; ++j) {
-          if (j < n) {
-            const int sg = s_sign[p][k0 + j];
-            add_row16(acc, *reinterpret_cast<const int4*>(
-                               &s_buf[p][j][lane0]), sg);
-            if (psqt_lane) ps += sg * q[j];
-          }
+      for (int j = 0; j < kInFlight; ++j) {
+        if (k0 + j < n_live) {
+          const int sg = s_sign[p][k0 + j];
+          add_row16(acc, v[j], sg);
+          if (psqt_lane) ps += sg * q[j];
         }
-        __syncthreads();  // the buffer is refilled next round
       }
     }
 
@@ -424,12 +342,8 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
 }
 
 template <bool kPacked, bool kWithPsqt>
-void launch(const Args& a, bool bulk, cudaStream_t stream) {
-  const dim3 grid(a.batch), block(a.l1 / 4);
-  if (bulk)
-    ft_kernel<kPacked, kWithPsqt, true><<<grid, block, 0, stream>>>(a);
-  else
-    ft_kernel<kPacked, kWithPsqt, false><<<grid, block, 0, stream>>>(a);
+void launch(const Args& a, cudaStream_t stream) {
+  ft_kernel<kPacked, kWithPsqt><<<a.batch, a.l1 / 4, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -445,9 +359,9 @@ void launch(const Args& a, bool bulk, cudaStream_t stream) {
 // 2, l1] and psqt [batch, 2, 8] int32. state is the device's int32 [4]
 // (64-bit ticket, unused, errors), zeroed before its first use;
 // ready holds at least batch int32. l1 must be a multiple of 256 and at
-// most 4096, every pointer 16-byte aligned (the wrapper checks). bulk
-// selects the bulk-copy row path (l1 <= 1024). Launches once on
-// `stream` without synchronising and returns cudaGetLastError().
+// most 4096, every pointer 16-byte aligned (the wrapper checks).
+// Launches once on `stream` without synchronising and returns
+// cudaGetLastError().
 extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
                             const void* ft_b, const void* ft_psqt,
                             const void* idx, const void* wire, int n_wire,
@@ -455,8 +369,7 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
                             const void* parent, void* anchor_tab,
                             void* psqt_tab, int n_anchor, int store,
                             int delta_base, void* acc, void* psqt,
-                            void* state, void* ready, int bulk,
-                            void* stream) {
+                            void* state, void* ready, void* stream) {
   if (batch > 0) {
     Args a;
     a.ft_w = static_cast<const int16_t*>(ft_w);
@@ -481,12 +394,11 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
     a.ready = static_cast<int32_t*>(ready);
     const bool packed = wire != nullptr;
     const bool with_psqt = ft_psqt != nullptr;
-    const bool use_bulk = bulk != 0 && l1 <= kBulkMaxL1;
     auto s = static_cast<cudaStream_t>(stream);
-    if (packed && with_psqt) launch<true, true>(a, use_bulk, s);
-    else if (packed) launch<true, false>(a, use_bulk, s);
-    else if (with_psqt) launch<false, true>(a, use_bulk, s);
-    else launch<false, false>(a, use_bulk, s);
+    if (packed && with_psqt) launch<true, true>(a, s);
+    else if (packed) launch<true, false>(a, s);
+    else if (with_psqt) launch<false, true>(a, s);
+    else launch<false, false>(a, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

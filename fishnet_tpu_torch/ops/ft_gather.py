@@ -267,9 +267,6 @@ _launch_lock = threading.Lock()
 #: resolution, one per entry.
 _states: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 _lib: Optional[ctypes.CDLL] = None
-#: Row path of the kernel: 0 unrolled 16 B loads, 1 bulk copies through
-#: shared memory (compared in chip_smoke.py's timing phase).
-_bulk_rows = 0
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -288,7 +285,6 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int,  # store, delta_base
             ctypes.c_void_p, ctypes.c_void_p,  # acc, psqt
             ctypes.c_void_p, ctypes.c_void_p,  # state, ready
-            ctypes.c_int,  # bulk row path
             ctypes.c_void_p,  # stream
         ]
         lib.fc_ft_gather.restype = ctypes.c_int
@@ -394,7 +390,7 @@ def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
         _ptr(anchor_tab), _ptr(psqt_tab), n_anchor, int(store),
         -1 if delta_base is None else int(delta_base),
         acc.data_ptr(), _ptr(psqt), state.data_ptr(), ready.data_ptr(),
-        _bulk_rows, stream,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"ft_gather kernel launch failed: CUDA error {rc}")

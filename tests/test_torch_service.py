@@ -159,3 +159,23 @@ def test_shipped_offsets_equal_the_derived_ones():
             offsets, jax_eval.derive_offsets_np(parent, n_rows))
         padded += int((offsets == n_rows).sum())
     assert padded > 0  # padding entries were shipped and clamped
+
+
+@pytest.mark.parametrize("word,raises", [(3, False), (4, True)])
+def test_resolve_raises_when_the_kernel_error_word_grew(word, raises):
+    """Each dispatch on the card copies the kernel's error word beside its
+    values; resolving the step raises once the word has grown past the
+    count seen at warm-up (an index or reference the kernel refused)."""
+    import torch
+
+    from fishnet_tpu_torch.chess.core import NativeCoreError
+
+    svc = SearchService.__new__(SearchService)  # no pool: the check alone
+    svc._err_base = 3
+    out = torch.arange(4, dtype=torch.int32)
+    handle = (None, out, torch.tensor([word], dtype=torch.int32))
+    if raises:
+        with pytest.raises(NativeCoreError, match="refused 1"):
+            svc._resolve_eval(2, handle)
+    else:
+        assert svc._resolve_eval(2, handle).tolist() == [0, 1]
