@@ -1076,15 +1076,15 @@ ANATOMY = [
          "    if (false)"),
     ]),
     ("no anchor wait", [("    if (follow) {", "    if (false) {")]),
-    ("rows capped at one batch", [
-        ("    for (int k0 = 0; k0 < n_live; k0 += kBatch) {",
-         "    for (int k0 = 0; k0 < min(n_live, kBatch); k0 += kBatch) {")]),
+    ("rows capped at one batch of 8", [
+        ("    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {",
+         "    for (int k0 = 0; k0 < min(n_live, kInFlight); k0 += kInFlight) {")]),
     ("no table rows", [
-        ("    for (int k0 = 0; k0 < n_live; k0 += kBatch) {",
-         "    for (int k0 = 0; k0 < 0; k0 += kBatch) {")]),
+        ("    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {",
+         "    for (int k0 = 0; k0 < 0; k0 += kInFlight) {")]),
     ("no table rows, no anchor wait", [
-        ("    for (int k0 = 0; k0 < n_live; k0 += kBatch) {",
-         "    for (int k0 = 0; k0 < 0; k0 += kBatch) {"),
+        ("    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {",
+         "    for (int k0 = 0; k0 < 0; k0 += kInFlight) {"),
         ("    if (follow) {", "    if (false) {")]),
 ]
 

@@ -39,13 +39,10 @@
 //     either (a __syncthreads between);
 //   * the slot list is compacted once per perspective (warp ballot):
 //     the zero sentinel row and unused delta slots are never fetched;
-//     then a delta entry's rows are all in flight at once: up to 8
-//     loads a thread into registers. A full entry has up to 32 rows,
-//     more than the registers of 4 resident blocks per SM (the B=512
-//     serving step in one wave) can hold, so each batch also copies 12
-//     more rows asynchronously into shared memory (cp.async, 16 B per
-//     thread and row, no registers): 20 rows a batch, 2 batches for a
-//     full entry;
+//     then up to 8 rows per thread are loaded before the first add, so
+//     a delta entry's rows are all in flight at once (a full entry's
+//     up to 32 rows take up to 4 such batches: 64 registers a thread
+//     keep 4 blocks, the B=512 serving step, resident on each SM);
 //   * entries are claimed in wire order through a ticket (atomicAdd on
 //     a device counter), not by blockIdx: the pool's anchor protocol
 //     makes every in-batch delta reference an EARLIER anchor entry, so
@@ -80,9 +77,7 @@ constexpr int kDeltaSlots = 4;   // spec.DELTA_SLOTS
 constexpr int kWireRow = 8;      // slots per wire row and perspective
 constexpr int kLanes = 8;        // int32 lanes per thread (one 16 B load)
 constexpr int kPsqtBuckets = 8;  // spec.NUM_PSQT_BUCKETS
-constexpr int kInFlight = 8;     // rows a batch loads into registers
-constexpr int kStaged = 12;      // rows a batch copies to shared memory
-constexpr int kBatch = kInFlight + kStaged;
+constexpr int kInFlight = 8;     // table rows loaded before the first add
 constexpr int kSpinLimit = 1 << 24;
 
 // Device state (int32 [4], zeroed once by the wrapper): words 0-1 the
@@ -162,21 +157,6 @@ __device__ __forceinline__ void add_row32_l2(int32_t (&a)[kLanes],
   a[4] += hi.x; a[5] += hi.y; a[6] += hi.z; a[7] += hi.w;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Asynchronous global -> shared copies of 16 and 4 bytes (L2 only).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
 __device__ __forceinline__ void store_row32(int32_t* dst,
                                             const int32_t (&a)[kLanes]) {
   *reinterpret_cast<int4*>(dst) = make_int4(a[0], a[1], a[2], a[3]);
@@ -192,9 +172,6 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
   __shared__ int s_live[2];
   __shared__ int s_b, s_epoch, s_follow, s_ready;
   __shared__ int s_code, s_slot[2][kSlots];
-  __shared__ int32_t s_pstage[kStaged][2][kPsqtBuckets];
-  // [kStaged][blockDim.x]: each thread's 16 B slice of the staged rows.
-  extern __shared__ int4 s_stage[];
 
   const int tid = threadIdx.x;
   const int tpp = a.l1 / kLanes;  // threads per perspective
@@ -300,17 +277,7 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
     if (!sparse)
       add_row16(acc, __ldg(reinterpret_cast<const int4*>(a.ft_b + lane0)), 1);
 
-    for (int k0 = 0; k0 < n_live; k0 += kBatch) {
-      // Each thread copies and later reads only its own staged slices,
-      // so the copies need no block barrier, only the thread's wait.
-      const int staged = min(max(n_live - k0 - kInFlight, 0), kStaged);
-      for (int j = 0; j < staged; ++j) {
-        const int64_t r = s_row[p][k0 + kInFlight + j];
-        cp_async16(&s_stage[j * blockDim.x + tid], a.ft_w + r * a.l1 + lane0);
-        if (psqt_lane)
-          cp_async4(&s_pstage[j][p][pt], a.ft_psqt + r * kPsqtBuckets + pt);
-      }
-      asm volatile("cp.async.commit_group;" ::: "memory");
+    for (int k0 = 0; k0 < n_live; k0 += kInFlight) {
       int4 v[kInFlight];
       int32_t q[kInFlight];
 #pragma unroll
@@ -329,12 +296,6 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
           add_row16(acc, v[j], sg);
           if (psqt_lane) ps += sg * q[j];
         }
-      }
-      asm volatile("cp.async.wait_all;" ::: "memory");
-      for (int j = 0; j < staged; ++j) {
-        const int sg = s_sign[p][k0 + kInFlight + j];
-        add_row16(acc, s_stage[j * blockDim.x + tid], sg);
-        if (psqt_lane) ps += sg * s_pstage[j][p][pt];
       }
     }
 
@@ -382,17 +343,7 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
 
 template <bool kPacked, bool kWithPsqt>
 void launch(const Args& a, cudaStream_t stream) {
-  const int threads = a.l1 / 4;
-  const int staged_bytes = kStaged * threads * static_cast<int>(sizeof(int4));
-  // Above 48 KB of shared memory a kernel must opt in (once per size).
-  static int opted_in = 0;
-  if (staged_bytes > opted_in) {
-    cudaFuncSetAttribute(ft_kernel<kPacked, kWithPsqt>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         staged_bytes);
-    opted_in = staged_bytes;
-  }
-  ft_kernel<kPacked, kWithPsqt><<<a.batch, threads, staged_bytes, stream>>>(a);
+  ft_kernel<kPacked, kWithPsqt><<<a.batch, a.l1 / 4, 0, stream>>>(a);
 }
 
 }  // namespace
