@@ -28,7 +28,8 @@
 // moves a few MB (mostly one 2 KiB table row per live slot, from a
 // 46 MB table that stays in the 50 MB L2 between steps) — about 2 us at
 // HBM rate — and does 0.5 integer add per byte read. What costs time is
-// the chain of dependent memory round trips each entry walks. The design
+// the chain of dependent memory round trips each entry walks
+// (chip_smoke.py --phases serve,anatomy times its parts). The design
 // cuts the chain, not the bytes:
 //   * one launch: delta resolution, wire decode and table store are in
 //     the kernel, so nothing waits for a second launch to drain;
@@ -96,7 +97,7 @@ struct Args {
   const int32_t* parent;      // [batch] or NULL (every entry plain full)
   int32_t* anchor_tab;        // [n_anchor, 2, l1] or NULL
   int32_t* psqt_tab;          // [n_anchor, 2, 8] or NULL
-  int n_anchor, store, delta_base, batch;
+  int n_anchor, delta_base, batch;
   int32_t* acc;               // [batch, 2, l1]
   int32_t* psqt;              // [batch, 2, 8] (with PSQT)
   int32_t* state;             // int32 [4], 16-byte aligned
@@ -320,7 +321,7 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
     const int64_t dst = static_cast<int64_t>(b) * 2 + p;
     store_row32(a.acc + dst * a.l1 + lane0, acc);
     if (psqt_lane) a.psqt[dst * kPsqtBuckets + pt] = ps;
-    if (a.store && d.stores && d.aid < a.n_anchor && a.anchor_tab != nullptr) {
+    if (kPacked && d.stores && d.aid < a.n_anchor && a.anchor_tab != nullptr) {
       // Every thread has read its anchor row (p ^ swap) into registers
       // before any thread overwrites row p of the same entry.
       __syncthreads();
@@ -352,10 +353,11 @@ void launch(const Args& a, cudaStream_t stream) {
 // Shapes: ft_w [n_rows, l1] int16 (last row the zero sentinel); ft_b [l1]
 // int16; ft_psqt [n_rows, 8] int32 or NULL (no PSQT output). Dense mode:
 // idx [batch, 2, 32] int32 and wire NULL. Packed mode: wire [n_wire, 2,
-// 8] uint16 and offsets [batch] int32, idx NULL. parent [batch] int32 or
+// 8] uint16 and offsets [batch] int32, idx NULL; packed mode also
+// writes anchor entries back to the tables. parent [batch] int32 or
 // NULL (every entry full); anchor_tab [n_anchor, 2, l1] / psqt_tab
-// [n_anchor, 2, 8] int32 or NULL; store != 0 writes anchor entries back
-// to them; delta_base < 0 disables removal decoding. Outputs acc [batch,
+// [n_anchor, 2, 8] int32 or NULL; delta_base < 0 disables removal
+// decoding. Outputs acc [batch,
 // 2, l1] and psqt [batch, 2, 8] int32. state is the device's int32 [4]
 // (64-bit ticket, unused, errors), zeroed before its first use;
 // ready holds at least batch int32. l1 must be a multiple of 256 and at
@@ -367,8 +369,8 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
                             const void* idx, const void* wire, int n_wire,
                             const void* offsets, int batch,
                             const void* parent, void* anchor_tab,
-                            void* psqt_tab, int n_anchor, int store,
-                            int delta_base, void* acc, void* psqt,
+                            void* psqt_tab, int n_anchor, int delta_base,
+                            void* acc, void* psqt,
                             void* state, void* ready, void* stream) {
   if (batch > 0) {
     Args a;
@@ -385,7 +387,6 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
     a.anchor_tab = static_cast<int32_t*>(anchor_tab);
     a.psqt_tab = static_cast<int32_t*>(psqt_tab);
     a.n_anchor = n_anchor;
-    a.store = store;
     a.delta_base = delta_base;
     a.batch = batch;
     a.acc = static_cast<int32_t*>(acc);

@@ -282,7 +282,7 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # wire, R, offs
             ctypes.c_int, ctypes.c_void_p,  # B, parent
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # tables, A
-            ctypes.c_int, ctypes.c_int,  # store, delta_base
+            ctypes.c_int,  # delta_base
             ctypes.c_void_p, ctypes.c_void_p,  # acc, psqt
             ctypes.c_void_p, ctypes.c_void_p,  # state, ready
             ctypes.c_void_p,  # stream
@@ -327,14 +327,13 @@ def kernel_errors(device=None, reset: bool = False) -> int:
     return count
 
 
-def _check(t: torch.Tensor, name: str, dtypes, shape: Tuple[Optional[int], ...],
-           device: torch.device) -> None:
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
+           shape: Tuple[Optional[int], ...], device: torch.device) -> None:
     """Refuse what the kernel does not take: wrong dtype, shape, layout
     or alignment, then a tensor on another device (so the checks run the
     same on CPU tensors, which the wrappers refuse last)."""
-    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} must be {dtypes[0]}, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != len(shape) or any(
         want is not None and got != want for got, want in zip(t.shape, shape)
     ):
@@ -370,9 +369,9 @@ def _check_tables(ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device):
 
 
 def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
-            anchor_tab, psqt_tab, n_anchor, store, delta_base, ft_psqt,
-            device):
-    """One kernel launch on the current stream; returns (acc, psqt)."""
+            anchor_tab, psqt_tab, n_anchor, delta_base, ft_psqt, device):
+    """One kernel launch on the current stream (packed mode when ``wire``
+    is given: it also stores the anchor entries); returns (acc, psqt)."""
     acc = torch.empty((batch, 2, l1), dtype=torch.int32, device=device)
     psqt = (
         torch.empty((batch, 2, 8), dtype=torch.int32, device=device)
@@ -387,7 +386,7 @@ def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
         ft_w.data_ptr(), n_rows, l1, ft_b.data_ptr(), _ptr(ft_psqt),
         _ptr(idx), _ptr(wire), 0 if wire is None else wire.shape[0],
         _ptr(offsets), batch, _ptr(parent),
-        _ptr(anchor_tab), _ptr(psqt_tab), n_anchor, int(store),
+        _ptr(anchor_tab), _ptr(psqt_tab), n_anchor,
         -1 if delta_base is None else int(delta_base),
         acc.data_ptr(), _ptr(psqt), state.data_ptr(), ready.data_ptr(),
         stream,
@@ -429,8 +428,8 @@ def ft_accumulate_cuda(
         ft_w, ft_b, n_rows=n_rows, l1=l1, batch=batch, idx=indices,
         wire=None, offsets=None, parent=parent, anchor_tab=anchor_tab,
         psqt_tab=psqt_tab if ft_psqt is not None else None,
-        n_anchor=n_anchor, store=False, delta_base=delta_base,
-        ft_psqt=ft_psqt, device=device,
+        n_anchor=n_anchor, delta_base=delta_base, ft_psqt=ft_psqt,
+        device=device,
     )
     if batch > 0:
         with _launch_lock:
@@ -440,11 +439,6 @@ def ft_accumulate_cuda(
 
 #: Kernel launches by this wrapper (one per call with a non-empty batch).
 ft_accumulate_cuda.launches = 0
-
-
-def _wire_dtypes():
-    return (torch.int16,) + (
-        (torch.uint16,) if hasattr(torch, "uint16") else ())
 
 
 def ft_accumulate_packed_cuda(
@@ -459,7 +453,7 @@ def ft_accumulate_packed_cuda(
     psqt_tab: Optional[torch.Tensor] = None,
 ):
     """Launch the hand kernel's packed mode on the current stream: the
-    wire ``packed`` (int16 or uint16 [R, 2, 8], uint16 bits), the row
+    wire ``packed`` (int16 [R, 2, 8] carrying the uint16 bits), the row
     ``offsets`` (int32 [B]) and ``parent`` (int32 [B]) in; the
     accumulators out, and every anchor entry's result stored to its
     ``anchor_tab`` row (int32 [A, 2, L1]) and, with ``ft_psqt``, its
@@ -471,7 +465,7 @@ def ft_accumulate_packed_cuda(
         raise ValueError("ft_psqt needs psqt_tab in packed mode")
     n_rows, l1, n_anchor = _check_tables(
         ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device)
-    _check(packed, "packed", _wire_dtypes(), (None, 2, 8), device)
+    _check(packed, "packed", torch.int16, (None, 2, 8), device)
     if packed.shape[0] == 0:
         raise ValueError("packed holds no rows")
     _check(parent, "parent", torch.int32, (None,), device)
@@ -484,8 +478,8 @@ def ft_accumulate_packed_cuda(
         ft_w, ft_b, n_rows=n_rows, l1=l1, batch=batch, idx=None,
         wire=packed, offsets=offsets, parent=parent, anchor_tab=anchor_tab,
         psqt_tab=psqt_tab if ft_psqt is not None else None,
-        n_anchor=n_anchor, store=True, delta_base=DELTA_BASE,
-        ft_psqt=ft_psqt, device=device,
+        n_anchor=n_anchor, delta_base=DELTA_BASE, ft_psqt=ft_psqt,
+        device=device,
     )
     if batch > 0:
         with _launch_lock:
@@ -560,7 +554,8 @@ def ft_accumulate_packed(
     psqt_tab: Optional[torch.Tensor] = None,
 ):
     """``ft_accumulate`` over the compact wire, with the anchor stores:
-    ``packed`` [R, 2, 8] wire rows (uint16 bits, as int16 or uint16),
+    ``packed`` [R, 2, 8] wire rows (uint16 bits; the kernel takes them as
+    int16, the plain version either),
     ``offsets`` int [B] each entry's first row (see ``expand_packed``;
     entries past the emitted stream must point into a sentinel block),
     ``parent`` int32 [B] with removals at spec.DELTA_BASE. Persistent
