@@ -4,29 +4,37 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (written
-for the H100). It builds the port's CUDA kernel from the sources in the
-checkout, holds both of its modes (dense indices; the packed wire with
+for the H100). It builds the port's CUDA kernel and native core from the
+sources in the checkout, checks the core's FEN formatter next to torch,
+holds both of the kernel's modes (dense indices; the packed wire with
 the anchor-table stores) bit for bit against their plain PyTorch
 versions on every wire entry kind, serves UCI requests through the
 port's SearchService on the GPU (one kernel launch per dispatched
-step), checks search parity with the native C++ scalar evaluator, and
-times the kernel at the serving path's shape.
+step), checks search parity with the native C++ scalar evaluator, times
+the kernel at the serving path's shape, and runs the fishnet client —
+in process, then ``python -m fishnet_tpu_torch run`` as a subprocess —
+against a fake lichess server built on the standard library.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
-torch and CUDA versions), the kernel build, the parity checks, the UCI
-answers with the kernel's launch count, the scalar parity, then on the
+torch and CUDA versions), the builds, the FEN check, the parity checks,
+the UCI answers with the kernel's launch count, the scalar parity, the
+kernel's times, the client runs' throughput and latencies, then on the
 last three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
-``--phases`` (comma-separated: kernel, serve, parity, timing; default
-all four) limits a run to some phases while iterating on one of them.
-Three extra phases run only on request: ``profile`` traces a loaded
-burst with torch.profiler, ``anatomy`` (after ``serve``) times the
-kernel with one part of its work removed at a time, and ``ladder``
+``--phases`` (comma-separated: kernel, serve, parity, timing, run, cli;
+default all six) limits a run to some phases while iterating on one of
+them. Four extra phases run only on request: ``profile`` traces a
+loaded burst with torch.profiler, ``anatomy`` (after ``serve``) times
+the kernel with one part of its work removed at a time, ``ladder``
 times the UCI session and the burst with the entry-bucket ladder
-starting at 64 and at 8.
+starting at 64 and at 8, and ``threads`` times the burst at several
+driver-thread counts.
+
+The module imports only the standard library, so its fake lichess
+(``FakeLichess``, ``FakeServer``) also serves the CPU tests.
 """
 
 from __future__ import annotations
@@ -35,10 +43,12 @@ import argparse
 import asyncio
 import ctypes
 import faulthandler
+import itertools
 import json
 import random
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -46,13 +56,56 @@ from pathlib import Path
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernel", "serve", "parity", "timing")  # "profile": on request
+PHASES = ("kernel", "serve", "parity", "timing", "run", "cli")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 MATE_FEN = "6k1/5ppp/8/8/8/8/5PPP/3R2K1 w - - 0 1"
 STARTPOS = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
+
+
+#: (FEN, variant, what the native core's FEN formatter gives back) — the
+#: ``fen`` check (ROADMAP C7): castling rights in both notations and
+#: X-FEN file letters, an en-passant square kept and one dropped, move
+#: counters, crazyhouse pockets and a promoted piece, every variant.
+FEN_CHECKS = [
+    (STARTPOS, "standard", STARTPOS),
+    ("rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq e6 0 2",
+     "standard", "rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - 0 2"),
+    ("rnbqkbnr/ppp1p1pp/8/3pPp2/8/8/PPPP1PPP/RNBQKBNR w KQkq f6 0 3",
+     "standard", "rnbqkbnr/ppp1p1pp/8/3pPp2/8/8/PPPP1PPP/RNBQKBNR w KQkq f6 0 3"),
+    ("r3k2r/8/8/8/8/8/8/R3K2R b Kq - 17 42", "standard",
+     "r3k2r/8/8/8/8/8/8/R3K2R b Kq - 17 42"),
+    ("4k3/8/8/8/8/8/8/RR2K2R w BK - 5 30", "standard",
+     "4k3/8/8/8/8/8/8/RR2K2R w KB - 5 30"),
+    ("8/2k5/8/8/8/8/5K2/8 w - - 99 150", "standard",
+     "8/2k5/8/8/8/8/5K2/8 w - - 99 150"),
+    ("bqnb1rkr/pp3ppp/3ppn2/2p5/5P2/P2P4/NPP1P1PP/BQ1BNRKR w HFhf - 2 9",
+     "chess960", "bqnb1rkr/pp3ppp/3ppn2/2p5/5P2/P2P4/NPP1P1PP/BQ1BNRKR w KQkq - 2 9"),
+    ("rr2k3/8/8/8/8/8/8/RR2K2R w BKb - 0 1", "chess960",
+     "rr2k3/8/8/8/8/8/8/RR2K2R w KBb - 0 1"),
+    ("rnbqkb1r/pp1p1ppp/4pn2/2p5/2PP4/2N5/PP2PPPP/R1BQKBNR[Pp] w KQkq - 0 5",
+     "crazyhouse",
+     "rnbqkb1r/pp1p1ppp/4pn2/2p5/2PP4/2N5/PP2PPPP/R1BQKBNR[Pp] w KQkq - 0 5"),
+    ("r2q1rk1/ppp2ppp/2n1bN~2/3p4/3P4/2P5/PP3PPP/R1BQKB1R[PNb] b KQ - 0 11",
+     "crazyhouse",
+     "r2q1rk1/ppp2ppp/2n1bN~2/3p4/3P4/2P5/PP3PPP/R1BQKB1R[NPb] b KQ - 0 11"),
+    ("rnbqkbnr/pppppppp/8/1PP2PP1/PPPPPPPP/PPPPPPPP/PPPPPPPP/PPPPPPPP w kq - 0 1",
+     "horde",
+     "rnbqkbnr/pppppppp/8/1PP2PP1/PPPPPPPP/PPPPPPPP/PPPPPPPP/PPPPPPPP w kq - 0 1"),
+    ("8/8/8/8/8/8/krbnNBRK/qrbnNBRQ w - - 0 1", "racingkings",
+     "8/8/8/8/8/8/krbnNBRK/qrbnNBRQ w - - 0 1"),
+    ("rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 3+3 0 1", "3check",
+     "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 3+3 0 1"),
+    ("rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - 0 2",
+     "kingofthehill",
+     "rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - 0 2"),
+    ("rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - 0 2", "atomic",
+     "rnbqkbnr/pppp1ppp/8/4p3/4P3/8/PPPP1PPP/RNBQKBNR w KQkq - 0 2"),
+    ("rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w - - 0 1", "antichess",
+     "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w - - 0 1"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -170,9 +223,7 @@ def wire_batch(rng, size: int, n_tab: int, all_full: bool = False,
 
 def random_lines(n: int, seed: int):
     """``n`` positions as move lists from the start position: seeded
-    random walks played by the native core, ongoing games only. (Move
-    lists, not FENs: on the GPU host the core's FEN formatter, which
-    goes through std::ostringstream, crashes once torch is loaded.)"""
+    random walks played by the native core, ongoing games only."""
     from fishnet_tpu_torch.chess.core import load
 
     lib = load()
@@ -197,6 +248,189 @@ def random_lines(n: int, seed: int):
         finally:
             lib.fc_pos_free(pos)
     return lines
+
+
+# -- a fake lichess server on the standard library ----------------------------
+
+VALID_KEY = "TESTKEY"
+
+
+class FakeLichess:
+    """In-memory fishnet job queue with the semantics of the handlers of
+    ``tests/fake_server.py`` (which needs aiohttp; this one needs only
+    the standard library, so it runs beside the port on the card):
+    acquire answers 202 with the first unacquired job or 204; a
+    submitted analysis whose first part is null is a progress report,
+    any other completes the job; a move submission chains the next
+    unacquired move job (202) or answers 204; an abort puts the job
+    back in the queue; the key is checked against ``VALID_KEY``. Every
+    handler runs under one lock; timestamps are ``time.monotonic()``."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.jobs = []  # [{"body": ..., "user_queue": bool, "acquired": bool}]
+        self.analyses = {}
+        self.progress_reports = {}
+        self.moves = {}
+        self.aborted = []
+        self.acquire_count = 0
+        self.reject_with = None  # force an HTTP status on acquire
+        self.handed_at = {}
+        self.completed_at = {}
+        self.move_done_at = {}
+        self.bodies = {}  # work id -> the job as added, kept after it is done
+        self._ids = itertools.count()
+
+    def add_analysis_job(self, moves: str = "e2e4 e7e5", position: str = STARTPOS,
+                         variant: str = "standard", skip_positions=None,
+                         nodes: int = 5000, multipv=None, depth=None,
+                         game_id: str = "", user_queue: bool = False) -> str:
+        work_id = f"wk{next(self._ids):06d}"
+        work = {"type": "analysis", "id": work_id,
+                "nodes": {"sf15": nodes, "sf14": nodes, "classical": nodes * 2},
+                "timeout": 7000}
+        if multipv is not None:
+            work["multipv"] = multipv
+        if depth is not None:
+            work["depth"] = depth
+        self._add({"work": work, "game_id": game_id, "position": position,
+                   "variant": variant, "moves": moves,
+                   "skipPositions": skip_positions or []}, user_queue)
+        return work_id
+
+    def add_move_job(self, moves: str = "", position: str = STARTPOS,
+                     level: int = 5, clock=None, variant: str = "standard") -> str:
+        work_id = f"wk{next(self._ids):06d}"
+        work = {"type": "move", "id": work_id, "level": level}
+        if clock:
+            work["clock"] = clock
+        self._add({"work": work, "game_id": "", "position": position,
+                   "variant": variant, "moves": moves}, False)
+        return work_id
+
+    def _add(self, body, user_queue: bool) -> None:
+        with self.lock:
+            self.bodies[body["work"]["id"]] = body
+            self.jobs.append({"body": body, "user_queue": user_queue,
+                              "acquired": False})
+
+    def _hand_out(self, kind=None, slow: bool = False):
+        for job in self.jobs:
+            work = job["body"]["work"]
+            if job["acquired"] or (slow and job["user_queue"]):
+                continue
+            if kind is None or work["type"] == kind:
+                job["acquired"] = True
+                self.handed_at.setdefault(work["id"], time.monotonic())
+                return 202, job["body"]
+        return 204, None
+
+    def _done(self, work_id: str) -> None:
+        self.jobs = [j for j in self.jobs if j["body"]["work"]["id"] != work_id]
+
+    def handle(self, method: str, path: str, query: dict, headers, body):
+        """(status, JSON payload or None) for one request."""
+        key = (body or {}).get("fishnet", {}).get("apikey")
+        authed = (headers.get("Authorization") == f"Bearer {VALID_KEY}"
+                  or key == VALID_KEY)
+        parts = path.strip("/").split("/")
+        if parts[:1] != ["fishnet"] or len(parts) < 2:
+            return 404, None
+        route, arg = parts[1], (parts[2] if len(parts) > 2 else None)
+        with self.lock:
+            if method == "GET" and route == "key":
+                ok = arg == VALID_KEY if arg is not None else authed
+                return (200 if ok else (404 if arg is not None else 401)), None
+            if method == "GET" and route == "status":
+                queued = {q: sum(1 for j in self.jobs if not j["acquired"]
+                                 and j["user_queue"] == (q == "user"))
+                          for q in ("user", "system")}
+                return 200, {"analysis": {q: {"acquired": 0, "queued": n,
+                                              "oldest": 0}
+                                          for q, n in queued.items()}}
+            if method != "POST":
+                return 404, None
+            if route == "acquire":
+                self.acquire_count += 1
+                if self.reject_with:
+                    return self.reject_with, None
+                if not authed:
+                    return 401, None
+                return self._hand_out(slow=query.get("slow") == ["true"])
+            if not authed:
+                return 401, None
+            if route == "analysis":
+                analysis = (body or {}).get("analysis") or []
+                if analysis and analysis[0] is None:
+                    self.progress_reports.setdefault(arg, []).append(body)
+                else:
+                    self.analyses[arg] = body
+                    self.completed_at.setdefault(arg, time.monotonic())
+                    self._done(arg)
+                return 204, None
+            if route == "move":
+                self.moves[arg] = body
+                self.move_done_at.setdefault(arg, time.monotonic())
+                self._done(arg)
+                return self._hand_out(kind="move")
+            if route == "abort":
+                self.aborted.append(arg)
+                for job in self.jobs:
+                    if job["body"]["work"]["id"] == arg:
+                        job["acquired"] = False
+                return 204, None
+        return 404, None
+
+
+class FakeServer:
+    """A FakeLichess behind ``http.server.ThreadingHTTPServer`` on a
+    thread, on an ephemeral localhost port. Use as a context manager;
+    ``endpoint`` is the fishnet URL to point a client at."""
+
+    def __init__(self, lichess: Optional[FakeLichess] = None) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlsplit
+
+        self.lichess = lichess = lichess or FakeLichess()
+
+        class Handler(BaseHTTPRequestHandler):
+            def _serve(self):
+                url = urlsplit(self.path)
+                raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                try:
+                    body = json.loads(raw) if raw else None
+                except ValueError:
+                    body = None
+                status, payload = lichess.handle(
+                    self.command, url.path, parse_qs(url.query), self.headers,
+                    body)
+                data = b"" if payload is None else json.dumps(payload).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_POST = _serve
+
+            def log_message(self, *args):
+                pass
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._httpd.daemon_threads = True
+        port = self._httpd.server_address[1]
+        self.endpoint = f"http://127.0.0.1:{port}/fishnet"
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="fake-lichess", daemon=True)
+
+    def __enter__(self) -> "FakeServer":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=10)
 
 
 # -- phases -------------------------------------------------------------------
@@ -669,6 +903,26 @@ def phase_ladder(weights, dev) -> None:
             service.close()
 
 
+def phase_threads(weights, dev) -> None:
+    """The load burst on a fresh service (microbatch 1024, pipeline 2) at
+    1, 2, 4 and as many driver threads as ``run`` has cores, then at 1
+    again: each thread steps its own groups and dispatches their evals
+    as steps of their own. Not part of the default run."""
+    from fishnet_tpu_torch.configure import resolve_cores
+    from fishnet_tpu_torch.search.service import SearchService
+
+    for threads in (1, 2, 4, resolve_cores(None), 1):
+        service = SearchService(weights=weights, batch_capacity=1024,
+                                pipeline_depth=2, driver_threads=threads,
+                                device=dev)
+        try:
+            service.warmup()
+            log(f"  {threads} driver thread(s), {service._n_groups} groups:")
+            load_burst(service)
+        finally:
+            service.close()
+
+
 def phase_profile(torch, weights, dev) -> None:
     """Where a loaded step's time goes: 256 concurrent searches through
     the service under torch.profiler (CPU and CUDA activity); prints the
@@ -1063,6 +1317,288 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
     return entry
 
 
+def phase_fen() -> None:
+    """ROADMAP C7, in this process (torch imported, the core loaded):
+    the port's Board gives back the expected FEN of every FEN_CHECKS
+    entry, and of a crazyhouse game replayed move by move."""
+    from fishnet_tpu_torch.chess import Board
+    from fishnet_tpu_torch.protocol.types import Variant
+
+    for fen, variant, want in FEN_CHECKS:
+        got = Board(fen, Variant.parse(variant)).fen()
+        check(got == want, f"Board({fen!r}, {variant}).fen() = {got!r}, "
+                           f"expected {want!r}")
+    board = Board(STARTPOS, Variant.CRAZYHOUSE)
+    for move in "e2e4 d7d5 e4d5 d8d5 b1c3 d5a5".split():
+        board.push_uci(move)
+    want = "rnb1kbnr/ppp1pppp/8/q7/8/2N5/PPPP1PPP/R1BQKBNR[Pp] w KQkq - 2 4"
+    check(board.fen() == want, f"crazyhouse replay: {board.fen()!r}")
+    log(f"  {len(FEN_CHECKS) + 1} FENs (castling, X-FEN letters, en "
+        "passant, counters, pockets, promoted pieces, every variant) == "
+        "expected, with torch imported")
+
+
+def random_games(n: int, plies: int, seed: int):
+    """``n`` games of exactly ``plies`` seeded random legal moves from
+    the start position, as move lists; a walk that ends the game early
+    is drawn again."""
+    from fishnet_tpu_torch.chess import Board
+
+    rnd = random.Random(seed)
+    games = []
+    while len(games) < n:
+        board, moves = Board(), []
+        while len(moves) < plies and board.outcome() == Board.ONGOING:
+            move = rnd.choice(board.legal_moves())
+            board.push_uci(move)
+            moves.append(move)
+        if len(moves) == plies and board.outcome() == Board.ONGOING:
+            games.append(moves)
+    return games
+
+
+def add_run_jobs(lichess, games: int, moves: int, seed: int,
+                 nodes: int = 3000):
+    """The run phases' jobs: ``games`` analysis games of 40 plies at
+    ``nodes`` nodes, each with one skipped ply, and ``moves`` best-move jobs
+    at levels 1, 4 and 8 (the first with a clock). Returns (analysis
+    ids, move ids)."""
+    rnd = random.Random(seed)
+    lines = random_games(games + moves, 40, seed)
+    analysis = [lichess.add_analysis_job(moves=" ".join(line), nodes=nodes,
+                                         skip_positions=[rnd.randrange(41)])
+                for line in lines[:games]]
+    move_ids = []
+    for i, line in enumerate(lines[games:]):
+        clock = {"wtime": 6000, "btime": 6000, "inc": 1} if i == 0 else None
+        move_ids.append(lichess.add_move_job(
+            moves=" ".join(line[:rnd.randrange(8, 30)]),
+            level=(1, 4, 8)[i % 3], clock=clock))
+    return analysis, move_ids
+
+
+def run_report(lichess, analysis_ids, move_ids, what: str) -> dict:
+    """Check the submissions of a run phase and print its numbers: every
+    job submitted, every analysis well formed (41 parts, the skipped
+    one skipped, the others a finite score with a legal-looking pv),
+    every best move a legal move; games, positions, nodes, wall seconds
+    from the first acquire to the last submission, positions/s,
+    nodes/s, per game the median and maximum seconds from acquire to
+    its final submission, per move job the seconds from acquire to
+    move."""
+    import statistics
+
+    from fishnet_tpu_torch.chess import Board
+
+    check(all(i in lichess.analyses for i in analysis_ids),
+          f"{what}: {sum(i not in lichess.analyses for i in analysis_ids)} "
+          "analyses not submitted")
+    check(all(i in lichess.moves for i in move_ids),
+          f"{what}: {sum(i not in lichess.moves for i in move_ids)} move "
+          "jobs not submitted")
+    positions = nodes = 0
+    for work_id in analysis_ids:
+        parts = lichess.analyses[work_id]["analysis"]
+        check(len(parts) == 41, f"{what}: {work_id} has {len(parts)} parts")
+        for part in parts:
+            if part == {"skipped": True}:
+                continue
+            score = part["score"]
+            check(set(score) <= {"cp", "mate"} and len(score) == 1
+                  and isinstance(next(iter(score.values())), int),
+                  f"{what}: {work_id} score {score}")
+            check(part["nodes"] > 0 and part["depth"] >= 1
+                  and len(part.get("pv", "")) >= 4,
+                  f"{what}: {work_id} part {part}")
+            positions += 1
+            nodes += part["nodes"]
+        check(sum(p == {"skipped": True} for p in parts) == 1,
+              f"{what}: {work_id} skipped parts")
+    for work_id in move_ids:
+        body = lichess.bodies[work_id]
+        board = Board(body["position"])
+        for move in body["moves"].split():
+            board.push_uci(move)
+        best = lichess.moves[work_id]["move"]["bestmove"]
+        check(best in board.legal_moves(),
+              f"{what}: move job {work_id}: {best!r} is not a legal move")
+    done = [lichess.completed_at[i] for i in analysis_ids] + \
+        [lichess.move_done_at[i] for i in move_ids]
+    first = min(lichess.handed_at[i] for i in analysis_ids + move_ids)
+    wall = max(done) - first
+    per_game = [lichess.completed_at[i] - lichess.handed_at[i]
+                for i in analysis_ids]
+    per_move = [lichess.move_done_at[i] - lichess.handed_at[i]
+                for i in move_ids]
+    out = {"games": len(analysis_ids), "positions": positions,
+           "nodes": nodes, "wall_s": wall, "positions_per_s": positions / wall,
+           "nodes_per_s": nodes / wall,
+           "game_s_median": statistics.median(per_game),
+           "game_s_max": max(per_game), "move_s": per_move}
+    log(f"  {what}: {len(analysis_ids)} games, {positions} positions, "
+        f"{nodes} nodes in {wall:.3f} s from the first acquire to the last "
+        f"submission: {positions / wall:.1f} positions/s, "
+        f"{nodes / wall:.0f} nodes/s")
+    log(f"  {what}: acquire -> final submit per game: median "
+        f"{out['game_s_median']:.3f} s, max {out['game_s_max']:.3f} s; "
+        f"acquire -> move per move job: "
+        f"{', '.join(f'{s:.3f}' for s in per_move)} s")
+    return out
+
+
+async def drive_client(client, lichess, ids, timeout: float) -> None:
+    """Run ``client`` until every job of ``ids`` is submitted."""
+    await client.start()
+    try:
+        deadline = time.monotonic() + timeout
+        while not all(i in lichess.analyses or i in lichess.moves
+                      for i in ids):
+            check(time.monotonic() < deadline, "the client did not finish "
+                                               f"in {timeout:.0f} s")
+            await asyncio.sleep(0.05)
+    finally:
+        await client.stop()
+
+
+def phase_run(weights, dev):
+    """The main path through the entry points a user calls: the port's
+    ``Client`` over the ``tpu-nnue`` engine factory that ``python -m
+    fishnet_tpu_torch run`` builds (microbatch 1024, pipeline 2, the
+    supervisor's ladder), against the stdlib fake lichess with 16
+    analysis games and 4 move jobs. The packed kernel's launch count is
+    zeroed after the service's warm-up and read after the run; the rung
+    must stay "fused". Then the parity sub-run: 3 games at depth 4, one
+    worker, prefetch pinned, on a GPU service and on the native scalar
+    service, must submit the same score and best move per ply."""
+    from fishnet_tpu_torch.__main__ import build_engine_factory
+    from fishnet_tpu_torch.client import Client
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.search.service import SearchService
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    logger = Logger(verbose=0)
+    opt = parse_and_configure(["run", "--no-conf", "--no-stats-file",
+                               "--microbatch", "1024", "--pipeline", "2"])
+    factory = build_engine_factory(opt, logger)
+    supervisor = factory.supervisor
+    with FakeServer() as server:
+        lichess = server.lichess
+        analysis_ids, move_ids = add_run_jobs(lichess, 16, 4, seed=23)
+        client = Client(endpoint=server.endpoint, key=VALID_KEY,
+                        cores=opt.resolved_cores(), engine_factory=factory,
+                        logger=logger, max_backoff=1.0,
+                        workers=opt.resolved_workers())
+
+        async def run():
+            # The user's path builds and warms the service before the
+            # first acquire (run_client); so does this.
+            await factory.create(EngineFlavor.OFFICIAL)
+            ft_gather.ft_accumulate_packed_cuda.launches = 0
+            ft_gather.ft_accumulate_cuda.launches = 0
+            steps0 = factory.service.counters()["eval_steps"]
+            await drive_client(client, lichess, analysis_ids + move_ids, 600)
+            return factory.service.counters()["eval_steps"] - steps0
+
+        try:
+            steps = asyncio.run(run())
+            launches = ft_gather.ft_accumulate_packed_cuda.launches
+            dense = ft_gather.ft_accumulate_cuda.launches
+            service = factory.service
+            rung = (supervisor.rung, service.psqt_path, supervisor.respawns,
+                    service.is_alive())
+        finally:
+            factory.close()
+    log(f"  {opt.resolved_workers()} workers, {opt.resolved_search_threads()} "
+        f"driver threads; ft_gather launches {launches} (packed), {dense} "
+        f"(dense) for {steps} dispatched steps; rung {rung[0]} (service "
+        f"{rung[1]}), respawns {rung[2]}")
+    check(launches > 0, "the run path never launched the kernel")
+    check(launches == steps, f"{launches} packed launches for {steps} steps")
+    check(dense == 0, "the run path launched the dense mode")
+    check(rung == ("fused", "fused", 0, True),
+          f"the service left the fused rung or died: {rung}")
+    report = run_report(lichess, analysis_ids, move_ids, "run")
+    report["launches"] = launches
+
+    # Parity: GPU service vs native scalar service, 3 games at depth 4.
+    games = random_games(3, 10, seed=29)
+    submitted = []
+    for backend in ("torch", "scalar"):
+        svc = SearchService(weights=weights, pool_slots=16, batch_capacity=64,
+                            tt_bytes=256 << 20, backend=backend, device=dev)
+        svc.set_prefetch(8, adaptive=False)
+        with FakeServer() as server:
+            ids = [server.lichess.add_analysis_job(
+                moves=" ".join(g), nodes=10_000_000, depth=4) for g in games]
+            client = Client(endpoint=server.endpoint, key=VALID_KEY, cores=1,
+                            workers=1, engine_factory=TpuNnueEngineFactory(svc),
+                            logger=logger, max_backoff=0.2)
+            try:
+                asyncio.run(drive_client(client, server.lichess, ids, 600))
+            finally:
+                svc.close()
+            submitted.append([server.lichess.analyses[i]["analysis"]
+                              for i in ids])
+    gpu, scalar = ([(p["score"], p.get("pv", "").split(" ")[0], p["depth"])
+                    for game in side for p in game] for side in submitted)
+    bad = [(i, g, s) for i, (g, s) in enumerate(zip(gpu, scalar)) if g != s]
+    plies = sum(len(g) + 1 for g in games)
+    check(len(gpu) == len(scalar) == plies and not bad,
+          f"GPU vs scalar: {len(bad)} of {len(gpu)} plies differ: {bad[:3]}")
+    log(f"  parity: {len(games)} games, {len(gpu)} plies at depth 4 through "
+        "the client: GPU service == native scalar service on (score, best "
+        "move, depth) per ply")
+    return report
+
+
+def phase_cli() -> dict:
+    """``python -m fishnet_tpu_torch run`` as a user starts it, as a
+    subprocess against the stdlib fake lichess (8 games, 2 move jobs):
+    once every job is submitted, SIGINT drains it; it must exit 0 and
+    its teardown log (-v) must show packed kernel launches."""
+    import re
+    import signal
+
+    with FakeServer() as server:
+        lichess = server.lichess
+        analysis_ids, move_ids = add_run_jobs(lichess, 8, 2, seed=31)
+        cmd = [sys.executable, "-m", "fishnet_tpu_torch", "run", "--no-conf",
+               "--no-stats-file", "--endpoint", server.endpoint, "--key",
+               VALID_KEY, "--max-backoff", "1", "-v"]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.monotonic() + 600
+            while not all(i in lichess.analyses or i in lichess.moves
+                          for i in analysis_ids + move_ids):
+                check(proc.poll() is None,
+                      f"the CLI exited early ({proc.returncode})")
+                check(time.monotonic() < deadline, "the CLI did not finish")
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGINT)
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    tail = out.splitlines()[-6:]
+    for line in tail:
+        log(f"  | {line[:300]}")
+    check(proc.returncode == 0, f"the CLI exited {proc.returncode}")
+    found = re.search(r"ft_gather launches: packed (\d+)", out)
+    check(found is not None and int(found.group(1)) > 0,
+          "the CLI's teardown log shows no packed kernel launches")
+    check("rung fused" in out, "the CLI's service left the fused rung")
+    log(f"  the CLI's teardown log: ft_gather launches {found.group(1)} "
+        "(packed), rung fused")
+    report = run_report(lichess, analysis_ids, move_ids, "cli")
+    report["launches"] = int(found.group(1))
+    return report
+
+
 #: Timing-only variants of the kernel source for the anatomy phase:
 #: (name, [(text in csrc/ft_gather.cu, replacement)]). Each removes one
 #: part of the work; its results are wrong by design and never checked.
@@ -1172,7 +1708,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         kernels = pool.submit(_build.build, ["ft_gather"])
-        load_core()  # make -C cpp
+        load_core()  # g++ over cpp/src (chess/core.py)
         paths = kernels.result()
     log(f"  built {[p.name for p in paths]} in {time.perf_counter() - t0:.3f} s")
     for name, text in _build.build_logs.items():
@@ -1183,6 +1719,9 @@ def main() -> int:
     weights = NnueWeights.random(seed=0)
     params = params_from_weights(weights, dev)
     log(f"  random net (seed 0) on the card in {time.perf_counter() - t0:.3f} s")
+
+    log("[fen] the native core's FEN formatter next to torch (ROADMAP C7)")
+    phase_fen()
 
     worst = None
     if "kernel" in phases:
@@ -1200,6 +1739,17 @@ def main() -> int:
     if "timing" in phases and serve is not None:
         log("[timing] ft_gather at the serving shape (B = 512)")
         entries.append(phase_timing(torch, params, dev, serve, worst))
+    if "run" in phases:
+        log("[run] the fishnet client over the tpu-nnue engine on the GPU, "
+            "against a stdlib fake lichess")
+        run = phase_run(weights, dev)
+        for entry in entries:
+            entry["launches_run"] = run["launches"]
+    if "cli" in phases:
+        log("[cli] python -m fishnet_tpu_torch run, drained by SIGINT")
+        cli = phase_cli()
+        for entry in entries:
+            entry["launches_cli"] = cli["launches"]
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler")
         phase_profile(torch, weights, dev)
@@ -1209,6 +1759,10 @@ def main() -> int:
     if "ladder" in phases:
         log("[ladder] entry buckets from 64 vs from 8, one call")
         phase_ladder(weights, dev)
+    if "threads" in phases:
+        log("[threads] the load burst at 1, 2, 4 and `run`'s default driver "
+            "threads")
+        phase_threads(weights, dev)
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

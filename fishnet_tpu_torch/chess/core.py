@@ -1,25 +1,52 @@
-"""ctypes binding to the native chess core (cpp/libfishnetcore.so).
+"""ctypes binding to the native chess core, compiled by the port.
 
-The reference delegates chess rules to the shakmaty library
-(src/queue.rs:524-552); here the same single implementation of the rules
-serves both the Python scheduler (legality replay, batch expansion) and
-the native search engine — no duplicated rules logic.
+The sources are the repository's ``cpp/src`` — the rules, the search
+and the fiber pool that the JAX package loads as ``cpp/libfishnetcore.so``
+(C ABI 11) — but the port compiles its own library from them at first
+use, into ``chess/build/libfishnetcore-<hash>.so`` beside this module
+(the hash covers the sources, the flags and the host CPU, so an edited
+source or a checkout copied to another machine never loads a stale
+library), and loads that one.
 
-The library is built with ``make -C cpp``. This module locates it next to
-the repo's ``cpp/`` directory and (re)builds it on demand if missing.
+Why its own build (ROADMAP C7): ``make -C cpp`` compiles with ``$CXX``,
+and a host may point ``CXX`` at a toolchain that links libstdc++
+statically into shared libraries. The GPU host does
+(``CXX=/opt/gcc/bin/g++``): its core carries a second copy of the C++
+runtime whose symbols are exported, some of them GNU-unique. Next to
+torch, which loads the system ``libstdc++.so.6``, the two runtimes then
+share part of their ``std::locale`` state, and the first number that
+``Position::fen`` formats through ``std::ostringstream`` reads a facet
+the other runtime never set up: a segfault, in whichever order torch
+and the core are loaded. So the port compiles with the ``g++`` on
+``PATH`` and ignores ``CXX``/``CXXFLAGS``/``LDFLAGS``; links the C++
+runtime as the shared library torch uses; hides anything a static
+archive would bring (``--exclude-libs,ALL``); and keeps its own
+GNU-unique objects private (``-fno-gnu-unique``), so that it shares no
+runtime state with torch, nor with the JAX package's copy of the core
+when a test process loads both.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
-_CPP_DIR = Path(__file__).resolve().parent.parent.parent / "cpp"
-_LIB_PATH = _CPP_DIR / "libfishnetcore.so"
+_SRC_DIR = Path(__file__).resolve().parent.parent.parent / "cpp" / "src"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+#: The Makefile's sources and optimisation flags, plus the isolation
+#: flags above.
+SOURCES = ("bitboard", "position", "nnue", "hce", "search", "pool", "capi")
+CXX_FLAGS = (
+    "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
+    "-fno-gnu-unique", "-Wl,--exclude-libs,ALL",
+)
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -35,72 +62,46 @@ class NativeCoreError(RuntimeError):
     pass
 
 
-def _build() -> None:
-    """(Re)build the library. `make` is a cheap no-op when up to date, so
-    this runs on every first load — a stale .so surviving C++ source
-    changes would otherwise be loaded silently."""
-    try:
-        subprocess.run(
-            ["make", "-C", str(_CPP_DIR), "libfishnetcore.so"],
-            check=True,
-            capture_output=True,
-            text=True,
-        )
-    except (subprocess.CalledProcessError, OSError) as err:
-        # No toolchain (packaged deployment): fall back to whatever
-        # prebuilt library _candidate_libraries finds — native or a CPU
-        # tier. Only surface the build error when nothing loadable exists.
-        candidates = [_LIB_PATH, *_CPP_DIR.glob("libfishnetcore-*.so")]
-        if any(p.exists() for p in candidates):
-            return
-        stderr = getattr(err, "stderr", "") or str(err)
-        raise NativeCoreError(
-            f"failed to build native core: {stderr[-2000:]}"
-        ) from err
+def library_path() -> Path:
+    """Where this host's build of the current sources lives."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in sorted(_SRC_DIR.glob("*")):
+        if path.suffix in (".cpp", ".h"):
+            digest.update(path.name.encode() + path.read_bytes())
+    try:  # -march=native: a library is only good for the CPU it was built on
+        cpu = Path("/proc/cpuinfo").read_text()
+        digest.update(" ".join(sorted({l for l in cpu.splitlines()
+                                       if l.startswith(("model name", "flags"))}))
+                      .encode())
+    except OSError:
+        pass
+    return BUILD_DIR / f"libfishnetcore-{digest.hexdigest()[:16]}.so"
 
 
-def _candidate_libraries() -> list:
-    """Libraries to try, best first: FISHNET_TPU_CORE_LIB env >
-    host-built -march=native library > best CPU-feature tier (v4, then v3
-    with fast PEXT, then v2 — mirroring the reference's tier selection and
-    AMD slow-PEXT heuristic, assets.rs:86-126). Later candidates are
-    fallbacks for earlier ones that fail the ABI handshake (e.g. a
-    stale host build next to freshly shipped tiers)."""
-    override = os.environ.get("FISHNET_TPU_CORE_LIB")
-    if override:
-        path = Path(override)
-        if not path.exists():
+def build() -> Path:
+    """Compile the core unless this host's build of the current sources
+    exists. One process builds; concurrent ones wait on a file lock and
+    then find the library."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        compiler = shutil.which("g++")
+        if compiler is None:
+            raise NativeCoreError("g++ not found: the native core cannot be built")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *CXX_FLAGS, "-o", str(tmp),
+               *(str(_SRC_DIR / f"{name}.cpp") for name in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
             raise NativeCoreError(
-                f"FISHNET_TPU_CORE_LIB points to a missing file: {override}"
-            )
-        return [path]  # explicit override: no silent fallback
-    candidates = []
-    if _LIB_PATH.exists():
-        candidates.append(_LIB_PATH)
-    from fishnet_tpu_torch.chess.cpu import detect
-
-    tier = detect().best_tier()
-    tiers = {
-        "v4": ["v4", "v3", "v2"],
-        "v3": ["v3", "v2"],
-        "v2": ["v2"],
-        "arm64": ["arm64"],
-    }.get(tier, [])
-    # Tier libraries live in cpp/ (source checkout) or in the package's
-    # own _native/ (pip/pipx wheel install, where cpp/ doesn't exist) —
-    # setup.py's build hook copies `make tiers` output there.
-    native_dir = Path(__file__).resolve().parent.parent / "_native"
-    for t in tiers:
-        for base in (_CPP_DIR, native_dir):
-            path = base / f"libfishnetcore-{t}.so"
-            if path.exists():
-                candidates.append(path)
-    if not candidates:
-        raise NativeCoreError(
-            "no native core library found (build with `make -C cpp` or ship "
-            "`make tiers` artifacts)"
-        )
-    return candidates
+                f"failed to build the native core: {proc.stderr[-2000:]}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    return out
 
 
 def load() -> ctypes.CDLL:
@@ -109,32 +110,13 @@ def load() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        _build()
-        lib = None
-        mismatches = []
-        for path in _candidate_libraries():
-            try:
-                candidate = ctypes.CDLL(str(path))
-            except OSError as err:
-                # Truncated file / wrong arch / missing deps: skip to the
-                # next candidate instead of aborting the fallback chain.
-                mismatches.append(f"{path} (unloadable: {err})")
-                continue
-            try:
-                candidate.fc_abi_version.restype = ctypes.c_int
-                abi = candidate.fc_abi_version()
-            except AttributeError:
-                abi = -1
-            if abi == ABI_VERSION:
-                lib = candidate
-                break
-            mismatches.append(f"{path} (ABI {abi})")
-        if lib is None:
+        path = build()
+        lib = ctypes.CDLL(str(path))
+        lib.fc_abi_version.restype = ctypes.c_int
+        abi = lib.fc_abi_version()
+        if abi != ABI_VERSION:
             raise NativeCoreError(
-                f"no native core with ABI version {ABI_VERSION} found; "
-                f"rejected: {', '.join(mismatches)} — rebuild with "
-                "`make -C cpp` or ship matching tier libraries"
-            )
+                f"{path} has C ABI {abi}, the port binds ABI {ABI_VERSION}")
 
         lib.fc_init.restype = ctypes.c_int
         lib.fc_variant_supported.argtypes = [ctypes.c_int]

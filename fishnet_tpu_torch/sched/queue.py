@@ -1,0 +1,832 @@
+"""Batch scheduler: validates acquired games, expands them into per-ply
+positions, schedules positions to workers, reassembles results, and
+submits completed batches.
+
+The port's copy of ``fishnet_tpu/sched/queue.py`` for the single-stream
+client, without its metrics, spans, fault sites, accounting ledger and
+eval-cache generation tick. Queued positions go through a
+``LaneScheduler`` of one tenant: best-move jobs ride the latency lane
+ahead of analysis positions, which keep their FIFO order. Behavioral
+equivalent of the reference's queue layer (src/queue.rs):
+
+* acquired games are replayed move-by-move at the trust boundary before
+  any engine sees them (queue.rs:543-552) — here via the native Board;
+* a game expands into one Position per ply, root first (queue.rs:571-600),
+  honoring ``skipPositions`` (queue.rs:602-606) with the all-skipped
+  edge case completing immediately (queue.rs:608-621);
+* engine flavor: standard-chess analysis -> OFFICIAL (NNUE); variants and
+  all best-move jobs -> MULTI_VARIANT (HCE) (queue.rs:530-539);
+* any position failure abandons the whole batch silently so the server
+  reassigns it by timeout (queue.rs:207-214);
+* partial progress is reported every 2 x cores completed positions, with
+  the first part forced to null — lila distinguishes progress reports
+  from final analysis by the first part (queue.rs:286-300, 686-697);
+* acquire pacing: user/system backlog thresholds plus the NPS-derived
+  minimum, polling the server's /status (queue.rs:331-365).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Tuple
+
+from fishnet_tpu_torch.chess import (
+    Board,
+    InvalidFenError,
+    UnsupportedVariantError,
+)
+from fishnet_tpu_torch.ipc import Position, PositionFailed, PositionResponse
+from fishnet_tpu_torch.net.api import ApiStub
+from fishnet_tpu_torch.protocol.types import (
+    AcquiredKind,
+    AcquireResponseBody,
+    AnalysisPart,
+    AnalysisPartJson,
+    EngineFlavor,
+    Variant,
+    Work,
+)
+from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
+from fishnet_tpu_torch.utils.logger import Logger, ProgressAt, QueueStatusBar
+from fishnet_tpu_torch.utils.stats import NpsRecorder, Stats, StatsRecorder
+
+
+#: How many times a batch may be requeued after position failures
+#: before it is abandoned to the server's reassignment timeout. Caps
+#: the retry loop a deterministically-failing position would otherwise
+#: spin forever (doc/resilience.md).
+MAX_REQUEUE_GENERATIONS = 2
+
+#: Serving lanes (resilience/shedding.py in the JAX package).
+LANE_LATENCY = "latency"
+LANE_THROUGHPUT = "throughput"
+LANES = (LANE_LATENCY, LANE_THROUGHPUT)
+
+
+def lane_of_work(work: Work) -> str:
+    """Best-move jobs ride the latency lane; analysis the throughput
+    lane."""
+    return LANE_LATENCY if work.is_move else LANE_THROUGHPUT
+
+
+class _Skip:
+    """Sentinel marking a skipped position (distinct from None = not yet
+    analysed), mirroring the reference's Skip<T> (queue.rs:495-505)."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "SKIP"
+
+
+SKIP = _Skip()
+
+
+class IncomingError(Exception):
+    pass
+
+
+class AllSkipped(IncomingError):
+    def __init__(self, completed: "CompletedBatch") -> None:
+        super().__init__("all positions skipped")
+        self.completed = completed
+
+
+@dataclass
+class IncomingBatch:
+    work: Work
+    flavor: EngineFlavor
+    variant: Variant
+    positions: List[object]  # Position | SKIP
+    url: Optional[str] = None
+
+    @classmethod
+    def from_acquired(
+        cls, endpoint: str, body: AcquireResponseBody
+    ) -> "IncomingBatch":
+        """Validate + expand an acquired game (queue.rs:516-627). Raises
+        IncomingError for invalid games, AllSkipped for the empty edge."""
+        url = body.batch_url(endpoint)
+
+        if body.variant.is_standard and body.work.is_analysis:
+            flavor = EngineFlavor.OFFICIAL
+        else:
+            flavor = EngineFlavor.MULTI_VARIANT
+
+        try:
+            board = Board(body.position, body.variant)
+        except (InvalidFenError, UnsupportedVariantError) as err:
+            raise IncomingError(f"invalid position: {err}") from err
+        root_fen = board.fen()
+
+        # Trust-boundary legality replay; also normalizes each move's UCI
+        # (e.g. e1g1 -> e1h1 castling notation).
+        moves: List[str] = []
+        replay = board.copy()
+        for uci in body.moves:
+            normalized = replay.normalize_uci(uci)
+            if normalized is None:
+                raise IncomingError(f"illegal move {uci!r}")
+            replay.push_uci(normalized)
+            moves.append(normalized)
+
+        if body.work.is_move:
+            positions: List[object] = [
+                Position(
+                    work=body.work,
+                    position_id=0,
+                    flavor=flavor,
+                    variant=body.variant,
+                    root_fen=root_fen,
+                    moves=moves,
+                    url=url,
+                )
+            ]
+        else:
+            positions = []
+            for ply in range(len(moves) + 1):
+                positions.append(
+                    Position(
+                        work=body.work,
+                        position_id=ply,
+                        flavor=flavor,
+                        variant=body.variant,
+                        root_fen=root_fen,
+                        moves=moves[:ply],
+                        url=f"{url}#{ply}" if url else None,
+                    )
+                )
+            for skip in body.skip_positions:
+                if 0 <= skip < len(positions):
+                    positions[skip] = SKIP
+
+            if all(p is SKIP for p in positions):
+                now = time.monotonic()
+                raise AllSkipped(
+                    CompletedBatch(
+                        work=body.work,
+                        flavor=flavor,
+                        variant=body.variant,
+                        positions=[SKIP] * len(positions),
+                        started_at=now,
+                        completed_at=now,
+                        url=url,
+                    )
+                )
+
+        return cls(
+            work=body.work,
+            flavor=flavor,
+            variant=body.variant,
+            positions=positions,
+            url=url,
+        )
+
+
+@dataclass
+class PendingBatch:
+    work: Work
+    flavor: EngineFlavor
+    variant: Variant
+    # None = in flight, SKIP = skipped, PositionResponse = done.
+    positions: List[object]
+    started_at: float
+    url: Optional[str] = None
+    #: The original Position per index (SKIP for skipped) so a failed
+    #: position can be re-queued without re-expanding the batch.
+    sources: List[object] = field(default_factory=list)
+    #: Requeue generation (bounded by MAX_REQUEUE_GENERATIONS).
+    generation: int = 0
+    #: Serving lane.
+    lane: str = LANE_THROUGHPUT
+
+    def pending(self) -> int:
+        return sum(1 for p in self.positions if p is None)
+
+    def into_partial_completed(self, now: float) -> "CompletedBatch":
+        """Deadline-flush view: everything not yet analysed reports as
+        skipped — lila accepts skipped parts, and a partial analysis
+        beats wedging the queue behind a hung position."""
+        return CompletedBatch(
+            work=self.work,
+            flavor=self.flavor,
+            variant=self.variant,
+            positions=[SKIP if p is None else p for p in self.positions],
+            started_at=self.started_at,
+            completed_at=now,
+            url=self.url,
+        )
+
+    def try_into_completed(self) -> Optional["CompletedBatch"]:
+        if any(p is None for p in self.positions):
+            return None
+        return CompletedBatch(
+            work=self.work,
+            flavor=self.flavor,
+            variant=self.variant,
+            positions=list(self.positions),
+            started_at=self.started_at,
+            completed_at=time.monotonic(),
+            url=self.url,
+        )
+
+    def progress_report(self) -> List[Optional[AnalysisPartJson]]:
+        report: List[Optional[AnalysisPartJson]] = []
+        for i, p in enumerate(self.positions):
+            # Lila quirk: the first part must stay null in progress
+            # reports (queue.rs:686-697).
+            if i > 0 and isinstance(p, PositionResponse):
+                report.append(p.to_best())
+            else:
+                report.append(None)
+        return report
+
+
+@dataclass
+class CompletedBatch:
+    work: Work
+    flavor: EngineFlavor
+    variant: Variant
+    positions: List[object]  # PositionResponse | SKIP
+    started_at: float
+    completed_at: float
+    url: Optional[str] = None
+
+    def into_analysis(self) -> List[Optional[AnalysisPartJson]]:
+        out: List[Optional[AnalysisPartJson]] = []
+        for p in self.positions:
+            if p is SKIP:
+                out.append(AnalysisPart.skipped())
+            else:
+                assert isinstance(p, PositionResponse)
+                out.append(p.into_matrix() if p.work.matrix_wanted else p.to_best())
+        return out
+
+    def into_best_move(self) -> Optional[str]:
+        for p in self.positions:
+            return p.best_move if isinstance(p, PositionResponse) else None
+        return None
+
+    def total_positions(self) -> int:
+        return sum(1 for p in self.positions if p is not SKIP)
+
+    def total_nodes(self) -> int:
+        return sum(p.nodes for p in self.positions if isinstance(p, PositionResponse))
+
+    def nps(self) -> Optional[int]:
+        elapsed = self.completed_at - self.started_at
+        if elapsed <= 0:
+            return None
+        return int(self.total_nodes() / elapsed)
+
+
+# ---------------------------------------------------------------------------
+# Lane scheduler
+# ---------------------------------------------------------------------------
+
+
+class LaneScheduler:
+    """Two priority lanes of one tenant: the JAX package's
+    ``LaneScheduler`` reduced to the single-stream client (its
+    per-tenant deficit round robin has nothing to share out here).
+
+    Pop order is strict priority: the latency lane (best-move jobs)
+    always drains first — move jobs are rare and tiny, so strict
+    priority cannot starve the bulk lane in practice while it keeps a
+    move job from waiting behind a backlog of analysis positions. Each
+    lane is FIFO. Single-threaded by construction: only the queue
+    actor's event loop touches it.
+    """
+
+    def __init__(self) -> None:
+        self._queues: Dict[str, Deque[Position]] = {
+            lane: deque() for lane in LANES
+        }
+
+    def push(self, position: Position, lane: str, front: bool = False) -> None:
+        if front:
+            self._queues[lane].appendleft(position)
+        else:
+            self._queues[lane].append(position)
+
+    def pop(self) -> Optional[Position]:
+        for lane in LANES:
+            if self._queues[lane]:
+                return self._queues[lane].popleft()
+        return None
+
+    def drop_batch(self, batch_id: str) -> int:
+        """Remove every queued position of ``batch_id``; returns the
+        number removed."""
+        dropped = 0
+        for lane, q in self._queues.items():
+            kept = deque(p for p in q if p.work.id != batch_id)
+            dropped += len(q) - len(kept)
+            self._queues[lane] = kept
+        return dropped
+
+    def clear(self) -> int:
+        """Drop everything (hard shutdown); returns the count dropped."""
+        dropped = len(self)
+        for q in self._queues.values():
+            q.clear()
+        return dropped
+
+    def __len__(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+
+# ---------------------------------------------------------------------------
+# Queue state shared between stub and actor
+# ---------------------------------------------------------------------------
+
+
+class QueueState:
+    def __init__(
+        self,
+        cores: int,
+        stats: StatsRecorder,
+        logger: Logger,
+        batch_deadline: Optional[float] = None,
+    ) -> None:
+        self.shutdown_soon = False
+        self.cores = cores
+        self.scheduler = LaneScheduler()
+        self.pending: Dict[str, PendingBatch] = {}
+        self.move_submissions: Deque[CompletedBatch] = deque()
+        self.stats_recorder = stats
+        self.logger = logger
+        #: Per-batch deadline budget (seconds); None = no deadline.
+        self.batch_deadline = batch_deadline
+
+    def incoming_len(self) -> int:
+        return len(self.scheduler)
+
+    def incoming_push(
+        self, position: Position, lane: str = LANE_THROUGHPUT,
+        front: bool = False,
+    ) -> None:
+        self.scheduler.push(position, lane, front=front)
+
+    def flush_expired(self, api: ApiStub) -> int:
+        """Enforce the per-batch deadline budget: analysis batches older
+        than the budget are submitted PARTIALLY (unanalysed plies marked
+        skipped); expired move jobs are aborted (a stale move is
+        useless). Cheap when nothing is pending or no deadline is set;
+        called from the worker-pull hot points so one hung engine can
+        never wedge every other batch behind it."""
+        if self.batch_deadline is None or not self.pending:
+            return 0
+        now = time.monotonic()
+        flushed = 0
+        for batch_id in list(self.pending):
+            batch = self.pending[batch_id]
+            if now - batch.started_at <= self.batch_deadline:
+                continue
+            del self.pending[batch_id]
+            self.scheduler.drop_batch(batch_id)
+            if batch.work.is_analysis:
+                completed = batch.into_partial_completed(now)
+                done = sum(
+                    1 for p in completed.positions
+                    if isinstance(p, PositionResponse)
+                )
+                self.logger.error(
+                    f"Batch {batch.url or batch_id} exceeded its "
+                    f"{self.batch_deadline:.0f}s deadline; flushing "
+                    f"{done}/{len(completed.positions)} analysed plies."
+                )
+                api.submit_analysis(
+                    completed.work.id,
+                    completed.flavor.eval_flavor(),
+                    completed.into_analysis(),
+                    final=True,
+                )
+            else:
+                self.logger.error(
+                    f"Move job {batch_id} exceeded its deadline; aborting."
+                )
+                api.abort(batch_id)
+            flushed += 1
+        return flushed
+
+    def status_bar(self) -> QueueStatusBar:
+        return QueueStatusBar(
+            pending=sum(p.pending() for p in self.pending.values()), cores=self.cores
+        )
+
+    def try_pull(self, callback: asyncio.Future) -> bool:
+        """Serve a queued position to a worker callback; False if empty."""
+        position = self.scheduler.pop()
+        if position is None:
+            return False
+        if not callback.done():
+            callback.set_result(position)
+            return True
+        # Callback abandoned (worker gone): keep the position, front of
+        # its lane so ordering is preserved.
+        self.incoming_push(
+            position, lane=lane_of_work(position.work), front=True
+        )
+        return True
+
+    def add_incoming_batch(self, batch: IncomingBatch) -> None:
+        batch_id = batch.work.id
+        if batch_id in self.pending:
+            self.logger.error(f"Dropping duplicate incoming batch {batch_id}")
+            return
+        lane = lane_of_work(batch.work)
+        placeholders: List[object] = []
+        for pos in batch.positions:
+            if pos is SKIP:
+                placeholders.append(SKIP)
+            else:
+                placeholders.append(None)
+                self.incoming_push(pos, lane=lane)
+        self.pending[batch_id] = PendingBatch(
+            work=batch.work,
+            flavor=batch.flavor,
+            variant=batch.variant,
+            positions=placeholders,
+            started_at=time.monotonic(),
+            url=batch.url,
+            sources=list(batch.positions),
+            lane=lane,
+        )
+        self.logger.progress(
+            self.status_bar(), ProgressAt(batch_id=batch_id, batch_url=batch.url)
+        )
+
+
+# ---------------------------------------------------------------------------
+# Stub + actor
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Pull:
+    """The work-stealing handshake (ipc.rs:100-115): a worker hands back
+    its previous result (if any) and a future to receive the next job."""
+
+    response: Optional[object]  # PositionResponse | PositionFailed | None
+    callback: asyncio.Future
+
+
+class QueueStub:
+    def __init__(
+        self,
+        tx: "asyncio.Queue",
+        interrupt: asyncio.Event,
+        state: QueueState,
+        api: ApiStub,
+    ) -> None:
+        self._tx: Optional[asyncio.Queue] = tx
+        self._interrupt = interrupt
+        self._state = state
+        self._api = api
+
+    async def pull(self, pull: Pull) -> None:
+        if pull.response is not None:
+            self._handle_position_response(pull.response)
+        # Deadline budget: every worker handoff checks for expired
+        # batches, so a single hung engine cannot wedge the rest of the
+        # queue behind its batch.
+        self._state.flush_expired(self._api)
+        if self._state.try_pull(pull.callback):
+            return
+        if self._state.shutdown_soon and not self._state.incoming_len():
+            # Drain complete for this worker; release it (the reference
+            # releases workers by dropping their callbacks, main.rs:374-382).
+            if not pull.callback.done():
+                pull.callback.cancel()
+            return
+        if self._tx is not None:
+            await self._tx.put(pull.callback)
+        elif not pull.callback.done():
+            pull.callback.cancel()
+
+    def _handle_position_response(self, res: object) -> None:
+        state = self._state
+        if isinstance(res, PositionFailed):
+            self._handle_position_failed(res)
+            return
+        assert isinstance(res, PositionResponse)
+        batch = state.pending.get(res.work.id)
+        if batch is not None and 0 <= res.position_id < len(batch.positions):
+            batch.positions[res.position_id] = res
+        state.logger.progress(
+            state.status_bar(),
+            ProgressAt(
+                batch_id=res.work.id, batch_url=res.url, position_id=res.position_id
+            ),
+        )
+        self._maybe_finished(res.work.id)
+
+    def _handle_position_failed(self, res: PositionFailed) -> None:
+        """Requeue a failed position (bounded generations) instead of
+        abandoning the whole batch on the first transient engine
+        failure. The requeued position goes to the FRONT of the
+        incoming queue so an older batch's retry is served before fresh
+        acquires' positions (acquire order preserved — a failed batch
+        can no longer starve behind new work). Producers that do not
+        identify the position (legacy PositionFailed without
+        position_id), and batches over the generation cap, keep the
+        reference behavior: abandon silently, the server reassigns by
+        timeout (queue.rs:207-214)."""
+        state = self._state
+        batch = state.pending.get(res.batch_id)
+        if batch is None:
+            return
+        src = None
+        if res.position_id is not None and (
+            0 <= res.position_id < len(batch.sources)
+        ):
+            src = batch.sources[res.position_id]
+        if (
+            src is None
+            or src is SKIP
+            or batch.generation >= MAX_REQUEUE_GENERATIONS
+        ):
+            reason = (
+                "requeue_cap" if batch.generation >= MAX_REQUEUE_GENERATIONS
+                else "position_failed"
+            )
+            state.pending.pop(res.batch_id, None)
+            state.scheduler.drop_batch(res.batch_id)
+            state.logger.warn(
+                f"Abandoning batch {batch.url or res.batch_id} ({reason}); "
+                "the server will reassign it."
+            )
+            return
+        batch.generation += 1
+        state.incoming_push(src, lane=batch.lane, front=True)
+        state.logger.debug(
+            f"Requeued position {res.position_id} of {res.batch_id} "
+            f"(generation {batch.generation}/{MAX_REQUEUE_GENERATIONS})."
+        )
+
+    def _maybe_finished(self, batch_id: str) -> None:
+        state = self._state
+        pending = state.pending.pop(batch_id, None)
+        if pending is None:
+            return
+        completed = pending.try_into_completed()
+        if completed is None:
+            if not pending.work.matrix_wanted:
+                report = pending.progress_report()
+                done = sum(1 for p in report if p is not None)
+                if done and done % (state.cores * 2) == 0:
+                    self._api.submit_analysis(
+                        pending.work.id, pending.flavor.eval_flavor(), report
+                    )
+            state.pending[batch_id] = pending
+            return
+
+        extra = []
+        short = completed.variant.short_name()
+        if short:
+            extra.append(short)
+        if completed.flavor.eval_flavor().is_hce:
+            extra.append("hce")
+        nps = completed.nps()
+        if nps is not None:
+            nnue_nps = nps if completed.flavor is EngineFlavor.OFFICIAL else None
+            state.stats_recorder.record_batch(
+                completed.total_positions(), completed.total_nodes(), nnue_nps
+            )
+            extra.append(f"{nps // 1000} knps")
+        else:
+            extra.append("? nps")
+        label = completed.url or batch_id
+        log = f"{state.status_bar()} {label} finished ({', '.join(extra)})"
+
+        if completed.work.is_analysis:
+            state.logger.info(log)
+            self._api.submit_analysis(
+                completed.work.id,
+                completed.flavor.eval_flavor(),
+                completed.into_analysis(),
+                final=True,
+            )
+        else:
+            state.logger.debug(log)
+            state.move_submissions.append(completed)
+            self._move_submitted()
+
+    def _move_submitted(self) -> None:
+        if self._tx is not None:
+            self._tx.put_nowait("move_submitted")
+            self._interrupt.set()
+
+    def shutdown_soon(self) -> None:
+        self._state.shutdown_soon = True
+        if self._tx is not None:
+            self._tx.put_nowait("wake")
+        self._tx = None
+        self._interrupt.set()
+
+    def shutdown(self) -> None:
+        self.shutdown_soon()
+        for batch_id in list(self._state.pending):
+            self._state.pending.pop(batch_id)
+            self._api.abort(batch_id)
+        # The queued positions belonged to the batches just aborted;
+        # drop them too so the drain check sees an empty queue.
+        self._state.scheduler.clear()
+
+    def stats(self) -> Tuple[Stats, NpsRecorder]:
+        return (
+            self._state.stats_recorder.stats,
+            self._state.stats_recorder.nnue_nps,
+        )
+
+
+@dataclass
+class BacklogOpt:
+    """Backlog thresholds in seconds (reference: configure.rs:231-276;
+    'short' = 30 s, 'long' = 1 h)."""
+
+    user: Optional[float] = None
+    system: Optional[float] = None
+
+
+class QueueActor:
+    def __init__(
+        self,
+        rx: "asyncio.Queue",
+        interrupt: asyncio.Event,
+        state: QueueState,
+        api: ApiStub,
+        backlog: BacklogOpt,
+        logger: Logger,
+        max_backoff: float = 30.0,
+    ) -> None:
+        self.rx = rx
+        self.interrupt = interrupt
+        self.state = state
+        self.api = api
+        self.backlog = backlog
+        self.logger = logger
+        self.backoff = RandomizedBackoff(max_backoff)
+
+    async def backlog_wait_time(self) -> Tuple[float, bool]:
+        """(seconds to wait before acquiring, slow?) — queue.rs:331-365."""
+        min_user = self.state.stats_recorder.min_user_backlog()
+        user_backlog = max(min_user, self.backlog.user or 0.0)
+        system_backlog = self.backlog.system or 0.0
+
+        if user_backlog >= 1.0 or system_backlog >= 1.0:
+            status = await self.api.status()
+            if status is not None:
+                user_wait = max(0.0, user_backlog - status.user.oldest_seconds)
+                system_wait = max(0.0, system_backlog - status.system.oldest_seconds)
+                slow = user_wait >= system_wait + 1.0
+                return min(user_wait, system_wait), slow
+            self.logger.debug("Queue status not available. Will not delay acquire.")
+            return 0.0, user_backlog >= system_backlog + 1.0
+        return 0.0, False
+
+    async def _interruptible_sleep(self, seconds: float) -> None:
+        self.interrupt.clear()
+        try:
+            await asyncio.wait_for(self.interrupt.wait(), timeout=seconds)
+        except asyncio.TimeoutError:
+            pass
+
+    async def handle_acquired(self, body: AcquireResponseBody) -> None:
+        context = body.work.id
+        try:
+            incoming = IncomingBatch.from_acquired(self.api.endpoint, body)
+        except AllSkipped as all_skipped:
+            self.logger.warn(f"Completed empty batch {context}.")
+            completed = all_skipped.completed
+            self.api.submit_analysis(
+                completed.work.id,
+                completed.flavor.eval_flavor(),
+                completed.into_analysis(),
+                final=True,
+            )
+            return
+        except IncomingError as err:
+            self.logger.warn(f"Ignoring invalid batch {context}: {err}")
+            return
+        if self.state.shutdown_soon:
+            # Accepted while shutting down (an in-flight acquire
+            # resolving after shutdown()): nobody will run it. Hand it
+            # back to the server instead of dropping it on the floor.
+            self.api.abort(context)
+            return
+        self.state.add_incoming_batch(incoming)
+
+    async def handle_move_submissions(self) -> None:
+        while True:
+            if self.state.shutdown_soon:
+                # Move submissions can chain follow-up jobs; stop chasing
+                # them during shutdown (queue.rs:399-404).
+                return
+            if not self.state.move_submissions:
+                return
+            completed = self.state.move_submissions.popleft()
+            acquired = await self.api.submit_move_and_acquire(
+                completed.work.id, completed.into_best_move()
+            )
+            if acquired is not None and acquired.kind is AcquiredKind.ACCEPTED:
+                await self.handle_acquired(acquired.body)
+
+    async def run(self) -> None:
+        self.logger.debug("Queue actor started")
+        try:
+            while True:
+                msg = await self.rx.get()
+                if msg == "move_submitted":
+                    await self.handle_move_submissions()
+                    continue
+                if msg == "wake":
+                    if self.state.shutdown_soon:
+                        break
+                    continue
+                callback: asyncio.Future = msg
+                try:
+                    await self._pull_loop(callback)
+                except asyncio.CancelledError:
+                    raise
+                except Exception as err:  # noqa: BLE001 - keep the queue alive
+                    self.logger.error(f"Queue error: {err!r}")
+                    if not callback.done():
+                        callback.cancel()
+                if self.state.shutdown_soon and not self.state.incoming_len():
+                    break
+        finally:
+            # Release any workers still parked in the mailbox.
+            while not self.rx.empty():
+                leftover = self.rx.get_nowait()
+                if isinstance(leftover, asyncio.Future) and not leftover.done():
+                    leftover.cancel()
+            self.logger.debug("Queue actor exited")
+
+    async def _pull_loop(self, callback: asyncio.Future) -> None:
+        while True:
+            await self.handle_move_submissions()
+            self.state.flush_expired(self.api)
+
+            if self.state.try_pull(callback):
+                return
+            if self.state.shutdown_soon:
+                # Drain phase: no more work will come; release the worker.
+                if not callback.done():
+                    callback.cancel()
+                return
+            if callback.done():
+                return
+
+            wait, slow = await self.backlog_wait_time()
+            if wait >= 1.0:
+                level = self.logger.info if wait >= 40.0 else self.logger.debug
+                level(f"Going idle for {wait:.0f}s.")
+                await self._interruptible_sleep(wait)
+                continue
+
+            acquired = await self.api.acquire(slow)
+            if acquired is None:
+                # Transport error: the api actor already backed off.
+                continue
+            if acquired.kind is AcquiredKind.ACCEPTED:
+                self.backoff.reset()
+                await self.handle_acquired(acquired.body)
+            elif acquired.kind is AcquiredKind.NO_CONTENT:
+                backoff = self.backoff.next()
+                self.logger.debug(f"No job received. Backing off {backoff:.1f}s.")
+                await self._interruptible_sleep(backoff)
+            elif acquired.kind is AcquiredKind.REJECTED:
+                self.logger.error(
+                    "Client update or reconfiguration might be required. Stopping queue."
+                )
+                self.state.shutdown_soon = True
+                if not callback.done():
+                    callback.cancel()
+                return
+
+
+def channel(
+    cores: int,
+    api: ApiStub,
+    logger: Logger,
+    stats: Optional[StatsRecorder] = None,
+    backlog: Optional[BacklogOpt] = None,
+    max_backoff: float = 30.0,
+    batch_deadline: Optional[float] = None,
+) -> Tuple[QueueStub, QueueActor]:
+    rx: "asyncio.Queue" = asyncio.Queue()
+    interrupt = asyncio.Event()
+    state = QueueState(
+        cores, stats or StatsRecorder(cores, no_stats_file=True), logger,
+        batch_deadline=batch_deadline,
+    )
+    stub = QueueStub(rx, interrupt, state, api)
+    actor = QueueActor(
+        rx, interrupt, state, api, backlog or BacklogOpt(), logger, max_backoff
+    )
+    return stub, actor

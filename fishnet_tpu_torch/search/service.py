@@ -144,12 +144,10 @@ def _bind_pool_api(lib: ctypes.CDLL) -> None:
 MIN_BATCH_CAPACITY = 40
 
 #: Eval-path rungs, named as in the JAX package's degradation ladder
-#: (fishnet_tpu/resilience/supervisor.py): "fused" is the hand CUDA
-#: kernel, "xla" the plain torch version (the CPU path), and
+#: (resilience/supervisor.py): "fused" is the hand CUDA kernel with
+#: device PSQT, "xla" the plain torch version (the CPU path), and
 #: "host-material" ships the pool's material term on the wire (the
 #: kernel, or the plain version on the CPU, then runs without PSQT).
-#: The device decides between the first two; only "host-material" is
-#: ever requested.
 PSQT_PATHS = ("fused", "xla", "host-material")
 
 #: The entry-bucket ladder's first rung, as in the JAX package.
@@ -168,8 +166,7 @@ def eval_bucket_sizes(capacity: int, first: int = MIN_EVAL_BUCKET) -> List[int]:
     return sorted(sizes)
 
 #: The native search's skill level for analysis: 20 searches at full
-#: strength (below 20 it samples among near-best lines, for play jobs
-#: of the not yet ported client path).
+#: strength (below 20 it samples among near-best lines: play jobs).
 FULL_STRENGTH = 20
 
 
@@ -194,23 +191,29 @@ class SearchService:
         CUDA request raises). ``backend="scalar"`` evaluates them one at
         a time with the native core's C++ evaluator and uses no device.
 
-        ``psqt_path="host-material"`` ships the material term on the
-        wire; None computes it on the device. ``self.psqt_path`` reports
-        the rung that runs (PSQT_PATHS): "host-material", or the one the
-        device picks — "fused" on CUDA, "xla" on the CPU. All rungs give
-        bit-identical results.
+        ``psqt_path`` requests a rung (PSQT_PATHS): "host-material" ships
+        the material term on the wire; "fused" (CUDA only) and "xla"
+        (CPU only) compute it on the device, as None does. A request the
+        device cannot run raises: "xla" is never taken on the card, so
+        nothing steps the card off its kernel. ``self.psqt_path``
+        reports the rung that runs. All rungs give bit-identical
+        results.
         """
         if backend not in ("torch", "scalar"):
             raise ValueError(f"unknown backend: {backend!r}")
-        if psqt_path not in (None, "host-material"):
+        if psqt_path not in (None,) + PSQT_PATHS:
             raise ValueError(f"unknown psqt_path request: {psqt_path!r}")
         self.device = None if backend == "scalar" else resolve_device(device)
         if self.device is None:
             self.psqt_path = None
-        elif psqt_path is None:
-            self.psqt_path = "fused" if self.device.type == "cuda" else "xla"
         else:
-            self.psqt_path = psqt_path
+            own = "fused" if self.device.type == "cuda" else "xla"
+            if psqt_path in ("fused", "xla") and psqt_path != own:
+                raise ValueError(
+                    f"psqt_path {psqt_path!r} does not run on "
+                    f"{self.device.type} (its device rung is {own!r})"
+                )
+            self.psqt_path = psqt_path or own
         self._lib = load()
         _bind_pool_api(self._lib)
 
@@ -355,12 +358,19 @@ class SearchService:
         movetime_seconds: Optional[float] = None,
         variant: Variant = Variant.STANDARD,
         stop_event: Optional[threading.Event] = None,
+        skill_level: int = FULL_STRENGTH,
+        lane: str = "throughput",
+        tenant: str = "",
     ) -> SearchResultData:
         """Search ``root_fen`` after ``moves`` within the node, depth and
         time limits. With ``stop_event``: setting it (then ``poke()``)
         stops the native search gracefully — the call still returns the
         partial result (completed iterations), unlike cancellation,
-        which discards the search."""
+        which discards the search. ``skill_level`` -9..20: below 20 the
+        native search samples its best move among near-best lines (play
+        jobs). ``lane`` and ``tenant`` are accepted as the JAX service
+        accepts them; with no dispatch coalescer here they change
+        nothing."""
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
         token = object()
@@ -371,7 +381,7 @@ class SearchService:
             self._rr += 1
             self._submissions[t].append(
                 (root_fen, " ".join(moves), nodes, depth, multipv, future, loop,
-                 movetime_seconds, variant, token, stop_event)
+                 movetime_seconds, variant, token, stop_event, skill_level)
             )
         self._wakes[t].set()
         try:
@@ -456,6 +466,16 @@ class SearchService:
             out["wire_feature_bytes"] + out["wire_material_bytes"]
         )
         return out
+
+    def is_alive(self) -> bool:
+        """False once the service is shut down or any driver crashed —
+        callers holding a handle should build a fresh service (the
+        engine-restart analogue of the reference's subprocess respawn,
+        src/main.rs:284-312)."""
+        with self._lock:
+            if self._stopping:
+                return False
+        return all(th.is_alive() for th in self._threads)
 
     def _maybe_stop(self, slot: int, pending: _Pending) -> None:
         """Movetime watchdog (event-loop thread): stop the native search
@@ -634,7 +654,7 @@ class SearchService:
                 self._submissions[t] = []
             for item in submissions:
                 (fen, moves, nodes, depth, multipv, future, loop, movetime,
-                 variant, token, stop_event) = item
+                 variant, token, stop_event, skill) = item
                 if token in cancelled:
                     continue
                 use_scalar = 1 if self.backend == "scalar" else 0
@@ -642,7 +662,7 @@ class SearchService:
                 for g in groups:
                     slot = lib.fc_pool_submit(
                         self._pool, g, fen.encode(), moves.encode(),
-                        nodes, depth, multipv, FULL_STRENGTH, use_scalar,
+                        nodes, depth, multipv, skill, use_scalar,
                         _VARIANT_CODES[variant],
                     )
                     if slot != -1:

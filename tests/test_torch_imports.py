@@ -3,7 +3,10 @@ jax, flax, optax, aiohttp or the JAX package fishnet_tpu, and its entry
 points never fall back to the CPU on their own.
 
 The import check runs in a subprocess: this test process has imported
-jax already (tests/conftest.py)."""
+jax already (tests/conftest.py). With those imports blocked, the
+subprocess serves UCI, then runs the ``run`` client (mock engine, CPU)
+against the standard-library fake lichess server of chip_smoke.py until
+it has submitted its one job, and drains on SIGINT."""
 
 import ast
 import subprocess
@@ -43,6 +46,31 @@ try:
     runpy.run_module("fishnet_tpu_torch", run_name="__main__")
 except SystemExit as exit_:
     assert exit_.code == 0, exit_.code
+
+import os, signal, threading, time
+from chip_smoke import VALID_KEY, FakeServer
+
+with FakeServer() as server:
+    job = server.lichess.add_analysis_job(moves="e2e4 e7e5")
+
+    def interrupt_when_submitted():
+        deadline = time.monotonic() + 60
+        while job not in server.lichess.analyses and time.monotonic() < deadline:
+            time.sleep(0.05)
+        os.kill(os.getpid(), signal.SIGINT)
+
+    threading.Thread(target=interrupt_when_submitted, daemon=True).start()
+    sys.argv = ["fishnet_tpu_torch", "run", "--device", "cpu", "--engine",
+                "mock", "--no-conf", "--no-stats-file", "--cores", "1",
+                "--endpoint", server.endpoint, "--key", VALID_KEY,
+                "--max-backoff", "1"]
+    try:
+        runpy.run_module("fishnet_tpu_torch", run_name="__main__")
+    except SystemExit as exit_:
+        assert exit_.code == 0, exit_.code
+    parts = server.lichess.analyses[job]["analysis"]
+    assert len(parts) == 3 and all("score" in p for p in parts), parts
+print("submitted", job, flush=True)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("clean", flush=True)
@@ -60,6 +88,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert "imported" in out and "clean" in out
     assert "id name fishnet-tpu-torch" in out
     assert "uciok" in out and "readyok" in out
+    assert "submitted wk000000" in out
 
 
 def _imported_roots(path: Path):
@@ -83,9 +112,10 @@ def test_no_forbidden_import_anywhere_in_the_port():
     assert not bad, bad
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+def test_entry_points_raise_without_a_gpu(monkeypatch, capsys):
     import torch
 
+    from fishnet_tpu_torch.__main__ import main
     from fishnet_tpu_torch.device import resolve_device
     from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
     from fishnet_tpu_torch.nnue.weights import NnueWeights
@@ -102,6 +132,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_weights(w)
     assert resolve_device("cpu") == torch.device("cpu")
+    # `run` (and `uci`) without --device cpu refuse to start.
+    for command in ("run", "uci"):
+        assert main([command, "--no-conf", "--no-stats-file", "--endpoint",
+                     "http://127.0.0.1:9/fishnet"]) == 2
+        assert "no CUDA device" in capsys.readouterr().err
     # The scalar backend evaluates on the host and needs no device.
     svc = SearchService(weights=w, backend="scalar", pool_slots=8,
                         batch_capacity=64, tt_bytes=1 << 20)

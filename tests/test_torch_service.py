@@ -121,10 +121,18 @@ def test_pipelined_groups_and_counters():
 
 def test_device_and_rung_requests_are_checked():
     w = NnueWeights.random(seed=21)
-    # The device picks "fused" or "xla"; only "host-material" is a request.
-    for rung in ("fused", "xla", "bogus"):
-        with pytest.raises(ValueError, match="unknown psqt_path"):
-            SearchService(weights=w, device="cpu", psqt_path=rung, **KW)
+    # A rung is a request the device must be able to run: "xla" (the
+    # plain version) on the CPU, "fused" (the hand kernel) only on CUDA.
+    with pytest.raises(ValueError, match="unknown psqt_path"):
+        SearchService(weights=w, device="cpu", psqt_path="bogus", **KW)
+    with pytest.raises(ValueError, match="does not run on cpu"):
+        SearchService(weights=w, device="cpu", psqt_path="fused", **KW)
+    svc = SearchService(weights=w, device="cpu", psqt_path="xla", **KW)
+    try:
+        assert svc.psqt_path == "xla" and svc.is_alive()
+    finally:
+        svc.close()
+    assert not svc.is_alive()
     with pytest.raises(ValueError, match="unknown backend"):
         SearchService(weights=w, backend="jax", device="cpu", **KW)
 
