@@ -10,9 +10,9 @@ library), and loads that one.
 
 Why its own build (ROADMAP C7): ``make -C cpp`` compiles with ``$CXX``,
 and a host may point ``CXX`` at a toolchain that links libstdc++
-statically into shared libraries. The GPU host does
-(``CXX=/opt/gcc/bin/g++``): its core carries a second copy of the C++
-runtime whose symbols are exported, some of them GNU-unique. Next to
+statically into shared libraries. The GPU host's environment does:
+a core built there carries a second copy of the C++ runtime whose
+symbols are exported, some of them GNU-unique. Next to
 torch, which loads the system ``libstdc++.so.6``, the two runtimes then
 share part of their ``std::locale`` state, and the first number that
 ``Position::fen`` formats through ``std::ostringstream`` reads a facet

@@ -164,7 +164,7 @@ class Opt:
     #: parallelism tier). Default 1: the JAX package runs one per core
     #: and its dispatch coalescer merges their steps into one device
     #: call; the port has no coalescer, so every thread's groups would
-    #: dispatch small steps of their own (PERF.md, PR 3).
+    #: dispatch small steps of their own (PERF.md, the thread sweep).
     search_threads: Optional[int] = None
     #: Worker (pull-loop) count. None = auto: the batched device engine
     #: (tpu-nnue) runs many pull loops per core over one shared service;
