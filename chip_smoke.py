@@ -26,12 +26,11 @@ checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, run, cli;
 default all six) limits a run to some phases while iterating on one of
-them. Four extra phases run only on request: ``profile`` traces a
+them. Three extra phases run only on request: ``profile`` traces a
 loaded burst with torch.profiler, ``anatomy`` (after ``serve``) times
-the kernel with one part of its work removed at a time, ``ladder``
+the kernel with one part of its work removed at a time, and ``ladder``
 times the UCI session and the burst with the entry-bucket ladder
-starting at 64 and at 8, and ``threads`` times the burst at several
-driver-thread counts.
+starting at 64 and at 8.
 
 The module imports only the standard library, so its fake lichess
 (``FakeLichess``, ``FakeServer``) also serves the CPU tests.
@@ -264,7 +263,9 @@ class FakeLichess:
     any other completes the job; a move submission chains the next
     unacquired move job (202) or answers 204; an abort puts the job
     back in the queue; the key is checked against ``VALID_KEY``. Every
-    handler runs under one lock; timestamps are ``time.monotonic()``."""
+    handler runs under one lock; timestamps are ``time.monotonic()``.
+    ``acquire_delay`` holds each acquire for that many seconds before it
+    is answered (a long poll), outside the lock."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
@@ -275,6 +276,8 @@ class FakeLichess:
         self.aborted = []
         self.acquire_count = 0
         self.reject_with = None  # force an HTTP status on acquire
+        self.acquire_delay = 0.0
+        self.connections = 0  # TCP connections accepted
         self.handed_at = {}
         self.completed_at = {}
         self.move_done_at = {}
@@ -337,6 +340,8 @@ class FakeLichess:
         if parts[:1] != ["fishnet"] or len(parts) < 2:
             return 404, None
         route, arg = parts[1], (parts[2] if len(parts) > 2 else None)
+        if method == "POST" and route == "acquire" and self.acquire_delay:
+            time.sleep(self.acquire_delay)
         with self.lock:
             if method == "GET" and route == "key":
                 ok = arg == VALID_KEY if arg is not None else authed
@@ -384,8 +389,9 @@ class FakeLichess:
 
 class FakeServer:
     """A FakeLichess behind ``http.server.ThreadingHTTPServer`` on a
-    thread, on an ephemeral localhost port. Use as a context manager;
-    ``endpoint`` is the fishnet URL to point a client at."""
+    thread, on an ephemeral localhost port, speaking HTTP/1.1 with
+    keep-alive. Use as a context manager; ``endpoint`` is the fishnet
+    URL to point a client at."""
 
     def __init__(self, lichess: Optional[FakeLichess] = None) -> None:
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -394,6 +400,13 @@ class FakeServer:
         self.lichess = lichess = lichess or FakeLichess()
 
         class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def setup(self):
+                super().setup()
+                with lichess.lock:
+                    lichess.connections += 1
+
             def _serve(self):
                 url = urlsplit(self.path)
                 raw = self.rfile.read(int(self.headers.get("Content-Length") or 0))
@@ -898,26 +911,6 @@ def phase_ladder(weights, dev) -> None:
         try:
             log(f"  ladder from {first}: {service._eval_sizes}")
             uci_session(service, echo=False)
-            load_burst(service)
-        finally:
-            service.close()
-
-
-def phase_threads(weights, dev) -> None:
-    """The load burst on a fresh service (microbatch 1024, pipeline 2) at
-    1, 2, 4 and as many driver threads as ``run`` has cores, then at 1
-    again: each thread steps its own groups and dispatches their evals
-    as steps of their own. Not part of the default run."""
-    from fishnet_tpu_torch.configure import resolve_cores
-    from fishnet_tpu_torch.search.service import SearchService
-
-    for threads in (1, 2, 4, resolve_cores(None), 1):
-        service = SearchService(weights=weights, batch_capacity=1024,
-                                pipeline_depth=2, driver_threads=threads,
-                                device=dev)
-        try:
-            service.warmup()
-            log(f"  {threads} driver thread(s), {service._n_groups} groups:")
             load_burst(service)
         finally:
             service.close()
@@ -1460,6 +1453,78 @@ async def drive_client(client, lichess, ids, timeout: float) -> None:
         await client.stop()
 
 
+def client_parity(weights, dev, games: int, plies: int, depth: int) -> None:
+    """The ``run`` path's parity check: ``games`` seeded games of
+    ``plies`` plies, analysed at ``depth`` through the port's Client
+    (one worker, prefetch pinned) on a SearchService over ``dev`` and on
+    the native scalar service, must submit the same score, best move
+    and depth per ply. The worker's engine budget is lifted for the
+    check, and it fails on any engine timeout, requeued or abandoned
+    position, or abort: a search run again over a TT it already filled
+    may differ without any fault of the evaluator."""
+    from fishnet_tpu_torch import client as client_mod
+    from fishnet_tpu_torch.client import Client
+    from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
+    from fishnet_tpu_torch.search.service import SearchService
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    class Recorder(Logger):
+        def __init__(self):
+            super().__init__(verbose=0)
+            self.complaints = []
+
+        def debug(self, msg):
+            if msg.startswith("Requeued"):
+                self.complaints.append(msg)
+            super().debug(msg)
+
+        def warn(self, msg):
+            self.complaints.append(msg)
+            super().warn(msg)
+
+        error = warn
+
+    lines = random_games(games, plies, seed=29)
+    submitted = []
+    budget = client_mod.DEFAULT_BUDGET_SECONDS
+    client_mod.DEFAULT_BUDGET_SECONDS = 3600.0
+    try:
+        for backend in ("torch", "scalar"):
+            svc = SearchService(weights=weights, pool_slots=16,
+                                batch_capacity=64, tt_bytes=256 << 20,
+                                backend=backend, device=dev)
+            svc.set_prefetch(8, adaptive=False)
+            logger = Recorder()
+            with FakeServer() as server:
+                ids = [server.lichess.add_analysis_job(
+                    moves=" ".join(g), nodes=10_000_000, depth=depth)
+                    for g in lines]
+                client = Client(endpoint=server.endpoint, key=VALID_KEY,
+                                cores=1, workers=1,
+                                engine_factory=TpuNnueEngineFactory(svc),
+                                logger=logger, max_backoff=0.2)
+                try:
+                    asyncio.run(drive_client(client, server.lichess, ids, 600))
+                finally:
+                    svc.close()
+            check(not logger.complaints and not server.lichess.aborted,
+                  f"parity ({backend}): the run was not clean: "
+                  f"{logger.complaints[:3]}, aborts {server.lichess.aborted}")
+            submitted.append([server.lichess.analyses[i]["analysis"]
+                              for i in ids])
+    finally:
+        client_mod.DEFAULT_BUDGET_SECONDS = budget
+    ours, scalar = ([(p["score"], p.get("pv", "").split(" ")[0], p["depth"])
+                     for game in side for p in game] for side in submitted)
+    bad = [(i, g, s) for i, (g, s) in enumerate(zip(ours, scalar)) if g != s]
+    n = games * (plies + 1)
+    check(len(ours) == len(scalar) == n and not bad,
+          f"{dev} vs scalar: {len(bad)} of {len(ours)} plies differ: {bad[:3]}")
+    log(f"  parity: {games} games, {n} plies at depth {depth} through the "
+        f"client, no timeout, requeue or abort: the service on {dev} == the "
+        "native scalar service on (score, best move, depth) per ply")
+
+
 def phase_run(weights, dev):
     """The main path through the entry points a user calls: the port's
     ``Client`` over the ``tpu-nnue`` engine factory that ``python -m
@@ -1467,16 +1532,14 @@ def phase_run(weights, dev):
     supervisor's ladder), against the stdlib fake lichess with 16
     analysis games and 4 move jobs. The packed kernel's launch count is
     zeroed after the service's warm-up and read after the run; the rung
-    must stay "fused". Then the parity sub-run: 3 games at depth 4, one
-    worker, prefetch pinned, on a GPU service and on the native scalar
-    service, must submit the same score and best move per ply."""
+    must stay "fused". Then the parity sub-run (``client_parity``): 3
+    games at depth 4 on a GPU service and on the native scalar service
+    must submit the same score, best move and depth per ply."""
     from fishnet_tpu_torch.__main__ import build_engine_factory
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.configure import parse_and_configure
-    from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
     from fishnet_tpu_torch.ops import ft_gather
     from fishnet_tpu_torch.protocol.types import EngineFlavor
-    from fishnet_tpu_torch.search.service import SearchService
     from fishnet_tpu_torch.utils.logger import Logger
 
     logger = Logger(verbose=0)
@@ -1523,43 +1586,30 @@ def phase_run(weights, dev):
     report = run_report(lichess, analysis_ids, move_ids, "run")
     report["launches"] = launches
 
-    # Parity: GPU service vs native scalar service, 3 games at depth 4.
-    games = random_games(3, 10, seed=29)
-    submitted = []
-    for backend in ("torch", "scalar"):
-        svc = SearchService(weights=weights, pool_slots=16, batch_capacity=64,
-                            tt_bytes=256 << 20, backend=backend, device=dev)
-        svc.set_prefetch(8, adaptive=False)
-        with FakeServer() as server:
-            ids = [server.lichess.add_analysis_job(
-                moves=" ".join(g), nodes=10_000_000, depth=4) for g in games]
-            client = Client(endpoint=server.endpoint, key=VALID_KEY, cores=1,
-                            workers=1, engine_factory=TpuNnueEngineFactory(svc),
-                            logger=logger, max_backoff=0.2)
-            try:
-                asyncio.run(drive_client(client, server.lichess, ids, 600))
-            finally:
-                svc.close()
-            submitted.append([server.lichess.analyses[i]["analysis"]
-                              for i in ids])
-    gpu, scalar = ([(p["score"], p.get("pv", "").split(" ")[0], p["depth"])
-                    for game in side for p in game] for side in submitted)
-    bad = [(i, g, s) for i, (g, s) in enumerate(zip(gpu, scalar)) if g != s]
-    plies = sum(len(g) + 1 for g in games)
-    check(len(gpu) == len(scalar) == plies and not bad,
-          f"GPU vs scalar: {len(bad)} of {len(gpu)} plies differ: {bad[:3]}")
-    log(f"  parity: {len(games)} games, {len(gpu)} plies at depth 4 through "
-        "the client: GPU service == native scalar service on (score, best "
-        "move, depth) per ply")
+    client_parity(weights, dev, games=3, plies=10, depth=4)
     return report
+
+
+def teardown_counts(out: str):
+    """(dispatched steps, packed launches, dense launches, rung) from the
+    teardown log line of ``python -m fishnet_tpu_torch run -v``, counted
+    from after the service's warm-up."""
+    import re
+
+    found = re.search(r"since warm-up: eval_steps (-?\d+), ft_gather "
+                      r"launches: packed (-?\d+), dense (-?\d+); rung (\S+)",
+                      out)
+    check(found is not None, "the CLI's teardown log has no launch counts")
+    return (*(int(found.group(i)) for i in (1, 2, 3)), found.group(4))
 
 
 def phase_cli() -> dict:
     """``python -m fishnet_tpu_torch run`` as a user starts it, as a
     subprocess against the stdlib fake lichess (8 games, 2 move jobs):
-    once every job is submitted, SIGINT drains it; it must exit 0 and
-    its teardown log (-v) must show packed kernel launches."""
-    import re
+    once every job is submitted, SIGINT drains it; it must exit 0, and
+    its teardown log (-v) must show, counted from after the service's
+    warm-up, one packed kernel launch per dispatched step, at least
+    one, and no dense launch."""
     import signal
 
     with FakeServer() as server:
@@ -1588,14 +1638,17 @@ def phase_cli() -> dict:
     for line in tail:
         log(f"  | {line[:300]}")
     check(proc.returncode == 0, f"the CLI exited {proc.returncode}")
-    found = re.search(r"ft_gather launches: packed (\d+)", out)
-    check(found is not None and int(found.group(1)) > 0,
-          "the CLI's teardown log shows no packed kernel launches")
-    check("rung fused" in out, "the CLI's service left the fused rung")
-    log(f"  the CLI's teardown log: ft_gather launches {found.group(1)} "
-        "(packed), rung fused")
+    steps, packed, dense, rung = teardown_counts(out)
+    check(packed > 0, "the CLI never launched the kernel after its warm-up")
+    check(packed == steps, f"the CLI: {packed} packed launches for {steps} "
+                           "steps")
+    check(dense == 0, f"the CLI launched the dense mode {dense} times")
+    check(rung == "fused", "the CLI's service left the fused rung")
+    log(f"  the CLI's teardown log, since the warm-up: ft_gather launches "
+        f"{packed} (packed) for {steps} dispatched steps, {dense} (dense), "
+        "rung fused")
     report = run_report(lichess, analysis_ids, move_ids, "cli")
-    report["launches"] = int(found.group(1))
+    report["launches"] = packed
     return report
 
 
@@ -1759,10 +1812,6 @@ def main() -> int:
     if "ladder" in phases:
         log("[ladder] entry buckets from 64 vs from 8, one call")
         phase_ladder(weights, dev)
-    if "threads" in phases:
-        log("[threads] the load burst at 1, 2, 4 and `run`'s default driver "
-            "threads")
-        phase_threads(weights, dev)
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,6 @@ The port of the JAX package's ``run`` and ``uci`` commands
 from __future__ import annotations
 
 import asyncio
-import os
 import signal
 import sys
 from pathlib import Path
@@ -98,25 +97,33 @@ def build_engine_factory(opt: Opt, logger: Logger) -> EngineFactory:
     if engine == "mock":
         from fishnet_tpu_torch.engine.mock import MockEngineFactory
 
-        # Per-position artificial latency, for harnesses that need
-        # realistic in-flight windows.
-        delay = float(os.environ.get("FISHNET_MOCK_ENGINE_DELAY", 0) or 0)
-        return MockEngineFactory(delay_seconds=delay)
+        return MockEngineFactory()
     raise ConfigError(f"unknown engine backend: {engine!r}")
 
 
-def _teardown_counters(factory: EngineFactory) -> str:
-    """The shared service's counters and the kernel's launch counts, for
-    the teardown log at -v."""
+def _run_counts(factory: EngineFactory) -> tuple:
+    """(the shared service's dispatched steps, the kernel's packed and
+    dense launches); 0 steps without a service."""
     from fishnet_tpu_torch.ops import ft_gather
 
     service = getattr(factory, "service", None)
+    steps = service.counters()["eval_steps"] if service is not None else 0
+    return (steps, ft_gather.ft_accumulate_packed_cuda.launches,
+            ft_gather.ft_accumulate_cuda.launches)
+
+
+def _teardown_counters(factory: EngineFactory, since: tuple) -> str:
+    """The shared service's counters, and its steps and the kernel's
+    launches since ``since`` (the counts after the warm-up), for the
+    teardown log at -v."""
+    service = getattr(factory, "service", None)
     counters = service.counters() if service is not None else {}
     supervisor = getattr(factory, "supervisor", None)
+    steps, packed, dense = (now - then for now, then in
+                            zip(_run_counts(factory), since))
     return (
-        f"Service counters: {counters}; ft_gather launches: packed "
-        f"{ft_gather.ft_accumulate_packed_cuda.launches}, dense "
-        f"{ft_gather.ft_accumulate_cuda.launches}; rung "
+        f"Service counters: {counters}; since warm-up: eval_steps {steps}, "
+        f"ft_gather launches: packed {packed}, dense {dense}; rung "
         f"{supervisor.rung if supervisor is not None else None}"
     )
 
@@ -194,6 +201,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         drain_guard = asyncio.create_task(deadline_guard())
 
     loop = asyncio.get_running_loop()
+    warm = (0, 0, 0)
     try:
         loop.add_signal_handler(signal.SIGINT, on_sigint)
         loop.add_signal_handler(signal.SIGTERM, on_sigterm)
@@ -205,6 +213,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         # off the event loop: the first start compiles the kernel.
         if opt.resolved_engine() == "tpu-nnue":
             await engine_factory.create(EngineFlavor.OFFICIAL)
+            warm = _run_counts(engine_factory)
         logger.fishnet_info(
             f"fishnet-tpu-torch {__version__} connecting to "
             f"{opt.resolved_endpoint()}"
@@ -225,7 +234,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
             await client.stop(abort_pending=stop.is_set())
     finally:
         if opt.verbose:
-            logger.debug(_teardown_counters(engine_factory))
+            logger.debug(_teardown_counters(engine_factory, warm))
         # Tear down the shared service before interpreter exit: a daemon
         # driver thread still inside native code when Python unwinds
         # takes the process down.

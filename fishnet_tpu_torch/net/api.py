@@ -9,21 +9,26 @@ globally; requests carry bearer-key auth plus the legacy
 60 s + jittered backoff; 400/401/403/406 on acquire mean the server
 rejected this client and the queue must stop (doc/protocol.md:240-244).
 
-Each request is one HTTP/1.1 exchange on its own connection
-(``asyncio.open_connection``, TLS for https), so a request cut by the
-30 s timeout is cancelled cleanly: its connection is closed and no
-thread is left behind. The future-based message passing mirrors the
-reference's mpsc/oneshot channels.
+Requests are HTTP/1.1 on ``asyncio`` streams (TLS for https) with
+keep-alive: a request takes an idle connection to its host or opens
+one, and gives it back after a complete response, so a steady client
+pays no TCP or TLS handshake per request (the reference's pool,
+api.rs:528). A request cut by the 30 s timeout closes its connection;
+no thread is left behind. An acquire may be a long poll, so it runs in
+a task of its own on a connection of its own, and submissions are not
+queued behind it; every other request is handled in turn. The
+future-based message passing mirrors the reference's mpsc/oneshot
+channels.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
-import os
 import ssl
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set, Tuple
 from urllib.parse import urlencode, urlsplit
 
 from fishnet_tpu_torch.protocol.types import (
@@ -43,15 +48,17 @@ from fishnet_tpu_torch.utils.logger import Logger
 from fishnet_tpu_torch.version import PROTOCOL_VERSION, user_agent
 
 REQUEST_TIMEOUT_SECONDS = 30.0  # api.rs:527
+POOL_IDLE_TIMEOUT_SECONDS = 25.0  # api.rs:528
 
 #: Transport attempts for a FINAL analysis submission (and for move
 #: submissions) before the batch is abandoned to the server's timeout.
 #: Progress reports are never retried — they are redundant by design.
 MAX_SUBMIT_ATTEMPTS = 4
 
-#: Circuit-breaker tuning, env-overridable as in the JAX package.
-BREAKER_THRESHOLD_ENV = "FISHNET_BREAKER_THRESHOLD"
-BREAKER_COOLDOWN_ENV = "FISHNET_BREAKER_COOLDOWN"
+#: Submit circuit breaker: failures in a row that open it, and the
+#: seconds it stays open before a probe.
+BREAKER_THRESHOLD = 5
+BREAKER_COOLDOWN_SECONDS = 30.0
 
 
 # ---------------------------------------------------------------------------
@@ -83,14 +90,23 @@ class HttpResponse:
             raise HttpError(self.status, self.text())
 
 
+class _StaleConnection(Exception):
+    """A reused connection was closed by the server before it answered."""
+
+
+Conn = Tuple[asyncio.StreamReader, asyncio.StreamWriter]
+
+
 class HttpSession:
-    """Sends one request per connection with fixed headers and a total
-    timeout per request."""
+    """HTTP/1.1 client with fixed headers, a total timeout per request
+    and a pool of idle keep-alive connections per (host, port, scheme).
+    Concurrent requests each hold a connection of their own."""
 
     def __init__(self, headers: Dict[str, str], timeout: float) -> None:
         self.headers = headers
         self.timeout = timeout
         self._ssl: Optional[ssl.SSLContext] = None
+        self._idle: Dict[tuple, List[Tuple[Conn, float]]] = {}
 
     async def get(self, url: str) -> HttpResponse:
         return await self.request("GET", url)
@@ -105,6 +121,23 @@ class HttpSession:
         return await asyncio.wait_for(
             self._exchange(method, url, params, json_body), self.timeout
         )
+
+    def close(self) -> None:
+        """Close every idle connection."""
+        for conns in self._idle.values():
+            for (_, writer), _ in conns:
+                writer.close()
+        self._idle.clear()
+
+    def _take_idle(self, key: tuple) -> Optional[Conn]:
+        conns = self._idle.get(key, [])
+        while conns:
+            (reader, writer), since = conns.pop()
+            if (time.monotonic() - since < POOL_IDLE_TIMEOUT_SECONDS
+                    and not reader.at_eof() and not writer.is_closing()):
+                return reader, writer
+            writer.close()
+        return None
 
     async def _exchange(self, method, url, params, json_body) -> HttpResponse:
         parts = urlsplit(url)
@@ -121,18 +154,42 @@ class HttpSession:
         body = b"" if json_body is None else json.dumps(json_body).encode()
         lines = [f"{method} {target} HTTP/1.1", f"Host: {parts.netloc}"]
         lines += [f"{k}: {v}" for k, v in self.headers.items()]
-        lines += ["Accept: application/json", "Connection: close"]
+        lines += ["Accept: application/json"]
         if method != "GET":
             lines += ["Content-Type: application/json",
                       f"Content-Length: {len(body)}"]
-        reader, writer = await asyncio.open_connection(
+        request = ("\r\n".join(lines) + "\r\n\r\n").encode() + body
+        key = (host, port, https)
+        conn = self._take_idle(key)
+        if conn is not None:
+            try:
+                return await self._send(key, conn, method, request, True)
+            except _StaleConnection:
+                pass  # the server dropped it while idle: send on a new one
+        conn = await asyncio.open_connection(
             host, port, ssl=self._ssl if https else None,
             server_hostname=host if https else None,
         )
+        return await self._send(key, conn, method, request, False)
+
+    async def _send(self, key: tuple, conn: Conn, method: str, request: bytes,
+                    reused: bool) -> HttpResponse:
+        """One exchange on ``conn``; the connection goes back to the pool
+        after a complete response that leaves it open, and is closed in
+        every other case (an error, a timeout's cancellation)."""
+        reader, writer = conn
+        pooled = False
         try:
-            writer.write(("\r\n".join(lines) + "\r\n\r\n").encode() + body)
-            await writer.drain()
-            status_line = (await reader.readline()).decode("latin-1")
+            try:
+                writer.write(request)
+                await writer.drain()
+                status_line = (await reader.readline()).decode("latin-1")
+            except (ConnectionResetError, BrokenPipeError):
+                if reused:
+                    raise _StaleConnection() from None
+                raise
+            if not status_line and reused:
+                raise _StaleConnection()
             fields = status_line.split(None, 2)
             if len(fields) < 2 or not fields[0].startswith("HTTP/"):
                 raise ConnectionError(f"malformed status line {status_line!r}")
@@ -144,6 +201,8 @@ class HttpSession:
                     break
                 name, _, value = line.partition(":")
                 headers[name.strip().lower()] = value.strip()
+            keep = (fields[0] == "HTTP/1.1"
+                    and "close" not in headers.get("connection", "").lower())
             if status in (204, 304) or 100 <= status < 200 or method == "HEAD":
                 data = b""
             elif "chunked" in headers.get("transfer-encoding", "").lower():
@@ -151,10 +210,16 @@ class HttpSession:
             elif "content-length" in headers:
                 data = await reader.readexactly(int(headers["content-length"]))
             else:
-                data = await reader.read()  # Connection: close ends it
+                keep = False
+                data = await reader.read()  # the server's close ends it
+            if keep:
+                self._idle.setdefault(key, []).append(
+                    (conn, time.monotonic()))
+                pooled = True
             return HttpResponse(status, data)
         finally:
-            writer.close()
+            if not pooled:
+                writer.close()
 
 
 async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
@@ -280,6 +345,10 @@ class ApiActor:
         self.error_backoff = RandomizedBackoff()
         self._session: Optional[HttpSession] = None
         self._stopped = False
+        #: Loop time before which no new request starts: the error (and
+        #: 429) backoff, global over every request as in the reference.
+        self._resume_at = 0.0
+        self._acquires: Set[asyncio.Task] = set()
         # Submit-endpoint circuit breaker: repeated analysis-submission
         # failures open it and park further submissions instead of
         # burning a 30 s timeout + error backoff on each; a cooldown
@@ -287,8 +356,8 @@ class ApiActor:
         # work. Move submissions are exempt: they are latency-critical
         # and carry a chained acquire.
         self.breaker = CircuitBreaker(
-            failure_threshold=int(os.environ.get(BREAKER_THRESHOLD_ENV, "5")),
-            cooldown_seconds=float(os.environ.get(BREAKER_COOLDOWN_ENV, "30")),
+            failure_threshold=BREAKER_THRESHOLD,
+            cooldown_seconds=BREAKER_COOLDOWN_SECONDS,
             name="submit",
         )
         self._parked: List[_Message] = []
@@ -312,10 +381,27 @@ class ApiActor:
                 msg = await self.queue.get()
                 if msg.kind == "stop":
                     break
-                await self._handle(msg)
+                await self._hold_off()
+                if msg.kind == "acquire":
+                    # Possibly a long poll: in a task of its own, so the
+                    # submissions behind it go out meanwhile.
+                    task = asyncio.create_task(self._handle(msg))
+                    self._acquires.add(task)
+                    task.add_done_callback(self._acquires.discard)
+                else:
+                    await self._handle(msg)
                 if self._stopped and self.queue.empty():
                     break
+            # An acquire still in flight at a stop is finished, as it
+            # would have been had it been handled in turn.
+            if self._acquires:
+                await asyncio.gather(*self._acquires)
+        except asyncio.CancelledError:
+            for task in list(self._acquires):
+                task.cancel()
+            raise
         finally:
+            self._session.close()
             if self._breaker_wake is not None:
                 self._breaker_wake.cancel()
                 self._breaker_wake = None
@@ -329,6 +415,15 @@ class ApiActor:
                 )
                 self._parked.clear()
             self.logger.debug("Api actor exited")
+
+    async def _hold_off(self) -> None:
+        delay = self._resume_at - asyncio.get_running_loop().time()
+        if delay > 0:
+            await asyncio.sleep(delay)
+
+    def _back_off(self, seconds: float) -> None:
+        now = asyncio.get_running_loop().time()
+        self._resume_at = max(self._resume_at, now + seconds)
 
     # -- circuit breaker plumbing -----------------------------------------
 
@@ -391,6 +486,10 @@ class ApiActor:
                 self._drain_parked()
             self.error_backoff.reset()
         except asyncio.CancelledError:
+            # Cancelled with the actor: the caller hears of it as a
+            # transport error, not as its own cancellation.
+            if msg.future and not msg.future.done():
+                msg.future.set_exception(ConnectionError("api actor stopped"))
             raise
         except RateLimited:
             backoff = 60.0 + self.error_backoff.next()
@@ -405,7 +504,7 @@ class ApiActor:
             )
             if not retried and msg.future and not msg.future.done():
                 msg.future.set_exception(RateLimited())
-            await asyncio.sleep(backoff)
+            self._back_off(backoff)
         except Exception as err:  # noqa: BLE001 - any transport/protocol error
             if msg.kind == "submit_analysis" and self.breaker.record_failure():
                 self.logger.error(
@@ -419,7 +518,7 @@ class ApiActor:
             )
             if not retried and msg.future and not msg.future.done():
                 msg.future.set_exception(err)
-            await asyncio.sleep(backoff)
+            self._back_off(backoff)
 
     async def _abort(self, batch_id: str) -> None:
         self.logger.warn(f"Aborting batch {batch_id}.")

@@ -9,12 +9,21 @@ import time
 import pytest
 
 from chip_smoke import VALID_KEY, FakeServer
+from fishnet_tpu_torch.chess.core import load as load_core
 from fishnet_tpu_torch.client import Client
 from fishnet_tpu_torch.engine.mock import MockEngineFactory
 from fishnet_tpu_torch.net.api import channel
+from fishnet_tpu_torch.protocol.types import AcquiredKind, EvalFlavor
 from fishnet_tpu_torch.utils.logger import Logger
 
 pytestmark = pytest.mark.anyio
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_core():
+    """The queue's legality replay runs on the native core, which is
+    compiled at its first use: build it before any timed wait starts."""
+    load_core()
 
 
 async def wait_for(predicate, timeout=10.0, interval=0.02):
@@ -209,3 +218,38 @@ async def test_workers_analyze_batch_concurrently():
 def test_more_than_one_tenant_is_refused():
     with pytest.raises(ValueError, match="multi-tenant front end is not ported"):
         make_client("http://127.0.0.1:1/fishnet", tenants=2)
+
+
+async def test_submission_is_not_held_behind_a_long_poll_acquire():
+    """An acquire that the server holds (a long poll) does not hold back
+    a final submission sent after it."""
+    with FakeServer() as server:
+        server.lichess.acquire_delay = 2.0
+        stub, actor = channel(server.endpoint, VALID_KEY, Logger())
+        task = asyncio.create_task(actor.run())
+        acquire = asyncio.create_task(stub.acquire(slow=False))
+        await asyncio.sleep(0.3)  # the acquire is now held by the server
+        assert not acquire.done()
+        t0 = time.monotonic()
+        stub.submit_analysis("wk1", EvalFlavor.NNUE, [{"skipped": True}],
+                             final=True)
+        assert await wait_for(lambda: "wk1" in server.lichess.analyses)
+        landed = time.monotonic() - t0
+        acquired = await acquire
+        actor.stop()
+        await asyncio.wait_for(task, 5)
+    assert landed < 1.0, f"the submission took {landed:.2f} s"
+    assert acquired.kind is AcquiredKind.NO_CONTENT
+    assert server.lichess.acquire_count == 1
+
+
+async def test_requests_in_turn_share_one_connection():
+    with FakeServer() as server:
+        stub, actor = channel(server.endpoint, VALID_KEY, Logger())
+        task = asyncio.create_task(actor.run())
+        for _ in range(5):
+            assert (await stub.status()) is not None
+        assert (await stub.acquire(slow=False)).kind is AcquiredKind.NO_CONTENT
+        actor.stop()
+        await asyncio.wait_for(task, 5)
+    assert server.lichess.connections == 1

@@ -13,8 +13,14 @@ NNUE is integer arithmetic: no tolerance. Only ``time`` and ``nps``
 (wall-clock) and the ``fishnet.version`` field are left out of the
 comparison."""
 
+import ast
 import asyncio
 import copy
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -24,6 +30,7 @@ from fishnet_tpu.engine.tpu_engine import TpuNnueEngineFactory as JaxFactory
 from fishnet_tpu.nnue.weights import NnueWeights as JaxWeights
 from fishnet_tpu.search.service import SearchService as JaxService
 from fishnet_tpu.utils.logger import Logger as JaxLogger
+import chip_smoke
 from fishnet_tpu_torch.client import Client
 from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
 from fishnet_tpu_torch.nnue.weights import NnueWeights
@@ -116,3 +123,78 @@ def test_run_path_submits_the_same_analysis_as_the_jax_client(
     assert mate["analysis"][-1]["score"] == {"mate": 0}
     assert mate["analysis"][-2]["score"] == {"mate": 1}
     assert sum(p["nodes"] for p in skip["analysis"] if "nodes" in p) > 500
+
+
+def test_client_parity_check_of_the_chip_run_holds_on_the_cpu(
+        one_torch_thread):
+    """``chip_smoke.client_parity``, the run phase's check against the
+    native scalar service, on the port's CPU service at a small size:
+    the same score, best move and depth per ply, in a run with no engine
+    timeout, requeue or abort."""
+    chip_smoke.client_parity(NnueWeights.random(seed=0), "cpu", games=1,
+                             plies=4, depth=2)
+
+
+def test_cli_teardown_counts_the_run_after_the_warm_up():
+    """``python -m fishnet_tpu_torch run --device cpu -v`` over the
+    tpu-nnue engine, drained by SIGINT once its job is submitted: the
+    teardown line counts the steps dispatched after the service's
+    warm-up (all of the service's: the warm-up evaluates outside the
+    pool), and on the CPU no kernel launch (the wrapper runs the plain
+    version); the rung is the CPU ladder's first."""
+    root = Path(__file__).resolve().parent.parent
+    with chip_smoke.FakeServer() as server:
+        job = server.lichess.add_analysis_job(moves="e2e4 e7e5", nodes=100)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fishnet_tpu_torch", "run", "--device",
+             "cpu", "--no-conf", "--no-stats-file", "--endpoint",
+             server.endpoint, "--key", chip_smoke.VALID_KEY, "--cores", "1",
+             "--microbatch", "64", "--max-backoff", "1", "-v"],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            deadline = time.monotonic() + 240
+            while job not in server.lichess.analyses:
+                assert proc.poll() is None and time.monotonic() < deadline
+                time.sleep(0.1)
+            proc.send_signal(signal.SIGINT)
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    assert proc.returncode == 0, out[-3000:]
+    steps, packed, dense, rung = chip_smoke.teardown_counts(out)
+    total = ast.literal_eval(out.split("Service counters: ")[1].split(
+        "; since warm-up")[0])["eval_steps"]
+    assert steps == total > 0
+    assert (packed, dense, rung) == (0, 0, "xla")
+
+
+def test_teardown_counts_only_what_follows_the_warm_up(monkeypatch):
+    """The teardown line subtracts the counts taken after the warm-up,
+    whose one launch builds the kernel and is no step of the run."""
+    from fishnet_tpu_torch import __main__ as cli
+    from fishnet_tpu_torch.ops import ft_gather
+
+    class Service:
+        steps = 0
+
+        def counters(self):
+            return {"eval_steps": self.steps}
+
+    class Factory:
+        service = Service()
+        supervisor = None
+
+    packed, dense = ft_gather.ft_accumulate_packed_cuda, ft_gather.ft_accumulate_cuda
+    monkeypatch.setattr(packed, "launches", 1)  # the warm-up's
+    monkeypatch.setattr(dense, "launches", 0)
+    factory = Factory()
+    warm = cli._run_counts(factory)
+    factory.service.steps += 7
+    packed.launches += 7
+    line = cli._teardown_counters(factory, warm)
+    assert chip_smoke.teardown_counts(line) == (7, 7, 0, "None")
+    assert chip_smoke.teardown_counts(
+        cli._teardown_counters(factory, (0, 0, 0))) == (7, 8, 0, "None")
