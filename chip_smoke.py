@@ -401,6 +401,10 @@ class FakeServer:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # Headers and body go out as two writes: without TCP_NODELAY
+            # a kept-alive connection waits ~40 ms (Nagle against the
+            # client's delayed ACK) before each body.
+            disable_nagle_algorithm = True
 
             def setup(self):
                 super().setup()
