@@ -9,28 +9,38 @@ sources in the checkout, checks the core's FEN formatter next to torch,
 holds both of the kernel's modes (dense indices; the packed wire with
 the anchor-table stores) bit for bit against their plain PyTorch
 versions on every wire entry kind, serves UCI requests through the
-port's SearchService on the GPU (one kernel launch per dispatched
-step), checks search parity with the native C++ scalar evaluator, times
-the kernel at the serving path's shape, and runs the fishnet client —
+port's SearchService on the GPU (one kernel launch per device
+dispatch, the dispatch coalescer fusing the groups' steps), checks
+search parity with the native C++ scalar evaluator, times the kernel at
+the serving path's shape, holds fused segmented dispatches against solo
+ones and the plain version and runs the service at the new defaults
+(one driver thread per core), and runs the fishnet client —
 in process, then ``python -m fishnet_tpu_torch run`` as a subprocess —
 against a fake lichess server built on the standard library.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
 the UCI answers with the kernel's launch count, the scalar parity, the
-kernel's times, the client runs' throughput and latencies, then on the
+kernel's times, the coalescer's checks and the fused launch's times,
+the client runs' throughput and latencies, then on the
 last three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
-``--phases`` (comma-separated: kernel, serve, parity, timing, run, cli;
-default all six) limits a run to some phases while iterating on one of
-them. Three extra phases run only on request: ``profile`` traces a
-loaded burst with torch.profiler, ``anatomy`` (after ``serve``) times
-the kernel with one part of its work removed at a time, and ``ladder``
-times the UCI session and the burst with the entry-bucket ladder
-starting at 64 and at 8.
+``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
+run, cli; default all seven) limits a run to some phases while
+iterating on one of them. ``coalesce`` holds the fused segmented
+dispatch of K in {2, 4, 8} real group steps against K solo dispatches
+and the plain segmented version, times the fused launch, and runs the
+service with the new defaults (one driver thread per core, coalescer
+and async pipeline on). Four extra phases run only on request:
+``profile`` traces a loaded burst with torch.profiler, ``anatomy``
+(after ``serve``) times the kernel with one part of its work removed at
+a time, ``ladder`` times the UCI session and the burst with the
+entry-bucket ladder starting at 64 and at 8, and ``sweep`` times the
+burst at 1, 2, 4 and 7 driver threads with and without the
+coalescer.
 
 The module imports only the standard library, so its fake lichess
 (``FakeLichess``, ``FakeServer``) also serves the CPU tests.
@@ -40,10 +50,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import ctypes
 import faulthandler
 import itertools
 import json
+import os
 import random
 import subprocess
 import sys
@@ -55,7 +67,7 @@ from pathlib import Path
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernel", "serve", "parity", "timing", "run", "cli")
+PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -817,18 +829,21 @@ def load_burst(service) -> float:
     c = {k: v - c0[k] for k, v in service.counters().items()}
     log(f"  burst: {len(results)} concurrent searches, {nodes} nodes in "
         f"{t_burst:.3f} s ({nodes / t_burst:.0f} nodes/s); eval_steps "
-        f"{c['eval_steps']}, evals_shipped {c['evals_shipped']}, "
-        f"bucket_slots {c['bucket_slots']}")
+        f"{c['eval_steps']}, dispatches {c['dispatches']} "
+        f"({c['fused_dispatches']} fused), evals_shipped "
+        f"{c['evals_shipped']}, bucket_slots {c['bucket_slots']}, "
+        f"fused_dedup {c['fused_dedup']}")
     return nodes / t_burst
 
 
 def phase_serve(torch, weights, dev):
     """The main path: UCI requests answered by the port's SearchService
-    on the GPU (microbatch 1024, pipeline 2), then a load burst of
-    concurrent searches through the same service. The kernel's launch
-    counts are zeroed just before (after the service's warm-up) and
-    read just after: the packed wrapper must have launched exactly once
-    per dispatched step, and neither the wire expansion nor the table
+    on the GPU (microbatch 1024, pipeline 2: two groups, so the
+    coalescer fuses their steps), then a load burst of concurrent
+    searches through the same service. The kernel's launch counts are
+    zeroed just before (after the service's warm-up) and read just
+    after: the packed wrapper must have launched exactly once per device
+    dispatch (solo or fused), and neither the wire expansion nor the table
     store of the plain version may have run. Returns the counts, the
     session's seconds, the burst's nodes/s and the captured inputs of
     one 512-entry device step for the timing phase."""
@@ -846,10 +861,13 @@ def phase_serve(torch, weights, dev):
         if parent.shape[0] == 512:
             calls[0] += 1
             if calls[0] == 8:  # past the first steps: anchors are warm
+                # Solo (one group's table) or fused (the flat table of
+                # every group, segments rebased into it).
                 captured.update(
                     packed=packed.clone(), offsets=offsets.clone(),
                     parent=parent.clone(), n_rows=n_rows, tab=tab.clone(),
                     ptab=ptab.clone(),
+                    fused=tab.shape[0] > service._anchor_rows,
                 )
         return evaluate(params, packed, buckets, parent, material, tab,
                         n_rows, ptab, offsets=offsets)
@@ -871,7 +889,7 @@ def phase_serve(torch, weights, dev):
         for name in plain_calls:
             saved[name], wrapper = counted(name)
             setattr(ft_gather, name, wrapper)
-        steps0 = service.counters()["eval_steps"]
+        c0 = service.counters()
         ft_gather.ft_accumulate_cuda.launches = 0
         ft_gather.ft_accumulate_packed_cuda.launches = 0
         t_uci = uci_session(service, echo=True)
@@ -880,21 +898,29 @@ def phase_serve(torch, weights, dev):
             "packed": ft_gather.ft_accumulate_packed_cuda.launches,
             "dense": ft_gather.ft_accumulate_cuda.launches,
         }
-        steps = service.counters()["eval_steps"] - steps0
+        c = {k: v - c0[k] for k, v in service.counters().items()}
     finally:
         for name, fn in saved.items():
             setattr(ft_gather, name, fn)
         service.close()
+    steps = c["eval_steps"]
     log(f"  ft_gather launches on the main path: {launches}; dispatched "
-        f"steps {steps}; plain-version calls {plain_calls}")
-    check(launches["packed"] == steps,
-          f"{launches['packed']} packed launches for {steps} steps: "
-          "expected one per dispatch")
+        f"steps {steps} in {c['dispatches']} device dispatches "
+        f"({c['fused_dispatches']} fused, of {c['coalesced_steps']} steps; "
+        f"{c['fused_dedup']} evals deduped; width policy "
+        f"{service.coalesce_width()}, probe {service.dispatch_probe}); "
+        f"plain-version calls {plain_calls}")
+    check(launches["packed"] == c["dispatches"],
+          f"{launches['packed']} packed launches for {c['dispatches']} "
+          "dispatches: expected one per dispatch")
     check(launches["dense"] == 0, "the main path launched the dense mode")
     check(not any(plain_calls.values()),
           f"the main path ran the plain version's pieces: {plain_calls}")
     check("parent" in captured, "no 512-entry step was captured")
     return {"launches": sum(launches.values()), "steps": steps,
+            "dispatches": c["dispatches"],
+            "fused_dispatches": c["fused_dispatches"],
+            "coalesced_steps": c["coalesced_steps"],
             "uci_s": t_uci, "burst_nps": nps, "step": captured}
 
 
@@ -920,17 +946,19 @@ def phase_ladder(weights, dev) -> None:
             service.close()
 
 
-def phase_profile(torch, weights, dev) -> None:
+def phase_profile(torch, weights, dev, threads: int = 1) -> None:
     """Where a loaded step's time goes: 256 concurrent searches through
-    the service under torch.profiler (CPU and CUDA activity); prints the
-    wall time, the device kernel time by name and the device busy
-    share. Not part of the default run."""
+    the service (``threads`` driver threads, pipeline 2) under
+    torch.profiler (CPU and CUDA activity); prints the wall time, the
+    device kernel time by name and the device busy share, per step and
+    per device dispatch. Not part of the default run."""
     from torch.profiler import ProfilerActivity, profile
 
     from fishnet_tpu_torch.search.service import SearchService
 
     service = SearchService(weights=weights, batch_capacity=1024,
-                            pipeline_depth=2, device=dev)
+                            pipeline_depth=2, driver_threads=threads,
+                            device=dev)
     walks = random_lines(256, seed=12)
 
     async def burst():
@@ -946,7 +974,8 @@ def phase_profile(torch, weights, dev) -> None:
             results = asyncio.run(burst())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        steps = service.counters()["eval_steps"]
+        counters = service.counters()
+        steps, dispatches = counters["eval_steps"], counters["dispatches"]
     finally:
         service.close()
     check(all(r.best_move for r in results), "profile burst: a search failed")
@@ -958,27 +987,36 @@ def phase_profile(torch, weights, dev) -> None:
     copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
     device_us = sum(r[1] for r in kernels)
     per_step = sum(r[2] for r in kernels) / max(1, steps)
-    log(f"  {len(results)} searches, {steps} steps in {wall:.3f} s "
-        f"({wall / max(1, steps) * 1e3:.3f} ms per step); device kernel "
-        f"time {device_us / 1e3:.3f} ms = {device_us / 1e4 / wall:.2f}% busy")
-    log(f"  device kernels per step: {per_step:.2f} ({len(kernels)} "
-        f"distinct); copies and fills per step: "
-        f"{sum(r[2] for r in copies) / max(1, steps):.2f}")
+    nodes = sum(r.nodes for r in results)
+    log(f"  {threads} driver threads: {len(results)} searches, {nodes} "
+        f"nodes, {steps} steps in {dispatches} dispatches in {wall:.3f} s "
+        f"({wall / max(1, steps) * 1e3:.3f} ms per step, "
+        f"{wall / max(1, dispatches) * 1e3:.3f} ms per dispatch); device "
+        f"kernel time {device_us / 1e3:.3f} ms = "
+        f"{device_us / 1e4 / wall:.2f}% busy")
+    log(f"  device kernels per step: {per_step:.2f}, per dispatch "
+        f"{per_step * steps / max(1, dispatches):.2f} ({len(kernels)} "
+        f"distinct); copies and fills per dispatch: "
+        f"{sum(r[2] for r in copies) / max(1, dispatches):.2f}")
     for key, us, count in rows[:14]:
         log(f"    {us / 1e3:10.3f} ms  {count:7d}x  {key[:90]}")
 
 
-def phase_parity(weights, dev) -> None:
-    """20 positions, one at a time at fixed depth with pipeline 1, one
-    driver thread and the prefetch budget pinned: the GPU service and
-    the native scalar evaluator must agree on (value, is_mate, move)."""
+def phase_parity(weights, dev, **gpu_kw) -> dict:
+    """20 positions, one at a time at fixed depth with the prefetch
+    budget pinned: the GPU service (pipeline 1 and one driver thread
+    unless ``gpu_kw`` says otherwise) and the native scalar evaluator
+    must agree on (value, is_mate, move). Returns the GPU service's
+    counters."""
     from fishnet_tpu_torch.search.service import SearchService
 
     walks = random_lines(20, seed=99)
+    counters = {}
 
-    async def run(backend):
+    async def run(backend, **kw):
         svc = SearchService(weights=weights, pool_slots=16, batch_capacity=64,
-                            tt_bytes=256 << 20, backend=backend, device=dev)
+                            tt_bytes=256 << 20, backend=backend, device=dev,
+                            **kw)
         svc.set_prefetch(8, adaptive=False)
         try:
             out = []
@@ -986,17 +1024,23 @@ def phase_parity(weights, dev) -> None:
                 r = await svc.search(STARTPOS, moves, depth=4)
                 line = [l for l in r.lines if l.multipv == 1][-1]
                 out.append((line.value, line.is_mate, r.best_move, r.nodes))
+            if backend == "torch":
+                counters.update(svc.counters(),
+                                coalescer=svc._coalescer is not None)
             return out
         finally:
             svc.close()
 
-    gpu = asyncio.run(run("torch"))
+    gpu = asyncio.run(run("torch", **gpu_kw))
     scalar = asyncio.run(run("scalar"))
     bad = [(w, g, s) for w, g, s in zip(walks, gpu, scalar) if g[:3] != s[:3]]
     check(not bad, f"{len(bad)} of {len(walks)} positions diverged: {bad[:2]}")
-    log(f"  {len(walks)} positions at depth 4: GPU service == scalar on "
-        f"(value, is_mate, best_move); nodes {sum(g[3] for g in gpu)} "
-        f"(GPU) vs {sum(s[3] for s in scalar)} (scalar)")
+    log(f"  {len(walks)} positions at depth 4: GPU service {gpu_kw or ''} "
+        f"== scalar on (value, is_mate, best_move); nodes "
+        f"{sum(g[3] for g in gpu)} (GPU) vs {sum(s[3] for s in scalar)} "
+        f"(scalar); GPU dispatches {counters['dispatches']} of "
+        f"{counters['eval_steps']} steps, coalescer {counters['coalescer']}")
+    return counters
 
 
 def _graph(torch, fn, reps: int):
@@ -1299,7 +1343,8 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
             "packed_bound_bytes": fpb_bytes,
         },
     }
-    log(f"  captured step {mix}: packed kernel {times['packed']:.6f} / "
+    log(f"  captured step {mix} ({'fused' if step['fused'] else 'solo'}): "
+        f"packed kernel {times['packed']:.6f} / "
         f"{again['packed']:.6f} ms, plain "
         f"{packed_plain_ms:.6f} ms, bound {pbound_ms:.6f} ms ({pbytes} B); "
         f"cold L2 {cold_ms:.6f} ms, warm alone {single_ms:.6f} ms")
@@ -1312,6 +1357,517 @@ def phase_timing(torch, params, dev, serve, worst: Optional[int]):
         f"{full_packed_ms:.6f} ms, plain {full_packed_plain_ms:.6f} ms, "
         f"bound {fpb_ms:.6f} ms ({fpb_bytes} B)")
     return entry
+
+
+#: The coalesce phase's fused widths, and the pipeline groups its
+#: captured burst runs (the widest fused dispatch takes every group).
+FUSE_WIDTHS = (2, 4, 8)
+CAPTURE_GROUPS = 8
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Set environment variables (None: unset) for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def capture_group_steps(weights, dev, rounds: int = 6, pool_slots: int = 256,
+                        nodes: int = 1000):
+    """One real step of each of CAPTURE_GROUPS pipeline groups, from a
+    loaded burst (``pool_slots`` searches at ``nodes`` nodes, which
+    fill every group's slots) on a service that
+    dispatches per group (FISHNET_NO_COALESCE=1, one driver thread,
+    microbatch 1024): each group's host wire at its ``rounds``-th
+    dispatch (rows, offsets, buckets, parents), a seeded material column
+    for the host-material wire, and copies of the group's anchor and
+    PSQT tables as they stood just before that dispatch. Returns (steps
+    by group, the rows of one group's table)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.search.service import SearchService
+
+    with env_vars(FISHNET_NO_COALESCE="1"):
+        svc = SearchService(weights=weights, pool_slots=pool_slots,
+                            batch_capacity=1024,
+                            pipeline_depth=CAPTURE_GROUPS, device=dev)
+    rng = np.random.default_rng(41)
+    seen, steps = {}, {}
+    dispatch = svc._dispatch_eval
+
+    def recorder(group, n, rows):
+        seen[group] = seen.get(group, 0) + 1
+        if seen[group] == rounds:
+            steps[group] = dict(
+                n=n, rows=rows,
+                packed=svc._packed_buf[group][:rows].copy(),
+                offsets=svc._offset_buf[group][:n].copy(),
+                buckets=svc._bucket_buf[group][:n].copy(),
+                parent=svc._parent_buf[group][:n].copy(),
+                material=rng.integers(-500, 500, n).astype(np.int32),
+                tab=svc._anchor_tabs[group].clone(),
+                ptab=svc._psqt_tabs[group].clone())
+        return dispatch(group, n, rows)
+
+    svc._dispatch_eval = recorder
+    walks = random_lines(pool_slots, seed=13)
+
+    async def burst():
+        return await asyncio.gather(*[
+            svc.search(STARTPOS, moves, nodes=nodes) for moves in walks])
+
+    try:
+        svc.warmup()
+        asyncio.run(burst())
+    finally:
+        svc.close()
+    check(len(steps) == CAPTURE_GROUPS,
+          f"captured steps of {sorted(steps)}, not of every group")
+    return steps, svc._anchor_rows
+
+
+class FusedHarness:
+    """A SearchService (CAPTURE_GROUPS groups, width pinned to all of
+    them) whose group buffers and tables are loaded with captured steps,
+    so its real solo and fused dispatch paths run on them; records the
+    evaluator calls (the kernel's inputs)."""
+
+    def __init__(self, weights, dev, psqt_path: Optional[str],
+                 pool_slots: int = 256) -> None:
+        from fishnet_tpu_torch.search.service import SearchService
+
+        with env_vars(FISHNET_COALESCE_WIDTH=str(CAPTURE_GROUPS),
+                      FISHNET_NO_COALESCE=None):
+            self.svc = SearchService(
+                weights=weights, pool_slots=pool_slots, batch_capacity=1024,
+                pipeline_depth=CAPTURE_GROUPS, device=dev,
+                psqt_path=psqt_path)
+        self.svc.warmup()
+        self.calls = []
+        evaluate = self.svc._eval_fn
+
+        def recorder(params, packed, buckets, parent, material, tab, n_rows,
+                     ptab, *, offsets):
+            self.calls.append(dict(packed=packed, offsets=offsets,
+                                   parent=parent, tab=tab, ptab=ptab,
+                                   material=material))
+            return evaluate(params, packed, buckets, parent, material, tab,
+                            n_rows, ptab, offsets=offsets)
+
+        self.svc._eval_fn = recorder
+
+    def load(self, steps, groups) -> None:
+        svc = self.svc
+        for g in groups:
+            st = steps[g]
+            n, rows = st["n"], st["rows"]
+            svc._packed_buf[g][:rows] = st["packed"]
+            svc._offset_buf[g][:n] = st["offsets"]
+            svc._bucket_buf[g][:n] = st["buckets"]
+            svc._parent_buf[g][:n] = st["parent"]
+            if svc._material_buf is not None:
+                svc._material_buf[g][:n] = st["material"]
+            svc._anchor_tabs[g].copy_(st["tab"])
+            svc._psqt_tabs[g].copy_(st["ptab"])
+
+    def solo(self, steps, groups):
+        """Each group's solo dispatch: (values by group, tables after)."""
+        svc = self.svc
+        self.load(steps, groups)
+        self.calls.clear()
+        values = {}
+        for g in groups:
+            handle, _ = svc._dispatch_eval(g, steps[g]["n"], steps[g]["rows"])
+            values[g] = svc._resolve_eval(steps[g]["n"], handle)
+        return values, (svc._anchor_all.clone(), svc._psqt_all.clone())
+
+    def fused(self, torch, steps, groups):
+        """One fused dispatch of ``groups``' steps, in that order: (the
+        host values, the tickets, the tables before and after); checks
+        that it launched the kernel once."""
+        from fishnet_tpu_torch.ops import ft_gather
+        from fishnet_tpu_torch.search.coalesce import _CoalesceTicket
+
+        svc = self.svc
+        self.load(steps, groups)
+        before = (svc._anchor_all.cpu().clone(), svc._psqt_all.cpu().clone())
+        self.calls.clear()
+        launches = ft_gather.ft_accumulate_packed_cuda.launches
+        tickets = [_CoalesceTicket(g, steps[g]["n"], steps[g]["rows"])
+                   for g in groups]
+        svc._dispatch_segmented(tickets)
+        whole = tickets[0].values.materialize()
+        torch.cuda.synchronize()
+        check(ft_gather.ft_accumulate_packed_cuda.launches - launches == 1,
+              "a fused dispatch did not launch the kernel exactly once")
+        return whole, tickets, before, (svc._anchor_all.clone(),
+                                        svc._psqt_all.clone())
+
+    def close(self) -> None:
+        self.svc.close()
+
+
+def plain_segmented(torch, cpu_params, steps, groups, size, before,
+                    host_material: bool):
+    """The plain segmented version on the CPU (the JAX package's layout:
+    each segment padded to 4 * size + 4 rows) on copies of the tables as
+    they stood before the dispatch: (values, anchor tables, PSQT
+    tables)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec, torch_eval
+
+    k_segs, tier = len(groups), 4 * size + 4
+    packed = np.full((k_segs * tier, 2, 8), spec.NUM_FEATURES, np.uint16)
+    buckets = np.zeros(k_segs * size, np.int32)
+    parent = np.full(k_segs * size, -1, np.int32)
+    material = np.zeros(k_segs * size, np.int32)
+    for k, g in enumerate(groups):
+        st = steps[g]
+        packed[k * tier: k * tier + st["rows"]] = st["packed"]
+        buckets[k * size: k * size + st["n"]] = st["buckets"]
+        parent[k * size: k * size + st["n"]] = st["parent"]
+        material[k * size: k * size + st["n"]] = st["material"]
+    tab, ptab = before[0].clone(), before[1].clone()
+    values, _, _ = torch_eval.evaluate_packed_anchored_segmented(
+        cpu_params, torch.from_numpy(packed.view(np.int16)),
+        torch.from_numpy(buckets), torch.from_numpy(parent),
+        torch.from_numpy(material) if host_material else None, tab,
+        torch.tensor([steps[g]["rows"] for g in groups]), ptab,
+        groups=groups)
+    return values.numpy(), tab, ptab
+
+
+def with_duplicate(steps, groups):
+    """``steps`` with one cross-segment duplicate planted: the first
+    plain full of ``groups[0]``'s step appended, rows, bucket and
+    material, as a new last entry of the next group's step that has room
+    — a plain full with no consumer, not its segment's first entry, the
+    case the byte-mode planner drops."""
+    import numpy as np
+
+    src = steps[groups[0]]
+    fulls = np.flatnonzero(src["parent"] == -1)
+    check(len(fulls) > 0, f"group {groups[0]}'s step has no plain full")
+    i = int(fulls[0])
+    off = int(src["offsets"][i])
+    for g in groups[1:]:
+        st = steps[g]
+        if st["n"] < 128:  # the group's entry capacity at microbatch 1024
+            break
+    else:
+        check(False, "no step has room for a duplicate")
+    dup = dict(st)
+    dup.update(
+        n=st["n"] + 1, rows=st["rows"] + 4,
+        packed=np.concatenate([st["packed"], src["packed"][off: off + 4]]),
+        offsets=np.append(st["offsets"], st["rows"]).astype(np.int32),
+        buckets=np.append(st["buckets"], src["buckets"][i]).astype(np.int32),
+        parent=np.append(st["parent"], -1).astype(np.int32),
+        material=np.append(st["material"], src["material"][i]).astype(
+            np.int32))
+    out = dict(steps)
+    out[g] = dup
+    return out
+
+
+def time_fused(torch, params, harness, k_segs: int) -> dict:
+    """The fused launch of the harness's last fused dispatch against its
+    segments' K solo launches (the last ``solo`` call's), on copies of
+    the tables, as the timing phase times the kernel; and its bound."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec
+    from fishnet_tpu_torch.ops import ft_gather
+
+    w, b, fp = params["ft_w"], params["ft_b"], params["ft_psqt"]
+    fc = harness.fused_call
+    tab, ptab = fc["tab"].clone(), fc["ptab"].clone()
+    solo = [(c, c["tab"].clone(), c["ptab"].clone())
+            for c in harness.solo_calls]
+    check(len(solo) == k_segs, f"{len(solo)} solo launches for K={k_segs}")
+
+    def fused_call():
+        return ft_gather.ft_accumulate_packed_cuda(
+            w, b, fc["packed"], fc["offsets"], fc["parent"], tab,
+            ft_psqt=fp, psqt_tab=ptab)
+
+    def solo_calls():
+        for c, t, pt in solo:
+            ft_gather.ft_accumulate_packed_cuda(
+                w, b, c["packed"], c["offsets"], c["parent"], t,
+                ft_psqt=fp, psqt_tab=pt)
+
+    ptab_plain, pptab_plain = fc["tab"].clone(), fc["ptab"].clone()
+    ms = graph_time_ms(torch, fused_call)
+    solo_ms = graph_time_ms(torch, solo_calls)
+    plain_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_packed_plain(
+        w, b, fc["packed"], fc["offsets"], fc["parent"], ptab_plain,
+        ft_psqt=fp, psqt_tab=pptab_plain))
+    again = graph_time_ms(torch, fused_call)
+    parent = fc["parent"].cpu().numpy()
+    bound_ms, bound_by, nbytes, ops = packed_bound(
+        fc["packed"].cpu().numpy().view(np.uint16),
+        fc["offsets"].cpu().numpy(), parent, fc["tab"].shape[0], True,
+        spec.L1)
+    return {"k": k_segs, "entries": len(parent), "ms": ms,
+            "repeat_ms": again, "solo_ms": solo_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+            "bound_ops": ops}
+
+
+def gated_searches(weights, dev, coalesce: bool):
+    """Eight searches of 3000 nodes on one service (4 groups, one driver
+    thread, prefetch pinned) whose driver parks after its warm-up until
+    all are submitted, so the schedule is a function of the submission
+    sequence: with the coalescer (width pinned to 4) or without. Returns
+    the analyses and the counters."""
+    from fishnet_tpu_torch.search.service import SearchService
+
+    class Gated(SearchService):
+        def __init__(self, *args, **kwargs):
+            self.gate = threading.Event()
+            super().__init__(*args, **kwargs)
+
+        def warmup(self):
+            super().warmup()
+            self.gate.wait()
+
+    hatch = (dict(FISHNET_COALESCE_WIDTH="4", FISHNET_NO_COALESCE=None)
+             if coalesce else dict(FISHNET_NO_COALESCE="1"))
+    with env_vars(**hatch):
+        svc = Gated(weights=weights, pool_slots=8, batch_capacity=256,
+                    tt_bytes=8 << 20, pipeline_depth=4, driver_threads=1,
+                    device=dev)
+    walks = random_lines(8, seed=3)
+    try:
+        svc.set_prefetch(0, adaptive=False)
+
+        async def go():
+            tasks = [asyncio.ensure_future(svc.search(STARTPOS, m,
+                                                      nodes=3000))
+                     for m in walks]
+            await asyncio.sleep(0.5)
+            svc.gate.set()
+            return await asyncio.gather(*tasks)
+
+        results = asyncio.run(go())
+        counters = svc.counters()
+    finally:
+        svc.gate.set()
+        svc.close()
+    analyses = [(r.best_move, r.depth, r.nodes,
+                 [(l.multipv, l.depth, l.is_mate, l.value, l.pv)
+                  for l in r.lines]) for r in results]
+    return analyses, counters
+
+
+def phase_coalesce(torch, weights, params, dev) -> dict:
+    """The dispatch coalescer on the card, bit for bit.
+
+    Kernel level: real steps of 8 pipeline groups from a loaded burst;
+    for K in FUSE_WIDTHS, K of them (groups chosen out of order, so the
+    flat table is addressed by group) go through the service's fused
+    dispatch — one launch — and through K solo dispatches on the same
+    tables: the values and every group's anchor and PSQT rows must be
+    equal, and equal the plain segmented version on CPU copies; with
+    PSQT on the card and on the host-material wire. A planted
+    cross-segment duplicate must leave the wire (dedup on) and give the
+    values and tables of the dispatch with dedup off. The fused launch
+    is timed against its K solo launches.
+
+    Service level, with the new defaults (one driver thread per core,
+    pipeline 2, coalescer and async pipeline on): a load burst must
+    fuse dispatches, launch the packed kernel once per device dispatch
+    and the dense mode never, and leave the kernel's error word as it
+    was; 20 positions at depth 4 one at a time must equal the native
+    scalar search; and eight gated concurrent searches must give the
+    same analyses coalesced (width 4, fused dispatches) as per group."""
+    import numpy as np
+
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.search.service import SearchService
+
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    steps, a_rows = capture_group_steps(weights, dev)
+    log("  captured steps (group: entries, rows): " + ", ".join(
+        f"{g}: {st['n']}, {st['rows']}" for g, st in sorted(steps.items())))
+    worst = 0
+    timings = []
+    for psqt_path in (None, "host-material"):
+        harness = FusedHarness(weights, dev, psqt_path)
+        check(harness.svc._anchor_rows == a_rows, "table rows differ")
+        host_material = psqt_path == "host-material"
+        try:
+            for k_segs in FUSE_WIDTHS:
+                groups = [(3 * k + 1) % CAPTURE_GROUPS for k in range(k_segs)]
+                solo, solo_tabs = harness.solo(steps, groups)
+                harness.solo_calls = list(harness.calls)
+                whole, tickets, before, tabs = harness.fused(torch, steps,
+                                                             groups)
+                harness.fused_call = harness.calls[0]
+                size = tickets[0].seg_size
+                diffs = [max_diff([torch.from_numpy(
+                    whole[tk.start: tk.start + tk.n])],
+                    [torch.from_numpy(solo[tk.group])]) for tk in tickets]
+                diffs.append(max_diff(tabs, solo_tabs))
+                pv, ptab, pptab = plain_segmented(
+                    torch, cpu_params, steps, groups, size, before,
+                    host_material)
+                diffs.append(max_diff([torch.from_numpy(pv[tk.start:
+                                                           tk.start + tk.n])
+                                       for tk in tickets],
+                                      [torch.from_numpy(whole[tk.start:
+                                                              tk.start + tk.n])
+                                       for tk in tickets]))
+                diffs.append(max_diff([ptab, pptab],
+                                      [t.cpu() for t in tabs]))
+                worst = max(worst, *diffs)
+                check(max(diffs) == 0,
+                      f"K={k_segs} {psqt_path or 'fused'}: fused != solo "
+                      f"or plain: {diffs}")
+                line = (f"  K={k_segs} groups {groups} "
+                        f"({'host-material' if host_material else 'PSQT on the card'}): "
+                        f"{sum(tk.n for tk in tickets)} entries, one launch "
+                        f"== {k_segs} solo launches == plain on CPU "
+                        "(values, every group's anchor and PSQT rows)")
+                if not host_material:
+                    t = time_fused(torch, params, harness, k_segs)
+                    timings.append(t)
+                    line += (f"; fused launch {t['ms']:.6f} / "
+                             f"{t['repeat_ms']:.6f} ms, {k_segs} solo "
+                             f"launches {t['solo_ms']:.6f} ms, plain "
+                             f"{t['plain_ms']:.6f} ms, bound "
+                             f"{t['bound_ms']:.6f} ms ({t['bound_by']}, "
+                             f"{t['bound_bytes']} B)")
+                log(line)
+            # Dedup: a planted duplicate leaves the wire, nothing moves.
+            groups = [(3 * k + 1) % CAPTURE_GROUPS for k in range(4)]
+            dup_steps = with_duplicate(steps, groups)
+            co = harness.svc._coalescer
+            results = []
+            for dedup in (True, False):
+                harness.svc._dedup_fused = dedup
+                before_dedup = co.deduped_evals
+                whole, tickets, _, tabs = harness.fused(torch, dup_steps,
+                                                        groups)
+                results.append((np.concatenate([
+                    whole[tk.start: tk.start + tk.n] for tk in tickets]),
+                    tabs, co.deduped_evals - before_dedup))
+            harness.svc._dedup_fused = True
+            (v_on, t_on, n_on), (v_off, t_off, n_off) = results
+            diff = max(max_diff([torch.from_numpy(v_on)],
+                                [torch.from_numpy(v_off)]),
+                       max_diff(t_on, t_off))
+            worst = max(worst, diff)
+            check(n_on >= 1 and n_off == 0,
+                  f"dedup dropped {n_on} (on) / {n_off} (off) entries")
+            check(diff == 0, f"dedup on != off by {diff}")
+            log(f"  K=4 with a planted cross-segment duplicate: dedup "
+                f"dropped {n_on} entries, values and tables == dedup off")
+        finally:
+            harness.close()
+
+    # The service with the new defaults.
+    threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
+    service = SearchService(weights=weights, batch_capacity=1024,
+                            pipeline_depth=2, driver_threads=threads,
+                            device=dev)
+    try:
+        service.warmup()
+        check(service._coalescer is not None and service.async_depth() == 2,
+              "the default service built no coalescer or pipeline")
+        errors0 = ft_gather.kernel_errors(dev)
+        ft_gather.ft_accumulate_packed_cuda.launches = 0
+        ft_gather.ft_accumulate_cuda.launches = 0
+        c0 = service.counters()
+        nps = load_burst(service)
+        packed = ft_gather.ft_accumulate_packed_cuda.launches
+        dense = ft_gather.ft_accumulate_cuda.launches
+        c = {k: v - c0[k] for k, v in service.counters().items()}
+        torch.cuda.synchronize()
+        errors = ft_gather.kernel_errors(dev)
+        probe, width = service.dispatch_probe, service.coalesce_width()
+    finally:
+        service.close()
+    log(f"  defaults ({threads} driver threads x pipeline 2, probe {probe}, "
+        f"width {width}): {nps:.0f} nodes/s, {c['eval_steps']} steps in "
+        f"{c['dispatches']} dispatches ({c['fused_dispatches']} fused, mean "
+        f"width {c['eval_steps'] / max(1, c['dispatches']):.3f}), "
+        f"{c['fused_dedup']} evals deduped; ft_gather launches {packed} "
+        f"(packed), {dense} (dense); error word {errors0} -> {errors}")
+    check(c["fused_dispatches"] > 0, "the default service fused nothing")
+    check(packed == c["dispatches"],
+          f"{packed} packed launches for {c['dispatches']} dispatches")
+    check(dense == 0, "the default service launched the dense mode")
+    check(errors == errors0, f"the kernel's error word moved: {errors0} -> "
+                             f"{errors}")
+    parity = phase_parity(weights, dev, driver_threads=threads,
+                          pipeline_depth=2)
+    check(parity["coalescer"], "the parity service built no coalescer")
+    fused_runs = [gated_searches(weights, dev, coalesce=True)
+                  for _ in range(2)]
+    plain_run = gated_searches(weights, dev, coalesce=False)
+    check(all(r[0] == plain_run[0] for r in fused_runs),
+          "gated searches: coalesced != per-group analyses")
+    check(all(r[1]["fused_dispatches"] > 0 for r in fused_runs),
+          "gated searches: no fused dispatch")
+    log(f"  8 gated searches of 3000 nodes, twice coalesced (width 4: "
+        f"{[r[1]['dispatches'] for r in fused_runs]} dispatches, "
+        f"{[r[1]['fused_dispatches'] for r in fused_runs]} fused, of "
+        f"{fused_runs[0][1]['eval_steps']} steps) == per group "
+        f"({plain_run[1]['dispatches']} dispatches): the same analyses")
+    return {"timings": timings, "worst": worst, "burst_nps": nps,
+            "fused_dispatches": c["fused_dispatches"],
+            "dispatches": c["dispatches"], "eval_steps": c["eval_steps"]}
+
+
+def phase_sweep(weights, dev) -> None:
+    """The burst at 1, 2, 4 and 7 driver threads (pipeline 2), with the
+    coalescer and with FISHNET_NO_COALESCE=1, in turns; the mean
+    coalesce width and the deduped evals; and the pipeline depth the
+    JAX package's probe would pick here. A measurement, checked
+    nothing beyond the burst's own checks. Not part of the default
+    run."""
+    from fishnet_tpu_torch.search.coalesce import suggest_pipeline_depth
+    from fishnet_tpu_torch.search.service import SearchService
+
+    depth, probe = suggest_pipeline_depth(weights, size=1024,
+                                          return_probe=True, device=dev)
+    log(f"  suggest_pipeline_depth at 1024: depth {depth}, {probe}")
+    for threads in (1, 2, 4, 7):
+        for coalesce in (True, False):
+            with env_vars(FISHNET_NO_COALESCE=None if coalesce else "1"):
+                svc = SearchService(weights=weights, batch_capacity=1024,
+                                    pipeline_depth=2, driver_threads=threads,
+                                    device=dev)
+            try:
+                svc.warmup()
+                c0 = svc.counters()
+                nps = load_burst(svc)
+                c = {k: v - c0[k] for k, v in svc.counters().items()}
+                probe, width = svc.dispatch_probe, svc.coalesce_width()
+            finally:
+                svc.close()
+            busy = max(1, c["overlap_busy_us"])
+            log(f"  sweep: {threads} threads, coalescer "
+                f"{'on' if coalesce else 'off'}: {nps:.0f} nodes/s, mean "
+                f"width {c['eval_steps'] / max(1, c['dispatches']):.3f}, "
+                f"fused_dedup {c['fused_dedup']}, width {width}, probe "
+                f"{probe}, overlap {c['overlap_dual_us'] / busy:.3f}")
 
 
 def phase_fen() -> None:
@@ -1457,12 +2013,14 @@ async def drive_client(client, lichess, ids, timeout: float) -> None:
         await client.stop()
 
 
-def client_parity(weights, dev, games: int, plies: int, depth: int) -> None:
+def client_parity(weights, dev, games: int, plies: int, depth: int,
+                  threads: int = 1) -> None:
     """The ``run`` path's parity check: ``games`` seeded games of
     ``plies`` plies, analysed at ``depth`` through the port's Client
-    (one worker, prefetch pinned) on a SearchService over ``dev`` and on
-    the native scalar service, must submit the same score, best move
-    and depth per ply. The worker's engine budget is lifted for the
+    (one worker, prefetch pinned) on a SearchService over ``dev`` (with
+    ``threads`` driver threads and two pipeline groups each: with more
+    than one group the coalescer's ticket path) and on the native scalar
+    service, must submit the same score, best move and depth per ply. The worker's engine budget is lifted for the
     check, and it fails on any engine timeout, requeued or abandoned
     position, or abort: a search run again over a TT it already filled
     may differ without any fault of the evaluator."""
@@ -1494,9 +2052,11 @@ def client_parity(weights, dev, games: int, plies: int, depth: int) -> None:
     client_mod.DEFAULT_BUDGET_SECONDS = 3600.0
     try:
         for backend in ("torch", "scalar"):
+            torch_kw = (dict(driver_threads=threads, pipeline_depth=2)
+                        if backend == "torch" else {})
             svc = SearchService(weights=weights, pool_slots=16,
                                 batch_capacity=64, tt_bytes=256 << 20,
-                                backend=backend, device=dev)
+                                backend=backend, device=dev, **torch_kw)
             svc.set_prefetch(8, adaptive=False)
             logger = Recorder()
             with FakeServer() as server:
@@ -1532,13 +2092,15 @@ def client_parity(weights, dev, games: int, plies: int, depth: int) -> None:
 def phase_run(weights, dev):
     """The main path through the entry points a user calls: the port's
     ``Client`` over the ``tpu-nnue`` engine factory that ``python -m
-    fishnet_tpu_torch run`` builds (microbatch 1024, pipeline 2, the
-    supervisor's ladder), against the stdlib fake lichess with 16
-    analysis games and 4 move jobs. The packed kernel's launch count is
-    zeroed after the service's warm-up and read after the run; the rung
-    must stay "fused". Then the parity sub-run (``client_parity``): 3
-    games at depth 4 on a GPU service and on the native scalar service
-    must submit the same score, best move and depth per ply."""
+    fishnet_tpu_torch run`` builds (microbatch 1024, pipeline 2, one
+    driver thread per core, the supervisor's ladder), against the stdlib
+    fake lichess with 16 analysis games and 4 move jobs. The packed
+    kernel's launch count is zeroed after the service's warm-up and read
+    after the run: one launch per device dispatch; the rung must stay
+    "fused". Then the parity sub-run (``client_parity``): 3 games at
+    depth 4 on a GPU service (as many driver threads) and on the native
+    scalar service must submit the same score, best move and depth per
+    ply."""
     from fishnet_tpu_torch.__main__ import build_engine_factory
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.configure import parse_and_configure
@@ -1565,12 +2127,14 @@ def phase_run(weights, dev):
             await factory.create(EngineFlavor.OFFICIAL)
             ft_gather.ft_accumulate_packed_cuda.launches = 0
             ft_gather.ft_accumulate_cuda.launches = 0
-            steps0 = factory.service.counters()["eval_steps"]
+            c0 = factory.service.counters()
             await drive_client(client, lichess, analysis_ids + move_ids, 600)
-            return factory.service.counters()["eval_steps"] - steps0
+            return {k: v - c0[k]
+                    for k, v in factory.service.counters().items()}
 
         try:
-            steps = asyncio.run(run())
+            c = asyncio.run(run())
+            steps = c["eval_steps"]
             launches = ft_gather.ft_accumulate_packed_cuda.launches
             dense = ft_gather.ft_accumulate_cuda.launches
             service = factory.service
@@ -1580,31 +2144,37 @@ def phase_run(weights, dev):
             factory.close()
     log(f"  {opt.resolved_workers()} workers, {opt.resolved_search_threads()} "
         f"driver threads; ft_gather launches {launches} (packed), {dense} "
-        f"(dense) for {steps} dispatched steps; rung {rung[0]} (service "
-        f"{rung[1]}), respawns {rung[2]}")
+        f"(dense) for {steps} dispatched steps in {c['dispatches']} device "
+        f"dispatches ({c['fused_dispatches']} fused, {c['fused_dedup']} "
+        f"evals deduped); rung {rung[0]} (service {rung[1]}), respawns "
+        f"{rung[2]}")
     check(launches > 0, "the run path never launched the kernel")
-    check(launches == steps, f"{launches} packed launches for {steps} steps")
+    check(launches == c["dispatches"],
+          f"{launches} packed launches for {c['dispatches']} dispatches")
     check(dense == 0, "the run path launched the dense mode")
     check(rung == ("fused", "fused", 0, True),
           f"the service left the fused rung or died: {rung}")
     report = run_report(lichess, analysis_ids, move_ids, "run")
     report["launches"] = launches
+    report["fused_dispatches"] = c["fused_dispatches"]
 
-    client_parity(weights, dev, games=3, plies=10, depth=4)
+    client_parity(weights, dev, games=3, plies=10, depth=4,
+                  threads=opt.resolved_search_threads())
     return report
 
 
 def teardown_counts(out: str):
-    """(dispatched steps, packed launches, dense launches, rung) from the
-    teardown log line of ``python -m fishnet_tpu_torch run -v``, counted
-    from after the service's warm-up."""
+    """(dispatched steps, device dispatches, packed launches, dense
+    launches, rung) from the teardown log line of ``python -m
+    fishnet_tpu_torch run -v``, counted from after the service's
+    warm-up."""
     import re
 
-    found = re.search(r"since warm-up: eval_steps (-?\d+), ft_gather "
-                      r"launches: packed (-?\d+), dense (-?\d+); rung (\S+)",
-                      out)
+    found = re.search(r"since warm-up: eval_steps (-?\d+), dispatches "
+                      r"(-?\d+), ft_gather launches: packed (-?\d+), dense "
+                      r"(-?\d+); rung (\S+)", out)
     check(found is not None, "the CLI's teardown log has no launch counts")
-    return (*(int(found.group(i)) for i in (1, 2, 3)), found.group(4))
+    return (*(int(found.group(i)) for i in (1, 2, 3, 4)), found.group(5))
 
 
 def phase_cli() -> dict:
@@ -1612,7 +2182,7 @@ def phase_cli() -> dict:
     subprocess against the stdlib fake lichess (8 games, 2 move jobs):
     once every job is submitted, SIGINT drains it; it must exit 0, and
     its teardown log (-v) must show, counted from after the service's
-    warm-up, one packed kernel launch per dispatched step, at least
+    warm-up, one packed kernel launch per device dispatch, at least
     one, and no dense launch."""
     import signal
 
@@ -1642,15 +2212,15 @@ def phase_cli() -> dict:
     for line in tail:
         log(f"  | {line[:300]}")
     check(proc.returncode == 0, f"the CLI exited {proc.returncode}")
-    steps, packed, dense, rung = teardown_counts(out)
+    steps, dispatches, packed, dense, rung = teardown_counts(out)
     check(packed > 0, "the CLI never launched the kernel after its warm-up")
-    check(packed == steps, f"the CLI: {packed} packed launches for {steps} "
-                           "steps")
+    check(packed == dispatches, f"the CLI: {packed} packed launches for "
+                                f"{dispatches} dispatches")
     check(dense == 0, f"the CLI launched the dense mode {dense} times")
     check(rung == "fused", "the CLI's service left the fused rung")
     log(f"  the CLI's teardown log, since the warm-up: ft_gather launches "
-        f"{packed} (packed) for {steps} dispatched steps, {dense} (dense), "
-        "rung fused")
+        f"{packed} (packed) for {dispatches} device dispatches of {steps} "
+        f"steps, {dense} (dense), rung fused")
     report = run_report(lichess, analysis_ids, move_ids, "cli")
     report["launches"] = packed
     return report
@@ -1796,6 +2366,16 @@ def main() -> int:
     if "timing" in phases and serve is not None:
         log("[timing] ft_gather at the serving shape (B = 512)")
         entries.append(phase_timing(torch, params, dev, serve, worst))
+        entries[0]["fused_launches"] = serve["fused_dispatches"]
+        entries[0]["step_fused"] = serve["step"]["fused"]
+    if "coalesce" in phases:
+        log("[coalesce] fused segmented dispatches: kernel level, then the "
+            "service with the new defaults")
+        fused = phase_coalesce(torch, weights, params, dev)
+        for entry in entries:
+            entry["fused"] = fused["timings"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], fused["worst"])
+            entry["fused_launches_defaults"] = fused["fused_dispatches"]
     if "run" in phases:
         log("[run] the fishnet client over the tpu-nnue engine on the GPU, "
             "against a stdlib fake lichess")
@@ -1808,14 +2388,22 @@ def main() -> int:
         for entry in entries:
             entry["launches_cli"] = cli["launches"]
     if "profile" in phases:
-        log("[profile] a loaded burst under torch.profiler")
-        phase_profile(torch, weights, dev)
+        log("[profile] a loaded burst under torch.profiler, at one driver "
+            "thread and at the default")
+        from fishnet_tpu_torch.configure import parse_and_configure
+
+        for threads in sorted({1, parse_and_configure(
+                ["run", "--no-conf"]).resolved_search_threads()}):
+            phase_profile(torch, weights, dev, threads)
     if "anatomy" in phases and serve is not None:
         log("[anatomy] the kernel with one part of its work removed at a time")
         phase_anatomy(torch, params, dev, serve)
     if "ladder" in phases:
         log("[ladder] entry buckets from 64 vs from 8, one call")
         phase_ladder(weights, dev)
+    if "sweep" in phases:
+        log("[sweep] the burst by driver threads, coalescer on and off")
+        phase_sweep(weights, dev)
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

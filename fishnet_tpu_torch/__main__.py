@@ -102,28 +102,31 @@ def build_engine_factory(opt: Opt, logger: Logger) -> EngineFactory:
 
 
 def _run_counts(factory: EngineFactory) -> tuple:
-    """(the shared service's dispatched steps, the kernel's packed and
-    dense launches); 0 steps without a service."""
+    """(the shared service's dispatched steps and device dispatches, the
+    kernel's packed and dense launches); 0 steps without a service."""
     from fishnet_tpu_torch.ops import ft_gather
 
     service = getattr(factory, "service", None)
-    steps = service.counters()["eval_steps"] if service is not None else 0
-    return (steps, ft_gather.ft_accumulate_packed_cuda.launches,
+    counters = service.counters() if service is not None else {}
+    return (counters.get("eval_steps", 0), counters.get("dispatches", 0),
+            ft_gather.ft_accumulate_packed_cuda.launches,
             ft_gather.ft_accumulate_cuda.launches)
 
 
 def _teardown_counters(factory: EngineFactory, since: tuple) -> str:
-    """The shared service's counters, and its steps and the kernel's
-    launches since ``since`` (the counts after the warm-up), for the
-    teardown log at -v."""
+    """The shared service's counters, and its steps, its device
+    dispatches (a fused dispatch counts once for its groups) and the
+    kernel's launches since ``since`` (the counts after the warm-up),
+    for the teardown log at -v."""
     service = getattr(factory, "service", None)
     counters = service.counters() if service is not None else {}
     supervisor = getattr(factory, "supervisor", None)
-    steps, packed, dense = (now - then for now, then in
-                            zip(_run_counts(factory), since))
+    steps, dispatches, packed, dense = (
+        now - then for now, then in zip(_run_counts(factory), since))
     return (
         f"Service counters: {counters}; since warm-up: eval_steps {steps}, "
-        f"ft_gather launches: packed {packed}, dense {dense}; rung "
+        f"dispatches {dispatches}, ft_gather launches: packed {packed}, "
+        f"dense {dense}; rung "
         f"{supervisor.rung if supervisor is not None else None}"
     )
 

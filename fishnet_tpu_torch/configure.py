@@ -161,10 +161,9 @@ class Opt:
     microbatch: Optional[int] = None
     pipeline: Optional[int] = None
     #: Scheduler threads driving the shared search pool (the host
-    #: parallelism tier). Default 1: the JAX package runs one per core
-    #: and its dispatch coalescer merges their steps into one device
-    #: call; the port has no coalescer, so every thread's groups would
-    #: dispatch small steps of their own (PERF.md, the thread sweep).
+    #: parallelism tier). Default one per core, as in the JAX package:
+    #: the dispatch coalescer fuses their groups' steps into few device
+    #: dispatches.
     search_threads: Optional[int] = None
     #: Worker (pull-loop) count. None = auto: the batched device engine
     #: (tpu-nnue) runs many pull loops per core over one shared service;
@@ -201,7 +200,9 @@ class Opt:
         return self.pipeline if self.pipeline is not None else 2
 
     def resolved_search_threads(self) -> int:
-        return self.search_threads if self.search_threads is not None else 1
+        if self.search_threads is not None:
+            return self.search_threads
+        return self.resolved_cores()
 
     def resolved_workers(self) -> int:
         if self.search_concurrency is not None:
@@ -247,7 +248,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="In-flight device batches per driver thread (default 2).")
     p.add_argument("--search-threads", type=int, default=None,
                    help="Scheduler threads driving the search pool "
-                        "(default 1).")
+                        "(default: one per core).")
     p.add_argument("--search-concurrency", type=int, default=None,
                    help="Concurrent position analyses (worker pull loops). "
                         "Default: 32 per core (at most 256) for tpu-nnue, "

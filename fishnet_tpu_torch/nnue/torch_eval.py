@@ -28,7 +28,7 @@ Two arithmetic hazards of the port:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,10 +37,12 @@ from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue.weights import NnueWeights
 from fishnet_tpu_torch.ops.ft_gather import (  # noqa: F401 - re-exported
+    derive_segment_offsets,
     expand_packed,
     ft_accumulate,
     ft_accumulate_packed,
     is_delta as _is_delta,
+    recode_segment_parents,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -285,11 +287,31 @@ def _packed_anchored_core(
     material: Optional[torch.Tensor],
     anchor_tab: torch.Tensor,
     psqt_tab: torch.Tensor,
+    copy_src: Optional[torch.Tensor] = None,
 ):
     """Accumulate over the row stream with table resolution and the
     anchor stores (one kernel launch on CUDA; expand_packed,
     ft_accumulate_plain and store_anchors on the CPU), then evaluate the
-    head."""
+    head.
+
+    ``copy_src`` (optional int [B], the dedup fan-in of
+    ``plan_segment_dedup``) gives entry i the accumulator (and PSQT) of
+    entry ``copy_src[i]`` before the head, identity for kept entries.
+    The anchor stores have already happened by then (inside the launch
+    on the card), so a redirected entry must store nothing: plain fulls
+    and in-batch deltas, which the byte-mode planner drops. A redirected
+    store entry (parent <= -2) raises — the JAX package runs the fan-in
+    before its table scatter, which the position-keyed planner relies
+    on."""
+    if copy_src is not None:
+        copy_src = copy_src.to(device=parent.device, dtype=torch.long)
+        moved = copy_src != torch.arange(copy_src.shape[0],
+                                         device=parent.device)
+        if bool((moved & (parent.to(torch.int32) <= -2)).any()):
+            raise ValueError(
+                "copy_src redirects an anchor-store entry: the stores run "
+                "inside the launch, before the fan-in"
+            )
     psqt = None
     if material is None:
         acc, psqt = ft_accumulate_packed(
@@ -301,10 +323,65 @@ def _packed_anchored_core(
             params["ft_w"], params["ft_b"], packed, offsets, parent,
             anchor_tab,
         )
+    if copy_src is not None:
+        acc = acc.index_select(0, copy_src)
+        if psqt is not None:
+            psqt = psqt.index_select(0, copy_src)
     values = _evaluate_from_acc(
         params, acc, None, buckets, parent, material, psqt=psqt
     )
     return values, anchor_tab, psqt_tab
+
+
+def evaluate_packed_anchored_segmented(
+    params: Params,
+    packed: torch.Tensor,
+    buckets: torch.Tensor,
+    parent: torch.Tensor,
+    material: Optional[torch.Tensor],
+    anchor_tabs: torch.Tensor,
+    seg_rows: torch.Tensor,
+    psqt_tabs: torch.Tensor,
+    copy_src: Optional[torch.Tensor] = None,
+    *,
+    groups: Optional[Sequence[int]] = None,
+):
+    """K groups' packed row streams evaluated in ONE dispatch: the port
+    of the JAX package's ``evaluate_packed_anchored_segmented``.
+
+    Layout as in the JAX package: ``packed`` [K * tier, 2, 8] is K
+    streams, each padded to the common row tier with its OWN sentinel
+    block at its emitted-row count ``seg_rows[k]``; ``buckets`` and
+    ``parent`` (and ``material`` on the host-material rung) are
+    [K * size] with segment-local parent codes. ``anchor_tabs``
+    [G, A, 2, L1] and ``psqt_tabs`` [G, A, 2, 8] hold the tables of G
+    groups, contiguous; segment k is group ``groups[k]`` (default k, the
+    JAX package's stacked tables, G = K). The offsets are derived, the
+    parents rebased into the fused frame (``recode_segment_parents``:
+    persistent codes address block ``groups[k]`` of the flat
+    [G * A, ...] table), and one ``_packed_anchored_core`` call — one
+    kernel launch on CUDA — evaluates every segment and stores every
+    anchor entry to its own group's rows, IN PLACE.
+
+    Returns ``(values [K * size], anchor_tabs, psqt_tabs)``; segment k's
+    real entries are ``values[k * size : k * size + n_k]``, equal to a
+    solo ``evaluate_packed_anchored`` of that stream on that group's
+    table. ``copy_src`` (flat int [K * size]): see
+    ``_packed_anchored_core``."""
+    k_segs = len(groups) if groups is not None else anchor_tabs.shape[0]
+    anchor_rows = anchor_tabs.shape[1]
+    size = buckets.shape[0] // k_segs
+    tier = packed.shape[0] // k_segs
+    parent = parent.to(torch.int32).reshape(k_segs, size)
+    offsets = derive_segment_offsets(parent, seg_rows, tier)
+    gparent = recode_segment_parents(parent, anchor_rows, groups)
+    n_tab = anchor_tabs.shape[0] * anchor_rows
+    values, _, _ = _packed_anchored_core(
+        params, packed, offsets, buckets, gparent, material,
+        anchor_tabs.view(n_tab, 2, -1), psqt_tabs.view(n_tab, 2, -1),
+        copy_src=copy_src,
+    )
+    return values, anchor_tabs, psqt_tabs
 
 
 def expand_packed_np(packed, offsets, parent):

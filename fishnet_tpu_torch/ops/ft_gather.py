@@ -30,6 +30,13 @@ name picks by the device of its inputs: the kernel for CUDA tensors (it
 launches or raises; there is no fallback) and the plain version for CPU
 tensors.
 
+Segmented (coalesced) dispatches: ``derive_segment_offsets``,
+``recode_segment_parents`` and their host twins turn K groups' wire
+streams into one stream that meets the single-group contract, so one
+launch of the same packed mode evaluates them all;
+``plan_segment_dedup`` plans the cross-segment duplicates a fused
+dispatch may leave off the wire.
+
 Poison versus raise: the JAX package poisons persistent codes that
 arrive without a table when they are traced (``_POISON_ACC``) and
 raises when they are concrete. Torch is eager, so the port always
@@ -40,8 +47,9 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from fishnet_tpu_torch.nnue.spec import (
@@ -52,6 +60,8 @@ from fishnet_tpu_torch.nnue.spec import (
 
 __all__ = [
     "decode_parent",
+    "derive_segment_offsets",
+    "derive_segment_offsets_np",
     "error_word",
     "expand_packed",
     "ft_accumulate",
@@ -62,6 +72,9 @@ __all__ = [
     "ft_accumulate_plain",
     "is_delta",
     "kernel_errors",
+    "plan_segment_dedup",
+    "recode_segment_parents",
+    "recode_segment_parents_np",
     "store_anchors",
 ]
 
@@ -131,6 +144,214 @@ def is_delta(parent: torch.Tensor) -> torch.Tensor:
     delta bit); plain fulls (-1) and full anchor (re)seeds own 4 rows."""
     in_batch, persistent, _, _, _, _ = decode_parent(parent)
     return in_batch | persistent
+
+
+def derive_segment_offsets(parent: torch.Tensor, seg_rows: torch.Tensor,
+                           tier: int) -> torch.Tensor:
+    """Row offsets of a SEGMENTED dispatch whose K streams each take
+    ``tier`` rows of the concatenated stream (the JAX package's layout).
+
+    ``parent`` int32 [K, size] holds each segment's wire parent codes,
+    ``seg_rows`` int [K] each segment's emitted row count. Per segment
+    the offsets are the exclusive cumsum (4 rows per full entry, 1 per
+    delta); each segment's padding clamps into ITS OWN sentinel block at
+    ``seg_rows[k]`` and the whole segment shifts by ``k * tier``, so no
+    offset crosses a segment boundary. Returns flat int32 [K * size]."""
+    parent = parent.to(torch.int32)
+    k_segs = parent.shape[0]
+    rows_per = torch.where(is_delta(parent.reshape(-1)), 1, 4).to(
+        torch.int32).reshape(parent.shape)
+    local = torch.cumsum(rows_per, dim=1, dtype=torch.int32) - rows_per
+    local = torch.minimum(
+        local, seg_rows.to(device=parent.device, dtype=torch.int32)[:, None])
+    base = torch.arange(k_segs, dtype=torch.int32,
+                        device=parent.device)[:, None] * int(tier)
+    return (local + base).reshape(-1)
+
+
+def derive_segment_offsets_np(parent, seg_rows, bases) -> np.ndarray:
+    """Host twin of ``derive_segment_offsets`` for streams laid out at
+    any row ``bases`` (int [K], segment k's first row; the JAX layout is
+    ``k * tier``). The service packs each segment at its exact span
+    (its rows plus its sentinel block) and derives the offsets here."""
+    parent = np.asarray(parent, dtype=np.int32)
+    v = -parent - 2
+    delta = (parent >= 0) | ((parent <= -2) & ((v & 2) != 0))
+    rows_per = np.where(delta, 1, 4).astype(np.int32)
+    local = np.cumsum(rows_per, axis=1, dtype=np.int32) - rows_per
+    local = np.minimum(local, np.asarray(seg_rows, np.int32)[:, None])
+    return (local + np.asarray(bases, np.int32)[:, None]).reshape(-1)
+
+
+def recode_segment_parents(parent: torch.Tensor, anchor_rows: int,
+                           groups: Optional[Sequence[int]] = None
+                           ) -> torch.Tensor:
+    """Rebase segment-local wire parent codes into the fused frame.
+
+    ``parent`` int32 [K, size]; ``anchor_rows`` is one group's table row
+    count A. In-batch refs (``ref << 1 | swap``) shift by the segment's
+    entry base ``k * size``; persistent anchor codes (``-(2 + v)``,
+    ``v = (row << 2) | bits``) shift their table row by the segment's
+    table base ``groups[k] * A`` (default ``k * A``, the JAX package's
+    stacked tables): the service keeps every group's table as block g
+    of one [n_groups * A, ...] table, so a segment addresses its own
+    group's rows wherever it sits in the dispatch. Plain fulls (-1)
+    pass through. Every group batch STARTS with an anchor entry, so no
+    in-batch chain crosses a segment boundary: the result meets the
+    single-group contract of the kernel and of the plain version.
+    Returns flat int32 [K * size]."""
+    parent = parent.to(torch.int32)
+    k_segs, size = parent.shape
+    dev = parent.device
+    entry_base = (torch.arange(k_segs, dtype=torch.int32, device=dev)
+                  * size)[:, None]
+    blocks = (torch.arange(k_segs, dtype=torch.int32, device=dev)
+              if groups is None
+              else torch.as_tensor(list(groups), dtype=torch.int32,
+                                   device=dev))
+    tab_base = (blocks * int(anchor_rows))[:, None]
+    out = torch.where(parent >= 0, parent + (entry_base << 1), parent)
+    out = torch.where(parent <= -2, parent - (tab_base << 2), out)
+    return out.reshape(-1)
+
+
+def recode_segment_parents_np(parent, anchor_rows: int,
+                              groups: Sequence[int]) -> np.ndarray:
+    """Host twin of ``recode_segment_parents`` (explicit ``groups``)."""
+    parent = np.asarray(parent, dtype=np.int32)
+    k_segs, size = parent.shape
+    entry_base = (np.arange(k_segs, dtype=np.int32) * size)[:, None]
+    tab_base = (np.asarray(groups, np.int32) * int(anchor_rows))[:, None]
+    out = np.where(parent >= 0, parent + (entry_base << 1), parent)
+    out = np.where(parent <= -2, parent - (tab_base << 2), out)
+    return out.reshape(-1).astype(np.int32)
+
+
+def plan_segment_dedup(parents, buckets, offsets, ns, packed, material=None,
+                       hashes=None, cache_hits=None):
+    """Plan cross-segment eval-dedup for ONE fused (coalesced) dispatch:
+    deterministic, pure host-side planning (numpy in, plain lists out);
+    a copy of the JAX package's planner.
+
+    Within one group the in-step dedup retired too few evals to pay
+    for itself, but ACROSS the segments of one fused dispatch sibling
+    groups searching adjacent plies of the same game evaluate the same
+    positions in the same step. The planning rides the pack worker.
+
+    Inputs are per-segment host views (only the first ``ns[k]`` entries
+    of each are read): ``parents`` int32 [size] segment-local wire
+    parent codes; ``buckets`` int32 [size] layer-stack bucket ids;
+    ``offsets`` int32 [size] each entry's row offset into its segment's
+    ``packed`` uint16 [rows_k, 2, 8] stream; ``ns`` real entry counts;
+    ``material`` optional int32 [size] host-material columns.
+
+    BYTE MODE (``hashes`` None): a DUPLICATE is a plain full (code -1)
+    whose 4-row feature block — keyed with its bucket (and material
+    when shipped) — matches an earlier 4-row entry anywhere in the
+    dispatch, provided it has no in-batch consumer and is not its
+    segment's first entry. Such a full is followed by another anchor
+    entry (or padding), so re-encoding it as a one-row sentinel in-batch
+    delta disturbs no other entry; its device result is garbage and its
+    true value is restored on the host from its original.
+
+    POSITION-KEYED MODE (``hashes``: per-segment uint64 Zobrist arrays):
+    the key is the position hash, a duplicate matches ANY earlier kept
+    entry of the same position, and every encoding may be dropped:
+    plain fulls and in-batch deltas become the sentinel in-batch delta;
+    PERSISTENT codes become a sentinel persistent DELTA that keeps the
+    original table row and store bit, whose stored bytes the eval's
+    ``copy_src`` fan-in must make correct (so a persistent drop needs an
+    in-dispatch source). ``cache_hits`` (per-segment ``(mask, values)``)
+    also drops droppable entries whose eval a cache already knows.
+
+    Returns ``(drops, refs, pairs)``: per-segment lists of dropped entry
+    indices, the replacement codes' metadata, and global ``(dst_seg,
+    dst_idx, src_seg, src_idx)`` value overwrites (each duplicate maps
+    to the FIRST occurrence, never itself dropped). ``refs`` in byte
+    mode are in-batch anchor indices (the caller writes ``ref << 1``,
+    swap 0: the most recent preceding KEPT anchor); in position-keyed
+    mode they are ready wire parent codes, and a fourth element
+    ``fills`` lists ``(seg, idx, value)`` drops answered by the cache."""
+    n_segs = len(parents)
+    seen = {}
+    fill_vals = {}  # hash -> cached value (position-keyed mode)
+    drops = [[] for _ in range(n_segs)]
+    refs = [[] for _ in range(n_segs)]
+    pairs = []
+    fills = []
+    for k in range(n_segs):
+        n = int(ns[k])
+        if n <= 0:
+            continue
+        p = np.asarray(parents[k][:n])
+        consumed = np.zeros(n, dtype=bool)
+        inb = p >= 0
+        if inb.any():
+            consumed[p[inb] >> 1] = True
+        # Anchor entries (fulls and persistent codes) vs 4-row entries
+        # (fulls and persistent FULLS; persistent deltas ship 1 row).
+        is_anchor = (p == -1) | (p <= -2)
+        is_full4 = (p == -1) | ((p <= -2) & ((((-p - 2) >> 1) & 1) == 0))
+        off = np.asarray(offsets[k][:n])
+        rows = packed[k]
+        hseg = None if hashes is None else hashes[k]
+        cmask = cvals = None
+        if cache_hits is not None and cache_hits[k] is not None:
+            cmask, cvals = cache_hits[k]
+        last_anchor = 0
+        for i in range(n):
+            dropped = False
+            if hseg is not None:
+                h = int(hseg[i])
+                pers = bool(p[i] <= -2)
+                droppable = not consumed[i] and i > 0
+                # A persistent drop still stores its anchor row: its
+                # sentinel keeps aid + store bit (delta form, swap 0).
+                sentinel = (
+                    -(2 + ((((-int(p[i]) - 2) >> 2) << 2) | 2))
+                    if pers else (last_anchor << 1)
+                )
+                src = seen.get(h)
+                if droppable and src is not None:
+                    drops[k].append(i)
+                    refs[k].append(sentinel)
+                    pairs.append((k, i, src[0], src[1]))
+                    dropped = True
+                elif droppable and not pers and cmask is not None \
+                        and cmask[i]:
+                    drops[k].append(i)
+                    refs[k].append(sentinel)
+                    fills.append((k, i, int(cvals[i])))
+                    fill_vals.setdefault(h, int(cvals[i]))
+                    dropped = True
+                elif droppable and not pers and h in fill_vals:
+                    # Duplicate of an entry that itself left the wire on
+                    # a cache hit: same cached value, no device source.
+                    drops[k].append(i)
+                    refs[k].append(sentinel)
+                    fills.append((k, i, fill_vals[h]))
+                    dropped = True
+                elif src is None:
+                    seen[h] = (k, i)
+            elif is_full4[i]:
+                key = (int(buckets[k][i]),
+                       rows[off[i]: off[i] + 4].tobytes())
+                if material is not None:
+                    key = key + (int(material[k][i]),)
+                src = seen.get(key)
+                if (src is not None and p[i] == -1
+                        and not consumed[i] and i > 0):
+                    drops[k].append(i)
+                    refs[k].append(last_anchor)
+                    pairs.append((k, i, src[0], src[1]))
+                    dropped = True
+                elif src is None:
+                    seen[key] = (k, i)
+            if not dropped and is_anchor[i]:
+                last_anchor = i
+    if hashes is not None:
+        return drops, refs, pairs, fills
+    return drops, refs, pairs
 
 
 def _widen_wire(packed: torch.Tensor) -> torch.Tensor:

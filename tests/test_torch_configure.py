@@ -1,7 +1,7 @@
 """The port's configure.py against the JAX package's: the same `run`
 command lines and the same fishnet.ini resolve to the same options.
-The port's own choices are pinned beside them: one search-driver
-thread by default (it has no dispatch coalescer) and `--device`."""
+The search-driver threads default to one per core in both packages;
+the port's own choice, `--device`, is pinned beside them."""
 
 import pytest
 
@@ -34,7 +34,8 @@ def test_run_flags_resolve_as_in_the_jax_package(name):
     ref = jax_configure.parse_and_configure(ARGVS[name], write=False)
     assert _resolved(port) == _resolved(ref)
     assert port.resolved_pipeline() == 2
-    assert port.resolved_search_threads() == 1
+    assert port.resolved_search_threads() == ref.resolved_search_threads() \
+        == port.resolved_cores()
     assert port.resolved_device() == "cuda"
 
 

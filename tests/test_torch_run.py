@@ -164,10 +164,11 @@ def test_cli_teardown_counts_the_run_after_the_warm_up():
                 proc.kill()
                 proc.communicate()
     assert proc.returncode == 0, out[-3000:]
-    steps, packed, dense, rung = chip_smoke.teardown_counts(out)
+    steps, dispatches, packed, dense, rung = chip_smoke.teardown_counts(out)
     total = ast.literal_eval(out.split("Service counters: ")[1].split(
-        "; since warm-up")[0])["eval_steps"]
-    assert steps == total > 0
+        "; since warm-up")[0])
+    assert steps == total["eval_steps"] > 0
+    assert dispatches == total["dispatches"] > 0
     assert (packed, dense, rung) == (0, 0, "xla")
 
 
@@ -181,7 +182,7 @@ def test_teardown_counts_only_what_follows_the_warm_up(monkeypatch):
         steps = 0
 
         def counters(self):
-            return {"eval_steps": self.steps}
+            return {"eval_steps": self.steps, "dispatches": self.steps - 2}
 
     class Factory:
         service = Service()
@@ -195,6 +196,7 @@ def test_teardown_counts_only_what_follows_the_warm_up(monkeypatch):
     factory.service.steps += 7
     packed.launches += 7
     line = cli._teardown_counters(factory, warm)
-    assert chip_smoke.teardown_counts(line) == (7, 7, 0, "None")
+    assert chip_smoke.teardown_counts(line) == (7, 7, 7, 0, "None")
     assert chip_smoke.teardown_counts(
-        cli._teardown_counters(factory, (0, 0, 0))) == (7, 8, 0, "None")
+        cli._teardown_counters(factory, (0, 0, 0, 0))) == (7, 5, 8, 0,
+                                                          "None")
