@@ -14,33 +14,37 @@ dispatch, the dispatch coalescer fusing the groups' steps), checks
 search parity with the native C++ scalar evaluator, times the kernel at
 the serving path's shape, holds fused segmented dispatches against solo
 ones and the plain version and runs the service at the new defaults
-(one driver thread per core), and runs the fishnet client —
-in process, then ``python -m fishnet_tpu_torch run`` as a subprocess —
-against a fake lichess server built on the standard library.
+(one driver thread per core), runs the fishnet client — in process,
+then ``python -m fishnet_tpu_torch run`` as a subprocess — against a
+fake lichess server built on the standard library, and checks the
+position-keyed eval cache and the bounds tier: the kernel's copy-source
+mode against its plain version, the service with the cache off, cold
+and warm, position dedup, a snapshot restart and the bounds tier, then
+the burst and the ``run`` workload with the cache off and on.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
 the UCI answers with the kernel's launch count, the scalar parity, the
 kernel's times, the coalescer's checks and the fused launch's times,
-the client runs' throughput and latencies, then on the
-last three lines the card again, one JSON object ``{"kernels": [...]}``
+the client runs' throughput and latencies, the cache phase's checks and
+numbers, then on the last three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli; default all seven) limits a run to some phases while
-iterating on one of them. ``coalesce`` holds the fused segmented
-dispatch of K in {2, 4, 8} real group steps against K solo dispatches
-and the plain segmented version, times the fused launch, and runs the
-service with the new defaults (one driver thread per core, coalescer
-and async pipeline on). Four extra phases run only on request:
-``profile`` traces a loaded burst with torch.profiler, ``anatomy``
-(after ``serve``) times the kernel with one part of its work removed at
-a time, ``ladder`` times the UCI session and the burst with the
-entry-bucket ladder starting at 64 and at 8, and ``sweep`` times the
-burst at 1, 2, 4 and 7 driver threads with and without the
-coalescer.
+run, cli, cache; default all eight) limits a run to some phases while
+iterating on one of them; each phase starts from a cold eval cache.
+``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
+group steps against K solo dispatches and the plain segmented version,
+times the fused launch, and runs the service with the new defaults (one
+driver thread per core, coalescer and async pipeline on). Four extra
+phases run only on request: ``profile`` traces a loaded burst with
+torch.profiler, ``anatomy`` (after ``serve``) times the kernel with one
+part of its work removed at a time, ``ladder`` times the UCI session and
+the burst with the entry-bucket ladder starting at 64 and at 8, and
+``sweep`` times the burst at 1, 2, 4 and 7 driver threads with and
+without the coalescer.
 
 The module imports only the standard library, so its fake lichess
 (``FakeLichess``, ``FakeServer``) also serves the CPU tests.
@@ -67,7 +71,8 @@ from pathlib import Path
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli")
+PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
+          "cache")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -810,9 +815,10 @@ def uci_session(service, echo: bool) -> float:
     return t_uci
 
 
-def load_burst(service) -> float:
+def load_burst(service, out: Optional[dict] = None) -> float:
     """256 concurrent ``go nodes 3000`` searches through the service;
-    returns nodes per second."""
+    returns nodes per second (``out`` receives the searches, nodes,
+    seconds and counter deltas)."""
     walks = random_lines(256, seed=11)
     c0 = service.counters()
 
@@ -827,6 +833,9 @@ def load_burst(service) -> float:
     check(all(r.best_move for r in results), "burst: a search failed")
     nodes = sum(r.nodes for r in results)
     c = {k: v - c0[k] for k, v in service.counters().items()}
+    if out is not None:
+        out.update(searches=len(results), nodes=nodes, seconds=t_burst,
+                   counters=c)
     log(f"  burst: {len(results)} concurrent searches, {nodes} nodes in "
         f"{t_burst:.3f} s ({nodes / t_burst:.0f} nodes/s); eval_steps "
         f"{c['eval_steps']}, dispatches {c['dispatches']} "
@@ -850,6 +859,7 @@ def phase_serve(torch, weights, dev):
     from fishnet_tpu_torch.ops import ft_gather
     from fishnet_tpu_torch.search.service import SearchService
 
+    fresh_cache()
     service = SearchService(weights=weights, batch_capacity=1024,
                             pipeline_depth=2, device=dev)
     captured = {}
@@ -857,7 +867,7 @@ def phase_serve(torch, weights, dev):
     calls = [0]
 
     def recorder(params, packed, buckets, parent, material, tab, n_rows,
-                 ptab, *, offsets):
+                 ptab, *, offsets, copy_src=None, parent_host=None):
         if parent.shape[0] == 512:
             calls[0] += 1
             if calls[0] == 8:  # past the first steps: anchors are warm
@@ -870,7 +880,8 @@ def phase_serve(torch, weights, dev):
                     fused=tab.shape[0] > service._anchor_rows,
                 )
         return evaluate(params, packed, buckets, parent, material, tab,
-                        n_rows, ptab, offsets=offsets)
+                        n_rows, ptab, offsets=offsets, copy_src=copy_src,
+                        parent_host=parent_host)
 
     plain_calls = {"expand_packed": 0, "store_anchors": 0}
 
@@ -935,6 +946,7 @@ def phase_ladder(weights, dev) -> None:
     )
 
     for first in (64, 8, 8, 64):
+        fresh_cache()
         service = SearchService(weights=weights, batch_capacity=1024,
                                 pipeline_depth=2, device=dev)
         service._eval_sizes = eval_bucket_sizes(service._group_capacity, first)
@@ -956,6 +968,7 @@ def phase_profile(torch, weights, dev, threads: int = 1) -> None:
 
     from fishnet_tpu_torch.search.service import SearchService
 
+    fresh_cache()
     service = SearchService(weights=weights, batch_capacity=1024,
                             pipeline_depth=2, driver_threads=threads,
                             device=dev)
@@ -1006,17 +1019,21 @@ def phase_parity(weights, dev, **gpu_kw) -> dict:
     """20 positions, one at a time at fixed depth with the prefetch
     budget pinned: the GPU service (pipeline 1 and one driver thread
     unless ``gpu_kw`` says otherwise) and the native scalar evaluator
-    must agree on (value, is_mate, move). Returns the GPU service's
-    counters."""
+    must agree on (value, is_mate, move). The GPU service runs with the
+    eval cache and without the bounds tier (FISHNET_NO_BOUNDS=1): the
+    scalar backend has no reuse plane, and seeded bound records change
+    what a search finds. Returns the GPU service's counters."""
     from fishnet_tpu_torch.search.service import SearchService
 
     walks = random_lines(20, seed=99)
     counters = {}
 
     async def run(backend, **kw):
-        svc = SearchService(weights=weights, pool_slots=16, batch_capacity=64,
-                            tt_bytes=256 << 20, backend=backend, device=dev,
-                            **kw)
+        fresh_cache()
+        with env_vars(FISHNET_NO_BOUNDS="1"):
+            svc = SearchService(weights=weights, pool_slots=16,
+                                batch_capacity=64, tt_bytes=256 << 20,
+                                backend=backend, device=dev, **kw)
         svc.set_prefetch(8, adaptive=False)
         try:
             out = []
@@ -1384,6 +1401,16 @@ def env_vars(**values):
                 os.environ[k] = v
 
 
+def fresh_cache() -> None:
+    """Start from a cold process eval cache and bounds tier: the phases
+    before ``cache`` search the same seeded walks more than once in one
+    process, and each measures its own workload from nothing, as before
+    the cache was ported."""
+    from fishnet_tpu_torch.search import eval_cache
+
+    eval_cache.reset_cache()
+
+
 def capture_group_steps(weights, dev, rounds: int = 6, pool_slots: int = 256,
                         nodes: int = 1000):
     """One real step of each of CAPTURE_GROUPS pipeline groups, from a
@@ -1399,6 +1426,7 @@ def capture_group_steps(weights, dev, rounds: int = 6, pool_slots: int = 256,
 
     from fishnet_tpu_torch.search.service import SearchService
 
+    fresh_cache()
     with env_vars(FISHNET_NO_COALESCE="1"):
         svc = SearchService(weights=weights, pool_slots=pool_slots,
                             batch_capacity=1024,
@@ -1459,12 +1487,17 @@ class FusedHarness:
         evaluate = self.svc._eval_fn
 
         def recorder(params, packed, buckets, parent, material, tab, n_rows,
-                     ptab, *, offsets):
-            self.calls.append(dict(packed=packed, offsets=offsets,
-                                   parent=parent, tab=tab, ptab=ptab,
-                                   material=material))
-            return evaluate(params, packed, buckets, parent, material, tab,
-                            n_rows, ptab, offsets=offsets)
+                     ptab, *, offsets, copy_src=None, parent_host=None):
+            call = dict(packed=packed, offsets=offsets, parent=parent,
+                        tab=tab, ptab=ptab, material=material,
+                        buckets=buckets, copy_src=None if copy_src is None
+                        else copy_src.clone())
+            self.calls.append(call)
+            out = evaluate(params, packed, buckets, parent, material, tab,
+                           n_rows, ptab, offsets=offsets, copy_src=copy_src,
+                           parent_host=parent_host)
+            call["values"] = out[0].clone()
+            return out
 
         self.svc._eval_fn = recorder
 
@@ -1493,10 +1526,12 @@ class FusedHarness:
             values[g] = svc._resolve_eval(steps[g]["n"], handle)
         return values, (svc._anchor_all.clone(), svc._psqt_all.clone())
 
-    def fused(self, torch, steps, groups):
+    def fused(self, torch, steps, groups, probes=None):
         """One fused dispatch of ``groups``' steps, in that order: (the
         host values, the tickets, the tables before and after); checks
-        that it launched the kernel once."""
+        that it launched the kernel once. ``probes`` (per group: the
+        entries' position hashes, cache-hit mask and cached values) puts
+        the dispatch in position-keyed mode."""
         from fishnet_tpu_torch.ops import ft_gather
         from fishnet_tpu_torch.search.coalesce import _CoalesceTicket
 
@@ -1505,7 +1540,9 @@ class FusedHarness:
         before = (svc._anchor_all.cpu().clone(), svc._psqt_all.cpu().clone())
         self.calls.clear()
         launches = ft_gather.ft_accumulate_packed_cuda.launches
-        tickets = [_CoalesceTicket(g, steps[g]["n"], steps[g]["rows"])
+        probes = probes or {}
+        tickets = [_CoalesceTicket(g, steps[g]["n"], steps[g]["rows"],
+                                   *probes.get(g, ()))
                    for g in groups]
         svc._dispatch_segmented(tickets)
         whole = tickets[0].values.materialize()
@@ -1628,12 +1665,19 @@ def time_fused(torch, params, harness, k_segs: int) -> dict:
             "bound_ops": ops}
 
 
-def gated_searches(weights, dev, coalesce: bool):
-    """Eight searches of 3000 nodes on one service (4 groups, one driver
+def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
+              hook=None, **env):
+    """``walks`` (move lists from the start position) searched at
+    ``nodes`` nodes on one service (8 slots in 4 groups, one driver
     thread, prefetch pinned) whose driver parks after its warm-up until
-    all are submitted, so the schedule is a function of the submission
-    sequence: with the coalescer (width pinned to 4) or without. Returns
-    the analyses and the counters."""
+    every search is submitted, so the schedule is a function of the
+    submission sequence. ``env`` is set while the service is built (the
+    hatches are read there), ``fresh`` starts from a cold eval cache,
+    ``hook(service)`` runs before the searches. On the card the packed
+    kernel must launch once per device dispatch and the dense mode
+    never, and the kernel's error word must not move. Returns the
+    analyses and the counters, with the copy-source launches."""
+    from fishnet_tpu_torch.ops import ft_gather
     from fishnet_tpu_torch.search.service import SearchService
 
     class Gated(SearchService):
@@ -1645,19 +1689,26 @@ def gated_searches(weights, dev, coalesce: bool):
             super().warmup()
             self.gate.wait()
 
-    hatch = (dict(FISHNET_COALESCE_WIDTH="4", FISHNET_NO_COALESCE=None)
-             if coalesce else dict(FISHNET_NO_COALESCE="1"))
-    with env_vars(**hatch):
+    if fresh:
+        fresh_cache()
+    with env_vars(**env):
         svc = Gated(weights=weights, pool_slots=8, batch_capacity=256,
                     tt_bytes=8 << 20, pipeline_depth=4, driver_threads=1,
                     device=dev)
-    walks = random_lines(8, seed=3)
+    gpu = svc.device.type == "cuda"
+    launches = ft_gather.ft_accumulate_packed_cuda
     try:
+        SearchService.warmup(svc)  # the warm-up's launch, before the count
+        if hook is not None:
+            hook(svc)
         svc.set_prefetch(0, adaptive=False)
+        errors0 = ft_gather.kernel_errors(dev) if gpu else 0
+        before = (launches.launches, launches.copy_launches,
+                  ft_gather.ft_accumulate_cuda.launches)
 
         async def go():
             tasks = [asyncio.ensure_future(svc.search(STARTPOS, m,
-                                                      nodes=3000))
+                                                      nodes=nodes))
                      for m in walks]
             await asyncio.sleep(0.5)
             svc.gate.set()
@@ -1668,10 +1719,31 @@ def gated_searches(weights, dev, coalesce: bool):
     finally:
         svc.gate.set()
         svc.close()
+    packed, copies, dense = (launches.launches - before[0],
+                             launches.copy_launches - before[1],
+                             ft_gather.ft_accumulate_cuda.launches - before[2])
+    counters["copy_launches"] = copies
+    if gpu:
+        errors = ft_gather.kernel_errors(dev)
+        check(packed == counters["dispatches"],
+              f"gated run: {packed} packed launches for "
+              f"{counters['dispatches']} dispatches")
+        check(dense == 0, "gated run: the dense mode launched")
+        check(errors == errors0,
+              f"gated run: the error word moved {errors0} -> {errors}")
     analyses = [(r.best_move, r.depth, r.nodes,
                  [(l.multipv, l.depth, l.is_mate, l.value, l.pv)
                   for l in r.lines]) for r in results]
     return analyses, counters
+
+
+def gated_searches(weights, dev, coalesce: bool):
+    """Eight searches of 3000 nodes through ``gated_run``: with the
+    coalescer (width pinned to 4) or without. Returns the analyses and
+    the counters."""
+    hatch = (dict(FISHNET_COALESCE_WIDTH="4", FISHNET_NO_COALESCE=None)
+             if coalesce else dict(FISHNET_NO_COALESCE="1"))
+    return gated_run(weights, dev, random_lines(8, seed=3), **hatch)
 
 
 def phase_coalesce(torch, weights, params, dev) -> dict:
@@ -1782,6 +1854,7 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
             harness.close()
 
     # The service with the new defaults.
+    fresh_cache()
     threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
     service = SearchService(weights=weights, batch_capacity=1024,
                             pipeline_depth=2, driver_threads=threads,
@@ -1832,7 +1905,464 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
         f"({plain_run[1]['dispatches']} dispatches): the same analyses")
     return {"timings": timings, "worst": worst, "burst_nps": nps,
             "fused_dispatches": c["fused_dispatches"],
-            "dispatches": c["dispatches"], "eval_steps": c["eval_steps"]}
+            "dispatches": c["dispatches"], "eval_steps": c["eval_steps"],
+            "steps": steps}
+
+
+def plant_positions(steps, groups):
+    """Position probes for a fused dispatch of ``groups``' captured
+    steps that make the position-keyed planner drop one entry of each
+    kind: every entry gets a hash of its own, except that a plain full,
+    an in-batch delta, a persistent full and a persistent delta (never
+    an entry an in-batch delta reads, never a segment's first) take the
+    hash of a plain full, an in-batch delta or a persistent anchor code
+    earlier in the dispatch; and one more plain full is a cache hit.
+    Returns (probes by group: hashes, hit mask, cached values; [(drop
+    group, index, source group, index)]; (fill group, index, value))."""
+    import numpy as np
+
+    flat = []  # (kinds of the entry, group, index) in wire order
+    probes = {}
+    for k, g in enumerate(groups):
+        p = steps[g]["parent"].astype(np.int64)
+        n = len(p)
+        used = np.zeros(n, bool)
+        used[p[p >= 0] >> 1] = True
+        for i in range(n):
+            pers, free = p[i] <= -2, not used[i] and i > 0
+            delta_bit = ((-p[i] - 2) >> 1) & 1
+            kinds = {"any_full"} if p[i] == -1 else set()
+            if p[i] == -1 and free:
+                kinds.add("full")
+            if p[i] >= 0:
+                kinds.add("delta")
+            if pers:
+                kinds.add("pers")
+                if free:
+                    kinds.add("pers_delta" if delta_bit else "pers_full")
+            flat.append((kinds, g, i))
+        probes[g] = [((np.arange(n, dtype=np.uint64) + 1)
+                      | np.uint64((k + 1) << 32)),
+                     np.zeros(n, bool), np.zeros(n, np.int32)]
+    taken = set()
+    pairs = []
+    for kind, skind in (("full", "any_full"), ("delta", "delta"),
+                        ("pers_full", "pers"), ("pers_delta", "any_full")):
+        found = None
+        for d in range(len(flat) - 1, 0, -1):
+            kinds, dg, di = flat[d]
+            if kind not in kinds or (dg, di) in taken:
+                continue
+            found = next(((dg, di, sg, si) for skinds, sg, si in flat[:d]
+                          if skind in skinds and (sg, si) not in taken
+                          and (sg, si) != (dg, di)), None)
+            if found is not None:
+                break
+        check(found is not None, f"no {kind} to drop after a {skind} "
+                                 f"source in groups {groups}")
+        dg, di, sg, si = found
+        probes[dg][0][di] = probes[sg][0][si]
+        taken.update({(dg, di), (sg, si)})
+        pairs.append(found)
+    fill = next(((g, i) for kinds, g, i in flat
+                 if "full" in kinds and (g, i) not in taken), None)
+    check(fill is not None, "no plain full left for a cache hit")
+    probes[fill[0]][1][fill[1]] = True
+    probes[fill[0]][2][fill[1]] = 12345
+    return probes, pairs, (fill[0], fill[1], 12345)
+
+
+def copy_source_kernel(torch, weights, params, dev, steps) -> dict:
+    """The kernel's copy-source mode on the card, bit for bit: for K in
+    FUSE_WIDTHS, K captured group steps (with PSQT on the card and on
+    the host-material wire) go through the service's fused dispatch in
+    position-keyed mode, with planted duplicates (``plant_positions``):
+    the planner drops them and the cache hit, and the one launch with
+    ``copy_src`` must equal the plain version with ``copy_src`` on CPU
+    copies — values, and every group's anchor and PSQT rows — and the
+    host must restore each drop's value. Then on the K = 8 launch: an
+    identity ``copy_src`` equals none, a source planted past the host
+    check (through the raw wrapper) is counted once in the error word
+    and the launch returns, 200 repeated launches are identical, and
+    the launch is timed against the same step without ``copy_src``."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec, torch_eval
+    from fishnet_tpu_torch.ops import ft_gather
+
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    worst = 0
+    timed = None
+    for psqt_path in (None, "host-material"):
+        harness = FusedHarness(weights, dev, psqt_path)
+        try:
+            for k_segs in FUSE_WIDTHS:
+                groups = [(3 * k + 1) % CAPTURE_GROUPS for k in range(k_segs)]
+                probes, pairs, fill = plant_positions(steps, groups)
+                co = harness.svc._coalescer
+                dedup0 = co.deduped_evals
+                whole, tickets, before, tabs = harness.fused(
+                    torch, steps, groups, probes)
+                call = harness.calls[0]
+                check(call["copy_src"] is not None,
+                      f"K={k_segs}: the fused launch had no copy_src")
+                at = {tk.group: tk.start for tk in tickets}
+                for dg, di, sg, si in pairs:
+                    check(whole[at[dg] + di] == whole[at[sg] + si],
+                          f"K={k_segs}: drop ({dg}, {di}) != its source")
+                check(whole[at[fill[0]] + fill[1]] == fill[2],
+                      f"K={k_segs}: the cache hit was not filled")
+                tab = before[0].reshape(-1, 2, spec.L1).clone()
+                ptab = before[1].reshape(-1, 2, spec.NUM_PSQT_BUCKETS).clone()
+                material = call["material"]
+                values, _, _ = torch_eval._packed_anchored_core(
+                    cpu_params, call["packed"].cpu(), call["offsets"].cpu(),
+                    call["buckets"].cpu(), call["parent"].cpu(),
+                    None if material is None else material.cpu(), tab, ptab,
+                    copy_src=call["copy_src"])
+                diffs = [max_diff([call["values"].cpu()], [values]),
+                         max_diff([t.cpu().reshape(-1) for t in tabs],
+                                  [tab.reshape(-1), ptab.reshape(-1)])]
+                worst = max(worst, *diffs)
+                check(max(diffs) == 0, f"K={k_segs} {psqt_path or 'fused'}: "
+                                       f"copy-source launch != plain {diffs}")
+                moved = int((call["copy_src"].numpy()
+                             != np.arange(len(call["copy_src"]))).sum())
+                log(f"  K={k_segs} ({psqt_path or 'PSQT on the card'}): "
+                    f"{len(pairs)} planted duplicates and a cache hit, "
+                    f"{co.deduped_evals - dedup0} dropped by position, "
+                    f"{moved} entries redirected: one launch == plain "
+                    "with copy_src on CPU (values, every group's anchor "
+                    "and PSQT rows), drops restored on the host")
+                if psqt_path is None and k_segs == FUSE_WIDTHS[-1]:
+                    timed = copy_source_launches(torch, params, dev, call,
+                                                 before)
+        finally:
+            harness.close()
+    timed["worst"] = worst
+    return timed
+
+
+def copy_source_launches(torch, params, dev, call, before) -> dict:
+    """The raw wrapper on one recorded copy-source launch: identity,
+    a bad source, 200 repeats and the timing (see
+    ``copy_source_kernel``)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec
+    from fishnet_tpu_torch.ops import ft_gather
+
+    w, b, fp = params["ft_w"], params["ft_b"], params["ft_psqt"]
+    pk, off, par = call["packed"], call["offsets"], call["parent"]
+    tab0 = before[0].reshape(-1, 2, spec.L1).to(dev)
+    ptab0 = before[1].reshape(-1, 2, spec.NUM_PSQT_BUCKETS).to(dev)
+    batch = par.shape[0]
+    cs = call["copy_src"].to(dev)
+
+    def launch(copy_src):
+        tab, ptab = tab0.clone(), ptab0.clone()
+        acc, psqt = ft_gather.ft_accumulate_packed_cuda(
+            w, b, pk, off, par, tab, ft_psqt=fp, psqt_tab=ptab,
+            copy_src=copy_src)
+        return [acc, psqt, tab, ptab]
+
+    plain = launch(None)
+    ident = torch.arange(batch, dtype=torch.int32, device=dev)
+    d_ident = max_diff(launch(ident), plain)
+    check(d_ident == 0, f"identity copy_src != none by {d_ident}")
+    first = launch(cs)
+    d_rep = max(max_diff(launch(cs), first) for _ in range(200))
+    check(d_rep == 0, f"200 copy-source launches differ by {d_rep}")
+    bad = ident.clone()
+    j = batch // 2
+    bad[j] = j + 1  # a LATER source: refused, counted, never waited on
+    torch.cuda.synchronize()
+    errors0 = ft_gather.kernel_errors(dev)
+    got = launch(bad)
+    torch.cuda.synchronize()
+    counted = ft_gather.kernel_errors(dev) - errors0
+    d_bad = max_diff(got, plain)
+    check(counted == 1 and d_bad == 0,
+          f"bad source: {counted} errors counted, results differ by {d_bad}")
+    tab, ptab = tab0.clone(), ptab0.clone()
+
+    def with_copy():
+        return ft_gather.ft_accumulate_packed_cuda(
+            w, b, pk, off, par, tab, ft_psqt=fp, psqt_tab=ptab, copy_src=cs)
+
+    def without():
+        return ft_gather.ft_accumulate_packed_cuda(
+            w, b, pk, off, par, tab, ft_psqt=fp, psqt_tab=ptab)
+
+    ptab_plain, pptab_plain = tab0.clone(), ptab0.clone()
+    ms = graph_time_ms(torch, with_copy)
+    base_ms = graph_time_ms(torch, without)
+    again = graph_time_ms(torch, with_copy)
+    base_again = graph_time_ms(torch, without)
+    plain_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_packed_plain(
+        w, b, pk, off, par, ptab_plain, ft_psqt=fp, psqt_tab=pptab_plain,
+        copy_src=cs))
+    bound_ms, bound_by, nbytes, ops = packed_bound(
+        pk.cpu().numpy().view(np.uint16), off.cpu().numpy(),
+        par.cpu().numpy(), tab0.shape[0], True, spec.L1)
+    # The fan-in's own input: copy_src, read once.
+    bound_ms, bound_by = _bound_of(nbytes + 4 * batch, ops)[:2]
+    moved = int((cs.cpu().numpy() != np.arange(batch)).sum())
+    log(f"  K=8 copy-source launch ({batch} entries, {moved} redirected): "
+        f"identity == none, 200 repeats identical, a later source counted "
+        f"once ({counted}) and the launch returned; {ms:.6f} / {again:.6f} "
+        f"ms against {base_ms:.6f} / {base_again:.6f} ms without copy_src, "
+        f"plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}, "
+        f"{nbytes + 4 * batch} B)")
+    return {"entries": batch, "redirected": moved, "ms": ms,
+            "repeat_ms": again, "without_ms": base_ms,
+            "without_repeat_ms": base_again, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": nbytes + 4 * batch, "bound_ops": ops}
+
+
+def host_timers(service) -> dict:
+    """Time the host's work around the device on ``service``: the pack
+    worker's dispatches ("pack": its calls of the coalescer's
+    ``_execute``, staging, planning, uploads and launches, not the
+    device's work), and with the eval cache the drivers' pre-dispatch
+    probe ("probe": hashes, cache and bounds probe), the provide-time
+    insert ("insert"), and the bounds tier's submit-time seed ("seed")
+    and harvest ("harvest"). Wall time of each call, waits for the
+    interpreter lock included. Returns the live totals, name -> [calls,
+    seconds]."""
+    totals = {}
+
+    def wrap(owner, attr, name, thread=None):
+        fn = getattr(owner, attr)
+        cell = totals.setdefault(name, [0, 0.0])
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if thread is None or threading.current_thread().name == thread:
+                    cell[0] += 1
+                    cell[1] += time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+
+    if service._coalescer is not None:
+        wrap(service._coalescer, "_execute", "pack", "dispatch-pack")
+    if service._eval_cache is not None:
+        wrap(service, "_probe_batch", "probe")
+        wrap(service._eval_cache, "insert_block", "insert")
+    if service._bounds_cache is not None:
+        wrap(service, "_seed_bound_chain", "seed")
+        wrap(service, "_harvest_bounds", "harvest")
+    return totals
+
+
+def cache_numbers(weights, dev) -> dict:
+    """The default burst and the ``run`` workload (at the ``cli`` phase's
+    size, 8 games and 2 move jobs, so the call stays well inside its
+    time) with the cache off and on, in the order off, on, on, off (each
+    run from a cold cache, on a fresh service): nodes/s and positions/s, the pre-wire hit share
+    (entries answered before the wire over entries probed), skipped
+    dispatches, position dedup, the bounds tier's seeds and harvests,
+    the cache's size and evictions, and the host's ms per call
+    (``host_timers``; the pack worker's per dispatch)."""
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.search import eval_cache
+    from fishnet_tpu_torch.search.service import SearchService
+
+    threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
+    out = {"burst": [], "run": []}
+
+    def summary(label, c, probes, timers, nps, pps):
+        pack = timers.get("pack", [0, 0.0])
+        row = {"cache": label, "nodes_per_s": nps, "positions_per_s": pps,
+               "prewire_hit_share": c["cache_prewire_hits"] / max(1, probes),
+               "probes": probes,
+               "pack_ms_per_dispatch": pack[1] * 1e3 / max(1, pack[0]),
+               "host_ms_per_call": {k: v[1] * 1e3 / max(1, v[0])
+                                    for k, v in timers.items()},
+               "host_calls": {k: v[0] for k, v in timers.items()}}
+        for key in ("cache_prewire_hits", "cache_skipped_dispatches",
+                    "position_dedup", "bounds_seeded", "bounds_harvested",
+                    "cache_entries", "cache_evictions", "dispatches",
+                    "eval_steps", "fused_dedup"):
+            row[key] = c[key]
+        return row
+
+    for label in ("off", "on", "on", "off"):
+        hatch = dict(FISHNET_NO_EVAL_CACHE="1" if label == "off" else None)
+        fresh_cache()
+        with env_vars(**hatch):
+            svc = SearchService(weights=weights, batch_capacity=1024,
+                                pipeline_depth=2, driver_threads=threads,
+                                device=dev)
+        try:
+            svc.warmup()
+            timers = host_timers(svc)
+            cache = eval_cache.get_cache()
+            st0 = cache.stats() if cache is not None else None
+            burst = {}
+            nps = load_burst(svc, burst)
+        finally:
+            svc.close()
+        probes = 0 if st0 is None else (
+            cache.stats()["hits"] + cache.stats()["misses"]
+            - st0["hits"] - st0["misses"])
+        row = summary(label, burst["counters"], probes, timers, nps,
+                      burst["searches"] / burst["seconds"])
+        out["burst"].append(row)
+        log(f"  burst, cache {label}: {row}")
+    for label in ("off", "on", "on", "off"):
+        hatch = dict(FISHNET_NO_EVAL_CACHE="1" if label == "off" else None)
+        report = run_workload(f"run, cache {label}", hatch, games=8,
+                              moves=2)
+        row = summary(label, report["counters"], report["probes"],
+                      report["timers"], report["nodes_per_s"],
+                      report["positions_per_s"])
+        out["run"].append(row)
+        log(f"  run, cache {label}: {row}")
+    return out
+
+
+def phase_cache(torch, weights, params, dev, steps=None) -> dict:
+    """The position-keyed eval cache and the bounds tier on the card.
+
+    Kernel level (``copy_source_kernel``): the copy-source mode of the
+    packed launch, planted duplicates of every kind, against the plain
+    version, then identity, a bad source, repeats and timing.
+
+    Service level, full width, on ``gated_run`` workloads (one launch
+    per device dispatch, no dense launch, the error word unchanged, in
+    every run): cache off, cold and warm (a fresh service over the
+    surviving cache) give the same analyses, and warm answers batches
+    before the wire, skips dispatches and dispatches less than cold; one
+    position in every group coalesces with position dedup, persistent
+    anchor codes among the drops and copy-source launches, equal to the
+    FISHNET_NO_DEDUP=1 FISHNET_NO_EVAL_CACHE=1 run; a snapshot (save,
+    reset, load) resolves the next service's first batch before the
+    wire with the same analyses; and with the bounds tier on, a fresh
+    service seeds what the first harvested, the same in two identical
+    such sequences. The comparisons run without the bounds tier
+    (FISHNET_NO_BOUNDS=1), which changes what a search finds by design.
+
+    Then ``cache_numbers``."""
+    import tempfile
+
+    import numpy as np
+
+    from fishnet_tpu_torch.search import eval_cache
+    from fishnet_tpu_torch.search import service as service_mod
+
+    if steps is None:
+        steps, _ = capture_group_steps(weights, dev)
+    timed = copy_source_kernel(torch, weights, params, dev, steps)
+
+    quiet = dict(FISHNET_NO_BOUNDS="1", FISHNET_COALESCE_WIDTH="4",
+                 FISHNET_NO_COALESCE=None)
+    walks = random_lines(8, seed=3)
+    off = gated_run(weights, dev, walks, FISHNET_NO_EVAL_CACHE="1", **quiet)
+    cold = gated_run(weights, dev, walks, **quiet)
+    warm = gated_run(weights, dev, walks, fresh=False, **quiet)
+    check(off[0] == cold[0] == warm[0],
+          "cache off, cold and warm analyses differ")
+    c_cold, c_warm = cold[1], warm[1]
+    check(c_warm["cache_prewire_hits"] > 0
+          and c_warm["cache_skipped_dispatches"] > 0
+          and c_warm["dispatches"] < c_cold["dispatches"],
+          f"the warm run did not reuse the cache: {c_warm}")
+    log(f"  8 gated searches, cache off / cold / warm: the same analyses; "
+        f"dispatches {off[1]['dispatches']} / {c_cold['dispatches']} / "
+        f"{c_warm['dispatches']}, pre-wire hits "
+        f"{c_cold['cache_prewire_hits']} / {c_warm['cache_prewire_hits']}, "
+        f"skipped dispatches {c_cold['cache_skipped_dispatches']} / "
+        f"{c_warm['cache_skipped_dispatches']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cache.npz")
+        fp = weights.fingerprint()
+        check(eval_cache.save_snapshot(path, fingerprint=fp) == path,
+              "the snapshot was not written")
+        entries = len(eval_cache.get_cache())
+        fresh_cache()
+        check(eval_cache.load_snapshot(path, fingerprint=fp),
+              "the snapshot did not load")
+        first = []
+
+        def watch(svc):
+            probe = svc._probe_batch
+
+            def recorder(g, n, hash_ptr):
+                got = probe(g, n, hash_ptr)
+                first.append(bool(got[2].all()))
+                return got
+            svc._probe_batch = recorder
+
+        restart = gated_run(weights, dev, walks, fresh=False, hook=watch,
+                            **quiet)
+    check(restart[0] == cold[0], "the restarted service's analyses differ")
+    check(first and first[0], "the first batch after the restart went to "
+                              "the wire")
+    log(f"  snapshot warm restart ({entries} entries): the first batch "
+        f"resolved before the wire, {restart[1]['cache_prewire_hits']} "
+        f"pre-wire hits, {restart[1]['dispatches']} dispatches; the same "
+        "analyses")
+
+    same = [[] for _ in range(8)]
+    planned = []
+    plan = service_mod.plan_segment_dedup
+
+    def recorder(parents, *args, **kwargs):
+        got = plan(parents, *args, **kwargs)
+        if kwargs.get("hashes") is not None:
+            planned.append(sum(int((np.asarray(parents[k])[d] <= -2).sum())
+                               for k, d in enumerate(got[0])))
+        return got
+
+    service_mod.plan_segment_dedup = recorder
+    try:
+        dd = gated_run(weights, dev, same, **quiet)
+    finally:
+        service_mod.plan_segment_dedup = plan
+    plain = gated_run(weights, dev, same, FISHNET_NO_DEDUP="1",
+                      FISHNET_NO_EVAL_CACHE="1", **quiet)
+    check(dd[0] == plain[0], "position dedup changed the analyses")
+    check(dd[1]["position_dedup"] > 0 and sum(planned) > 0
+          and dd[1]["copy_launches"] > 0,
+          f"no persistent position dedup: {dd[1]['position_dedup']}, "
+          f"{sum(planned)}, {dd[1]['copy_launches']}")
+    log(f"  one position in 8 searches: {dd[1]['position_dedup']} evals "
+        f"deduped by position ({sum(planned)} persistent anchor codes), "
+        f"{dd[1]['copy_launches']} copy-source launches of "
+        f"{dd[1]['dispatches']} dispatches; == dedup and cache off")
+
+    sequences = []
+    for _ in range(2):
+        first_run = gated_run(weights, dev, walks, FISHNET_NO_BOUNDS=None,
+                              FISHNET_COALESCE_WIDTH="4",
+                              FISHNET_NO_COALESCE=None)
+        second = gated_run(weights, dev, walks, fresh=False,
+                           FISHNET_NO_BOUNDS=None, FISHNET_COALESCE_WIDTH="4",
+                           FISHNET_NO_COALESCE=None)
+        check(first_run[1]["bounds_harvested"] > 0
+              and second[1]["bounds_seeded"] > 0,
+              f"bounds: harvested {first_run[1]['bounds_harvested']}, "
+              f"seeded {second[1]['bounds_seeded']}")
+        sequences.append((first_run, second))
+    check(sequences[0][0][0] == sequences[1][0][0]
+          and sequences[0][1][0] == sequences[1][1][0],
+          "two identical bounds sequences gave different analyses")
+    (h1, s1) = (sequences[0][0][1], sequences[0][1][1])
+    log(f"  bounds tier: {h1['bounds_harvested']} records harvested, a "
+        f"fresh service seeded {s1['bounds_seeded']} (nodes "
+        f"{sum(a[2] for a in sequences[0][0][0])} -> "
+        f"{sum(a[2] for a in sequences[0][1][0])}); two sequences gave "
+        "the same analyses")
+    fresh_cache()
+    numbers = cache_numbers(weights, dev)
+    fresh_cache()
+    return {"copy_src": timed, "numbers": numbers}
 
 
 def phase_sweep(weights, dev) -> None:
@@ -1850,6 +2380,7 @@ def phase_sweep(weights, dev) -> None:
     log(f"  suggest_pipeline_depth at 1024: depth {depth}, {probe}")
     for threads in (1, 2, 4, 7):
         for coalesce in (True, False):
+            fresh_cache()
             with env_vars(FISHNET_NO_COALESCE=None if coalesce else "1"):
                 svc = SearchService(weights=weights, batch_capacity=1024,
                                     pipeline_depth=2, driver_threads=threads,
@@ -2023,7 +2554,8 @@ def client_parity(weights, dev, games: int, plies: int, depth: int,
     service, must submit the same score, best move and depth per ply. The worker's engine budget is lifted for the
     check, and it fails on any engine timeout, requeued or abandoned
     position, or abort: a search run again over a TT it already filled
-    may differ without any fault of the evaluator."""
+    may differ without any fault of the evaluator. As in
+    ``phase_parity``, the GPU service runs without the bounds tier."""
     from fishnet_tpu_torch import client as client_mod
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
@@ -2054,9 +2586,11 @@ def client_parity(weights, dev, games: int, plies: int, depth: int,
         for backend in ("torch", "scalar"):
             torch_kw = (dict(driver_threads=threads, pipeline_depth=2)
                         if backend == "torch" else {})
-            svc = SearchService(weights=weights, pool_slots=16,
-                                batch_capacity=64, tt_bytes=256 << 20,
-                                backend=backend, device=dev, **torch_kw)
+            fresh_cache()
+            with env_vars(FISHNET_NO_BOUNDS="1"):
+                svc = SearchService(weights=weights, pool_slots=16,
+                                    batch_capacity=64, tt_bytes=256 << 20,
+                                    backend=backend, device=dev, **torch_kw)
             svc.set_prefetch(8, adaptive=False)
             logger = Recorder()
             with FakeServer() as server:
@@ -2089,25 +2623,29 @@ def client_parity(weights, dev, games: int, plies: int, depth: int,
         "native scalar service on (score, best move, depth) per ply")
 
 
-def phase_run(weights, dev):
-    """The main path through the entry points a user calls: the port's
-    ``Client`` over the ``tpu-nnue`` engine factory that ``python -m
-    fishnet_tpu_torch run`` builds (microbatch 1024, pipeline 2, one
-    driver thread per core, the supervisor's ladder), against the stdlib
-    fake lichess with 16 analysis games and 4 move jobs. The packed
-    kernel's launch count is zeroed after the service's warm-up and read
-    after the run: one launch per device dispatch; the rung must stay
-    "fused". Then the parity sub-run (``client_parity``): 3 games at
-    depth 4 on a GPU service (as many driver threads) and on the native
-    scalar service must submit the same score, best move and depth per
-    ply."""
+def run_workload(what: str, env: Optional[dict] = None, games: int = 16,
+                 moves: int = 4) -> dict:
+    """The ``run`` phase's workload through the entry points a user
+    calls: the port's ``Client`` over the ``tpu-nnue`` engine factory
+    that ``python -m fishnet_tpu_torch run`` builds (microbatch 1024,
+    pipeline 2, one driver thread per core, the supervisor's ladder),
+    against the stdlib fake lichess with ``games`` analysis games and
+    ``moves`` move jobs, from a cold eval cache (``env`` set while the
+    service is built), at the user's engine budget (60 s a position).
+    The packed kernel's launch counts are zeroed after the service's
+    warm-up and read after the run: one launch per device dispatch, no
+    dense launch; the rung must stay "fused". Returns ``run_report``'s
+    numbers with the launches, the counter deltas, the cache probes and
+    the host's timers (``host_timers``)."""
     from fishnet_tpu_torch.__main__ import build_engine_factory
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.configure import parse_and_configure
     from fishnet_tpu_torch.ops import ft_gather
     from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.search import eval_cache
     from fishnet_tpu_torch.utils.logger import Logger
 
+    fresh_cache()
     logger = Logger(verbose=0)
     opt = parse_and_configure(["run", "--no-conf", "--no-stats-file",
                                "--microbatch", "1024", "--pipeline", "2"])
@@ -2115,7 +2653,7 @@ def phase_run(weights, dev):
     supervisor = factory.supervisor
     with FakeServer() as server:
         lichess = server.lichess
-        analysis_ids, move_ids = add_run_jobs(lichess, 16, 4, seed=23)
+        analysis_ids, move_ids = add_run_jobs(lichess, games, moves, seed=23)
         client = Client(endpoint=server.endpoint, key=VALID_KEY,
                         cores=opt.resolved_cores(), engine_factory=factory,
                         logger=logger, max_backoff=1.0,
@@ -2124,42 +2662,68 @@ def phase_run(weights, dev):
         async def run():
             # The user's path builds and warms the service before the
             # first acquire (run_client); so does this.
-            await factory.create(EngineFlavor.OFFICIAL)
+            with env_vars(**(env or {})):
+                await factory.create(EngineFlavor.OFFICIAL)
+            timers = host_timers(factory.service)
             ft_gather.ft_accumulate_packed_cuda.launches = 0
+            ft_gather.ft_accumulate_packed_cuda.copy_launches = 0
             ft_gather.ft_accumulate_cuda.launches = 0
+            cache = eval_cache.get_cache()
+            st0 = None if cache is None else cache.stats()
             c0 = factory.service.counters()
             await drive_client(client, lichess, analysis_ids + move_ids, 600)
-            return {k: v - c0[k]
-                    for k, v in factory.service.counters().items()}
+            probes = 0 if st0 is None else sum(
+                cache.stats()[k] - st0[k] for k in ("hits", "misses"))
+            return ({k: v - c0[k]
+                     for k, v in factory.service.counters().items()},
+                    timers, probes)
 
         try:
-            c = asyncio.run(run())
-            steps = c["eval_steps"]
+            c, timers, probes = asyncio.run(run())
             launches = ft_gather.ft_accumulate_packed_cuda.launches
+            copies = ft_gather.ft_accumulate_packed_cuda.copy_launches
             dense = ft_gather.ft_accumulate_cuda.launches
             service = factory.service
             rung = (supervisor.rung, service.psqt_path, supervisor.respawns,
                     service.is_alive())
         finally:
             factory.close()
-    log(f"  {opt.resolved_workers()} workers, {opt.resolved_search_threads()} "
-        f"driver threads; ft_gather launches {launches} (packed), {dense} "
-        f"(dense) for {steps} dispatched steps in {c['dispatches']} device "
+    log(f"  {what}: {opt.resolved_workers()} workers, "
+        f"{opt.resolved_search_threads()} driver threads; ft_gather launches "
+        f"{launches} (packed; {copies} with copy_src), {dense} (dense) for "
+        f"{c['eval_steps']} dispatched steps in {c['dispatches']} device "
         f"dispatches ({c['fused_dispatches']} fused, {c['fused_dedup']} "
-        f"evals deduped); rung {rung[0]} (service {rung[1]}), respawns "
-        f"{rung[2]}")
-    check(launches > 0, "the run path never launched the kernel")
+        f"evals deduped, {c['position_dedup']} by position); "
+        f"{c['cache_prewire_hits']} pre-wire hits of {probes} probes, "
+        f"{c['cache_skipped_dispatches']} dispatches skipped; bounds "
+        f"seeded {c['bounds_seeded']}, harvested {c['bounds_harvested']}; "
+        f"rung {rung[0]} (service {rung[1]}), respawns {rung[2]}")
+    check(launches > 0, f"{what}: the run path never launched the kernel")
     check(launches == c["dispatches"],
-          f"{launches} packed launches for {c['dispatches']} dispatches")
-    check(dense == 0, "the run path launched the dense mode")
+          f"{what}: {launches} packed launches for {c['dispatches']} "
+          "dispatches")
+    check(dense == 0, f"{what}: the run path launched the dense mode")
     check(rung == ("fused", "fused", 0, True),
-          f"the service left the fused rung or died: {rung}")
-    report = run_report(lichess, analysis_ids, move_ids, "run")
-    report["launches"] = launches
-    report["fused_dispatches"] = c["fused_dispatches"]
+          f"{what}: the service left the fused rung or died: {rung}")
+    report = run_report(lichess, analysis_ids, move_ids, what)
+    report.update(launches=launches, copy_launches=copies,
+                  fused_dispatches=c["fused_dispatches"], counters=c,
+                  probes=probes, timers=timers)
+    return report
 
-    client_parity(weights, dev, games=3, plies=10, depth=4,
-                  threads=opt.resolved_search_threads())
+
+def phase_run(weights, dev):
+    """The main path through the entry points a user calls
+    (``run_workload``, the eval cache and bounds tier at their
+    defaults). Then the parity sub-run (``client_parity``): 3 games at
+    depth 4 on a GPU service (as many driver threads) and on the native
+    scalar service must submit the same score, best move and depth per
+    ply."""
+    from fishnet_tpu_torch.configure import parse_and_configure
+
+    report = run_workload("run")
+    threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
+    client_parity(weights, dev, games=3, plies=10, depth=4, threads=threads)
     return report
 
 
@@ -2331,12 +2895,18 @@ def main() -> int:
     from fishnet_tpu_torch.nnue.weights import NnueWeights
     from fishnet_tpu_torch.ops import _build
 
-    log("[build] nvcc (sm_90a) and the native core, in parallel")
+    from fishnet_tpu_torch.search import eval_cache
+
+    log("[build] nvcc (sm_90a), the native core and the eval cache's "
+        "tables, in parallel")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         kernels = pool.submit(_build.build, ["ft_gather"])
+        # g++ over search/csrc/eval_cache.cpp (search/eval_cache.py)
+        tables = pool.submit(eval_cache._tables)
         load_core()  # g++ over cpp/src (chess/core.py)
         paths = kernels.result()
+        tables.result()
     log(f"  built {[p.name for p in paths]} in {time.perf_counter() - t0:.3f} s")
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
@@ -2368,6 +2938,7 @@ def main() -> int:
         entries.append(phase_timing(torch, params, dev, serve, worst))
         entries[0]["fused_launches"] = serve["fused_dispatches"]
         entries[0]["step_fused"] = serve["step"]["fused"]
+    fused = None
     if "coalesce" in phases:
         log("[coalesce] fused segmented dispatches: kernel level, then the "
             "service with the new defaults")
@@ -2382,11 +2953,22 @@ def main() -> int:
         run = phase_run(weights, dev)
         for entry in entries:
             entry["launches_run"] = run["launches"]
+            entry["copy_launches_run"] = run["copy_launches"]
     if "cli" in phases:
         log("[cli] python -m fishnet_tpu_torch run, drained by SIGINT")
         cli = phase_cli()
         for entry in entries:
             entry["launches_cli"] = cli["launches"]
+    if "cache" in phases:
+        log("[cache] the eval cache and the bounds tier: the kernel's "
+            "copy-source mode, the service, then cache off / on numbers")
+        cache = phase_cache(torch, weights, params, dev,
+                            None if fused is None else fused["steps"])
+        for entry in entries:
+            entry["copy_src"] = cache["copy_src"]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       cache["copy_src"]["worst"])
+            entry["cache_numbers"] = cache["numbers"]
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

@@ -135,12 +135,23 @@ async def run_client(opt: Opt, logger: Logger) -> None:
     """The supervisor loop (main.rs:76-260)."""
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.search import eval_cache
 
     stats = StatsRecorder(
         cores=opt.resolved_cores(),
         stats_file=Path(opt.stats_file) if opt.stats_file else None,
         no_stats_file=opt.no_stats_file,
     )
+    # Warm-restart snapshot (FISHNET_EVAL_CACHE_SNAPSHOT): reload the
+    # previous process's eval cache, keyed by the net file's
+    # fingerprint (0 for dev-mode random weights), so the first batches
+    # resolve before the wire; a mismatch discards the file.
+    net_fp = eval_cache.net_fingerprint(opt.nnue_file) if opt.nnue_file else 0
+    if eval_cache.snapshot_path() is not None and eval_cache.load_snapshot(
+            fingerprint=net_fp):
+        cache = eval_cache.get_cache()
+        logger.info(f"Restored {len(cache) if cache is not None else 0} "
+                    "eval-cache entries from snapshot.")
     engine_factory = build_engine_factory(opt, logger)
     client = Client(
         endpoint=opt.resolved_endpoint(),
@@ -235,6 +246,12 @@ async def run_client(opt: Opt, logger: Logger) -> None:
                 if t is not None:
                     t.cancel()
             await client.stop(abort_pending=stop.is_set())
+            # Persist the eval cache for a warm restart (a no-op unless
+            # FISHNET_EVAL_CACHE_SNAPSHOT is set): after client.stop,
+            # so it holds the final working set; before the engine
+            # closes.
+            if eval_cache.snapshot_path() is not None:
+                eval_cache.save_snapshot(fingerprint=net_fp)
     finally:
         if opt.verbose:
             logger.debug(_teardown_counters(engine_factory, warm))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional
 
-from fishnet_tpu_torch.chess.core import NativeCoreError, load
+from fishnet_tpu_torch.chess.core import NativeCoreError, load, load_held
 from fishnet_tpu_torch.protocol.types import STARTPOS as STARTPOS_FEN
 from fishnet_tpu_torch.protocol.types import Variant
 
@@ -50,7 +50,11 @@ def variant_supported(variant: Variant) -> bool:
 class Board:
     """A chess position. Outcome codes (matching the native core):
     0 ongoing, 1 checkmate (side to move is mated), 2 stalemate,
-    3 variant loss, 4 variant win, 5 draw."""
+    3 variant loss, 4 variant win, 5 draw.
+
+    ``held=True`` makes its native calls keep the interpreter lock
+    (``core.load_held``; so do its copies): for a walk of many short
+    calls on a busy thread."""
 
     ONGOING = 0
     CHECKMATE = 1
@@ -64,8 +68,10 @@ class Board:
         fen: str = STARTPOS_FEN,
         variant: Variant = Variant.STANDARD,
         _handle: Optional[int] = None,
+        held: bool = False,
     ) -> None:
-        self._lib = load()
+        self._lib = load_held() if held else load()
+        self._held = held
         self.variant = variant
         if _handle is not None:
             self._pos = _handle
@@ -91,7 +97,7 @@ class Board:
         handle = self._lib.fc_pos_clone(self._pos)
         if not handle:
             raise NativeCoreError("clone failed")
-        return Board(variant=self.variant, _handle=handle)
+        return Board(variant=self.variant, _handle=handle, held=self._held)
 
     def push_uci(self, uci: str) -> None:
         if self._lib.fc_pos_play_uci(self._pos, uci.encode()) != 0:

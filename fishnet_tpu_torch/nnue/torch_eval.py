@@ -37,6 +37,7 @@ from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue.weights import NnueWeights
 from fishnet_tpu_torch.ops.ft_gather import (  # noqa: F401 - re-exported
+    check_copy_src,
     derive_segment_offsets,
     expand_packed,
     ft_accumulate,
@@ -243,6 +244,8 @@ def evaluate_packed_anchored(
     psqt_tab: torch.Tensor,
     *,
     offsets: Optional[torch.Tensor] = None,
+    copy_src=None,
+    parent_host=None,
 ):
     """evaluate_batch over the compact wire with PERSISTENT device-
     resident anchors: ``anchor_tab`` [A, 2, L1] int32 holds one feature-
@@ -266,7 +269,9 @@ def evaluate_packed_anchored(
     sentinel block: padding entries' cumsum runs past the stream into
     stale rows whose contents can exceed the table bounds. A caller that
     has the pool's offsets (int32 [B], padding entries already pointing
-    at ``n_rows``) passes them instead and saves the derivation."""
+    at ``n_rows``) passes them instead and saves the derivation.
+    ``copy_src``, ``parent_host``: the fan-in of
+    ``_packed_anchored_core``."""
     parent = parent.to(torch.int32)
     if offsets is None:
         rows_per = torch.where(_is_delta(parent), 1, 4).to(torch.int32)
@@ -274,7 +279,7 @@ def evaluate_packed_anchored(
         offsets = offsets.clamp(max=int(n_rows))
     return _packed_anchored_core(
         params, packed, offsets, buckets, parent, material,
-        anchor_tab, psqt_tab,
+        anchor_tab, psqt_tab, copy_src=copy_src, parent_host=parent_host,
     )
 
 
@@ -288,45 +293,50 @@ def _packed_anchored_core(
     anchor_tab: torch.Tensor,
     psqt_tab: torch.Tensor,
     copy_src: Optional[torch.Tensor] = None,
+    parent_host=None,
 ):
     """Accumulate over the row stream with table resolution and the
     anchor stores (one kernel launch on CUDA; expand_packed,
     ft_accumulate_plain and store_anchors on the CPU), then evaluate the
     head.
 
-    ``copy_src`` (optional int [B], the dedup fan-in of
+    ``copy_src`` (optional int [B] on the host — numpy or a CPU tensor,
+    pinned for an asynchronous upload — the position-dedup fan-in of
     ``plan_segment_dedup``) gives entry i the accumulator (and PSQT) of
-    entry ``copy_src[i]`` before the head, identity for kept entries.
-    The anchor stores have already happened by then (inside the launch
-    on the card), so a redirected entry must store nothing: plain fulls
-    and in-batch deltas, which the byte-mode planner drops. A redirected
-    store entry (parent <= -2) raises — the JAX package runs the fan-in
-    before its table scatter, which the position-keyed planner relies
-    on."""
-    if copy_src is not None:
-        copy_src = copy_src.to(device=parent.device, dtype=torch.long)
-        moved = copy_src != torch.arange(copy_src.shape[0],
-                                         device=parent.device)
-        if bool((moved & (parent.to(torch.int32) <= -2)).any()):
-            raise ValueError(
-                "copy_src redirects an anchor-store entry: the stores run "
-                "inside the launch, before the fan-in"
-            )
+    entry ``copy_src[i]``, identity for kept entries, as the JAX package
+    does before its head and its table scatter: a redirected store
+    entry stores its source's bytes to its table rows. On the card that
+    is the kernel's copy-source mode (the fan-in inside the launch,
+    before its stores), on the CPU the plain version's. Its contract
+    (``check_copy_src``: each source in range, earlier in wire order and
+    not itself redirected, and no redirected entry the anchor of an
+    in-batch delta) is checked here, before the upload, and raises
+    ``ValueError``. It reads the parent codes on the host:
+    ``parent_host`` (numpy [B], the codes ``parent`` holds) when the
+    caller has them, as the service does, else ``parent`` itself — a
+    copy from the card, which waits for it."""
+    if copy_src is not None and parent_host is None:
+        parent_host = parent.cpu()
+    checked = check_copy_src(copy_src, parent.shape[0], parent_host)
+    if checked is None:
+        copy_src = None
+    else:
+        if not isinstance(copy_src, torch.Tensor):
+            copy_src = torch.from_numpy(checked)
+        copy_src = copy_src.to(device=parent.device, dtype=torch.int32,
+                               non_blocking=True)
     psqt = None
     if material is None:
         acc, psqt = ft_accumulate_packed(
             params["ft_w"], params["ft_b"], packed, offsets, parent,
             anchor_tab, ft_psqt=params["ft_psqt"], psqt_tab=psqt_tab,
+            copy_src=copy_src,
         )
     else:
         acc = ft_accumulate_packed(
             params["ft_w"], params["ft_b"], packed, offsets, parent,
-            anchor_tab,
+            anchor_tab, copy_src=copy_src,
         )
-    if copy_src is not None:
-        acc = acc.index_select(0, copy_src)
-        if psqt is not None:
-            psqt = psqt.index_select(0, copy_src)
     values = _evaluate_from_acc(
         params, acc, None, buckets, parent, material, psqt=psqt
     )

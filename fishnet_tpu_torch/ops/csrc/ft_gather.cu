@@ -67,6 +67,23 @@
 // Every decoded index is checked against the table's row count; an
 // out-of-range index (or a malformed parent reference) is never read and
 // is counted in the state's error word instead.
+//
+// Copy-source mode (packed mode with copy_src, int32 [batch]): the
+// position-dedup fan-in of a fused dispatch, JAX's jnp.take(acc,
+// copy_src) before the head and the table scatter
+// (fishnet_tpu/nnue/jax_eval.py _packed_anchored_core). An entry b with
+// copy_src[b] = s != b finishes with entry s's resolved accumulator and
+// PSQT (same perspective, not swapped): in its output rows and, if it is
+// a store entry, in its anchor_tab / psqt_tab row. The source precedes
+// its duplicate in wire order (the planner maps each duplicate to its
+// first occurrence), so its block has claimed its ticket first: the
+// duplicate waits (acquire) on the source's ready word as an in-batch
+// delta waits on its anchor, then reads acc[s] from L2 in place of its
+// own result, before any store. In this mode every entry publishes its
+// ready word, since a source may be a delta. A source that is out of
+// range, not earlier, or itself redirected is counted and never waited
+// on (the entry keeps its own result); the host checks the same contract
+// before upload (ops/ft_gather.py check_copy_src).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +112,7 @@ struct Args {
   int n_wire;
   const int32_t* offsets;     // packed mode [batch]
   const int32_t* parent;      // [batch] or NULL (every entry plain full)
+  const int32_t* copy_src;    // packed mode [batch] or NULL (identity)
   int32_t* anchor_tab;        // [n_anchor, 2, l1] or NULL
   int32_t* psqt_tab;          // [n_anchor, 2, 8] or NULL
   int n_anchor, delta_base, batch;
@@ -171,7 +189,7 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
   __shared__ int s_row[2][kSlots];
   __shared__ int s_sign[2][kSlots];
   __shared__ int s_live[2];
-  __shared__ int s_b, s_epoch, s_follow, s_ready;
+  __shared__ int s_b, s_epoch, s_follow, s_ready, s_copy;
   __shared__ int s_code, s_slot[2][kSlots];
 
   const int tid = threadIdx.x;
@@ -318,6 +336,37 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
       }
     }
 
+    if (kPacked && a.copy_src != nullptr) {
+      // Copy-source fan-in: wait for the source, then take its result.
+      if (tid == 0) {
+        const int src = __ldg(a.copy_src + b);
+        int take = -1;
+        if (src != b) {
+          if (src < 0 || src >= b || __ldg(a.copy_src + src) != src) {
+            atomicAdd(err, 1);  // never wait on a later or redirected one
+          } else {
+            int spins = 0;
+            while (ld_acquire(a.ready + src) != epoch && spins < kSpinLimit)
+              ++spins;
+            if (spins < kSpinLimit) take = src;
+            else atomicAdd(err, 1);
+          }
+        }
+        s_copy = take;
+      }
+      __syncthreads();
+      if (s_copy >= 0) {
+        const int64_t src = static_cast<int64_t>(s_copy) * 2 + p;
+        const int4 lo = __ldcg(reinterpret_cast<const int4*>(
+            a.acc + src * a.l1 + lane0));
+        const int4 hi = __ldcg(reinterpret_cast<const int4*>(
+            a.acc + src * a.l1 + lane0 + 4));
+        acc[0] = lo.x; acc[1] = lo.y; acc[2] = lo.z; acc[3] = lo.w;
+        acc[4] = hi.x; acc[5] = hi.y; acc[6] = hi.z; acc[7] = hi.w;
+        if (psqt_lane) ps = __ldcg(a.psqt + src * kPsqtBuckets + pt);
+      }
+    }
+
     const int64_t dst = static_cast<int64_t>(b) * 2 + p;
     store_row32(a.acc + dst * a.l1 + lane0, acc);
     if (psqt_lane) a.psqt[dst * kPsqtBuckets + pt] = ps;
@@ -331,9 +380,11 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
         a.psqt_tab[row * kPsqtBuckets + pt] = ps;
     }
 
-    // Publish an anchor entry (the only kind a delta may reference):
-    // every thread's stores, then the ready word with release semantics.
-    if (a.parent != nullptr && code < 0) {
+    // Publish an anchor entry (the only kind a delta may reference), or
+    // any entry in copy-source mode (a source may be a delta): every
+    // thread's stores, then the ready word with release semantics.
+    if ((a.parent != nullptr && code < 0) ||
+        (kPacked && a.copy_src != nullptr)) {
       __syncthreads();
       if (tid == 0) st_release(a.ready + b, epoch);
     }
@@ -355,7 +406,8 @@ void launch(const Args& a, cudaStream_t stream) {
 // idx [batch, 2, 32] int32 and wire NULL. Packed mode: wire [n_wire, 2,
 // 8] uint16 and offsets [batch] int32, idx NULL; packed mode also
 // writes anchor entries back to the tables. parent [batch] int32 or
-// NULL (every entry full); anchor_tab [n_anchor, 2, l1] / psqt_tab
+// NULL (every entry full); copy_src [batch] int32 or NULL (packed mode
+// only: the copy-source fan-in above); anchor_tab [n_anchor, 2, l1] / psqt_tab
 // [n_anchor, 2, 8] int32 or NULL; delta_base < 0 disables removal
 // decoding. Outputs acc [batch,
 // 2, l1] and psqt [batch, 2, 8] int32. state is the device's int32 [4]
@@ -368,7 +420,8 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
                             const void* ft_b, const void* ft_psqt,
                             const void* idx, const void* wire, int n_wire,
                             const void* offsets, int batch,
-                            const void* parent, void* anchor_tab,
+                            const void* parent, const void* copy_src,
+                            void* anchor_tab,
                             void* psqt_tab, int n_anchor, int delta_base,
                             void* acc, void* psqt,
                             void* state, void* ready, void* stream) {
@@ -384,6 +437,7 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
     a.n_wire = n_wire;
     a.offsets = static_cast<const int32_t*>(offsets);
     a.parent = static_cast<const int32_t*>(parent);
+    a.copy_src = static_cast<const int32_t*>(copy_src);
     a.anchor_tab = static_cast<int32_t*>(anchor_tab);
     a.psqt_tab = static_cast<int32_t*>(psqt_tab);
     a.n_anchor = n_anchor;

@@ -19,7 +19,10 @@ call:
   entry's offset, see ``expand_packed``), accumulators out, and every
   anchor entry's result stored back to its table rows in place. This is
   the serving path; on the TPU the expansion and the store were XLA ops
-  around the kernel.
+  around the kernel. With ``copy_src`` (the position-dedup fan-in of a
+  fused dispatch) a redirected entry takes its source's result before
+  the stores, in the outputs and in its table rows
+  (``check_copy_src`` states the contract).
 
 Each mode has three functions: ``*_cuda`` launches the kernel and counts
 its launches in ``*_cuda.launches``; ``*_plain`` is the plain version
@@ -63,6 +66,7 @@ __all__ = [
     "derive_segment_offsets",
     "derive_segment_offsets_np",
     "error_word",
+    "check_copy_src",
     "expand_packed",
     "ft_accumulate",
     "ft_accumulate_cuda",
@@ -272,13 +276,13 @@ def plan_segment_dedup(parents, buckets, offsets, ns, packed, material=None,
     swap 0: the most recent preceding KEPT anchor); in position-keyed
     mode they are ready wire parent codes, and a fourth element
     ``fills`` lists ``(seg, idx, value)`` drops answered by the cache."""
+    if hashes is not None:
+        return _plan_by_position(parents, ns, hashes, cache_hits)
     n_segs = len(parents)
     seen = {}
-    fill_vals = {}  # hash -> cached value (position-keyed mode)
     drops = [[] for _ in range(n_segs)]
     refs = [[] for _ in range(n_segs)]
     pairs = []
-    fills = []
     for k in range(n_segs):
         n = int(ns[k])
         if n <= 0:
@@ -288,70 +292,112 @@ def plan_segment_dedup(parents, buckets, offsets, ns, packed, material=None,
         inb = p >= 0
         if inb.any():
             consumed[p[inb] >> 1] = True
-        # Anchor entries (fulls and persistent codes) vs 4-row entries
-        # (fulls and persistent FULLS; persistent deltas ship 1 row).
-        is_anchor = (p == -1) | (p <= -2)
+        # 4-row entries: fulls and persistent FULLS (persistent deltas
+        # ship 1 row). Anchor entries are those with a code < 0.
         is_full4 = (p == -1) | ((p <= -2) & ((((-p - 2) >> 1) & 1) == 0))
         off = np.asarray(offsets[k][:n])
         rows = packed[k]
-        hseg = None if hashes is None else hashes[k]
-        cmask = cvals = None
-        if cache_hits is not None and cache_hits[k] is not None:
-            cmask, cvals = cache_hits[k]
+        codes = p.tolist()
+        consumed_l = consumed.tolist()
         last_anchor = 0
         for i in range(n):
             dropped = False
-            if hseg is not None:
-                h = int(hseg[i])
-                pers = bool(p[i] <= -2)
-                droppable = not consumed[i] and i > 0
-                # A persistent drop still stores its anchor row: its
-                # sentinel keeps aid + store bit (delta form, swap 0).
-                sentinel = (
-                    -(2 + ((((-int(p[i]) - 2) >> 2) << 2) | 2))
-                    if pers else (last_anchor << 1)
-                )
-                src = seen.get(h)
-                if droppable and src is not None:
-                    drops[k].append(i)
-                    refs[k].append(sentinel)
-                    pairs.append((k, i, src[0], src[1]))
-                    dropped = True
-                elif droppable and not pers and cmask is not None \
-                        and cmask[i]:
-                    drops[k].append(i)
-                    refs[k].append(sentinel)
-                    fills.append((k, i, int(cvals[i])))
-                    fill_vals.setdefault(h, int(cvals[i]))
-                    dropped = True
-                elif droppable and not pers and h in fill_vals:
-                    # Duplicate of an entry that itself left the wire on
-                    # a cache hit: same cached value, no device source.
-                    drops[k].append(i)
-                    refs[k].append(sentinel)
-                    fills.append((k, i, fill_vals[h]))
-                    dropped = True
-                elif src is None:
-                    seen[h] = (k, i)
-            elif is_full4[i]:
+            if is_full4[i]:
                 key = (int(buckets[k][i]),
                        rows[off[i]: off[i] + 4].tobytes())
                 if material is not None:
                     key = key + (int(material[k][i]),)
                 src = seen.get(key)
-                if (src is not None and p[i] == -1
-                        and not consumed[i] and i > 0):
+                if (src is not None and codes[i] == -1
+                        and not consumed_l[i] and i > 0):
                     drops[k].append(i)
                     refs[k].append(last_anchor)
                     pairs.append((k, i, src[0], src[1]))
                     dropped = True
                 elif src is None:
                     seen[key] = (k, i)
-            if not dropped and is_anchor[i]:
+            if not dropped and codes[i] < 0:  # an anchor entry
                 last_anchor = i
-    if hashes is not None:
-        return drops, refs, pairs, fills
     return drops, refs, pairs
+
+
+def _plan_by_position(parents, ns, hashes, cache_hits):
+    """``plan_segment_dedup``'s position-keyed mode, on the flat entry
+    order of the dispatch (segment by segment). It decides exactly what
+    the JAX planner's per-entry loop decides, but runs that loop only
+    over the entries that can leave the wire — those whose position
+    repeats in the dispatch or whose eval the cache knows. Every other
+    entry has a position of its own: it is kept, and no later entry
+    can name it as a source."""
+    n_segs = len(parents)
+    drops = [[] for _ in range(n_segs)]
+    refs = [[] for _ in range(n_segs)]
+    pairs, fills = [], []
+    segs = [k for k in range(n_segs) if int(ns[k]) > 0]
+    if not segs:
+        return drops, refs, pairs, fills
+    lens = [int(ns[k]) for k in segs]
+    code = np.concatenate(
+        [np.asarray(parents[k][:n], np.int64) for k, n in zip(segs, lens)])
+    h = np.concatenate(
+        [np.asarray(hashes[k][:n], np.uint64) for k, n in zip(segs, lens)])
+    seg_of = np.repeat(np.asarray(segs, np.int64), lens)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    local = np.arange(len(code), dtype=np.int64) - np.repeat(starts, lens)
+    consumed = np.zeros(len(code), dtype=bool)
+    cmask = np.zeros(len(code), dtype=bool)
+    cvals = np.zeros(len(code), dtype=np.int64)
+    for k, n, s0 in zip(segs, lens, starts.tolist()):
+        p = code[s0: s0 + n]
+        consumed[s0 + (p[p >= 0] >> 1)] = True
+        if cache_hits is not None and cache_hits[k] is not None:
+            cmask[s0: s0 + n] = np.asarray(cache_hits[k][0][:n], bool)
+            cvals[s0: s0 + n] = np.asarray(cache_hits[k][1][:n], np.int64)
+    droppable = ~consumed & (local > 0)
+    pers = code <= -2
+    _, inv, cnt = np.unique(h, return_inverse=True, return_counts=True)
+    live = np.flatnonzero((cnt[inv.reshape(-1)] > 1) | cmask)
+    dropped = np.zeros(len(code), dtype=bool)
+    seen = {}  # hash -> flat index of its first kept occurrence
+    fill_vals = {}  # hash -> cached value
+    for j, hj, dj, pj, cj, vj in zip(
+            live.tolist(), h[live].tolist(), droppable[live].tolist(),
+            pers[live].tolist(), cmask[live].tolist(), cvals[live].tolist()):
+        src = seen.get(hj)
+        if dj and src is not None:
+            pairs.append((j, src))
+        elif dj and not pj and cj:
+            fills.append((j, vj))
+            fill_vals.setdefault(hj, vj)
+        elif dj and not pj and hj in fill_vals:
+            # Duplicate of an entry that itself left the wire on a cache
+            # hit: same cached value, no device source.
+            fills.append((j, fill_vals[hj]))
+        else:
+            if src is None:
+                seen[hj] = j
+            continue
+        dropped[j] = True
+    # A dropped in-batch entry becomes a sentinel delta on the most
+    # recent KEPT anchor entry before it in its segment (0 if none); a
+    # persistent drop still stores its anchor row, so its sentinel keeps
+    # aid + store bit (delta form, swap 0).
+    kept_anchor = np.where((code < 0) & ~dropped, local, 0)
+    last = np.zeros(len(code), dtype=np.int64)
+    for s0, n in zip(starts.tolist(), lens):
+        run = np.maximum.accumulate(kept_anchor[s0: s0 + n])
+        last[s0 + 1: s0 + n] = run[:-1]
+    sentinel = np.where(pers, -(2 + ((((-code - 2) >> 2) << 2) | 2)),
+                        last << 1)
+    gone = np.flatnonzero(dropped)
+    for k, i, c in zip(seg_of[gone].tolist(), local[gone].tolist(),
+                       sentinel[gone].tolist()):
+        drops[k].append(i)
+        refs[k].append(c)
+    sk, li = seg_of.tolist(), local.tolist()
+    pairs = [(sk[j], li[j], sk[s], li[s]) for j, s in pairs]
+    fills = [(sk[j], li[j], v) for j, v in fills]
+    return drops, refs, pairs, fills
 
 
 def _widen_wire(packed: torch.Tensor) -> torch.Tensor:
@@ -402,6 +448,53 @@ def store_anchors(tab: torch.Tensor, acc: torch.Tensor,
     owner.scatter_(0, row, torch.arange(row.shape[0], device=tab.device))
     has, owner = has[:n_tab], owner[:n_tab]
     tab.copy_(torch.where(has[:, None, None], acc[owner], tab))
+
+
+def check_copy_src(copy_src, batch: int,
+                   parent=None) -> Optional[np.ndarray]:
+    """The host-side contract of a ``copy_src`` fan-in (int [batch], or
+    None), checked before anything is uploaded: each redirected entry
+    ``b`` (``copy_src[b] != b``) names a source that is in range,
+    precedes it in wire order and is not itself redirected — what
+    ``plan_segment_dedup``'s pairs give, each duplicate mapped to its
+    first occurrence. The kernel waits on the source's ready word, so a
+    later source could never be waited on. With ``parent`` (the batch's
+    wire parent codes, on the host), no redirected entry may be the
+    anchor of an in-batch delta: the kernel redirects an entry before
+    it publishes its ready word, so such a delta would resolve against
+    the copied accumulator, where the plain version and the JAX package
+    resolve it against the entry's own (the planner never drops a
+    consumed entry). Returns the fan-in as int32 numpy, or None for an
+    identity fan-in; raises ``ValueError`` otherwise. (The kernel checks
+    the source's range and order and counts a bad one in its error
+    word.)"""
+    if copy_src is None:
+        return None
+    if isinstance(copy_src, torch.Tensor):
+        copy_src = copy_src.cpu().numpy()
+    cs = np.asarray(copy_src).astype(np.int64).reshape(-1)
+    if cs.shape[0] != batch:
+        raise ValueError(f"copy_src has {cs.shape[0]} entries, want {batch}")
+    b = np.arange(batch, dtype=np.int64)
+    moved = np.flatnonzero(cs != b)
+    if moved.size == 0:
+        return None
+    src = cs[moved]
+    if bool(((src < 0) | (src >= moved)).any()):
+        raise ValueError(
+            "copy_src names a source that is out of range or not earlier "
+            "than its duplicate in wire order")
+    if bool((cs[src] != src).any()):
+        raise ValueError("copy_src names a source that is itself redirected")
+    if parent is not None:
+        if isinstance(parent, torch.Tensor):
+            parent = parent.numpy()
+        p = np.asarray(parent).astype(np.int64).reshape(-1)
+        anchors = p[p >= 0] >> 1
+        if bool((cs[anchors] != anchors).any()):
+            raise ValueError(
+                "copy_src redirects the anchor of an in-batch delta")
+    return cs.astype(np.int32)
 
 
 def _plain_resolve_parents(acc: torch.Tensor, bias,
@@ -460,11 +553,13 @@ def ft_accumulate_packed_plain(
     *,
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
+    copy_src: Optional[torch.Tensor] = None,
 ):
     """The plain version of the kernel's packed mode, on any device:
-    ``expand_packed`` -> ``ft_accumulate_plain`` -> the anchor stores
-    (``store_anchors``, in place). Same arguments and result as
-    ``ft_accumulate_packed``, whose checks it assumes were made."""
+    ``expand_packed`` -> ``ft_accumulate_plain`` -> the ``copy_src``
+    fan-in (JAX's ``jnp.take``) -> the anchor stores (``store_anchors``,
+    in place). Same arguments and result as ``ft_accumulate_packed``,
+    whose checks it assumes were made."""
     parent = parent.to(torch.int32)
     dense = expand_packed(packed, offsets, parent)
     out = ft_accumulate_plain(
@@ -472,10 +567,15 @@ def ft_accumulate_packed_plain(
         anchor_tab=anchor_tab, ft_psqt=ft_psqt, psqt_tab=psqt_tab,
     )
     acc, psqt = out if ft_psqt is not None else (out, None)
+    if copy_src is not None:
+        src = copy_src.to(device=acc.device, dtype=torch.long)
+        acc = acc.index_select(0, src)
+        if psqt is not None:
+            psqt = psqt.index_select(0, src)
     store_anchors(anchor_tab, acc, parent)
     if psqt is not None:
         store_anchors(psqt_tab, psqt, parent)
-    return out
+    return (acc, psqt) if psqt is not None else acc
 
 
 # -- the hand kernel --------------------------------------------------------
@@ -502,6 +602,7 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_void_p,  # idx
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # wire, R, offs
             ctypes.c_int, ctypes.c_void_p,  # B, parent
+            ctypes.c_void_p,  # copy_src
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # tables, A
             ctypes.c_int,  # delta_base
             ctypes.c_void_p, ctypes.c_void_p,  # acc, psqt
@@ -590,9 +691,11 @@ def _check_tables(ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device):
 
 
 def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
-            anchor_tab, psqt_tab, n_anchor, delta_base, ft_psqt, device):
+            anchor_tab, psqt_tab, n_anchor, delta_base, ft_psqt, device,
+            copy_src=None):
     """One kernel launch on the current stream (packed mode when ``wire``
-    is given: it also stores the anchor entries); returns (acc, psqt)."""
+    is given: it also stores the anchor entries, after the ``copy_src``
+    fan-in); returns (acc, psqt)."""
     acc = torch.empty((batch, 2, l1), dtype=torch.int32, device=device)
     psqt = (
         torch.empty((batch, 2, 8), dtype=torch.int32, device=device)
@@ -606,7 +709,7 @@ def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
     rc = lib.fc_ft_gather(
         ft_w.data_ptr(), n_rows, l1, ft_b.data_ptr(), _ptr(ft_psqt),
         _ptr(idx), _ptr(wire), 0 if wire is None else wire.shape[0],
-        _ptr(offsets), batch, _ptr(parent),
+        _ptr(offsets), batch, _ptr(parent), _ptr(copy_src),
         _ptr(anchor_tab), _ptr(psqt_tab), n_anchor,
         -1 if delta_base is None else int(delta_base),
         acc.data_ptr(), _ptr(psqt), state.data_ptr(), ready.data_ptr(),
@@ -672,13 +775,18 @@ def ft_accumulate_packed_cuda(
     *,
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
+    copy_src: Optional[torch.Tensor] = None,
 ):
     """Launch the hand kernel's packed mode on the current stream: the
     wire ``packed`` (int16 [R, 2, 8] carrying the uint16 bits), the row
     ``offsets`` (int32 [B]) and ``parent`` (int32 [B]) in; the
     accumulators out, and every anchor entry's result stored to its
     ``anchor_tab`` row (int32 [A, 2, L1]) and, with ``ft_psqt``, its
-    ``psqt_tab`` row (int32 [A, 2, 8]), in place. Weights as in
+    ``psqt_tab`` row (int32 [A, 2, 8]), in place. ``copy_src`` (int32
+    [B]) runs the copy-source mode: entry b takes entry
+    ``copy_src[b]``'s result before the stores; its contract is not
+    checked here (``check_copy_src``), and the kernel counts a source
+    that breaks it in the error word. Weights as in
     ``ft_accumulate_cuda``. Raises on anything else, and when the launch
     is refused. Same result as ``ft_accumulate_packed_plain``."""
     device = packed.device
@@ -692,6 +800,8 @@ def ft_accumulate_packed_cuda(
     _check(parent, "parent", torch.int32, (None,), device)
     batch = parent.shape[0]
     _check(offsets, "offsets", torch.int32, (batch,), device)
+    if copy_src is not None:
+        _check(copy_src, "copy_src", torch.int32, (batch,), device)
     if device.type != "cuda":
         raise ValueError(
             f"ft_accumulate_packed_cuda needs CUDA tensors, got {device}")
@@ -700,16 +810,20 @@ def ft_accumulate_packed_cuda(
         wire=packed, offsets=offsets, parent=parent, anchor_tab=anchor_tab,
         psqt_tab=psqt_tab if ft_psqt is not None else None,
         n_anchor=n_anchor, delta_base=DELTA_BASE, ft_psqt=ft_psqt,
-        device=device,
+        device=device, copy_src=copy_src,
     )
     if batch > 0:
         with _launch_lock:
             ft_accumulate_packed_cuda.launches += 1
+            if copy_src is not None:
+                ft_accumulate_packed_cuda.copy_launches += 1
     return (acc, psqt) if ft_psqt is not None else acc
 
 
-#: Kernel launches by this wrapper (one per call with a non-empty batch).
+#: Kernel launches by this wrapper (one per call with a non-empty batch),
+#: and those of them in the copy-source mode.
 ft_accumulate_packed_cuda.launches = 0
+ft_accumulate_packed_cuda.copy_launches = 0
 
 
 def ft_accumulate(
@@ -773,6 +887,7 @@ def ft_accumulate_packed(
     *,
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
+    copy_src: Optional[torch.Tensor] = None,
 ):
     """``ft_accumulate`` over the compact wire, with the anchor stores:
     ``packed`` [R, 2, 8] wire rows (uint16 bits; the kernel takes them as
@@ -784,6 +899,10 @@ def ft_accumulate_packed(
     ``ft_psqt``, ``psqt_tab`` [A, 2, 8] int32, then required), and every
     anchor entry's resolved result is stored to its rows of both tables
     IN PLACE. Returns ``acc``, or ``(acc, psqt)`` with ``ft_psqt``.
+    ``copy_src`` (int [B], on the device of the inputs) is the fan-in:
+    entry b ends with entry ``copy_src[b]``'s result, in the outputs and
+    in its table rows; the caller checks its contract
+    (``check_copy_src``).
 
     CUDA inputs run the hand kernel (one launch), CPU inputs the plain
     version; both give the same integers and the same tables."""
@@ -791,7 +910,9 @@ def ft_accumulate_packed(
         raise ValueError("ft_psqt needs psqt_tab in packed mode")
     parent = parent.to(torch.int32).contiguous()
     offsets = offsets.to(torch.int32).contiguous()
-    kwargs = dict(ft_psqt=ft_psqt, psqt_tab=psqt_tab)
+    if copy_src is not None:
+        copy_src = copy_src.to(torch.int32).contiguous()
+    kwargs = dict(ft_psqt=ft_psqt, psqt_tab=psqt_tab, copy_src=copy_src)
     args = (ft_w, ft_b, packed.contiguous(), offsets, parent, anchor_tab)
     if packed.device.type == "cuda":
         return ft_accumulate_packed_cuda(*args, **kwargs)

@@ -49,6 +49,7 @@ from fishnet_tpu_torch.protocol.types import (
     Variant,
     Work,
 )
+from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger, ProgressAt, QueueStatusBar
 from fishnet_tpu_torch.utils.stats import NpsRecorder, Stats, StatsRecorder
@@ -585,6 +586,14 @@ class QueueStub:
             state.pending[batch_id] = pending
             return
 
+        # Batch completion ticks the eval cache's eviction clock
+        # (search/eval_cache.py): entries inserted while this batch was
+        # live age one generation, so under memory pressure the cache
+        # sheds dead batches' positions before the live working set.
+        # Purely an eviction-ordering signal: no value is invalidated.
+        cache = eval_cache.get_cache()
+        if cache is not None:
+            cache.advance_generation()
         extra = []
         short = completed.variant.short_name()
         if short:

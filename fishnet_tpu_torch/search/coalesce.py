@@ -11,8 +11,9 @@ and a decode worker, which waits for their results; at most ``DEPTH``
 dispatches are in flight.
 
 Everything here is family-agnostic scheduling: it touches its owner
-only through ``CoalesceBackend``. Left out against the JAX package: the
-serving mesh (one shard here; the per-shard dictionaries keep their
+only through ``CoalesceBackend``. A ticket carries its microbatch's
+eval-cache probe to the fused planner (position-keyed dedup). Left out
+against the JAX package: the serving mesh (one shard here; the per-shard dictionaries keep their
 shape for it), spans, cost attribution and metric families (the port
 has no telemetry plane yet).
 """
@@ -175,17 +176,20 @@ class _FusedValues:
     and then every owner's ``materialize`` raises. ``dups`` is the
     cross-segment dedup restore plan: each duplicate rode the wire as a
     one-row sentinel delta and computed garbage; its true value is its
-    original's, patched here."""
+    original's, patched here. ``fills`` are the eval-cache hits that
+    left the wire the same way: their values, patched after ``dups``."""
 
-    __slots__ = ("_handle", "_read", "_np", "_error", "_lock", "_dups")
+    __slots__ = ("_handle", "_read", "_np", "_error", "_lock", "_dups",
+                 "_fills")
 
     def __init__(self, handle, read: Callable[[object], np.ndarray],
-                 dups=None) -> None:
+                 dups=None, fills=None) -> None:
         self._handle = handle
         self._read = read
         self._np: Optional[np.ndarray] = None
         self._error: Optional[Exception] = None
         self._dups = dups  # [(dst_flat, src_flat)] value overwrites
+        self._fills = fills  # [(dst_flat, value)] cache-known values
         self._lock = threading.Lock()
 
     def materialize(self) -> np.ndarray:
@@ -198,6 +202,8 @@ class _FusedValues:
                 else:
                     for dst, src in self._dups or ():
                         arr[dst] = arr[src]
+                    for dst, val in self._fills or ():
+                        arr[dst] = val
                     self._np = arr
                 self._handle = None
             if self._error is not None:
@@ -213,12 +219,20 @@ class _CoalesceTicket:
     flushing thread after ``values``/``acct`` (or ``error``) are
     assigned — the Event orders them across threads. After a FUSED
     dispatch ``values`` is a ``_FusedValues`` holder and
-    ``start``/``seg_size`` locate this segment's slice."""
+    ``start``/``seg_size`` locate this segment's slice.
+
+    ``hashes`` are the Zobrist hashes of the microbatch's entries (batch
+    order), or None when the eval cache is off: the position-dedup and
+    cache-fill keys of the fused planner. ``cache_mask``/``cache_vals``
+    carry the driver's pre-dispatch probe, so the planner never probes
+    twice."""
 
     __slots__ = ("group", "n", "rows", "values", "start", "seg_size",
-                 "acct", "error", "done")
+                 "acct", "error", "done", "hashes", "cache_mask",
+                 "cache_vals")
 
-    def __init__(self, group: int, n: int, rows: int) -> None:
+    def __init__(self, group: int, n: int, rows: int, hashes=None,
+                 cache_mask=None, cache_vals=None) -> None:
         self.group = group
         self.n = n
         self.rows = rows
@@ -228,6 +242,9 @@ class _CoalesceTicket:
         self.acct = None
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
+        self.hashes = hashes
+        self.cache_mask = cache_mask
+        self.cache_vals = cache_vals
 
 
 class CoalesceBackend:
@@ -382,10 +399,13 @@ class _DispatchCoalescer:
                 self.MAX_LINGER_S, self._probe.fixed_ms / 1e3 / 16
             )
 
-    def submit(self, group: int, n: int, rows: int) -> _CoalesceTicket:
-        """Park a stepped group's microbatch; returns its ticket. Flushes
+    def submit(self, group: int, n: int, rows: int, hashes=None,
+               cache_mask=None, cache_vals=None) -> _CoalesceTicket:
+        """Park a stepped group's microbatch (with its eval-cache probe,
+        see ``_CoalesceTicket``); returns its ticket. Flushes
         (dispatches) on this thread when the policy width is reached."""
-        ticket = _CoalesceTicket(group, n, rows)
+        ticket = _CoalesceTicket(group, n, rows, hashes=hashes,
+                                 cache_mask=cache_mask, cache_vals=cache_vals)
         s = 0
         flush = None
         with self._lock:

@@ -2,9 +2,9 @@
 fiber pool + the torch NNUE evaluator.
 
 The port of ``fishnet_tpu/search/service.py`` in its single-device
-configuration with the dispatch coalescer and the async pipeline: what
-the JAX service does with ``FISHNET_NO_EVAL_CACHE=1
-FISHNET_NO_BOUNDS=1`` and no mesh. Every ``search(position)`` is submitted into one shared
+configuration (no mesh) with the dispatch coalescer, the async pipeline,
+the position-keyed eval cache and the bounds tier, as the JAX service
+runs by default. Every ``search(position)`` is submitted into one shared
 native pool (cpp/src/pool.cpp over ctypes). Driver threads run the
 pool's step/evaluate/provide cycle: ``fc_pool_step`` advances a slot
 group's search fibers to their next leaf evaluations and packs them on
@@ -33,6 +33,23 @@ dispatch loop exactly, ``FISHNET_COALESCE_WIDTH`` pins the width,
 ``FISHNET_NO_ASYNC=1`` flushes inline on the driver threads and
 ``FISHNET_NO_DEDUP=1`` ships cross-segment duplicates as they are.
 
+Position-keyed eval reuse (search/eval_cache.py): after each step the
+driver exports the batch's Zobrist hashes and probes the process-wide
+cache (keys salted with the net's fingerprint); a batch whose every
+entry is known skips its dispatch, and its values resolve on the host.
+Partial hits ride the coalescer's ticket: a fused dispatch then plans
+its dedup by position (``plan_segment_dedup(hashes=...)``), drops the
+cache-known entries and the duplicates of earlier ones — persistent
+anchor codes included, whose table rows the kernel's copy-source mode
+still stores — and fills their values on the host. Every provided batch
+is inserted into the cache. The bounds tier seeds cached search facts
+into the pool TT (at submit, along the cached best-move chain and the
+root's children, and per batch before its dispatch) and harvests the
+finished search's PV records back. ``FISHNET_NO_EVAL_CACHE=1`` turns
+both off, ``FISHNET_NO_BOUNDS=1`` the bounds tier alone;
+``FISHNET_CACHE_PREFETCH=1`` steers the pool's speculation budget by
+the cache's hit rate.
+
 Streams: every ``ft_gather`` launch of a service — solo or fused, from
 a driver thread or the pack worker — goes to its device's default
 stream (no thread of the service sets another), because the kernel's
@@ -57,8 +74,13 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fishnet_tpu_torch.chess.board import _VARIANT_CODES
-from fishnet_tpu_torch.chess.core import NativeCoreError, load
+from fishnet_tpu_torch.chess.board import (
+    _VARIANT_CODES,
+    Board,
+    IllegalMoveError,
+    InvalidFenError,
+)
+from fishnet_tpu_torch.chess.core import NativeCoreError, load, load_held
 from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue.weights import NnueWeights
@@ -70,6 +92,7 @@ from fishnet_tpu_torch.ops.ft_gather import (
     recode_segment_parents_np,
 )
 from fishnet_tpu_torch.protocol.types import Variant
+from fishnet_tpu_torch.search import eval_cache as _eval_cache_mod
 from fishnet_tpu_torch.search.coalesce import (
     CoalesceBackend,
     DispatchProbe,
@@ -107,6 +130,9 @@ class _Pending:
     token: object = None
     stop_event: Optional[threading.Event] = None
     thread: int = 0  # owning driver thread index
+    fen: str = ""  # root FEN for the bounds harvest ("" = no harvest)
+    moves: str = ""
+    children: Optional[List[int]] = None  # root children's Zobrist keys
 
 
 def _bind_pool_api(lib: ctypes.CDLL) -> None:
@@ -169,6 +195,31 @@ def _bind_pool_api(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ]
     lib.fc_pool_set_anchors.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    # ABI 10: position-keyed eval reuse.
+    lib.fc_pool_batch_hashes.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int,
+    ]
+    lib.fc_pool_batch_hashes.restype = ctypes.c_int
+    lib.fc_pool_cancel_anchors.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.fc_pool_cancel_anchors.restype = ctypes.c_int
+    lib.fc_pool_tt_fill.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int32,
+    ]
+    lib.fc_pool_tt_fill.restype = None
+    # ABI 11: the bounds tier (seed bound records, export them back).
+    lib.fc_pool_tt_fill_bound.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_uint32,
+    ]
+    lib.fc_pool_tt_fill_bound.restype = None
+    lib.fc_pool_tt_export.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
+    lib.fc_pool_tt_export.restype = ctypes.c_int
     lib._pool_bound = True
 
 
@@ -207,8 +258,9 @@ FULL_STRENGTH = 20
 
 class _Staging:
     """Pinned host buffers of one fused dispatch: the concatenated wire,
-    offsets, buckets, parents (and material) in; the values and a copy
-    of the kernel's error word out. ``lock`` is held from staging until
+    offsets, buckets, parents (and material, and the position-dedup
+    ``copy_src`` fan-in) in; the values and a copy of the kernel's error
+    word out. ``lock`` is held from staging until
     the launch and the copies back are queued; ``holder`` is the
     ``_FusedValues`` of the last dispatch staged here, read back before
     the slot is written again (its uploads and its copies back are then
@@ -220,6 +272,7 @@ class _Staging:
         self.offsets_t = host((width * size,), torch.int32)
         self.buckets_t = host((width * size,), torch.int32)
         self.parents_t = host((width * size,), torch.int32)
+        self.copy_src_t = host((width * size,), torch.int32)
         self.material_t = (
             host((width * size,), torch.int32) if material else None
         )
@@ -264,9 +317,22 @@ class SearchService(CoalesceBackend):
         ``FISHNET_NO_ASYNC=1`` for the pipeline alone); the warm-up
         measures the dispatch cost that seeds its width policy
         (``_probe_dispatch_cost``, kept in ``self.dispatch_probe``).
+
+        The device backend uses the process-wide eval cache and the
+        bounds tier (search/eval_cache.py) unless
+        ``FISHNET_NO_EVAL_CACHE=1`` / ``FISHNET_NO_BOUNDS=1``. The JAX
+        package's fleet position tier is not ported:
+        ``FISHNET_POSITION_TIER=1`` raises where the JAX service would
+        attach it.
         """
         if backend not in ("torch", "scalar"):
             raise ValueError(f"unknown backend: {backend!r}")
+        if (backend != "scalar" and not _eval_cache_mod.cache_disabled()
+                and os.environ.get("FISHNET_POSITION_TIER", "") == "1"):
+            raise NotImplementedError(
+                "FISHNET_POSITION_TIER=1: the fleet position tier "
+                "(fishnet_tpu/cluster/position_tier.py) is not ported to "
+                "fishnet_tpu_torch yet; unset it")
         if psqt_path not in (None,) + PSQT_PATHS:
             raise ValueError(f"unknown psqt_path request: {psqt_path!r}")
         self.device = None if backend == "scalar" else resolve_device(device)
@@ -282,6 +348,11 @@ class SearchService(CoalesceBackend):
             self.psqt_path = psqt_path or own
         self._lib = load()
         _bind_pool_api(self._lib)
+        # The same pool calls keeping the interpreter lock: the bounds
+        # tier's and the cache's TT fills and board walks, short calls
+        # made in runs on the driver threads.
+        self._held = load_held()
+        _bind_pool_api(self._held)
 
         if weights is None and net_path is None:
             raise ValueError("need weights or net_path")
@@ -417,6 +488,44 @@ class SearchService(CoalesceBackend):
             ]
             if os.environ.get("FISHNET_NO_ASYNC", "0") != "1":
                 self._async_pipes = [_AsyncDispatchPipeline(self)]
+        # POSITION-KEYED EVAL REUSE: the process-wide cache (None with
+        # FISHNET_NO_EVAL_CACHE=1, or without a device evaluator — every
+        # probe and insert site gates on it), per-group Zobrist-hash and
+        # probe-value buffers. Keys are hash ^ salt, the net's
+        # fingerprint, so services with different weights never read
+        # each other's evals; the raw hashes feed the pool TT fills and
+        # the dedup planner.
+        self._eval_cache = (
+            _eval_cache_mod.get_cache() if self._params is not None else None
+        )
+        self._cache_salt = (
+            np.uint64(_eval_cache_mod.net_fingerprint(self.net_path))
+            if self._eval_cache is not None else np.uint64(0)
+        )
+        self._hash_buf = np.zeros((k, cap), dtype=np.uint64)
+        self._cache_val_buf = np.zeros((k, cap), dtype=np.int32)
+        self._miss_hist = _eval_cache_mod.MissHistory()
+        # BOUNDS TIER: cached search facts, seeded into the pool TT at
+        # submit and per batch, harvested at _finish_slot. None with
+        # FISHNET_NO_BOUNDS=1 (or the cache hatch).
+        self._bounds_cache = (
+            _eval_cache_mod.get_bounds_cache()
+            if self._eval_cache is not None else None
+        )
+        # Opt-in prefetch steering by the cache's hit rate (off by
+        # default: it changes dispatch composition).
+        self._cache_steer = (
+            os.environ.get("FISHNET_CACHE_PREFETCH", "0") == "1"
+            and self._eval_cache is not None
+        )
+        self._steer_state: Dict[int, bool] = {}
+        # Eval-reuse and bounds traffic (under self._lock).
+        self._cache_prewire_hits = 0
+        self._cache_skipped_dispatches = 0
+        self._position_dedup = 0
+        self._bounds_seeded = 0
+        self._bounds_harvested = 0
+        self._bounds_harvest_errors = 0
         T = self.driver_threads
         # Per-thread accounting cells (the owning thread writes its own).
         self._eval_steps = [0] * T
@@ -624,7 +733,53 @@ class SearchService(CoalesceBackend):
             with pipe._lock:
                 out["overlap_busy_us"] += int(pipe._busy_s * 1e6)
                 out["overlap_dual_us"] += int(pipe._dual_s * 1e6)
+        # Position-keyed eval reuse: entries answered by the cache before
+        # any wire bytes moved (whole-batch skips and fused-plan fills),
+        # dispatches skipped outright, position-keyed dedup drops; the
+        # bounds tier's seeded and harvested records and harvest errors;
+        # the process cache's size and evictions (0 with it off).
+        with self._lock:
+            out["cache_prewire_hits"] = self._cache_prewire_hits
+            out["cache_skipped_dispatches"] = self._cache_skipped_dispatches
+            out["position_dedup"] = self._position_dedup
+            out["bounds_seeded"] = self._bounds_seeded
+            out["bounds_harvested"] = self._bounds_harvested
+            out["bounds_harvest_errors"] = self._bounds_harvest_errors
+        st = self._eval_cache.stats() if self._eval_cache is not None else {}
+        out["cache_entries"] = st.get("entries", 0)
+        out["cache_evictions"] = st.get("evictions", 0)
         return out
+
+    #: Prefetch-steering hysteresis (FISHNET_CACHE_PREFETCH=1): pin the
+    #: speculation budget to 0 when the cache hit rate crosses _PIN
+    #: (speculative evals would mostly duplicate cached positions), and
+    #: restore the adaptive policy when it falls under _UNPIN.
+    _STEER_PIN = 0.6
+    _STEER_UNPIN = 0.3
+
+    def _steer_prefetch(self, group: int) -> None:
+        """Pin or unpin the pool's speculation budget by ``group``'s
+        rolling cache hit rate, with hysteresis. The budget is
+        pool-wide, so the steer state is too: whichever driver thread
+        crosses a threshold first applies the transition."""
+        rate = self._miss_hist.hit_rate(group)
+        if rate is None:
+            return
+        with self._lock:
+            pinned = self._steer_state.get(0, False)
+            if not pinned and rate > self._STEER_PIN:
+                self._steer_state[0] = True
+            elif pinned and rate < self._STEER_UNPIN:
+                self._steer_state[0] = False
+            else:
+                return
+            pin = self._steer_state[0]
+        if pin:
+            self.set_prefetch(0, adaptive=False)
+        else:
+            # Re-seed the adaptive policy at one block's worth (the
+            # pool's own startup default, cpp EVAL_BLOCK_MAX).
+            self.set_prefetch(MIN_BATCH_CAPACITY, adaptive=True)
 
     # -- scheduling knobs (the JAX service's control-plane seams) ---------
     # Bounded, revertible setters over scheduling only: none of them can
@@ -780,13 +935,21 @@ class SearchService(CoalesceBackend):
         kernel launch on the card — evaluates every segment and stores
         every anchor entry to its own group's rows.
 
-        Cross-segment dedup (``plan_segment_dedup``, byte mode; off with
-        FISHNET_NO_DEDUP=1): a plain full whose feature block duplicates
-        an earlier one ships as a one-row sentinel in-batch delta, and
-        its value is restored on the host from its original
-        (``_FusedValues``). A dropped entry must store nothing, because
-        the kernel stores inside the launch (there is no device fan-in
-        before the stores here): checked below."""
+        Cross-segment dedup (``plan_segment_dedup``; off with
+        FISHNET_NO_DEDUP=1), in one of two modes:
+
+        * position-keyed, when every ticket carries its batch's hashes
+          (the eval cache is on): any entry whose position an earlier
+          entry of the dispatch holds, or whose eval the cache knows,
+          leaves the wire — a dropped 4-row entry ships one sentinel
+          row — and its value is restored on the host (``_FusedValues``
+          dups and fills). A dropped persistent anchor code keeps its
+          table row and store bit: the kernel's copy-source mode
+          (``copy_src``) gives it its source's accumulator before the
+          stores, so its row holds the bytes it would have stored.
+        * byte mode (the cache off): a plain full whose feature block
+          duplicates an earlier one is dropped the same way; plain
+          fulls store nothing, so no fan-in is needed (checked below)."""
         k_segs = len(tickets)
         groups = [tk.group for tk in tickets]
         size = self._eval_sizes[-1]
@@ -805,36 +968,58 @@ class SearchService(CoalesceBackend):
             self._parent_buf[g][n:size] = -1
             if mat_on:
                 self._material_buf[g][n:size] = 0
-        drops = refs = dups = None
+        drops = refs = dups = fills = None
         eff_rows = [tk.rows for tk in tickets]
-        if self._dedup_fused and self._shares_a_block(tickets):
-            drops, refs, pairs = plan_segment_dedup(
+        use_hash = all(tk.hashes is not None for tk in tickets)
+        if self._dedup_fused and (self._repeats_or_hits(tickets) if use_hash
+                                  else self._shares_a_block(tickets)):
+            planned = plan_segment_dedup(
                 [self._parent_buf[g] for g in groups],
                 [self._bucket_buf[g] for g in groups],
                 [self._offset_buf[g] for g in groups],
                 [tk.n for tk in tickets],
                 [self._packed_buf[g] for g in groups],
                 [self._material_buf[g] for g in groups] if mat_on else None,
+                hashes=[tk.hashes for tk in tickets] if use_hash else None,
+                cache_hits=[
+                    None if tk.cache_mask is None
+                    else (tk.cache_mask, tk.cache_vals) for tk in tickets
+                ] if use_hash else None,
             )
-            if pairs:
+            drops, refs, pairs = planned[:3]
+            hits = planned[3] if use_hash else []
+            if pairs or hits:
                 for k, tk in enumerate(tickets):
-                    parent = self._parent_buf[tk.group]
-                    if any(parent[i] != -1 for i in drops[k]):
+                    code = self._parent_buf[tk.group][drops[k]]
+                    if not use_hash and (code != -1).any():
                         raise NativeCoreError(
                             "dedup dropped an entry other than a plain "
                             "full: its anchor store would be lost")
-                    eff_rows[k] = tk.rows - 3 * len(drops[k])  # 4 -> 1 row
+                    # A dropped 4-row entry (a plain full or a persistent
+                    # full) ships 1 row; dropped deltas were 1 row.
+                    full4 = (code == -1) | (
+                        (code <= -2) & ((((-code - 2) >> 1) & 1) == 0))
+                    eff_rows[k] = tk.rows - 3 * int(full4.sum())
                 dups = [(dk * size + di, sk * size + si)
                         for dk, di, sk, si in pairs]
+                fills = [(fk * size + fi, val) for fk, fi, val in hits]
                 with self._coalescer._lock:
                     self._coalescer.deduped_evals += len(pairs)
+                with self._lock:
+                    if use_hash:
+                        self._position_dedup += len(pairs)
+                    self._cache_prewire_hits += len(fills)
         st = self._take_staging()
         try:
+            # Byte mode drops only plain fulls, which store nothing: the
+            # launch needs no fan-in there.
             handle = self._stage_and_launch(
                 st, tickets, groups, size, eff_rows,
-                drops if dups else None, refs)
+                drops if dups or fills else None, refs, use_hash,
+                dups if use_hash else None)
             shared = _FusedValues(
-                handle, lambda h: self._resolve_eval(k_segs * size, h), dups)
+                handle, lambda h: self._resolve_eval(k_segs * size, h), dups,
+                fills)
             st.holder = shared
         finally:
             st.lock.release()
@@ -871,6 +1056,16 @@ class SearchService(CoalesceBackend):
         blocks = keys.view(np.dtype((np.void, keys.shape[1] * 2))).ravel()
         return len(np.unique(blocks)) < len(blocks)
 
+    def _repeats_or_hits(self, tickets: List[_CoalesceTicket]) -> bool:
+        """Whether a position repeats across the dispatch or the cache
+        knows an entry: without either, the position-keyed planner finds
+        nothing, so its per-entry Python loop is skipped."""
+        if any(tk.cache_mask is not None and tk.cache_mask[:tk.n].any()
+               for tk in tickets):
+            return True
+        keys = np.concatenate([tk.hashes[:tk.n] for tk in tickets])
+        return len(np.unique(keys)) < len(keys)
+
     def _take_staging(self) -> _Staging:
         """The next staging slot, locked. The dispatch last staged there
         is read back first: until then its uploads may still read the
@@ -888,10 +1083,15 @@ class SearchService(CoalesceBackend):
         return st
 
     def _stage_and_launch(self, st: _Staging, tickets, groups, size: int,
-                          eff_rows, drops, refs):
+                          eff_rows, drops, refs, ready_codes: bool = False,
+                          dups=None):
         """Write the fused wire into ``st``, upload it, launch, and queue
         the copies of the values and the error word back; returns the
-        in-flight handle as ``_dispatch_eval`` does."""
+        in-flight handle as ``_dispatch_eval`` does. ``refs`` are the
+        dropped entries' new parent codes (``ready_codes``: as the
+        position-keyed planner gives them) or in-batch anchor indices
+        (byte mode); ``dups`` (flat ``(dst, src)`` pairs) become the
+        launch's ``copy_src`` fan-in."""
         k_segs = len(tickets)
         n_all = k_segs * size
         parents = st.parents_t.numpy()[:n_all].reshape(k_segs, size)
@@ -912,7 +1112,8 @@ class SearchService(CoalesceBackend):
             else:
                 self._compact_segment(st.packed[pos: pos + span], g, tk.n,
                                       drops[k])
-                parents[k, drops[k]] = np.asarray(refs[k], np.int32) << 1
+                codes = np.asarray(refs[k], np.int32)
+                parents[k, drops[k]] = codes if ready_codes else codes << 1
             pos += span
         # A persistent code past its group's block would land in another
         # group's rows of the flat table, where the kernel's range check
@@ -934,12 +1135,23 @@ class SearchService(CoalesceBackend):
             None if st.material_t is None
             else st.material_t[:n_all].to(dev, non_blocking=True)
         )
+        copy_src = None
+        if dups:
+            # The position-dedup fan-in, handed over on the host: the
+            # evaluator checks its contract before the upload.
+            cs = st.copy_src_t.numpy()[:n_all]
+            cs[:] = np.arange(n_all, dtype=np.int32)
+            dst, src = np.asarray(dups, dtype=np.int64).T
+            cs[dst] = src
+            copy_src = st.copy_src_t[:n_all]
         n_tab = self._anchor_all.shape[0] * self._anchor_rows
         values, _, _ = self._eval_fn(
             self._params, pk, bk, pa, mat,
             self._anchor_all.view(n_tab, 2, spec.L1), pos,
             self._psqt_all.view(n_tab, 2, spec.NUM_PSQT_BUCKETS),
-            offsets=of,
+            offsets=of, copy_src=copy_src,
+            parent_host=None if copy_src is None
+            else st.parents_t.numpy()[:n_all],
         )
         out = st.values_t[:n_all]
         if dev.type != "cuda":
@@ -1040,12 +1252,19 @@ class SearchService(CoalesceBackend):
             {g: None for g in groups} if self._material_buf is None
             else ptrs(self._material_buf, ctypes.c_int32)
         )
-        # In-flight device evals per group: group -> (n, handle), the
-        # handle a coalescer ticket when there is a coalescer. Resolve
-        # group g's previous eval, wake its fibers, step them to new
-        # leaves, dispatch (or park) the next eval — then move to group
-        # g+1 while this one runs on the device.
-        inflight: Dict[int, Tuple[int, object]] = {}
+        # The eval cache (None: off): probed between step and dispatch,
+        # filled at provide time; keys are hash ^ salt.
+        cache = self._eval_cache
+        salt = self._cache_salt
+        hash_ptrs = ptrs(self._hash_buf, ctypes.c_uint64)
+        # In-flight device evals per group: group -> (n, handle, the
+        # batch's hashes or None, its cache-hit mask or None), the
+        # handle a coalescer ticket when there is a coalescer, or the
+        # values themselves when the cache answered the whole batch.
+        # Resolve group g's previous eval, wake its fibers, step them to
+        # new leaves, dispatch (or park) the next eval — then move to
+        # group g+1 while this one runs on the device.
+        inflight: Dict[int, Tuple[int, object, object, object]] = {}
         co = self._coalescer
 
         if self.device is not None and self.device.type == "cuda":
@@ -1080,6 +1299,9 @@ class SearchService(CoalesceBackend):
                 if token in cancelled:
                     continue
                 use_scalar = 1 if self.backend == "scalar" else 0
+                # Standard chess only: bound records never cross
+                # variant rule sets.
+                std = variant == Variant.STANDARD
                 slot = -1
                 for g in groups:
                     slot = lib.fc_pool_submit(
@@ -1101,8 +1323,12 @@ class SearchService(CoalesceBackend):
                         NativeCoreError(f"submit failed ({slot})"),
                     )
                     continue
+                children = None
+                if std and self._bounds_cache is not None:
+                    children = self._seed_bound_chain(fen, moves)
                 p = _Pending(future, loop, time.monotonic(), token,
-                             stop_event, t)
+                             stop_event, t, fen=fen if std else "",
+                             moves=moves, children=children)
                 # Under _lock: the event-loop side (watchdog, cancel,
                 # poke) identity-checks this map before stopping a slot.
                 with self._lock:
@@ -1121,7 +1347,7 @@ class SearchService(CoalesceBackend):
             stepped = 0
             for g in groups:
                 if g in inflight:
-                    n_prev, handle = inflight.pop(g)
+                    n_prev, handle, hb, hmask = inflight.pop(g)
                     if isinstance(handle, _CoalesceTicket):
                         # Flushes the coalescer if the ticket is still
                         # parked, then waits for its dispatch; the
@@ -1131,6 +1357,15 @@ class SearchService(CoalesceBackend):
                     else:
                         arr = handle
                     values = self._resolve_eval(n_prev, arr)
+                    if cache is not None and hb is not None:
+                        # Provide-time fill, the one insert site: teach
+                        # the cache this batch's evals, and land the
+                        # cache-known ones in the pool's TT too (raw
+                        # hashes), so the pool and the cache agree.
+                        cache.insert_block(hb ^ salt, values)
+                        for i in np.flatnonzero(hmask).tolist():
+                            self._held.fc_pool_tt_fill(
+                                self._pool, int(hb[i]), int(values[i]))
                     rc = lib.fc_pool_provide(
                         self._pool, g,
                         values.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
@@ -1153,12 +1388,32 @@ class SearchService(CoalesceBackend):
                 if n > 0:
                     if self._params is None:
                         raise NativeCoreError("no evaluator")  # pragma: no cover
+                    hashes = hmask = hvals = None
+                    if cache is not None:
+                        hashes, hvals, hmask = self._probe_batch(
+                            g, n, hash_ptrs[g])
+                        if hmask.all():
+                            # Every entry known: no dispatch. The pool's
+                            # device anchors are invalidated first, so
+                            # its next blocks reseed instead of
+                            # delta-ing against rows this batch never
+                            # wrote.
+                            lib.fc_pool_cancel_anchors(self._pool, g)
+                            with self._lock:
+                                self._cache_prewire_hits += n
+                                self._cache_skipped_dispatches += 1
+                            inflight[g] = (n, np.array(hvals, copy=True),
+                                           hashes, hmask)
+                            continue
                     if co is not None:
-                        inflight[g] = (n, co.submit(g, n, rows.value))
+                        inflight[g] = (n, co.submit(
+                            g, n, rows.value, hashes=hashes,
+                            cache_mask=hmask, cache_vals=hvals),
+                            hashes, hmask)
                     else:
                         handle, acct = self._dispatch_eval(g, n, rows.value)
                         self._apply_acct(t, acct)
-                        inflight[g] = (n, handle)
+                        inflight[g] = (n, handle, hashes, hmask)
 
             # Harvest this thread's finished searches.
             for g in groups:
@@ -1176,6 +1431,38 @@ class SearchService(CoalesceBackend):
                 if idle:
                     self._wakes[t].wait(timeout=0.05)
                     self._wakes[t].clear()
+
+    def _probe_batch(self, g: int, n: int, hash_ptr):
+        """The pre-dispatch probe of group ``g``'s stepped batch: export
+        its Zobrist hashes, probe the eval cache, seed the bounds tier's
+        records for these positions into the pool TT, and feed the miss
+        history. Returns (raw hashes, cached values, hit mask), views of
+        the group's buffers valid until its next step."""
+        lib = self._lib
+        salt = self._cache_salt
+        lib.fc_pool_batch_hashes(self._pool, g, hash_ptr,
+                                 self._group_capacity)
+        hashes = self._hash_buf[g][:n]
+        hvals, hmask = self._eval_cache.probe_block(
+            hashes ^ salt, out=self._cache_val_buf[g][:n])
+        bcache = self._bounds_cache
+        if bcache is not None:
+            # Cached search facts land in the pool TT before the
+            # dispatch: cutoffs and window narrowing for the native
+            # search, best moves for its move ordering.
+            bv, be, bd, bb, bmv = bcache.probe_bounds_block(hashes ^ salt)
+            rows = np.flatnonzero(bb).tolist()
+            for i in rows:
+                self._held.fc_pool_tt_fill_bound(
+                    self._pool, int(hashes[i]), int(bv[i]), int(be[i]),
+                    int(bd[i]), int(bb[i]), int(bmv[i]))
+            if rows:
+                with self._lock:
+                    self._bounds_seeded += len(rows)
+        self._miss_hist.record(g, int(hmask.sum()), n)
+        if self._cache_steer:
+            self._steer_prefetch(g)
+        return hashes, hvals, hmask
 
     def _apply_acct(self, t: int, acct) -> None:
         size, feature_bytes, material_bytes = acct
@@ -1231,6 +1518,16 @@ class SearchService(CoalesceBackend):
                 )
             )
         lib.fc_pool_release(self._pool, slot)
+        # Bounds-tier harvest: the pool TT is shared by every slot and
+        # survives the release, so this reads what the search just
+        # wrote. Advisory: an error is counted, never raised.
+        if pending.fen and lines and self._bounds_cache is not None:
+            try:
+                self._harvest_bounds(pending.fen, pending.moves, lines,
+                                     pending.children)
+            except Exception:  # noqa: BLE001 - never fail a search result
+                with self._lock:
+                    self._bounds_harvest_errors += 1
         result = SearchResultData(
             lines=lines,
             best_move=bm.value.decode() or None,
@@ -1239,6 +1536,147 @@ class SearchService(CoalesceBackend):
             time_seconds=max(1e-6, time.monotonic() - pending.started),
         )
         pending.loop.call_soon_threadsafe(_set_res, pending.future, result)
+
+    @staticmethod
+    def _root_board(fen: str, moves: str) -> Optional[Board]:
+        """The search root as a host board whose native calls keep the
+        interpreter lock (a walk of many short calls), or None when it
+        does not replay."""
+        try:
+            board = Board(fen, held=True)
+            for tok in moves.split():
+                board.push_uci(tok)
+        except (InvalidFenError, IllegalMoveError, ValueError):
+            return None
+        return board
+
+    @staticmethod
+    def _child_hashes(board: Board) -> List[int]:
+        """The Zobrist hashes of every legal child of ``board``, each
+        played on a copy of the root as its FEN reads."""
+        keys = []
+        try:
+            root = Board(board.fen(), held=True)
+        except InvalidFenError:
+            return keys
+        for mv in root.legal_moves():
+            child = root.copy()
+            try:
+                child.push_uci(mv)
+            except (IllegalMoveError, ValueError):
+                continue
+            keys.append(child.zobrist_hash())
+        return keys
+
+    def _seed_bound_chain(self, fen: str, moves: str) -> Optional[List[int]]:
+        """Seed the pool TT from the bounds tier before a search takes
+        its first step: every legal root child's record (the previous
+        search stored a depth-(d-1) record under each, and those are
+        the nodes the re-search's null-window root probes hit first),
+        then the cached best-move chain from the root (its PV), at most
+        24 hops. The root's own record is followed but never seeded: the
+        root's move ordering, window and best-move choice stay the live
+        search's. Caller gates on the bounds tier and standard chess;
+        a move that does not replay ends the walk. Returns the root
+        children's hashes (None when the root does not replay), which
+        the harvest at the search's end reuses."""
+        bcache = self._bounds_cache
+        board = self._root_board(fen, moves)
+        if board is None:
+            return None
+        fill = self._held.fc_pool_tt_fill_bound
+        salt = int(self._cache_salt)
+        seeded = 0
+        done = set()
+        child_keys = self._child_hashes(board)
+        if child_keys:
+            karr = np.array(child_keys, dtype=np.uint64)
+            cv, ce, cd, cb, cm = bcache.probe_bounds_block(
+                karr ^ np.uint64(salt))
+            for i in np.flatnonzero(cb).tolist():
+                z = child_keys[i]
+                fill(self._pool, z, int(cv[i]), int(ce[i]), int(cd[i]),
+                     int(cb[i]), int(cm[i]))
+                done.add(z)
+                seeded += 1
+        for hop in range(24):  # chain cap: PVs past this carry no signal
+            z = board.zobrist_hash()
+            rec = bcache.probe_bound((z ^ salt) & 0xFFFFFFFFFFFFFFFF)
+            if rec is None:
+                break
+            value, eval_, depth_, bound, move_bits, uci = rec
+            if hop > 0 and z not in done:  # root: follow, never seed
+                fill(self._pool, z, value, eval_, depth_, bound, move_bits)
+                seeded += 1
+            if not uci:
+                break
+            try:
+                board.push_uci(uci)
+            except (IllegalMoveError, ValueError):
+                break
+        if seeded:
+            with self._lock:
+                self._bounds_seeded += seeded
+        return child_keys
+
+    def _harvest_bounds(self, fen: str, moves: str,
+                        lines: List[PvLineData],
+                        children: Optional[List[int]] = None) -> None:
+        """Replay the finished search's principal variation (root and
+        up to 31 plies) and export each node's bound record from the
+        pool TT into the bounds tier, with the PV move that continues
+        from it (the chain the next search's seed walks); then every
+        legal root child's record (``children``, as the submit-time
+        seed found them, or found here), the consumers of the
+        submit-time fan-out. PV keys go first: a same-depth child record
+        without a move must not displace the PV record that carries
+        one."""
+        board = self._root_board(fen, moves)
+        if board is None:
+            return
+        keys: List[int] = [board.zobrist_hash()]
+        ucis: List[Optional[str]] = []
+        root_children = (self._child_hashes(board) if children is None
+                         else children)
+        for tok in lines[0].pv[:31]:
+            try:
+                board.push_uci(tok)
+            except (IllegalMoveError, ValueError):
+                break
+            ucis.append(tok)
+            keys.append(board.zobrist_hash())
+        ucis.append(None)  # PV tip: no known continuation
+        seen = set(keys)
+        for z in root_children:
+            if z not in seen:
+                seen.add(z)
+                keys.append(z)
+                ucis.append(None)
+        n = len(keys)
+        karr = np.array(keys, dtype=np.uint64)
+        values = np.empty(n, dtype=np.int32)
+        evals = np.empty(n, dtype=np.int32)
+        depths = np.empty(n, dtype=np.int32)
+        bounds = np.empty(n, dtype=np.int32)
+        mvbits = np.empty(n, dtype=np.uint32)
+
+        def ptr(a, ctype):
+            return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+        hits = self._held.fc_pool_tt_export(
+            self._pool, ptr(karr, ctypes.c_uint64), n,
+            ptr(values, ctypes.c_int32), ptr(evals, ctypes.c_int32),
+            ptr(depths, ctypes.c_int32), ptr(bounds, ctypes.c_int32),
+            ptr(mvbits, ctypes.c_uint32))
+        if hits <= 0:
+            return
+        rows = np.flatnonzero(bounds)
+        self._bounds_cache.insert_bounds_block(
+            karr[rows] ^ self._cache_salt, values[rows], evals[rows],
+            depths[rows], bounds[rows], mvbits[rows],
+            [ucis[i] for i in rows.tolist()])
+        with self._lock:
+            self._bounds_harvested += int(hits)
 
     def _fail_all(self, t: int, err: Exception) -> None:
         """Resolve every outstanding future owned by thread ``t``:

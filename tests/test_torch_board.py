@@ -65,3 +65,32 @@ def test_standard_castling_notation_and_errors():
         board.push_uci("a1a8a")
     with pytest.raises(InvalidFenError):
         Board("not a fen")
+
+
+def test_held_board_walks_like_the_reference():
+    """A board whose native calls keep the interpreter lock
+    (``held=True``, the bounds tier's walks) and its copies replay a
+    seeded game like the reference: FEN, legal moves, hash; the child
+    hashes the service derives from it equal the reference's, child by
+    child."""
+    from fishnet_tpu_torch.search.service import SearchService
+
+    rnd = random.Random(7)
+    port, ref = Board(held=True), RefBoard()
+    for _ in range(30):
+        legal = port.legal_moves()
+        assert legal == ref.legal_moves()
+        assert (port.fen(), port.zobrist_hash()) == (ref.fen(),
+                                                     ref.zobrist_hash())
+        children = []
+        for mv in legal:
+            child = RefBoard(ref.fen())
+            child.push_uci(mv)
+            children.append(child.zobrist_hash())
+        assert SearchService._child_hashes(port) == children
+        if not legal:
+            break
+        move = rnd.choice(legal)
+        port = port.copy()
+        port.push_uci(move)
+        ref.push_uci(move)

@@ -38,7 +38,19 @@ from fishnet_tpu_torch.search.coalesce import (
     _DispatchCoalescer,
     _FusedValues,
 )
+from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.search.service import SearchService
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_cache():
+    """The port's process-wide eval cache, reset around each test:
+    tests/conftest.py resets only the JAX package's, and a cache warmed
+    by an earlier test would skip this one's dispatches."""
+    eval_cache.reset_cache()
+    yield
+    eval_cache.reset_cache()
+
 
 CPU = torch.device("cpu")
 
@@ -211,8 +223,10 @@ def test_segmented_eval_matches_jax(nets, rung, variant):
     copy_src = None
     if variant == "copy_src":
         copy_src = np.arange(len(segs) * size, dtype=np.int32)
-        copy_src[1 * size + 2] = 0 * size + 3  # plain full <- plain full
-        copy_src[2 * size + 0] = 1 * size + 2
+        # Plain fulls <- a plain full; the source is never itself
+        # redirected (check_copy_src).
+        copy_src[1 * size + 2] = 0 * size + 3
+        copy_src[2 * size + 0] = 0 * size + 3
     groups = [2, 0, 3] if variant == "by-group" else None
 
     ref_v, ref_t, ref_pt = map(np.asarray, jax_eval.evaluate_packed_anchored_segmented(
@@ -261,22 +275,70 @@ def test_segmented_eval_matches_jax(nets, rung, variant):
 
 
 def test_copy_src_refuses_to_redirect_an_anchor_store(nets):
-    """The kernel stores inside its launch, before the fan-in: a fan-in
-    into an anchor-store entry would leave its table row holding its own
-    (garbage) accumulator, so it raises (ROADMAP: the position-keyed
-    planner needs the fan-in to reach the stores)."""
-    params, _ = nets
+    """The fan-in reaches the anchor stores, as the JAX package's does
+    (its ``jnp.take`` runs before the table scatter): store entries
+    redirected to earlier, unredirected sources — a full anchor seed
+    and a persistent delta, the drops the position-keyed planner makes
+    — give JAX's values and tables. What the fan-in refuses, on the
+    host before anything runs, is a source that is not earlier than its
+    duplicate (the kernel waits on the source), a redirected source, one
+    out of range, and a redirected entry that an in-batch delta resolves
+    against (the kernel would hand the delta the copied accumulator)."""
+    params, jparams = nets
     rng = np.random.default_rng(3)
-    seg = _make_segment(_PLANS[0], 6, 4, rng)
-    copy_src = np.arange(6, dtype=np.int32)
-    copy_src[0] = 3  # entry 0 stores its anchor row
-    with pytest.raises(ValueError, match="anchor-store entry"):
-        torch_eval.evaluate_packed_anchored_segmented(
-            params, torch.from_numpy(seg["packed"].view(np.int16)),
-            torch.from_numpy(seg["buckets"]), torch.from_numpy(seg["parent"]),
-            None, torch.from_numpy(seg["tab"][None].copy()),
-            torch.tensor([seg["rows"]]), torch.from_numpy(seg["ptab"][None]),
-            torch.from_numpy(copy_src))
+    size, tab_rows = 4, 4
+    segs = [_make_segment(plan, size, tab_rows, rng) for plan in (
+        [("store", 0), ("full",), ("pers", 1, 0)],
+        [("full",), ("store", 2), ("pers", 3, 1)])]
+    tier = 4 * size + 4
+    packed = np.concatenate([sg["packed"][:tier] for sg in segs])
+    buckets = np.concatenate([sg["buckets"] for sg in segs])
+    parent = np.concatenate([sg["parent"] for sg in segs])
+    seg_rows = np.array([sg["rows"] for sg in segs], np.int32)
+    copy_src = np.arange(2 * size, dtype=np.int32)
+    copy_src[size + 1] = 1  # full anchor seed <- plain full
+    copy_src[size + 2] = 2  # persistent delta <- persistent delta
+
+    ref_v, ref_t, ref_pt = map(np.asarray, jax_eval.evaluate_packed_anchored_segmented(
+        jparams, jnp.asarray(packed), jnp.asarray(buckets),
+        jnp.asarray(parent), None,
+        jnp.asarray(np.stack([sg["tab"] for sg in segs])),
+        jnp.asarray(seg_rows),
+        jnp.asarray(np.stack([sg["ptab"] for sg in segs])),
+        use_pallas=False, copy_src=jnp.asarray(copy_src)))
+
+    def port(cs, codes=parent):
+        tab_t = torch.from_numpy(np.stack([sg["tab"] for sg in segs]))
+        ptab_t = torch.from_numpy(np.stack([sg["ptab"] for sg in segs]))
+        values, _, _ = torch_eval.evaluate_packed_anchored_segmented(
+            params, torch.from_numpy(packed.view(np.int16)),
+            torch.from_numpy(buckets), torch.from_numpy(codes), None,
+            tab_t, torch.from_numpy(seg_rows), ptab_t, torch.from_numpy(cs))
+        return values.numpy(), tab_t.numpy(), ptab_t.numpy()
+
+    got_v, got_t, got_pt = port(copy_src)
+    assert np.array_equal(got_v, ref_v)
+    assert np.array_equal(got_t, ref_t) and np.array_equal(got_pt, ref_pt)
+    # Against no fan-in, exactly the redirected entries' rows moved.
+    _, own_t, own_pt = port(np.arange(2 * size, dtype=np.int32))
+    for t_got, t_own in ((got_t, own_t), (got_pt, own_pt)):
+        moved = [(g, r) for g in range(2) for r in range(tab_rows)
+                 if not np.array_equal(t_got[g, r], t_own[g, r])]
+        assert moved == [(1, 2), (1, 3)]
+
+    for bad, why in (({0: 3}, "not earlier"), ({5: 1, 1: 0}, "redirected"),
+                     ({3: -1}, "out of range")):
+        cs = np.arange(2 * size, dtype=np.int32)
+        for dst, src in bad.items():
+            cs[dst] = src
+        with pytest.raises(ValueError, match=why):
+            port(cs)
+    consumed = parent.copy()
+    consumed[3] = 1 << 1  # entry 3: an in-batch delta on the plain full 1
+    cs = np.arange(2 * size, dtype=np.int32)
+    cs[1] = 0  # earlier, unredirected: the other checks pass
+    with pytest.raises(ValueError, match="anchor of an in-batch delta"):
+        port(cs, consumed)
 
 
 # -- the cross-segment dedup planner -------------------------------------------
@@ -400,6 +462,40 @@ def test_dedup_planner_position_keyed_matches_jax(seed):
         assert got == jax_ft.plan_segment_dedup(*args, hashes=hashes,
                                                 cache_hits=cache_hits)
         assert len(got) == 4
+
+
+@pytest.mark.parametrize("k_segs,n,pool", [(8, 40, 12), (6, 40, 10_000),
+                                             (4, 24, 3)])
+def test_dedup_planner_position_keyed_wide_matches_jax(k_segs, n, pool):
+    """The port's planner decides by position over the whole dispatch
+    and walks only the entries that can leave the wire (a repeated
+    position or a cache hit); at the service's widths, with positions
+    that repeat often, rarely and almost always, it gives the JAX
+    planner's drops, codes, pairs and fills."""
+    rng = np.random.default_rng(k_segs * 1000 + n + pool)
+    plans = []
+    for _ in range(k_segs):
+        plan = [("full", 0)]
+        while len(plan) < n:
+            kind = int(rng.integers(0, 4))
+            plan.append(
+                ("full", 0) if kind == 0 else
+                ("store", int(rng.integers(0, 64)), 0) if kind == 1 else
+                ("pers", int(rng.integers(0, 64)), 0) if kind == 2 else
+                ("inbatch", int(rng.integers(0, len(plan)))))
+        plans.append(plan)
+    segs = [_dedup_seg(p, size=n) for p in plans]
+    args = _planner_args(segs)
+    hashes = [rng.integers(0, pool, n).astype(np.uint64) for _ in segs]
+    hits = [None if k % 3 == 2 else (rng.random(n) < 0.1,
+                                     rng.integers(-300, 300, n).astype(
+                                         np.int32))
+            for k in range(k_segs)]
+    for cache_hits in (None, hits):
+        got = ft_gather.plan_segment_dedup(*args, hashes=hashes,
+                                           cache_hits=cache_hits)
+        assert got == jax_ft.plan_segment_dedup(*args, hashes=hashes,
+                                                cache_hits=cache_hits)
 
 
 # -- the width policy ---------------------------------------------------------

@@ -16,6 +16,18 @@ from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue import torch_eval
 from fishnet_tpu_torch.nnue.weights import NnueWeights
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's small CPU gathers gain
+    nothing from more, and under the parallel tier-1 run torch's default
+    pool starves other test processes' wall-clock budgets (ROADMAP C8,
+    C10)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 CPU = torch.device("cpu")
 
 

@@ -23,6 +23,18 @@ from fishnet_tpu.ops import ft_gather as jax_ft
 from fishnet_tpu_torch.nnue.spec import DELTA_SLOTS
 from fishnet_tpu_torch.ops import ft_gather as port_ft
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's small CPU gathers gain
+    nothing from more, and under the parallel tier-1 run torch's default
+    pool starves other test processes' wall-clock budgets (ROADMAP C8,
+    C10)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 N_FEATURES, L1 = 512, 1024  # interpret mode needs L1 % 1024 == 0
 
 

@@ -9,6 +9,7 @@ against the standard-library fake lichess server of chip_smoke.py until
 it has submitted its one job, and drains on SIGINT."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +37,7 @@ import fishnet_tpu_torch
 
 names = [m.name for m in pkgutil.walk_packages(
     fishnet_tpu_torch.__path__, "fishnet_tpu_torch.")]
+assert "fishnet_tpu_torch.search.eval_cache" in names, names
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
@@ -81,7 +83,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN % (BLOCKED,)],
         input="uci\nisready\nquit\n", capture_output=True, text=True,
-        cwd=ROOT, timeout=240,
+        cwd=ROOT, timeout=240, env=dict(os.environ, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout

@@ -16,6 +16,7 @@ comparison."""
 import ast
 import asyncio
 import copy
+import os
 import signal
 import subprocess
 import sys
@@ -34,9 +35,20 @@ import chip_smoke
 from fishnet_tpu_torch.client import Client
 from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
 from fishnet_tpu_torch.nnue.weights import NnueWeights
+from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.search.service import SearchService
 from fishnet_tpu_torch.utils.logger import Logger
 from tests.fake_server import VALID_KEY, FakeServer
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_cache():
+    """The port's process-wide eval cache, reset around each test:
+    tests/conftest.py resets only the JAX package's, and a cache warmed
+    by an earlier test would skip this one's dispatches."""
+    eval_cache.reset_cache()
+    yield
+    eval_cache.reset_cache()
 
 KW = dict(pool_slots=16, batch_capacity=64, tt_bytes=16 << 20)
 
@@ -77,7 +89,7 @@ async def _run(client_cls, factory, logger):
         return [server.lichess.analyses[i] for i in ids]
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def one_torch_thread():
     """The port's CPU evaluator runs small gathers for which torch's
     intra-op threads cost more than they give, most of all when other
@@ -151,7 +163,7 @@ def test_cli_teardown_counts_the_run_after_the_warm_up():
              server.endpoint, "--key", chip_smoke.VALID_KEY, "--cores", "1",
              "--microbatch", "64", "--max-backoff", "1", "-v"],
             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            text=True, env=dict(os.environ, OMP_NUM_THREADS="1"))
         try:
             deadline = time.monotonic() + 240
             while job not in server.lichess.analyses:

@@ -14,12 +14,36 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from fishnet_tpu.chess import Board
 from fishnet_tpu.nnue.weights import NnueWeights as JaxWeights
 from fishnet_tpu.search.service import SearchService as JaxService
 from fishnet_tpu_torch.nnue.weights import NnueWeights
+from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.search.service import SearchService
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_cache():
+    """The port's process-wide eval cache, reset around each test:
+    tests/conftest.py resets only the JAX package's, and a cache warmed
+    by an earlier test would skip this one's dispatches."""
+    eval_cache.reset_cache()
+    yield
+    eval_cache.reset_cache()
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's small CPU gathers gain
+    nothing from more, and under the parallel tier-1 run torch's default
+    pool starves other test processes' wall-clock budgets (ROADMAP C8,
+    C10)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 #: Depth-4 positions with small trees (endings and forcing lines), so
 #: three services search them well inside the test budget.
@@ -150,11 +174,12 @@ def test_shipped_offsets_equal_the_derived_ones():
     evaluate = svc._eval_fn
 
     def recorder(params, packed, buckets, parent, material, tab, n_rows,
-                 ptab, *, offsets):
+                 ptab, *, offsets, copy_src=None, parent_host=None):
         seen.append((parent.numpy().copy(), int(n_rows),
                      offsets.numpy().copy()))
         return evaluate(params, packed, buckets, parent, material, tab,
-                        n_rows, ptab, offsets=offsets)
+                        n_rows, ptab, offsets=offsets, copy_src=copy_src,
+                        parent_host=parent_host)
 
     svc._eval_fn = recorder
     results = asyncio.run(_results(svc, DEPTH4_FENS[:2], 3))

@@ -4,6 +4,7 @@ degradation ladder (on CUDA it steps fused -> host-material, both on
 the hand kernel, and never enters "xla", the plain version)."""
 
 import pytest
+import torch
 
 from fishnet_tpu.resilience.supervisor import CircuitBreaker as JaxBreaker
 from fishnet_tpu_torch.nnue.weights import NnueWeights
@@ -13,7 +14,30 @@ from fishnet_tpu_torch.resilience.supervisor import (
     ServiceSupervisor,
     ladder_for,
 )
+from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.search.service import SearchService
+
+
+@pytest.fixture(autouse=True)
+def fresh_port_cache():
+    """The port's process-wide eval cache, reset around each test:
+    tests/conftest.py resets only the JAX package's, and a cache warmed
+    by an earlier test would skip this one's dispatches."""
+    eval_cache.reset_cache()
+    yield
+    eval_cache.reset_cache()
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread: the port's small CPU gathers gain
+    nothing from more, and under the parallel tier-1 run torch's default
+    pool starves other test processes' wall-clock budgets (ROADMAP C8,
+    C10)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 #: (event, clock advance before it): "allow", "ok" (success), "fail".
 SEQUENCES = {

@@ -16,7 +16,7 @@ async def drive(commands, patterns, timeout=120):
     proc = await asyncio.create_subprocess_exec(
         sys.executable, "-m", "fishnet_tpu_torch", "uci", "--device", "cpu",
         "--no-conf", "--no-stats-file", "--microbatch", "64",
-        env=dict(os.environ),
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
         stdin=asyncio.subprocess.PIPE,
         stdout=asyncio.subprocess.PIPE,
         stderr=asyncio.subprocess.DEVNULL,
