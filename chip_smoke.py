@@ -20,21 +20,32 @@ fake lichess server built on the standard library, and checks the
 position-keyed eval cache and the bounds tier: the kernel's copy-source
 mode against its plain version, the service with the cache off, cold
 and warm, position dedup, a snapshot restart and the bounds tier, then
-the burst and the ``run`` workload with the cache off and on.
+the burst and the ``run`` workload with the cache off and on; and runs
+the split evaluator plane: an evaluator host process on the GPU serving
+search frontend processes over shared-memory rings.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
 the UCI answers with the kernel's launch count, the scalar parity, the
 kernel's times, the coalescer's checks and the fused launch's times,
 the client runs' throughput and latencies, the cache phase's checks and
-numbers, then on the last three lines the card again, one JSON object ``{"kernels": [...]}``
+numbers, the split phase's checks and numbers, then on the last three
+lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache; default all eight) limits a run to some phases while
-iterating on one of them; each phase starts from a cold eval cache.
+run, cli, cache, split; default all nine) limits a run to some phases
+while iterating on one of them; each phase starts from a cold eval cache.
+``split`` runs the split evaluator plane: a host process on the card
+(``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
+processes over shared-memory rings, after a two-process ring ping in
+its link directory; frontend analyses == the monolith's, one dense
+launch per host dispatch, no CUDA context in a frontend, the kernel ==
+its plain version on the largest fused host batches (timed); then the
+burst on the monolith with the cache on and off and on the split plane
+with 2 and 3 frontends, in the order A, B, C, C, B, A.
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -61,6 +72,7 @@ import itertools
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 import threading
@@ -72,7 +84,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
-          "cache")
+          "cache", "split")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -2401,6 +2413,632 @@ def phase_sweep(weights, dev) -> None:
                 f"{probe}, overlap {c['overlap_dual_us'] / busy:.3f}")
 
 
+# -- the split evaluator plane ------------------------------------------------
+
+#: The split phase's burst layouts, (frontends, driver threads each): at
+#: most the monolith's 7 driver threads in all.
+SPLIT_LAYOUTS = ((2, 3), (3, 2))
+#: The largest fused host batches a host run keeps for the kernel check.
+SPLIT_CAPTURES = 4
+#: The parity run: seeded walks searched one at a time at these nodes.
+SPLIT_PARITY_WALKS = 6
+SPLIT_PARITY_NODES = 1000
+#: The host's and the frontends' per-process settings (the CLI's
+#: microbatch 1024, pipeline 2).
+SPLIT_SERVICE = dict(batch_capacity=1024, pipeline_depth=2)
+
+
+def _child_cmd(fn: str, *args: str) -> list:
+    """A ``python3`` subprocess running ``chip_smoke.<fn>(args)`` from this
+    checkout: the split phase's processes are started fresh, never forked
+    from this one, which holds a CUDA context."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; sys.exit(chip_smoke.{fn}(sys.argv[1:]))")
+    return [sys.executable, "-c", code, *args]
+
+
+def _read_line(proc, deadline: float, what: str) -> str:
+    """The next line of ``proc``'s standard output, before ``deadline``
+    (a thread per process reads its lines into a queue, so lines that
+    arrive together are not held in a buffer ``select`` cannot see)."""
+    import queue
+
+    lines = getattr(proc, "lines", None)
+    if lines is None:
+        lines = proc.lines = queue.Queue()
+
+        def pump():
+            for line in proc.stdout:
+                lines.put(line)
+            lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+    try:
+        line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+    except queue.Empty:
+        raise SmokeFailure(f"{what}: no answer in time") from None
+    check(line is not None, f"{what}: exited (rc {proc.poll()})")
+    return line.strip()
+
+
+def _stop(proc, sig=None) -> Optional[int]:
+    """End ``proc`` (``sig``: sent first) and reap it."""
+    if proc.poll() is None:
+        if sig is not None:
+            proc.send_signal(sig)
+        try:
+            return proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+    return proc.wait(timeout=60)
+
+
+def split_ping_child(argv) -> int:
+    """The frontend side of the ring ping: ``argv[1]`` records of seeded
+    bytes (1-512 entries of the dense wire) pushed through a link in
+    ``argv[0]``, each waited for and checked against its echo (the bytes
+    reversed); prints the round trips as JSON."""
+    import numpy as np
+
+    from fishnet_tpu_torch.rpc import rings
+
+    link = rings.create_frontend_link(argv[0], name="ping.ring")
+    rng = np.random.default_rng(1)
+    rtts = []
+    try:
+        for i in range(int(argv[1])):
+            k = int(rng.integers(1, 513))
+            pay = rng.integers(0, 256, k * rings.NNUE_ENTRY_BYTES,
+                               dtype=np.uint8).tobytes()
+            t0 = time.perf_counter()
+            link.push(rings.KIND_NNUE_SUBMIT, i + 1, 1, k, pay)
+            deadline = time.monotonic() + 10
+            got = []
+            while not got and time.monotonic() < deadline:
+                got = link.drain()
+                if not got:
+                    time.sleep(0.0001)
+            rtts.append(time.perf_counter() - t0)
+            if got != [(rings.KIND_NNUE_RESULT, i + 1, 1, k, pay[::-1])]:
+                print(f"record {i}: echo missing or wrong", flush=True)
+                return 1
+        print(json.dumps({
+            "records": len(rtts),
+            "median_rtt_ms": sorted(rtts)[len(rtts) // 2] * 1e3,
+            "max_rtt_ms": max(rtts) * 1e3}), flush=True)
+        return 0
+    finally:
+        link.close()
+        os.unlink(link.path)
+
+
+def split_ping(rpc_dir: str, records: int = 500) -> dict:
+    """Two processes, one ring link in ``rpc_dir``: this one echoes what a
+    fresh child pushes. Fails unless every record comes back whole (the
+    link directory must be coherent across processes)."""
+    from fishnet_tpu_torch.rpc import rings
+
+    child = subprocess.Popen(
+        _child_cmd("split_ping_child", rpc_dir, str(records)),
+        stdout=subprocess.PIPE, text=True)
+    path = os.path.join(rpc_dir, "ping.ring")
+    host = None
+    try:
+        deadline = time.monotonic() + 120
+        while host is None:
+            check(time.monotonic() < deadline and child.poll() is None,
+                  "ring ping: no link file appeared")
+            try:
+                host = rings.attach_host_link(path)
+            except (OSError, ValueError):
+                time.sleep(0.01)
+        while child.poll() is None and time.monotonic() < deadline:
+            for _kind, ticket, epoch, n, pay in host.drain():
+                host.push(rings.KIND_NNUE_RESULT, ticket, epoch, n, pay[::-1])
+            time.sleep(0.0001)
+        out = child.stdout.read().strip().splitlines()
+        check(_stop(child) == 0 and bool(out),
+              f"ring ping through {rpc_dir} failed: {out}")
+        return json.loads(out[-1])
+    finally:
+        if host is not None:
+            host.close()
+        _stop(child)
+
+
+def split_host_child(argv) -> int:
+    """The split phase's evaluator host: ``python -m
+    fishnet_tpu_torch.rpc.host``'s ``main`` on ``argv[2:]``, its
+    dispatches instrumented. At exit (SIGTERM) it writes to ``argv[0]``
+    (JSON) the host's counters, the kernel's dense and packed launches
+    and the plain version's calls since the host's warm-up, and the ring
+    counters; to ``argv[1]`` (npz) the SPLIT_CAPTURES largest fused
+    batches it dispatched, as staged (features, buckets, parents,
+    material)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.rpc import host as host_mod
+    from fishnet_tpu_torch.rpc import rings
+
+    stats_path, caps_path, argv = argv[0], argv[1], argv[2:]
+    made, plain, caps, warm = [], [0], [], {}
+    plain_fn = ft_gather.ft_accumulate_plain
+
+    def counted_plain(*args, **kwargs):
+        plain[0] += 1
+        return plain_fn(*args, **kwargs)
+
+    ft_gather.ft_accumulate_plain = counted_plain
+
+    class Host(host_mod.EvaluatorHost):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def warmup(self):
+            super().warmup()
+            warm.update(dense=ft_gather.ft_accumulate_cuda.launches,
+                        packed=ft_gather.ft_accumulate_packed_cuda.launches,
+                        plain=plain[0])
+
+    stage_fn = host_mod._HostNnueBackend._stage_inputs
+    sweep_fn = host_mod.EvaluatorHost.sweep
+    busy = [0, 0.0]
+
+    def timed_sweep(self):
+        t0 = time.perf_counter()
+        served = sweep_fn(self)
+        if served:
+            busy[0] += 1
+            busy[1] += time.perf_counter() - t0
+        return served
+
+    host_mod.EvaluatorHost.sweep = timed_sweep
+
+    def stage(self, bucket, segs):
+        out = stage_fn(self, bucket, segs)
+        rows = sum(len(s[1]) for s in segs)
+        if len(segs) > 1 and (len(caps) < SPLIT_CAPTURES
+                              or rows > caps[-1][0]):
+            buf = self._in_t.numpy()[:bucket * 67].copy()
+            caps.append((rows, len(segs), buf))
+            caps.sort(key=lambda c: -c[0])
+            del caps[SPLIT_CAPTURES:]
+        return out
+
+    host_mod._HostNnueBackend._stage_inputs = stage
+    host_mod.EvaluatorHost = Host
+    rc = host_mod.main(argv)
+    stats = {"rc": rc, "rings": rings.stats(), "busy_sweeps": busy[0],
+             "busy_s": busy[1]}
+    if made:
+        stats.update(made[0].counters(), launches={
+            "dense": ft_gather.ft_accumulate_cuda.launches
+            - warm.get("dense", 0),
+            "packed": ft_gather.ft_accumulate_packed_cuda.launches
+            - warm.get("packed", 0),
+            "plain": plain[0] - warm.get("plain", 0)})
+    np.savez(caps_path, **{f"b{i}": c[2] for i, c in enumerate(caps)},
+             rows=np.array([c[0] for c in caps]),
+             segs=np.array([c[1] for c in caps]))
+    with open(stats_path, "w", encoding="utf-8") as fp:
+        json.dump(stats, fp)
+    return rc
+
+
+def split_frontend_child(argv) -> int:
+    """One split-plane frontend: a ``RemoteBackend`` (``argv[0]``, JSON:
+    net, link dir, driver threads, walks, nodes, parity) warmed up, then
+    "ready" on its standard output; on a line on its standard input it
+    searches the walks from the start position (parity: one at a time,
+    prefetch pinned to 0; else all at once) and prints one JSON line: the
+    wall-clock start and end, nodes, counter deltas, whether this process
+    holds a CUDA context or loaded the kernel, and (parity) the
+    analyses."""
+    spec = json.loads(argv[0])
+    import torch
+
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.rpc.client import RemoteBackend
+
+    svc = RemoteBackend(
+        weights=NnueWeights.load(spec["net"]), net_path=spec["net"],
+        rpc_dir=spec["dir"], driver_threads=spec["threads"],
+        **SPLIT_SERVICE)
+    # Per step on the driver threads: the dense expansion, packing and
+    # push ("ship"), and the wait for the host's answer ("wait").
+    timers = {"ship": [0, 0.0], "wait": [0, 0.0]}
+    lock = threading.Lock()
+
+    def timed(fn, cell):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with lock:
+                    cell[0] += 1
+                    cell[1] += time.perf_counter() - t0
+        return call
+
+    try:
+        svc.warmup()
+        svc._dispatch_eval = timed(svc._dispatch_eval, timers["ship"])
+        svc._resolve_eval = timed(svc._resolve_eval, timers["wait"])
+        if spec["parity"]:
+            svc.set_prefetch(0, adaptive=False)
+        print("ready", flush=True)
+        sys.stdin.readline()
+        c0 = svc.counters()
+
+        async def go():
+            if spec["parity"]:
+                return [await svc.search(STARTPOS, m, nodes=spec["nodes"])
+                        for m in spec["walks"]]
+            return await asyncio.gather(*[
+                svc.search(STARTPOS, m, nodes=spec["nodes"])
+                for m in spec["walks"]])
+
+        t0 = time.time()
+        results = asyncio.run(go())
+        t1 = time.time()
+        c = {k: v - c0[k] for k, v in svc.counters().items()}
+        print(json.dumps({
+            "t0": t0, "t1": t1, "searches": len(results),
+            "failed": sum(not r.best_move for r in results),
+            "nodes": sum(r.nodes for r in results), "counters": c,
+            "cuda_context": torch.cuda.is_initialized(),
+            "kernel_loaded": ft_gather._lib is not None,
+            "timers": timers,
+            "analyses": [analysis_of(r) for r in results]
+            if spec["parity"] else None}), flush=True)
+    finally:
+        svc.close()
+    return 0
+
+
+def analysis_of(r) -> list:
+    """A search result as a comparable (JSON-shaped) analysis."""
+    return [r.best_move, r.depth, r.nodes,
+            [[l.multipv, l.depth, l.is_mate, l.value, list(l.pv)]
+             for l in r.lines]]
+
+
+def split_run(net: str, rpc_dir: str, frontends: int, threads: int,
+              walks, nodes: int, tag: str, parity: bool = False,
+              uci: bool = False) -> dict:
+    """One run of the split plane on the card: the evaluator host
+    (``split_host_child``, ``--device cuda``) and ``frontends`` frontend
+    processes of ``threads`` driver threads each, the walks dealt out in
+    turn; the host is warmed up before the first frontend starts. Every
+    frontend must answer every search without a CUDA context or the
+    kernel; the host must make one dense launch per dispatch, no packed
+    launch, call no plain version, refuse nothing and fail no dispatch.
+    ``uci``: then also one ``FISHNET_RPC=1 python -m fishnet_tpu_torch
+    uci`` session (mate in one at depth 4). Returns the frontends'
+    reports, the host's stats and captures, and the run's numbers."""
+    import numpy as np
+
+    out_dir = ROOT / "chiprun_out" / "split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats_path = os.path.join(rpc_dir, f"host-{tag}.json")
+    caps_path = os.path.join(rpc_dir, f"caps-{tag}.npz")
+    env = dict(os.environ, FISHNET_RPC_DIR=rpc_dir)
+    host_log = open(out_dir / f"host-{tag}.log", "w", encoding="utf-8")
+    fe_log = open(out_dir / f"frontends-{tag}.log", "w", encoding="utf-8")
+    host = subprocess.Popen(
+        _child_cmd("split_host_child", stats_path, caps_path, "--dir",
+                   rpc_dir, "--nnue-file", net, "--device", "cuda"),
+        env=env, stdout=host_log, stderr=subprocess.STDOUT)
+    procs = []
+    try:
+        deadline = time.monotonic() + 300
+        while "rpc host: serving" not in (out_dir / f"host-{tag}.log"
+                                          ).read_text():
+            check(host.poll() is None and time.monotonic() < deadline,
+                  f"split {tag}: the host did not start (rc {host.poll()})")
+            time.sleep(0.05)
+        for f in range(frontends):
+            spec = dict(net=net, dir=rpc_dir, threads=threads, nodes=nodes,
+                        walks=walks[f::frontends] if not parity else walks,
+                        parity=parity)
+            procs.append(subprocess.Popen(
+                _child_cmd("split_frontend_child", json.dumps(spec)),
+                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=fe_log, text=True))
+        deadline = time.monotonic() + 300
+        for p in procs:
+            check(_read_line(p, deadline, f"split {tag} frontend") == "ready",
+                  f"split {tag}: a frontend did not warm up")
+        for p in procs:
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        deadline = time.monotonic() + 900
+        reports = [json.loads(_read_line(p, deadline, f"split {tag} frontend"))
+                   for p in procs]
+        rcs = [_stop(p) for p in procs]
+        check(rcs == [0] * frontends, f"split {tag}: frontend exit codes {rcs}")
+        uci_out = []
+        if uci:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "fishnet_tpu_torch", "uci",
+                 "--nnue-file", net, "--microbatch", "1024"],
+                cwd=ROOT, env=dict(env, FISHNET_RPC="1"),
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=fe_log, text=True)
+            procs.append(p)
+            p.stdin.write(f"uci\nisready\nposition fen {MATE_FEN}\n"
+                          "go depth 4\n")
+            p.stdin.flush()
+            deadline = time.monotonic() + 300
+            while not uci_out or not uci_out[-1].startswith("bestmove"):
+                uci_out.append(_read_line(p, deadline, "split uci frontend"))
+            p.stdin.write("quit\n")
+            p.stdin.flush()
+            check(_stop(p) == 0, "split: the uci frontend did not exit 0")
+    finally:
+        for p in procs:
+            _stop(p, signal.SIGTERM)
+        host_rc = _stop(host, signal.SIGTERM)
+        host_log.close()
+        fe_log.close()
+    check(host_rc == 0, f"split {tag}: the host exited {host_rc}")
+    with open(stats_path, encoding="utf-8") as fp:
+        stats = json.load(fp)
+    caps = np.load(caps_path)
+    captures = [(int(r), int(s), caps[f"b{i}"]) for i, (r, s) in
+                enumerate(zip(caps["rows"], caps["segs"]))]
+    if uci:
+        check(uci_out[-1].startswith("bestmove d1d8")
+              and any("score mate 1" in line for line in uci_out),
+              f"split {tag}: the FISHNET_RPC=1 uci frontend answered "
+              f"{uci_out[-4:]}")
+        log(f"  {tag}: FISHNET_RPC=1 uci frontend: {uci_out[-1]}")
+    for r in reports:
+        check(r["failed"] == 0, f"split {tag}: a search failed")
+        check(not r["cuda_context"] and not r["kernel_loaded"],
+              f"split {tag}: a frontend created a CUDA context or loaded "
+              "the kernel")
+    launches, ring = stats["launches"], stats["rings"]
+    check(launches["dense"] == stats["dispatches"] > 0,
+          f"split {tag}: {launches['dense']} dense launches for "
+          f"{stats['dispatches']} host dispatches")
+    check(launches["packed"] == 0 and launches["plain"] == 0,
+          f"split {tag}: packed launches or plain calls on the card "
+          f"{launches}")
+    for key in ("eval_errors", "refused.nnue", "refused.az",
+                "result_drops", "torn", "stale_refusals"):
+        check(ring.get(key, 0) == 0, f"split {tag}: host counted {key} "
+                                     f"{ring.get(key)}")
+    nodes_all = sum(r["nodes"] for r in reports)
+    wall = max(r["t1"] for r in reports) - min(r["t0"] for r in reports)
+    fc = {k: sum(r["counters"][k] for r in reports)
+          for k in reports[0]["counters"]}
+    row = {
+        "run": f"split, {frontends} frontends x {threads} threads",
+        "nodes_per_s": nodes_all / wall, "nodes": nodes_all, "seconds": wall,
+        "host_ms_per_dispatch": stats["run_s"] * 1e3
+        / max(1, stats["dispatches"]),
+        "host_dispatches": stats["dispatches"],
+        "host_fused_dispatches": stats["fused_dispatches"],
+        "mean_fused_width": stats["segments"] / max(1, stats["dispatches"]),
+        "fused_rows_over_slots": stats["rows"] / max(1, stats["slots"]),
+        "frontend_steps": fc["eval_steps"],
+        "wire_bytes_per_slot": fc["wire_bytes"] / max(1, fc["bucket_slots"]),
+        "wire_bytes_per_entry": fc["wire_bytes"]
+        / max(1, fc["evals_shipped"]),
+        "dense_launches": launches["dense"],
+        "host_busy_share": stats["busy_s"] / wall,
+        "host_sweep_ms": stats["busy_s"] * 1e3 / max(1, stats["busy_sweeps"]),
+        "frontend_ms_per_step": {
+            k: sum(r["timers"][k][1] for r in reports) * 1e3
+            / max(1, sum(r["timers"][k][0] for r in reports))
+            for k in ("ship", "wait")},
+        "frontend_step_ms": wall * 1e3 * frontends * threads
+        * SPLIT_SERVICE["pipeline_depth"] / max(1, fc["eval_steps"]),
+    }
+    log(f"  {tag}: {row}")
+    return {"row": row, "reports": reports, "stats": stats,
+            "captures": captures}
+
+
+def split_monolith(weights, dev, cache: bool, threads: int) -> dict:
+    """The 256-search burst on the monolith (microbatch 1024, pipeline 2,
+    ``threads`` driver threads), the eval cache on or off, with the pack
+    worker's ms per dispatch (``host_timers``)."""
+    from fishnet_tpu_torch.search.service import SearchService
+
+    fresh_cache()
+    with env_vars(FISHNET_NO_EVAL_CACHE=None if cache else "1"):
+        svc = SearchService(weights=weights, driver_threads=threads,
+                            device=dev, **SPLIT_SERVICE)
+    try:
+        svc.warmup()
+        timers = host_timers(svc)
+        burst = {}
+        nps = load_burst(svc, burst)
+    finally:
+        svc.close()
+    c, pack = burst["counters"], timers.get("pack", [0, 0.0])
+    row = {
+        "run": f"monolith, cache {'on' if cache else 'off'}",
+        "nodes_per_s": nps, "nodes": burst["nodes"],
+        "seconds": burst["seconds"],
+        "pack_ms_per_dispatch": pack[1] * 1e3 / max(1, pack[0]),
+        "dispatches": c["dispatches"],
+        "mean_fused_width": c["eval_steps"] / max(1, c["dispatches"]),
+        "wire_bytes_per_slot": c["wire_bytes"] / max(1, c["bucket_slots"]),
+        "wire_bytes_per_entry": c["wire_bytes"] / max(1, c["evals_shipped"]),
+    }
+    log(f"  {row['run']}: {row}")
+    return row
+
+
+def split_kernel(torch, params, dev, captures) -> dict:
+    """The kernel's dense mode on fused batches the host dispatched: the
+    accumulators and the values equal the plain version on CPU copies,
+    then each batch's time (CUDA events around graph-replayed calls, as
+    the timing phase), the plain version's on the card, the bound, and
+    ``embedding_bag`` where it computes the same function (an all-full
+    batch; else None)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec, torch_eval
+    from fishnet_tpu_torch.ops import ft_gather
+
+    w, b = params["ft_w"], params["ft_b"]
+    cpu = {k: v.cpu() for k, v in params.items()}
+    errors0 = ft_gather.kernel_errors(dev)  # earlier phases plant some
+    out = []
+    for rows, segs, buf in captures:
+        bucket = len(buf) // 67
+        nf = bucket * 64
+        idx_np = buf[:nf].reshape(bucket, 2, 32)
+        parent_np = buf[nf + bucket: nf + 2 * bucket]
+        host_t = torch.from_numpy(buf)
+        x = host_t.to(dev)
+        idx = x[:nf].view(bucket, 2, 32)
+        buckets, parent = x[nf: nf + bucket], x[nf + bucket: nf + 2 * bucket]
+        material = x[nf + 2 * bucket: nf + 3 * bucket]
+        kw = dict(delta_base=spec.DELTA_BASE, parent=parent)
+        got = ft_gather.ft_accumulate_cuda(w, b, idx, **kw)
+        ref = ft_gather.ft_accumulate_plain(
+            cpu["ft_w"], cpu["ft_b"], host_t[:nf].view(bucket, 2, 32),
+            delta_base=spec.DELTA_BASE, parent=host_t[nf + bucket:
+                                                      nf + 2 * bucket])
+        diff = max_diff([got.cpu()], [ref])
+        vals = torch_eval.evaluate_batch(params, idx, buckets, parent,
+                                         material).cpu()
+        vref = torch_eval.evaluate_batch(
+            cpu, host_t[:nf].view(bucket, 2, 32),
+            host_t[nf: nf + bucket], host_t[nf + bucket: nf + 2 * bucket],
+            host_t[nf + 2 * bucket: nf + 3 * bucket])
+        diff = max(diff, max_diff([vals], [vref]))
+        check(diff == 0, f"split: captured host batch ({rows} rows, {segs} "
+                         f"records): kernel != plain ({diff})")
+        ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_cuda(
+            w, b, idx, **kw))
+        plain_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_plain(
+            w, b, idx, **kw))
+        bound_ms, bound_by, nbytes, ops = bound(idx_np, parent_np, False,
+                                                False, spec.L1)
+        library_ms = None
+        if (parent_np == -1).all():
+            flat, w_f = idx.view(-1, 32).long(), w.float()
+            lib_out = torch.nn.functional.embedding_bag(flat, w_f, mode="sum")
+            check(torch.equal(lib_out.view(bucket, 2, -1).to(torch.int32)
+                              + b.to(torch.int32), got),
+                  "split: embedding_bag does not compute the same sums")
+            library_ms = graph_time_ms(
+                torch, lambda: torch.nn.functional.embedding_bag(
+                    flat, w_f, mode="sum"))
+        entry = {"entries": bucket, "rows": rows, "records": segs,
+                 "in_batch_deltas": int((parent_np >= 0).sum()),
+                 "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bound_bytes": nbytes, "bound_ops": ops,
+                 "library_ms": library_ms}
+        log(f"  captured host batch: {entry}")
+        out.append(entry)
+    torch.cuda.synchronize()
+    check(ft_gather.kernel_errors(dev) == errors0,
+          "split: the kernel's error word moved on captured host batches")
+    return out
+
+
+def phase_split(torch, weights, params, dev) -> dict:
+    """The split evaluator plane on the card: one host process
+    (``python -m fishnet_tpu_torch.rpc.host``'s main, ``--device cuda``)
+    serving frontend processes (``RemoteBackend``) through a link
+    directory that passed a two-process ring ping.
+
+    Parity: two frontends search the same seeded walks one at a time
+    (prefetch pinned, one driver thread, the host-material wire; no eval
+    cache or bounds tier on either side) while the host fuses their
+    microbatches; each frontend's analyses equal the monolith's on the
+    card under the same settings, bit for bit. A ``FISHNET_RPC=1``
+    ``uci`` frontend answers a mate in one. Every run: one dense launch
+    per host dispatch, no packed launch and no plain call on the card,
+    nothing refused, no frontend with a CUDA context. The kernel equals
+    its plain version on the largest fused host batches, which are then
+    timed.
+
+    Throughput, in one call, in the order A, B, C, C, B, A: the 256-search
+    burst (``go nodes 3000``) on the monolith at its defaults (A: cache
+    on), with ``FISHNET_NO_EVAL_CACHE=1`` (B), and on the split plane
+    with 2 frontends x 3 threads and 3 x 2 (C; the second C in the
+    opposite order)."""
+    import shutil
+    import tempfile
+
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.search.service import SearchService
+
+    rpc_dir = tempfile.mkdtemp(prefix="fishnet-split-")
+    try:
+        ping = split_ping(rpc_dir)
+        log(f"  ring ping, two processes, {rpc_dir}: {ping}")
+        net = os.path.join(rpc_dir, "net.nnue")
+        weights.save(net)
+
+        walks = random_lines(SPLIT_PARITY_WALKS, seed=5)
+        with env_vars(FISHNET_NO_EVAL_CACHE="1", FISHNET_NO_BOUNDS="1"):
+            fresh_cache()
+            mono = SearchService(weights=weights, device=dev,
+                                 psqt_path="host-material",
+                                 driver_threads=1, **SPLIT_SERVICE)
+            try:
+                mono.set_prefetch(0, adaptive=False)
+
+                async def sequential():
+                    return [analysis_of(await mono.search(
+                        STARTPOS, m, nodes=SPLIT_PARITY_NODES))
+                        for m in walks]
+
+                want = asyncio.run(sequential())
+            finally:
+                mono.close()
+            parity = split_run(net, rpc_dir, 2, 1, walks,
+                               SPLIT_PARITY_NODES, "parity", parity=True,
+                               uci=True)
+        for r in parity["reports"]:
+            check(r["analyses"] == want,
+                  "split: a frontend's analyses differ from the monolith's")
+        log(f"  parity: 2 frontends x {len(walks)} searches at "
+            f"{SPLIT_PARITY_NODES} nodes == the monolith's, bit for bit; "
+            f"host fused {parity['stats']['fused_dispatches']} of "
+            f"{parity['stats']['dispatches']} dispatches")
+
+        threads = parse_and_configure(
+            ["run", "--no-conf"]).resolved_search_threads()
+        burst_walks = random_lines(256, seed=11)  # load_burst's
+        runs, captures = [], list(parity["captures"])
+        layouts = list(SPLIT_LAYOUTS)
+        for leg in ("A", "B", "C", "C'", "B", "A"):
+            if leg in ("A", "B"):
+                runs.append(split_monolith(weights, dev, leg == "A",
+                                           threads))
+                continue
+            for frontends, per in (layouts if leg == "C"
+                                   else layouts[::-1]):
+                got = split_run(net, rpc_dir, frontends, per, burst_walks,
+                                3000, f"{frontends}x{per}{leg[1:] and 'b'}")
+                runs.append(got["row"])
+                captures += got["captures"]
+        captures.sort(key=lambda c: -c[0])
+        check(len(captures) >= 3, "split: fewer than 3 fused host batches "
+                                  "were captured")
+        kernel = split_kernel(torch, params, dev,
+                              captures[:SPLIT_CAPTURES])
+    finally:
+        shutil.rmtree(rpc_dir, ignore_errors=True)
+    return {"ping": ping, "runs": runs, "kernel": kernel,
+            "launches": parity["stats"]["launches"]["dense"],
+            "parity_dispatches": parity["stats"]["dispatches"]}
+
+
 def phase_fen() -> None:
     """ROADMAP C7, in this process (torch imported, the core loaded):
     the port's Board gives back the expected FEN of every FEN_CHECKS
@@ -2969,6 +3607,33 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        cache["copy_src"]["worst"])
             entry["cache_numbers"] = cache["numbers"]
+    if "split" in phases:
+        log("[split] the split evaluator plane: a host process on the card "
+            "serving frontend processes over shared-memory rings")
+        split = phase_split(torch, weights, params, dev)
+        kern = split["kernel"]
+        top = kern[0]  # the largest fused host batch
+        facts = {"launches": split["launches"],
+                 "parity_dispatches": split["parity_dispatches"],
+                 "batches": kern, "runs": split["runs"],
+                 "ring_ping": split["ping"]}
+        worst_split = max(k["max_abs_err"] for k in kern)
+        if entries:
+            entries[0]["launches_split"] = split["launches"]
+            entries[0]["split"] = facts
+            entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
+                                            worst_split)
+        else:
+            entries.append({
+                "name": "ft_gather", "route": "cuda",
+                "source": "fishnet_tpu_torch/ops/csrc/ft_gather.cu",
+                "replaces": "fishnet_tpu/ops/ft_gather.py:402",
+                "launches": split["launches"], "max_abs_err": worst_split,
+                "ms": top["ms"], "plain_ms": top["plain_ms"],
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"],
+                "mode": "dense, in-batch parents (the split host's)",
+                "split": facts})
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

@@ -10,6 +10,11 @@ The port of the JAX package's ``run`` and ``uci`` commands
   SIGTERM drains with a deadline.
 * ``uci`` serves the batched NNUE search over UCI on stdin/stdout
   (logging goes to stderr: stdout belongs to the protocol).
+
+With ``FISHNET_RPC=1`` either command is a split-plane FRONTEND: its
+searches run here and every eval microbatch rides a shared-memory ring
+to the evaluator host (``python -m fishnet_tpu_torch.rpc.host``), which
+holds the device; the frontend never resolves or touches one.
 """
 
 from __future__ import annotations
@@ -42,25 +47,45 @@ def build_search_service(opt: Opt, logger: Logger, psqt_path=None):
     None = the device's own."""
     from fishnet_tpu_torch.device import resolve_device
     from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.rpc import rpc_enabled
     from fishnet_tpu_torch.search.service import SearchService
 
-    device = resolve_device(opt.resolved_device())  # no GPU: fail first
+    # Split plane (FISHNET_RPC=1): this process is a FRONTEND. No device,
+    # no dispatch probe: every eval microbatch rides the shared-memory
+    # ring to the evaluator host. Unset/0 builds the monolith below.
+    rpc = rpc_enabled()
+    device = None if rpc else resolve_device(opt.resolved_device())
     if opt.nnue_file:
         weights = NnueWeights.load(opt.nnue_file)
     else:
         logger.warn("No --nnue-file given; using random NNUE weights (dev mode).")
         weights = NnueWeights.random(seed=0)
-    depth = opt.resolved_pipeline()
-    logger.info(f"Pipelining {depth} eval batches on {device}.")
-    service = SearchService(
-        weights=weights,
-        net_path=opt.nnue_file,  # the native pool reads the original file
-        batch_capacity=opt.resolved_microbatch(),
-        pipeline_depth=depth,
-        driver_threads=opt.resolved_search_threads(),
-        psqt_path=psqt_path,
-        device=device,
-    )
+    if rpc:
+        from fishnet_tpu_torch.rpc.client import RemoteBackend
+
+        logger.info(
+            "FISHNET_RPC=1: frontend role; eval traffic rides the "
+            "shared-memory ring transport to the evaluator host.")
+        service = RemoteBackend(
+            weights=weights,
+            net_path=opt.nnue_file,
+            batch_capacity=opt.resolved_microbatch(),
+            pipeline_depth=opt.pipeline or 2,
+            driver_threads=opt.resolved_search_threads(),
+            psqt_path=psqt_path,
+        )
+    else:
+        depth = opt.resolved_pipeline()
+        logger.info(f"Pipelining {depth} eval batches on {device}.")
+        service = SearchService(
+            weights=weights,
+            net_path=opt.nnue_file,  # the native pool reads the original file
+            batch_capacity=opt.resolved_microbatch(),
+            pipeline_depth=depth,
+            driver_threads=opt.resolved_search_threads(),
+            psqt_path=psqt_path,
+            device=device,
+        )
     try:
         service.warmup()
     except BaseException:
@@ -80,15 +105,22 @@ def build_engine_factory(opt: Opt, logger: Logger) -> EngineFactory:
             ladder_for,
         )
 
-        # Fail fast on a missing GPU: the service itself builds lazily.
-        device = resolve_device(opt.resolved_device())
+        from fishnet_tpu_torch.rpc import rpc_enabled
+
+        # Fail fast on a missing GPU: the service itself builds lazily. A
+        # split-plane frontend holds no device: its one rung is the
+        # host-material wire the evaluator host serves.
+        if rpc_enabled():
+            rungs = ("host-material",)
+        else:
+            rungs = ladder_for(resolve_device(opt.resolved_device()).type)
         # The supervisor owns respawns: every rebuild of a dead service
         # goes through its bounded respawn budget and — after repeated
         # rapid deaths — steps the eval path down the device's ladder
         # (cuda: fused -> host-material, both on the hand kernel).
         supervisor = ServiceSupervisor(
             lambda rung: build_search_service(opt, logger, psqt_path=rung),
-            rungs=ladder_for(device.type),
+            rungs=rungs,
             logger=logger,
         )
         factory = TpuNnueEngineFactory(service_builder=supervisor.build)

@@ -1,0 +1,237 @@
+"""Frontend side of the split plane: a SearchService whose evaluator is
+another process.
+
+The port of ``fishnet_tpu/rpc/client.py`` (its NNUE half).
+:class:`RemoteBackend` IS a ``SearchService`` whose evaluator ships each
+group's padded dense microbatch over this frontend's ring link instead
+of evaluating it on a device of its own: the service's external-
+evaluator seam (``search/service.py _dispatch_eval``) already produces
+the self-contained arrays the wire carries, so the engines and the UCI
+server ride unchanged. The evaluator returns a LAZY handle; the
+service's ``_resolve_eval`` materialises it before the group's next
+step, which keeps the per-group pipeline overlap across the process
+boundary. A frontend holds no device: it never resolves one, never
+creates a CUDA context and never loads the kernel.
+
+Failure contract: a demand wait survives an evaluator death by watching
+the host epoch. When the evaluator is reborn (epoch bump) the client
+cancels its groups' device anchors (``fc_pool_cancel_anchors``; a no-op
+on this wire, which has none) and RESUBMITS the kept payload; only the
+total ``FISHNET_RPC_TIMEOUT`` budget expiring surfaces, as
+:class:`EvaluatorLostError`. A record the host refuses (a malformed
+microbatch: a bad parent code, bucket or index) comes back as an empty
+result and raises :class:`EvaluatorRefusedError` at once. Either error
+fails the driver, and with it the service's searches. Results are
+deduplicated by ticket id, so an at-least-once transport still yields
+exactly-once consumption.
+
+Left out against the JAX package: ``RemoteAzPlane`` (it comes with the
+AZ family) and the spans.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from fishnet_tpu_torch.chess.core import NativeCoreError
+from fishnet_tpu_torch.rpc import rings
+from fishnet_tpu_torch.search.service import SearchService
+
+__all__ = ["EvaluatorLostError", "EvaluatorRefusedError", "RemoteBackend",
+           "RemoteEvaluator"]
+
+
+class EvaluatorLostError(NativeCoreError):
+    """The evaluator host stayed unreachable past FISHNET_RPC_TIMEOUT."""
+
+
+class EvaluatorRefusedError(NativeCoreError):
+    """The evaluator host refused a submitted microbatch as malformed."""
+
+
+class _RpcClient:
+    """One frontend link: serialized submits, ticket table, demand
+    waits. All ring writes go through ``_lock`` (the SPSC single-writer
+    contract); results drain under the same lock and park in
+    ``_results`` until their owner claims them."""
+
+    def __init__(self, directory: Optional[str] = None,
+                 name: Optional[str] = None) -> None:
+        self._link = rings.create_frontend_link(directory, name=name)
+        self._epoch = self._link.frontend_epoch
+        self._tickets = itertools.count(1)
+        self._lock = threading.Lock()
+        self._results: Dict[int, Tuple[int, int, bytes]] = {}
+        self._done: set = set()
+        self._closed = False
+        rings.set_role("frontend")
+
+    @property
+    def link(self) -> rings.RingLink:
+        return self._link
+
+    def submit(self, kind: int, n: int, payload: bytes) -> int:
+        ticket = next(self._tickets)
+        with self._lock:
+            self._link.beat()
+            self._link.push(kind, ticket, self._epoch, n, payload)
+        rings.note("submits.nnue")
+        return ticket
+
+    def _drain_locked(self) -> None:
+        for kind, ticket, epoch, n, payload in self._link.drain():
+            # Fenced results: a record answering a previous life of this
+            # frontend, or a duplicate of one already claimed (a
+            # resubmit can be answered twice), must not double-consume.
+            if (epoch != self._epoch or ticket in self._results
+                    or ticket in self._done):
+                continue
+            self._results[ticket] = (kind, n, payload)
+
+    def wait(self, ticket: int, n: int, kind: int,
+             payload: bytes) -> Tuple[int, int, bytes]:
+        """Block until ``ticket``'s result lands. Resubmits the kept
+        ``payload`` after an evaluator rebirth (host epoch moved) and
+        raises :class:`EvaluatorLostError` only when the total timeout
+        budget runs out: a requeue signal, never a silent hang."""
+        deadline = time.monotonic() + rings.timeout_s()
+        host_epoch = self._link.host_epoch
+        while True:
+            with self._lock:
+                self._link.beat()
+                self._drain_locked()
+                got = self._results.pop(ticket, None)
+                if got is not None:
+                    self._done.add(ticket)
+                    if len(self._done) > 8192:
+                        floor = ticket - 8192
+                        self._done = {t for t in self._done if t > floor}
+            if got is not None:
+                return got
+            now_epoch = self._link.host_epoch
+            if now_epoch != host_epoch:
+                # The evaluator died and a successor attached: any
+                # record it consumed without answering is gone, so fence
+                # local device state and re-pay the submit.
+                host_epoch = now_epoch
+                self._on_evaluator_lost()
+                with self._lock:
+                    self._link.push(kind, ticket, self._epoch, n, payload)
+                rings.note("resubmits")
+            if time.monotonic() >= deadline:
+                raise EvaluatorLostError(
+                    f"rpc demand timeout: no result for ticket {ticket} "
+                    f"within {rings.timeout_s():.0f}s "
+                    f"(host heartbeat age {self._link.peer_age():.1f}s); "
+                    "requeue the batch"
+                )
+            time.sleep(0.001)
+
+    def _on_evaluator_lost(self) -> None:
+        """Hook: RemoteBackend cancels its groups' device anchors."""
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        path = self._link.path
+        self._link.close()
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+class _PendingEval:
+    """Lazy result handle for one in-flight NNUE microbatch: the
+    service's ``_resolve_eval`` calls ``np.asarray`` on it before the
+    group's next step, so the demand wait overlaps the other groups'
+    fiber stepping as a device future would."""
+
+    __slots__ = ("_client", "_ticket", "_n", "_payload", "_arr")
+
+    def __init__(self, client: _RpcClient, ticket: int, n: int,
+                 payload: bytes) -> None:
+        self._client = client
+        self._ticket = ticket
+        self._n = n
+        self._payload = payload
+        self._arr: Optional[np.ndarray] = None
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        if self._arr is None:
+            _kind, n, result = self._client.wait(
+                self._ticket, self._n, rings.KIND_NNUE_SUBMIT,
+                self._payload,
+            )
+            if n != self._n:
+                raise EvaluatorRefusedError(
+                    f"the evaluator host refused microbatch ticket "
+                    f"{self._ticket} ({self._n} entries) as malformed; "
+                    "its log names the fault")
+            self._arr = rings.unpack_nnue_result(result, self._n)
+            self._payload = b""  # free the kept bytes
+        return self._arr if dtype is None else self._arr.astype(dtype)
+
+
+class RemoteEvaluator:
+    """The external-evaluator callable ``(params, feats, buckets,
+    parents, material) -> lazy int32 [B]`` the service seam expects:
+    packs the full padded microbatch into one self-contained submit
+    record and returns a :class:`_PendingEval`."""
+
+    def __init__(self, client: _RpcClient) -> None:
+        self._client = client
+
+    def __call__(self, params, feats, buckets, parents, material):
+        n = len(buckets)
+        payload = rings.pack_nnue_submit(feats, buckets, parents, material)
+        ticket = self._client.submit(rings.KIND_NNUE_SUBMIT, n, payload)
+        return _PendingEval(self._client, ticket, n, payload)
+
+
+class RemoteBackend(SearchService):
+    """A SearchService whose eval plane lives in another process.
+
+    Construction takes SearchService's arguments (plus ``rpc_dir``, the
+    link directory; default ``FISHNET_RPC_DIR``), without ``device``:
+    the evaluator host holds the device. Analyses equal a monolith's on
+    the host-material wire, because the host evaluates the exact dense
+    microbatch through ``evaluate_batch``, and the integer evaluation of
+    one entry does not depend on its batch."""
+
+    def __init__(self, *args, rpc_dir: Optional[str] = None,
+                 **kwargs) -> None:
+        client = _RpcClient(rpc_dir)
+        client._on_evaluator_lost = self._cancel_inflight_anchors
+        self._rpc = client
+        kwargs["evaluator"] = RemoteEvaluator(client)
+        try:
+            super().__init__(*args, **kwargs)
+        except BaseException:
+            client.close()
+            raise
+
+    def _cancel_inflight_anchors(self) -> None:
+        """Evaluator death fences every group's device anchor state
+        through the pool's cancellation path. The external-evaluator
+        wire never enables persistent anchors (in-batch refs only), so
+        this is a no-op today, kept so a future anchor-carrying wire
+        inherits the fencing."""
+        pool = getattr(self, "_pool", None)
+        if not pool:
+            return
+        for group in range(self._n_groups):
+            self._lib.fc_pool_cancel_anchors(pool, group)
+
+    def close(self) -> None:
+        try:
+            super().close()
+        finally:
+            self._rpc.close()

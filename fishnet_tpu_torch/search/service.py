@@ -50,6 +50,15 @@ both off, ``FISHNET_NO_BOUNDS=1`` the bounds tier alone;
 ``FISHNET_CACHE_PREFETCH=1`` steers the pool's speculation budget by
 the cache's hit rate.
 
+External evaluator (``evaluator=``, the split plane's frontend,
+rpc/client.py): the service holds no device. Each group's step goes out
+as its dense expansion (``expand_packed_np``) on the host-material wire,
+with in-batch parents only (no persistent anchors), one group at a time:
+no coalescer, no async pipeline, no eval cache or bounds tier (those are
+gated on the packed wire, as in the JAX package). The evaluator may
+return a lazy handle; ``_resolve_eval`` materialises it with
+``np.asarray`` before the group's next step.
+
 Streams: every ``ft_gather`` launch of a service — solo or fused, from
 a driver thread or the pack worker — goes to its device's default
 stream (no thread of the service sets another), because the kernel's
@@ -83,6 +92,7 @@ from fishnet_tpu_torch.chess.board import (
 from fishnet_tpu_torch.chess.core import NativeCoreError, load, load_held
 from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
+from fishnet_tpu_torch.nnue.torch_eval import expand_packed_np
 from fishnet_tpu_torch.nnue.weights import NnueWeights
 from fishnet_tpu_torch.ops.ft_gather import (
     derive_segment_offsets_np,
@@ -297,6 +307,7 @@ class SearchService(CoalesceBackend):
         driver_threads: int = 1,
         psqt_path: Optional[str] = None,
         device: DeviceLike = None,
+        evaluator=None,
     ) -> None:
         """``backend="torch"`` evaluates leaves in batches on ``device``
         (``cuda`` unless the caller asks for ``"cpu"``; without a GPU a
@@ -324,10 +335,30 @@ class SearchService(CoalesceBackend):
         package's fleet position tier is not ported:
         ``FISHNET_POSITION_TIER=1`` raises where the JAX service would
         attach it.
+
+        ``evaluator``: a callable ``(params, feats, buckets, parents,
+        material) -> int32 [B]`` (or a lazy handle that ``np.asarray``
+        materialises) that evaluates every microbatch instead of this
+        process's device, as the JAX package's seam takes it: feats
+        uint16 [B, 2, 32] (the dense expansion), buckets, in-batch
+        parent codes and the host material term int32 [B]; ``params`` is
+        None. The service then holds no device (``device`` must be
+        None), runs the host-material wire (``psqt_path`` reports
+        "host-material" whatever was requested) and builds no coalescer,
+        async pipeline, eval cache or bounds tier.
         """
         if backend not in ("torch", "scalar"):
             raise ValueError(f"unknown backend: {backend!r}")
-        if (backend != "scalar" and not _eval_cache_mod.cache_disabled()
+        if evaluator is not None and (backend != "torch"
+                                      or device is not None):
+            raise ValueError(
+                "an external evaluator replaces the device backend: pass "
+                "backend='torch' and no device")
+        # The packed, anchored wire of this process's own device: the
+        # coalescer, the async pipeline, the eval cache and the bounds
+        # tier all ride it (an external evaluator gets the dense wire).
+        self._packed_wire = backend == "torch" and evaluator is None
+        if (self._packed_wire and not _eval_cache_mod.cache_disabled()
                 and os.environ.get("FISHNET_POSITION_TIER", "") == "1"):
             raise NotImplementedError(
                 "FISHNET_POSITION_TIER=1: the fleet position tier "
@@ -335,8 +366,12 @@ class SearchService(CoalesceBackend):
                 "fishnet_tpu_torch yet; unset it")
         if psqt_path not in (None,) + PSQT_PATHS:
             raise ValueError(f"unknown psqt_path request: {psqt_path!r}")
-        self.device = None if backend == "scalar" else resolve_device(device)
-        if self.device is None:
+        self.device = (
+            resolve_device(device) if self._packed_wire else None)
+        self._evaluator = evaluator
+        if evaluator is not None:
+            self.psqt_path = "host-material"
+        elif self.device is None:
             self.psqt_path = None
         else:
             own = "fused" if self.device.type == "cuda" else "xla"
@@ -455,9 +490,9 @@ class SearchService(CoalesceBackend):
                 # its values; the count at warm-up is the baseline.
                 self._err_t = host((k, 1), torch.int32)
                 self._err_base = 0
-            if self.psqt_path == "host-material":
-                self._material_t = host((k, cap), torch.int32)
-                self._material_buf = self._material_t.numpy()
+        if self.psqt_path == "host-material":
+            self._material_t = host((k, cap), torch.int32)
+            self._material_buf = self._material_t.numpy()
 
         # DISPATCH COALESCER and ASYNC PIPELINE (search/coalesce.py),
         # under the JAX service's conditions and escape hatches.
@@ -489,14 +524,15 @@ class SearchService(CoalesceBackend):
             if os.environ.get("FISHNET_NO_ASYNC", "0") != "1":
                 self._async_pipes = [_AsyncDispatchPipeline(self)]
         # POSITION-KEYED EVAL REUSE: the process-wide cache (None with
-        # FISHNET_NO_EVAL_CACHE=1, or without a device evaluator — every
+        # FISHNET_NO_EVAL_CACHE=1, or off the packed wire: the scalar
+        # backend and an external evaluator — every
         # probe and insert site gates on it), per-group Zobrist-hash and
         # probe-value buffers. Keys are hash ^ salt, the net's
         # fingerprint, so services with different weights never read
         # each other's evals; the raw hashes feed the pool TT fills and
         # the dedup planner.
         self._eval_cache = (
-            _eval_cache_mod.get_cache() if self._params is not None else None
+            _eval_cache_mod.get_cache() if self._packed_wire else None
         )
         self._cache_salt = (
             np.uint64(_eval_cache_mod.net_fingerprint(self.net_path))
@@ -620,11 +656,23 @@ class SearchService(CoalesceBackend):
         unless the width is pinned. (Torch
         compiles nothing per shape, so there is nothing like the JAX
         service's warm-up compiles of the segmented shapes.)
+        With an external evaluator: one all-padding microbatch through
+        it, which proves it answers before the first real step.
         Idempotent; safe from several threads."""
-        if self._params is None:
+        if self._params is None and self._evaluator is None:
             return
         with self._warmup_lock:
             if self._warmed or self._stopping:
+                return
+            if self._evaluator is not None:
+                size = self._eval_sizes[-1]
+                np.asarray(self._evaluator(
+                    None,
+                    np.full((size, 2, spec.MAX_ACTIVE_FEATURES),
+                            spec.NUM_FEATURES, np.uint16),
+                    np.zeros(size, np.int32), np.full(size, -1, np.int32),
+                    np.zeros(size, np.int32)))
+                self._warmed = True
                 return
             self._padding_eval(self._eval_sizes[-1])
             if self.device.type == "cuda":
@@ -886,6 +934,16 @@ class SearchService(CoalesceBackend):
         parents[n:size] = -1
         if material is not None:
             material[n:size] = 0
+        if self._evaluator is not None:
+            # The dense expansion, handed to the external evaluator,
+            # which reads (or copies) it before this group steps again.
+            feats = expand_packed_np(
+                packed[: rows + 4], self._offset_buf[group, :size],
+                parents[:size])
+            acct = (size, feats.nbytes + size * 2 * 4, size * 4)
+            return self._evaluator(
+                None, feats, buckets[:size], parents[:size],
+                material[:size]), acct
         dev = self.device
         pk = self._packed_t[group, : rows + 4].to(dev, non_blocking=True)
         of = self._offset_t[group, :size].to(dev, non_blocking=True)
@@ -1200,7 +1258,10 @@ class SearchService(CoalesceBackend):
         """Block until a dispatched eval is done; contiguous int32 [n].
         Raises if the kernel refused an index or reference meanwhile.
         ``handle`` may also be a fused dispatch's slice, already read
-        back (``_DispatchCoalescer.demand``)."""
+        back (``_DispatchCoalescer.demand``), or an external evaluator's
+        result (an array or a lazy handle ``np.asarray`` materialises)."""
+        if not isinstance(handle, tuple):
+            handle = np.asarray(handle)
         if isinstance(handle, np.ndarray):
             return np.array(handle[:n], dtype=np.int32)
         done, out, err = handle
@@ -1386,7 +1447,7 @@ class SearchService(CoalesceBackend):
                 )
                 stepped += n
                 if n > 0:
-                    if self._params is None:
+                    if self._params is None and self._evaluator is None:
                         raise NativeCoreError("no evaluator")  # pragma: no cover
                     hashes = hmask = hvals = None
                     if cache is not None:

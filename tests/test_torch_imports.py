@@ -114,7 +114,7 @@ def test_no_forbidden_import_anywhere_in_the_port():
     assert not bad, bad
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch, capsys):
+def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
     import torch
 
     from fishnet_tpu_torch.__main__ import main
@@ -139,6 +139,15 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys):
         assert main([command, "--no-conf", "--no-stats-file", "--endpoint",
                      "http://127.0.0.1:9/fishnet"]) == 2
         assert "no CUDA device" in capsys.readouterr().err
+    # So does the split plane's evaluator host (its --device is cuda by
+    # default): it exits 2 before it serves any link.
+    from fishnet_tpu_torch.rpc import host as rpc_host
+
+    w.save(str(tmp_path / "w.nnue"))
+    assert rpc_host.main(["--nnue-file", str(tmp_path / "w.nnue"),
+                          "--dir", str(tmp_path / "rpc")]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "rpc").exists()
     # The scalar backend evaluates on the host and needs no device.
     svc = SearchService(weights=w, backend="scalar", pool_slots=8,
                         batch_capacity=64, tt_bytes=1 << 20)
