@@ -20,23 +20,26 @@ fake lichess server built on the standard library, and checks the
 position-keyed eval cache and the bounds tier: the kernel's copy-source
 mode against its plain version, the service with the cache off, cold
 and warm, position dedup, a snapshot restart and the bounds tier, then
-the burst and the ``run`` workload with the cache off and on; and runs
+the burst and the ``run`` workload with the cache off and on; runs
 the split evaluator plane: an evaluator host process on the GPU serving
-search frontend processes over shared-memory rings.
+search frontend processes over shared-memory rings; and runs the AZ/MCTS
+family: the policy+value tower on the card, batched PUCT MCTS over the
+shared AZ dispatch plane and ``run --engine az-mcts``.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
 the UCI answers with the kernel's launch count, the scalar parity, the
 kernel's times, the coalescer's checks and the fused launch's times,
 the client runs' throughput and latencies, the cache phase's checks and
-numbers, the split phase's checks and numbers, then on the last three
-lines the card again, one JSON object ``{"kernels": [...]}``
+numbers, the split phase's checks and numbers, the az phase's checks
+and numbers (and one JSON object ``{"az": {...}}``), then on the last
+three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split; default all nine) limits a run to some phases
+run, cli, cache, split, az; default all ten) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -46,6 +49,21 @@ launch per host dispatch, no CUDA context in a frontend, the kernel ==
 its plain version on the largest fused host batches (timed); then the
 burst on the monolith with the cache on and off and on the split plane
 with 2 and 3 frontends, in the order A, B, C, C, B, A.
+``az`` runs the AZ family at full width (the default AzConfig, 64 x 6,
+value hidden 128) and the CLI's microbatch of 1024: the forward on the
+card against the port's CPU forward; each bucket of the plane's ladder
+against the capacity's rows (a prefix and a permutation), bit for bit,
+and a repeat against the first (shapes below the ladder's floor
+reported), with each bucket's forward time, kernels and bound; 32
+searches x 200 visits with the plane == the private evaluator on the
+default and each forced rung, a warm replay == cold with pre-wire hits,
+speculation off == on, and the same roots split between two pools on
+one plane, fusing their lanes, == the private evaluator on each forced
+rung; a 256-search x 400-visit burst with the cache off and on (A, B,
+B, A, all the same trees); and the ``run`` path with ``--engine az-mcts`` (4 games, a move
+job, a variant game on the scalar tier). The AZ path reaches no
+hand kernel: the tower is PyTorch's convolutions and matmuls, as the
+JAX package leaves it to XLA.
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -84,7 +102,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
-          "cache", "split")
+          "cache", "split", "az")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -827,16 +845,17 @@ def uci_session(service, echo: bool) -> float:
     return t_uci
 
 
-def load_burst(service, out: Optional[dict] = None) -> float:
-    """256 concurrent ``go nodes 3000`` searches through the service;
-    returns nodes per second (``out`` receives the searches, nodes,
-    seconds and counter deltas)."""
+def load_burst(service, out: Optional[dict] = None,
+               nodes: int = 3000) -> float:
+    """256 concurrent ``go nodes 3000`` searches through the service (the
+    cache and split phases' at fewer nodes); returns nodes per second
+    (``out`` receives the searches, nodes, seconds and counter deltas)."""
     walks = random_lines(256, seed=11)
     c0 = service.counters()
 
     async def burst():
         return await asyncio.gather(*[
-            service.search(STARTPOS, moves, nodes=3000) for moves in walks
+            service.search(STARTPOS, moves, nodes=nodes) for moves in walks
         ])
 
     t0 = time.perf_counter()
@@ -2171,11 +2190,17 @@ def host_timers(service) -> dict:
     return totals
 
 
+#: The cache phase's bursts (cut from 3000 nodes a search, so the
+#: default run keeps its time with the az phase).
+CACHE_BURST_NODES = 1000
+
+
 def cache_numbers(weights, dev) -> dict:
-    """The default burst and the ``run`` workload (at the ``cli`` phase's
-    size, 8 games and 2 move jobs, so the call stays well inside its
-    time) with the cache off and on, in the order off, on, on, off (each
-    run from a cold cache, on a fresh service): nodes/s and positions/s, the pre-wire hit share
+    """The burst (at ``CACHE_BURST_NODES`` a search, so the default run
+    keeps its time with the az phase) and the ``run`` workload (at the
+    ``cli`` phase's size, 8 games and 2 move jobs) with the cache off and
+    on, in the order off, on, on, off (each run from a cold cache, on a
+    fresh service): nodes/s and positions/s, the pre-wire hit share
     (entries answered before the wire over entries probed), skipped
     dispatches, position dedup, the bounds tier's seeds and harvests,
     the cache's size and evictions, and the host's ms per call
@@ -2216,7 +2241,7 @@ def cache_numbers(weights, dev) -> dict:
             cache = eval_cache.get_cache()
             st0 = cache.stats() if cache is not None else None
             burst = {}
-            nps = load_burst(svc, burst)
+            nps = load_burst(svc, burst, nodes=CACHE_BURST_NODES)
         finally:
             svc.close()
         probes = 0 if st0 is None else (
@@ -2422,6 +2447,10 @@ SPLIT_LAYOUTS = ((2, 3), (3, 2))
 SPLIT_CAPTURES = 4
 #: The parity run: seeded walks searched one at a time at these nodes.
 SPLIT_PARITY_WALKS = 6
+#: The split phase's bursts (A, B, C, C', B, A: eight in all) at 1000
+#: nodes a search, cut from 3000 so the default run keeps its time with
+#: the az phase.
+SPLIT_BURST_NODES = 1000
 SPLIT_PARITY_NODES = 1000
 #: The host's and the frontends' per-process settings (the CLI's
 #: microbatch 1024, pipeline 2).
@@ -2858,7 +2887,7 @@ def split_monolith(weights, dev, cache: bool, threads: int) -> dict:
         svc.warmup()
         timers = host_timers(svc)
         burst = {}
-        nps = load_burst(svc, burst)
+        nps = load_burst(svc, burst, nodes=SPLIT_BURST_NODES)
     finally:
         svc.close()
     c, pack = burst["counters"], timers.get("pack", [0, 0.0])
@@ -3024,7 +3053,8 @@ def phase_split(torch, weights, params, dev) -> dict:
             for frontends, per in (layouts if leg == "C"
                                    else layouts[::-1]):
                 got = split_run(net, rpc_dir, frontends, per, burst_walks,
-                                3000, f"{frontends}x{per}{leg[1:] and 'b'}")
+                                SPLIT_BURST_NODES,
+                                f"{frontends}x{per}{leg[1:] and 'b'}")
                 runs.append(got["row"])
                 captures += got["captures"]
         captures.sort(key=lambda c: -c[0])
@@ -3037,6 +3067,532 @@ def phase_split(torch, weights, params, dev) -> dict:
     return {"ping": ping, "runs": runs, "kernel": kernel,
             "launches": parity["stats"]["launches"]["dense"],
             "parity_dispatches": parity["stats"]["dispatches"]}
+
+
+# -- the AZ/MCTS family ---------------------------------------------------------
+
+#: The az phase's sizes: the default AzConfig (64 x 6, value hidden 128)
+#: at the CLI's microbatch, the parity runs and the burst.
+AZ_CAP = 1024
+AZ_PARITY = (32, 200)  # searches, visits
+#: 400 visits a search, not 800, so the phase stays near 150 s: the
+#: burst is host-bound Python at ~4500 visits/s (PERF.md).
+AZ_BURST = (256, 400)
+#: The forward on the card against the port's CPU forward: both bf16,
+#: cuDNN and the CPU sum a conv's products in other orders, so a result
+#: may move by a few bf16 steps: at most AZ_STEPS steps of the largest
+#: logit's magnitude for the logits, of each value's own magnitude (at
+#: least 1/16) for the values; and most logits keep their bits.
+AZ_STEPS = 4
+AZ_SAME_BITS = 0.5
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet).
+BF16_FLOP_PER_S = 989e12
+
+
+def az_params():
+    """The az phase's net: the default AzConfig's dev-mode draw (seed 0)
+    with every zero leaf given small seeded values, so the biases'
+    rounding and the value head are live."""
+    import numpy as np
+
+    from fishnet_tpu_torch.models.az import AzConfig, init_az_params
+
+    rng = np.random.default_rng(0)
+    params = init_az_params(0, AzConfig())
+    for name, arr in params.items():
+        if not arr.any():
+            params[name] = (rng.standard_normal(arr.shape) * 0.05).astype(np.float32)
+    return params
+
+
+def az_flops_per_row(cfg) -> int:
+    """Multiply-adds x 2 of one row of the tower (conv and fc products;
+    the bias adds, relus and tanh are not counted)."""
+    c, sq = cfg.channels, 64
+    macs = sq * 9 * 19 * c  # stem
+    macs += cfg.blocks * 2 * sq * 9 * c * c  # residual convs
+    macs += sq * c * cfg.policy_planes + sq * c * 4  # 1x1 heads
+    macs += 4 * sq * cfg.value_hidden + cfg.value_hidden  # value fc1, fc2
+    return 2 * macs
+
+
+def az_bound(cfg, rows: int, params) -> dict:
+    """The least time the card could take for one forward of ``rows``:
+    the larger of its operations over the bf16 peak and its bytes (uint8
+    planes in, bf16 weights once, fp16 logits and float32 values out)
+    over the HBM rate."""
+    weights = sum(a.size for a in params.values()) * 2
+    nbytes = rows * (8 * 8 * 19 + cfg.policy_size * 2 + 4) + weights
+    flops = rows * az_flops_per_row(cfg)
+    by_ops = flops / BF16_FLOP_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(by_ops, by_bytes), "flops": flops, "bytes": nbytes,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def bf16_step(torch, magnitude):
+    """The spacing of bf16 numbers at ``magnitude`` (a tensor > 0)."""
+    return torch.exp2(torch.floor(torch.log2(magnitude)) - 7)
+
+
+def az_planes(rows: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2, (rows, 8, 8, 19)).astype(np.uint8)
+    x[..., 17] = rng.integers(0, 101, (rows, 1, 1))
+    return x
+
+
+def az_kernels_per_forward(torch, net, x) -> Optional[float]:
+    """Device kernels one forward launches (torch.profiler over 5
+    forwards); None when the profiler shows no device events."""
+    from fishnet_tpu_torch.models.az import wire_forward
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            wire_forward(net, x)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernels / 5 if kernels else None
+
+
+def az_forward_checks(torch, params, dev) -> dict:
+    """Checks 1-2 of the az phase, and the forward's times: the tower on
+    the card against the port's CPU forward; each bucket's rows against
+    the same rows at capacity, bit for bit, and a repeat call against the
+    first; shapes below the ladder's floor reported (the reason for it);
+    per bucket the eager forward's time (CUDA events around 20 calls, as
+    the plane launches it), its device time (20 replays of a CUDA graph
+    of 10 forwards), its kernels and its bound."""
+    import numpy as np
+
+    from fishnet_tpu_torch.models.az import params_from_jax, wire_forward
+    from fishnet_tpu_torch.search.az_plane import (
+        CUDA_MIN_BUCKET,
+        _bucket_ladder,
+        configure_backends,
+    )
+
+    configure_backends(dev)
+    net = params_from_jax(params, dev)
+    cfg = net.cfg
+    x = torch.from_numpy(az_planes(AZ_CAP, seed=1))
+    xd = x.to(dev)
+    full_l, full_v = wire_forward(net, xd)
+    cpu_rows = 256
+    ref_l, ref_v = wire_forward(params_from_jax(params), x[:cpu_rows])
+    got_l = full_l[:cpu_rows].float().cpu()
+    got_v = full_v[:cpu_rows].cpu()
+    scale = ref_l.float().abs().max().item()
+    tol_l = AZ_STEPS * bf16_step(torch, torch.tensor(scale)).item()
+    tol_v = AZ_STEPS * bf16_step(torch, ref_v.abs().clamp(min=1 / 16))
+    err_l = (got_l - ref_l.float()).abs().max().item()
+    err_v = (got_v - ref_v).abs()
+    same = (got_l == ref_l.float()).float().mean().item()
+    log(f"  forward, card vs the port's CPU forward ({cpu_rows} rows, "
+        f"{cfg}): logits max |err| {err_l} (largest |logit| {scale}, "
+        f"tolerance {tol_l}; {same:.4f} of them the same bits, at least "
+        f"{AZ_SAME_BITS}), values max |err| {err_v.max().item()} "
+        f"(largest |value| {ref_v.abs().max().item()}; tolerance "
+        f"{AZ_STEPS} bf16 steps of each)")
+    check(err_l <= tol_l and bool((err_v <= tol_v).all())
+          and same > AZ_SAME_BITS,
+          "the AZ forward on the card disagrees with the CPU forward")
+    check(bool(torch.isfinite(full_l.float()).all())
+          and bool((full_v.abs() <= 1).all()), "non-finite AZ outputs")
+    ladder = _bucket_ladder(AZ_CAP, CUDA_MIN_BUCKET)
+    buckets = {}
+    order = torch.from_numpy(np.random.default_rng(2).permutation(AZ_CAP)).to(dev)
+    for b in sorted(set([32, 64, 128] + ladder)):
+        l1, v1 = wire_forward(net, xd[:b].clone())
+        l2, v2 = wire_forward(net, xd[:b].clone())
+        # The plane compacts misses: rows from anywhere in the batch, in
+        # another order, must keep their bits too.
+        idx = order[:b]
+        lp, vp = wire_forward(net, xd[idx])
+        eq = (torch.equal(l1, full_l[:b]) and torch.equal(v1, full_v[:b])
+              and torch.equal(lp, full_l[idx]) and torch.equal(vp, full_v[idx]))
+        rep = torch.equal(l1, l2) and torch.equal(v1, v2)
+        diff = (l1.float() - full_l[:b].float()).abs().max().item()
+        xb = xd[:b].clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(3):
+            wire_forward(net, xb)
+        start.record()
+        for _ in range(20):
+            wire_forward(net, xb)
+        end.record()
+        end.synchronize()
+        eager = start.elapsed_time(end) / 20
+        device = graph_time_ms(torch, lambda: wire_forward(net, xb))
+        kernels = az_kernels_per_forward(torch, net, xb)
+        bnd = az_bound(cfg, b, params)
+        buckets[b] = {"in_ladder": b in ladder, "rows_equal_capacity": eq,
+                      "repeat_equal": rep, "max_diff_vs_capacity": diff,
+                      "eager_ms": eager, "device_ms": device,
+                      "kernels": kernels, **bnd}
+        log(f"  bucket {b:4d}{'' if b in ladder else ' (below the floor)'}: "
+            f"rows (the first {b}, and {b} permuted) == capacity's {eq} "
+            f"(max |diff| {diff}), repeat == first "
+            f"{rep}; forward {eager:.6f} ms eager, {device:.6f} ms device "
+            f"({kernels} kernels), bound {bnd['bound_ms']:.6f} ms "
+            f"({bnd['bound_by']}: {bnd['flops']} FLOP, {bnd['bytes']} B)")
+        check(rep, f"bucket {b}: a repeat forward gave other bits")
+        if b in ladder:
+            check(eq, f"bucket {b} of the ladder: rows differ from the "
+                      "capacity's (the plane's bit-identity rests on it)")
+    return {"cpu_max_abs_err": max(err_l, err_v.max().item()),
+            "logit_scale": scale, "logit_same_bits": same,
+            "buckets": buckets, "ladder": ladder}
+
+
+def az_pool_run(params, dev, searches: int, visits: int, seed: int,
+                env: Optional[dict] = None, rung=None) -> dict:
+    """``searches`` seeded roots at ``visits`` each through one MctsPool
+    (capacity AZ_CAP, default MctsConfig) over the shared plane on
+    ``dev`` (``rung`` forced, or the ladder's own), from a cold cache,
+    ``env`` set for the run. Returns the results, the pool's counters,
+    and the host's times: wall, per step the evaluate call (the plane:
+    probe, dispatch, wait, read-back) and the rest (collect and apply)."""
+    from fishnet_tpu_torch.models.az import AzConfig
+    from fishnet_tpu_torch.search.az_plane import AzDispatchPlane
+    from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool
+
+    fresh_cache()
+    cfg = MctsConfig(batch_capacity=AZ_CAP, az=AzConfig())
+    roots = random_lines(searches, seed)
+    with env_vars(**(env or {})):
+        plane = (AzDispatchPlane(params, cfg, device=dev, force_rung=rung)
+                 if rung is not None else None)
+        pool = MctsPool(params, cfg, evaluator=plane, device=dev)
+        try:
+            pool.warmup()
+            ev = pool._evaluator
+            real = ev.evaluate
+            spent = [0.0]
+
+            def timed(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    spent[0] += time.perf_counter() - t
+
+            ev.evaluate = timed
+            t0 = time.perf_counter()
+            sids = [pool.submit(STARTPOS, line, visits) for line in roots]
+            steps = 0
+            while pool.active() > 0:
+                pool.step()
+                steps += 1
+            wall = time.perf_counter() - t0
+            results = []
+            for sid in sids:
+                r = pool.harvest(sid)
+                results.append((r.best_move, r.visits, r.value,
+                                tuple(r.root_visits), tuple(r.pv)))
+            counters = pool.counters()
+        finally:
+            pool.close()
+            if plane is not None:
+                plane.close()
+    return {"results": results, "counters": counters, "wall_s": wall,
+            "steps": steps, "visits_per_s": counters["visits"] / wall,
+            "host_ms_step": (wall - spent[0]) / steps * 1e3,
+            "eval_ms_step": spent[0] / steps * 1e3}
+
+
+def az_parity(params, dev) -> dict:
+    """Check 3: plane == the private evaluator on the default ladder and
+    each forced rung (cache and speculation on, as by default), a warm
+    replay (the same cache, a fresh pool and plane) == cold with pre-wire
+    hits, and speculation off == on."""
+    searches, visits = AZ_PARITY
+    hatch = az_pool_run(params, dev, searches, visits, seed=31,
+                        env={"FISHNET_NO_SHARED_AZ_PLANE": "1"})
+    check("dispatch" not in hatch["counters"], "the hatch used the plane")
+    runs = {"hatch": hatch}
+    for rung in (None, 0, 1, 2):
+        run = az_pool_run(params, dev, searches, visits, seed=31, rung=rung)
+        d = run["counters"]["dispatch"]
+        name = f"rung {rung if rung is not None else 'default'}"
+        log(f"  {name}: == hatch {run['results'] == hatch['results']}; "
+            f"{d['dispatches']} dispatches, {d['forwards']} forwards "
+            f"{d['bucket_forwards']}, {d['spec_rows']} speculative rows, "
+            f"{d['prewire_hits']} pre-wire hits")
+        check(run["results"] == hatch["results"],
+              f"{name}: the plane's trees differ from the hatch's")
+        runs[name] = run
+    check(runs["rung default"]["counters"]["dispatch"]["spec_rows"] > 0,
+          "no speculative pad row in the default parity run")
+    # Warm replay: a fresh pool and plane on the cache the cold run left.
+    from fishnet_tpu_torch.models.az import AzConfig
+    from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool
+
+    cold = az_pool_run(params, dev, searches, visits, seed=31)
+    cfg = MctsConfig(batch_capacity=AZ_CAP, az=AzConfig())
+    pool = MctsPool(params, cfg, device=dev)
+    try:
+        sids = [pool.submit(STARTPOS, line, visits)
+                for line in random_lines(searches, 31)]
+        while pool.active() > 0:
+            pool.step()
+        warm = [(r.best_move, r.visits, r.value, tuple(r.root_visits),
+                 tuple(r.pv)) for r in map(pool.harvest, sids)]
+        warm_c = pool.counters()["dispatch"]
+    finally:
+        pool.close()
+    log(f"  warm replay: == cold {warm == cold['results']}; pre-wire hits "
+        f"{warm_c['prewire_hits']}, skipped dispatches "
+        f"{warm_c['skipped_dispatches']}, rows dispatched "
+        f"{warm_c['rows_dispatched']} (cold "
+        f"{cold['counters']['dispatch']['rows_dispatched']})")
+    check(warm == cold["results"], "the warm replay's trees differ from cold")
+    check(warm_c["prewire_hits"] > 0, "the warm replay had no pre-wire hit")
+    off = az_pool_run(params, dev, searches, visits, seed=31,
+                      env={"FISHNET_NO_SPECULATION": "1"})
+    log(f"  speculation off: == on {off['results'] == cold['results']}, "
+        f"{off['counters']['dispatch']['spec_rows']} speculative rows")
+    check(off["results"] == cold["results"]
+          and off["counters"]["dispatch"]["spec_rows"] == 0,
+          "speculation changed the trees, or ran with the hatch set")
+    return {"warm_prewire_hits": warm_c["prewire_hits"],
+            "spec_rows": cold["counters"]["dispatch"]["spec_rows"]}
+
+
+def drive_in_lockstep(pools, lines, visits):
+    """Each pool on its own thread over its own roots (move lists from
+    the start position), their evaluator calls met at a barrier (so
+    every lane's microbatch reaches the plane together) until the first
+    pool finishes. Returns each pool's results."""
+    barrier = threading.Barrier(len(pools))
+    for pool in pools:
+        ev = pool._evaluator
+        real = ev.evaluate
+
+        def evaluate(*a, _real=real, **k):
+            try:
+                barrier.wait(timeout=120)
+            except threading.BrokenBarrierError:
+                pass
+            return _real(*a, **k)
+
+        ev.evaluate = evaluate
+    out, errors = [None] * len(pools), []
+
+    def drive(i):
+        pool = pools[i]
+        try:
+            sids = [pool.submit(STARTPOS, line, visits) for line in lines[i]]
+            while pool.active() > 0:
+                pool.step()
+            out[i] = [(r.best_move, r.visits, r.value, tuple(r.root_visits),
+                       tuple(r.pv)) for r in map(pool.harvest, sids)]
+        except BaseException as err:  # noqa: BLE001 - raised below
+            errors.append(err)
+        finally:
+            barrier.abort()  # the other pools step on alone
+
+    threads = [threading.Thread(target=drive, args=(i,))
+               for i in range(len(pools))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def az_two_lanes(params, dev) -> dict:
+    """Check 3, fused: the parity roots split between two pools, each on
+    its own driver thread and lane of ONE plane (width 2, lingering for
+    the sibling lane), on each forced rung; each pool's trees == the
+    private evaluator's for its half, and the plane fused lanes."""
+    from fishnet_tpu_torch.models.az import AzConfig
+    from fishnet_tpu_torch.search.az_plane import AZ_RUNGS, AzDispatchPlane
+    from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool
+
+    searches, visits = AZ_PARITY
+    roots = random_lines(searches, 31)
+    halves = [roots[:searches // 2], roots[searches // 2:]]
+    cfg = MctsConfig(batch_capacity=AZ_CAP, az=AzConfig())
+    hatch = []
+    with env_vars(FISHNET_NO_SHARED_AZ_PLANE="1"):
+        for half in halves:
+            fresh_cache()
+            pool = MctsPool(params, cfg, device=dev)
+            try:
+                hatch.extend(drive_in_lockstep([pool], [half], visits))
+            finally:
+                pool.close()
+    out = {}
+    for rung in (0, 1, 2):
+        fresh_cache()
+        plane = AzDispatchPlane(params, cfg, device=dev, coalesce_width=2,
+                                force_rung=rung)
+        pools = [MctsPool(params, cfg, evaluator=plane, device=dev)
+                 for _ in halves]
+        try:
+            got = drive_in_lockstep(pools, halves, visits)
+            d = plane.counters()
+        finally:
+            for pool in pools:
+                pool.close()
+            plane.close()
+        log(f"  two pools on one plane, rung {rung}: == hatch "
+            f"{got == hatch}; {d['dispatches']} dispatches, "
+            f"{d['fused_dispatches']} fused, {d['forwards']} forwards "
+            f"{d['bucket_forwards']}")
+        check(got == hatch, f"two lanes, rung {rung}: a pool's trees differ "
+                            "from the hatch's")
+        check(d["fused_dispatches"] > 0 and d["rung"] == AZ_RUNGS[rung],
+              f"two lanes, rung {rung}: no fused dispatch ({d})")
+        out[rung] = {k: d[k] for k in ("dispatches", "fused_dispatches",
+                                       "forwards")}
+    return out
+
+
+def az_burst(params, dev) -> list:
+    """Check and numbers 4: the burst with the cache off (A) and on (B),
+    in the order A, B, B, A; all four give the same trees (the cache is
+    exact) and one forward per dispatch on the fused rung."""
+    searches, visits = AZ_BURST
+    runs, first = [], None
+    for label in ("A", "B", "B", "A"):
+        env = {"FISHNET_NO_EVAL_CACHE": "1" if label == "A" else None}
+        run = az_pool_run(params, dev, searches, visits, seed=41, env=env)
+        c, d = run["counters"], run["counters"]["dispatch"]
+        first = first or run["results"]
+        check(run["results"] == first, f"burst {label}: the trees differ "
+                                       "from the first run's")
+        check(d["forwards"] == d["dispatches"] and d["rung"] == "fused",
+              f"burst {label}: {d['forwards']} forwards for "
+              f"{d['dispatches']} dispatches on rung {d['rung']}")
+        row = {"cache": label == "B", "visits": c["visits"],
+               "wall_s": run["wall_s"], "visits_per_s": run["visits_per_s"],
+               "steps": run["steps"], "dispatches": d["dispatches"],
+               "fused_dispatches": d["fused_dispatches"],
+               "records_per_dispatch": (run["steps"] - d["skipped_dispatches"])
+               / max(1, d["dispatches"]),
+               "rows_over_slots": d["dispatch_fill"],
+               "bucket_forwards": d["bucket_forwards"],
+               "prewire_hits": d["prewire_hits"],
+               "skipped_dispatches": d["skipped_dispatches"],
+               "spec_rows": d["spec_rows"], "memo_hits": c["memo_hits"],
+               "collisions": c["collisions"],
+               "host_ms_step": run["host_ms_step"],
+               "eval_ms_step": run["eval_ms_step"]}
+        log(f"  burst {label} (cache {'on' if row['cache'] else 'off'}): "
+            f"{c['visits']} visits in {run['wall_s']:.3f} s = "
+            f"{run['visits_per_s']:.1f} visits/s; {run['steps']} steps, "
+            f"{d['dispatches']} dispatches ({d['fused_dispatches']} fused), "
+            f"{row['records_per_dispatch']:.3f} records a dispatch, rows over "
+            f"slots {d['dispatch_fill']:.4f}, forwards by bucket "
+            f"{d['bucket_forwards']}; pre-wire hits {d['prewire_hits']} "
+            f"({d['skipped_dispatches']} dispatches skipped), speculative "
+            f"rows {d['spec_rows']}, memo hits {c['memo_hits']}; per step: "
+            f"host {run['host_ms_step']:.3f} ms (collect and apply), "
+            f"evaluate {run['eval_ms_step']:.3f} ms")
+        runs.append(row)
+    return runs
+
+
+def az_run_workload(dev) -> dict:
+    """Check 5: ``python -m fishnet_tpu_torch run --engine az-mcts``'s
+    path in process — the engine factory the CLI builds (dev-mode net,
+    microbatch 1024, on the card) and the port's Client — against the
+    stdlib fake lichess: 4 games of 40 plies at 200 visits a position
+    (nodes = visits x 1024, the engine's scale), a move job with a
+    clock, and a variant game that must go to the scalar tier. The
+    FT-gather kernel must not launch (no NNUE work on the card)."""
+    from fishnet_tpu_torch.__main__ import build_engine_factory
+    from fishnet_tpu_torch.client import Client
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.engine.az_engine import NODES_PER_VISIT
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    fresh_cache()
+    logger = Logger(verbose=0)
+    opt = parse_and_configure(["run", "--no-conf", "--no-stats-file",
+                               "--engine", "az-mcts", "--microbatch",
+                               str(AZ_CAP)])
+    factory = build_engine_factory(opt, logger)
+    service = factory.service
+    with FakeServer() as server:
+        lichess = server.lichess
+        analysis_ids, move_ids = add_run_jobs(
+            lichess, 4, 1, seed=43, nodes=200 * NODES_PER_VISIT)
+        variant = lichess.add_analysis_job(moves="e2e4 e7e5 g1f3",
+                                           variant="kingofthehill", nodes=2000)
+        client = Client(endpoint=server.endpoint, key=VALID_KEY,
+                        cores=opt.resolved_cores(), engine_factory=factory,
+                        logger=logger, max_backoff=1.0,
+                        workers=opt.resolved_workers())
+        try:
+            # One search waits out the driver thread's warm-up (every
+            # bucket's shape once), as the first job would.
+            asyncio.run(service.search(STARTPOS, [], 8))
+            ft_gather.ft_accumulate_packed_cuda.launches = 0
+            ft_gather.ft_accumulate_cuda.launches = 0
+            c0 = service.pool_counters()
+            t0 = time.perf_counter()
+            asyncio.run(drive_client(client, lichess,
+                                     analysis_ids + move_ids + [variant], 600))
+            wall = time.perf_counter() - t0
+            c1 = service.pool_counters()
+            fallback = factory.variant_fallback.service.counters()
+            launches = (ft_gather.ft_accumulate_packed_cuda.launches
+                        + ft_gather.ft_accumulate_cuda.launches)
+        finally:
+            factory.close()
+    report = run_report(lichess, analysis_ids, move_ids, "az run")
+    check(lichess.analyses[variant]["stockfish"]["flavor"] == "classical",
+          "the variant job did not go to the scalar tier")
+    check(fallback["eval_steps"] == 0 and launches == 0,
+          f"the az run touched the NNUE device path ({launches} launches)")
+    visits = c1["visits"] - c0["visits"]
+    d0, d1 = c0["dispatch"], c1["dispatch"]
+    report.update(visits=visits, visits_per_s=visits / wall,
+                  dispatches=d1["dispatches"] - d0["dispatches"],
+                  forwards=d1["forwards"] - d0["forwards"],
+                  prewire_hits=d1["prewire_hits"] - d0["prewire_hits"])
+    log(f"  az run: {visits} visits in {wall:.3f} s = "
+        f"{visits / wall:.1f} visits/s; {report['dispatches']} dispatches, "
+        f"{report['forwards']} forwards, {report['prewire_hits']} pre-wire "
+        f"hits; the variant game on the scalar tier, no NNUE launch")
+    check(report["forwards"] == report["dispatches"] > 0,
+          "az run: forwards != dispatches")
+    return report
+
+
+def phase_az(torch, dev) -> dict:
+    """The az phase: checks 1-5 of the AZ family on the card."""
+    params = az_params()
+    t0 = time.perf_counter()
+    forward = az_forward_checks(torch, params, dev)
+    log(f"  [az] forward checks in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parity = az_parity(params, dev)
+    log(f"  [az] parity in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lanes = az_two_lanes(params, dev)
+    log(f"  [az] two lanes in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    burst = az_burst(params, dev)
+    log(f"  [az] burst in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run = az_run_workload(dev)
+    log(f"  [az] run in {time.perf_counter() - t0:.1f} s")
+    return {"forward": forward, "parity": parity, "lanes": lanes,
+            "burst": burst,
+            "run": {k: v for k, v in run.items() if k != "move_s"}}
 
 
 def phase_fen() -> None:
@@ -3261,14 +3817,20 @@ def client_parity(weights, dev, games: int, plies: int, depth: int,
         "native scalar service on (score, best move, depth) per ply")
 
 
+#: The ``run`` phase's nodes a position: at 3000, its 16 games (640
+#: positions over 224 workers) overran the client's engine budget on a
+#: slow host (73 engine timeouts; PERF.md, PR 7).
+RUN_NODES = 1500
+
+
 def run_workload(what: str, env: Optional[dict] = None, games: int = 16,
-                 moves: int = 4) -> dict:
+                 moves: int = 4, nodes: int = 3000) -> dict:
     """The ``run`` phase's workload through the entry points a user
     calls: the port's ``Client`` over the ``tpu-nnue`` engine factory
     that ``python -m fishnet_tpu_torch run`` builds (microbatch 1024,
     pipeline 2, one driver thread per core, the supervisor's ladder),
-    against the stdlib fake lichess with ``games`` analysis games and
-    ``moves`` move jobs, from a cold eval cache (``env`` set while the
+    against the stdlib fake lichess with ``games`` analysis games at
+    ``nodes`` a position and ``moves`` move jobs, from a cold eval cache (``env`` set while the
     service is built), at the user's engine budget (60 s a position).
     The packed kernel's launch counts are zeroed after the service's
     warm-up and read after the run: one launch per device dispatch, no
@@ -3291,7 +3853,8 @@ def run_workload(what: str, env: Optional[dict] = None, games: int = 16,
     supervisor = factory.supervisor
     with FakeServer() as server:
         lichess = server.lichess
-        analysis_ids, move_ids = add_run_jobs(lichess, games, moves, seed=23)
+        analysis_ids, move_ids = add_run_jobs(lichess, games, moves, seed=23,
+                                              nodes=nodes)
         client = Client(endpoint=server.endpoint, key=VALID_KEY,
                         cores=opt.resolved_cores(), engine_factory=factory,
                         logger=logger, max_backoff=1.0,
@@ -3359,7 +3922,7 @@ def phase_run(weights, dev):
     ply."""
     from fishnet_tpu_torch.configure import parse_and_configure
 
-    report = run_workload("run")
+    report = run_workload("run", nodes=RUN_NODES)
     threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
     client_parity(weights, dev, games=3, plies=10, depth=4, threads=threads)
     return report
@@ -3634,6 +4197,11 @@ def main() -> int:
                 "library_ms": top["library_ms"],
                 "mode": "dense, in-batch parents (the split host's)",
                 "split": facts})
+    if "az" in phases:
+        log("[az] the AZ/MCTS family: the policy+value tower on the card, "
+            "batched PUCT MCTS over the shared AZ dispatch plane, the AZ "
+            "eval cache and run --engine az-mcts")
+        print(json.dumps({"az": phase_az(torch, dev)}), flush=True)
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

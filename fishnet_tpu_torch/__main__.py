@@ -6,8 +6,9 @@ The port of the JAX package's ``run`` and ``uci`` commands
 * ``run`` (the default command) is the fishnet client: the API actor,
   the queue actor and the worker pull loops over the ``tpu-nnue``
   engine, whose one shared SearchService evaluates on the GPU (or, with
-  ``--device cpu``, on the CPU). First SIGINT drains, a second aborts;
-  SIGTERM drains with a deadline.
+  ``--device cpu``, on the CPU), or over ``--engine az-mcts``: batched
+  PUCT MCTS whose policy+value net runs on the same device. First
+  SIGINT drains, a second aborts; SIGTERM drains with a deadline.
 * ``uci`` serves the batched NNUE search over UCI on stdin/stdout
   (logging goes to stderr: stdout belongs to the protocol).
 
@@ -94,8 +95,10 @@ def build_search_service(opt: Opt, logger: Logger, psqt_path=None):
     return service
 
 
-def build_engine_factory(opt: Opt, logger: Logger) -> EngineFactory:
-    """Select the backend behind the engine seam."""
+def build_engine_factory(opt: Opt, logger: Logger,
+                         az_net=None) -> EngineFactory:
+    """Select the backend behind the engine seam (``az_net``: the AZ net
+    :func:`load_az_net` already loaded, for ``az-mcts``)."""
     engine = opt.resolved_engine()
     if engine == "tpu-nnue":
         from fishnet_tpu_torch.device import resolve_device
@@ -126,11 +129,75 @@ def build_engine_factory(opt: Opt, logger: Logger) -> EngineFactory:
         factory = TpuNnueEngineFactory(service_builder=supervisor.build)
         factory.supervisor = supervisor
         return factory
+    if engine == "az-mcts":
+        return build_az_factory(opt, logger, az_net)
     if engine == "mock":
         from fishnet_tpu_torch.engine.mock import MockEngineFactory
 
         return MockEngineFactory()
     raise ConfigError(f"unknown engine backend: {engine!r}")
+
+
+def load_az_net(opt: Opt, logger: Logger):
+    """The AZ net, loaded once for the engine and the snapshot: (params,
+    AzConfig, fingerprint). From --az-net-file, its AzConfig read from
+    the shapes (a missing, corrupt or non-AZ file is a ConfigError) and
+    its fingerprint keying the snapshot's AZ section; else dev-mode
+    random weights from the port's own seed (0), fingerprint 0, as the
+    JAX CLI keys them."""
+    from fishnet_tpu_torch.models.az import (
+        AzConfig,
+        az_config_from_params,
+        init_az_params,
+        load_az_params,
+    )
+    from fishnet_tpu_torch.search.eval_cache import az_net_fingerprint
+
+    if opt.az_net_file:
+        import zipfile
+
+        try:
+            params = load_az_params(opt.az_net_file)
+            return (params, az_config_from_params(params),
+                    az_net_fingerprint(params))
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile) as err:
+            raise ConfigError(f"--az-net-file {opt.az_net_file}: {err}") from err
+    logger.warn("No --az-net-file given; using random policy+value net (dev mode).")
+    return init_az_params(0, AzConfig()), AzConfig(), 0
+
+
+def build_az_factory(opt: Opt, logger: Logger, az_net=None) -> EngineFactory:
+    """The az-mcts engine over ``az_net`` (:func:`load_az_net`'s result,
+    loaded here when None): an AzMctsService on the device (its driver
+    thread warms the plane up), variant work routed to the native
+    alpha-beta tier on the host (the scalar backend: no device traffic),
+    as the JAX package routes it."""
+    from fishnet_tpu_torch.device import resolve_device
+    from fishnet_tpu_torch.engine.az_engine import (
+        AzMctsEngineFactory,
+        AzMctsService,
+    )
+    from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.search.mcts import MctsConfig
+    from fishnet_tpu_torch.search.service import SearchService
+
+    device = resolve_device(opt.resolved_device())
+    params, az_cfg, _fp = az_net or load_az_net(opt, logger)
+    cfg = MctsConfig(batch_capacity=opt.resolved_microbatch(), az=az_cfg)
+    logger.info(f"az-mcts: {az_cfg} on {device}, microbatch "
+                f"{cfg.batch_capacity}.")
+    service = AzMctsService(params, cfg, device=device)
+    try:
+        fallback = SearchService(
+            weights=NnueWeights.random(seed=0), backend="scalar",
+            pool_slots=64, batch_capacity=64,
+        )
+    except BaseException:
+        service.close()
+        raise
+    return AzMctsEngineFactory(
+        service, variant_fallback=TpuNnueEngineFactory(fallback))
 
 
 def _run_counts(factory: EngineFactory) -> tuple:
@@ -139,7 +206,8 @@ def _run_counts(factory: EngineFactory) -> tuple:
     from fishnet_tpu_torch.ops import ft_gather
 
     service = getattr(factory, "service", None)
-    counters = service.counters() if service is not None else {}
+    counters = (service.counters()
+                if hasattr(service, "counters") else {})
     return (counters.get("eval_steps", 0), counters.get("dispatches", 0),
             ft_gather.ft_accumulate_packed_cuda.launches,
             ft_gather.ft_accumulate_cuda.launches)
@@ -151,6 +219,8 @@ def _teardown_counters(factory: EngineFactory, since: tuple) -> str:
     kernel's launches since ``since`` (the counts after the warm-up),
     for the teardown log at -v."""
     service = getattr(factory, "service", None)
+    if hasattr(service, "pool_counters"):
+        return f"az-mcts pool counters: {service.pool_counters()}"
     counters = service.counters() if service is not None else {}
     supervisor = getattr(factory, "supervisor", None)
     steps, dispatches, packed, dense = (
@@ -175,16 +245,26 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         no_stats_file=opt.no_stats_file,
     )
     # Warm-restart snapshot (FISHNET_EVAL_CACHE_SNAPSHOT): reload the
-    # previous process's eval cache, keyed by the net file's
-    # fingerprint (0 for dev-mode random weights), so the first batches
-    # resolve before the wire; a mismatch discards the file.
+    # previous process's eval caches, keyed by the net file's
+    # fingerprint (0 for dev-mode random weights) and the AZ net's, so
+    # the first batches resolve before the wire; an NNUE mismatch
+    # discards the file, an AZ mismatch skips the AZ section.
     net_fp = eval_cache.net_fingerprint(opt.nnue_file) if opt.nnue_file else 0
+    # The AZ net loads once, here: its fingerprint keys the snapshot's
+    # AZ section (0 in dev mode, and for engines that run no AZ net).
+    az_net = (load_az_net(opt, logger)
+              if opt.resolved_engine() == "az-mcts" else None)
+    az_fp = az_net[2] if az_net is not None else 0
     if eval_cache.snapshot_path() is not None and eval_cache.load_snapshot(
-            fingerprint=net_fp):
+            fingerprint=net_fp, az_fingerprint=az_fp):
         cache = eval_cache.get_cache()
+        az_cache = eval_cache.get_az_cache()
         logger.info(f"Restored {len(cache) if cache is not None else 0} "
                     "eval-cache entries from snapshot.")
-    engine_factory = build_engine_factory(opt, logger)
+        if az_cache is not None and len(az_cache):
+            logger.info(f"Restored {len(az_cache)} AZ eval-cache entries "
+                        "from snapshot.")
+    engine_factory = build_engine_factory(opt, logger, az_net)
     client = Client(
         endpoint=opt.resolved_endpoint(),
         key=opt.key,
@@ -198,7 +278,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         batch_deadline=opt.batch_deadline,
     )
     if opt.resolved_workers() != opt.resolved_cores():
-        shared = opt.resolved_engine() == "tpu-nnue"
+        shared = opt.resolved_engine() in ("tpu-nnue", "az-mcts")
         what = ("over the shared device service" if shared
                 else "(one engine instance per worker)")
         logger.info(
@@ -283,7 +363,8 @@ async def run_client(opt: Opt, logger: Logger) -> None:
             # so it holds the final working set; before the engine
             # closes.
             if eval_cache.snapshot_path() is not None:
-                eval_cache.save_snapshot(fingerprint=net_fp)
+                eval_cache.save_snapshot(fingerprint=net_fp,
+                                         az_fingerprint=az_fp)
     finally:
         if opt.verbose:
             logger.debug(_teardown_counters(engine_factory, warm))

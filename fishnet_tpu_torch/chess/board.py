@@ -124,6 +124,12 @@ class Board:
     def is_check(self) -> bool:
         return bool(self._lib.fc_pos_is_check(self._pos))
 
+    def halfmove_clock(self) -> int:
+        return self._lib.fc_pos_halfmove(self._pos)
+
+    def fullmove_number(self) -> int:
+        return self._lib.fc_pos_fullmove(self._pos)
+
     def zobrist_hash(self) -> int:
         return self._lib.fc_pos_hash(self._pos)
 

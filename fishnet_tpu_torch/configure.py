@@ -28,7 +28,7 @@ DEFAULT_ENDPOINT = "https://lichess.org/fishnet"
 INI_SECTION = "Fishnet"
 
 COMMANDS = ("run", "uci")
-ENGINE_BACKENDS = ("tpu-nnue", "mock")
+ENGINE_BACKENDS = ("tpu-nnue", "az-mcts", "mock")
 DEVICES = ("cuda", "cpu")
 
 
@@ -158,6 +158,8 @@ class Opt:
     no_stats_file: bool = False
     engine: Optional[str] = None
     nnue_file: Optional[str] = None
+    #: Policy+value net checkpoint (.npz) for --engine az-mcts.
+    az_net_file: Optional[str] = None
     microbatch: Optional[int] = None
     pipeline: Optional[int] = None
     #: Scheduler threads driving the shared search pool (the host
@@ -165,9 +167,9 @@ class Opt:
     #: the dispatch coalescer fuses their groups' steps into few device
     #: dispatches.
     search_threads: Optional[int] = None
-    #: Worker (pull-loop) count. None = auto: the batched device engine
-    #: (tpu-nnue) runs many pull loops per core over one shared service;
-    #: the mock engine keeps the reference's one worker per core.
+    #: Worker (pull-loop) count. None = auto: the batched device engines
+    #: (tpu-nnue, az-mcts) run many pull loops per core over one shared
+    #: service; the mock engine keeps the reference's one worker per core.
     search_concurrency: Optional[int] = None
     #: Per-batch deadline budget in seconds (None = no deadline).
     batch_deadline: Optional[float] = None
@@ -207,7 +209,7 @@ class Opt:
     def resolved_workers(self) -> int:
         if self.search_concurrency is not None:
             return self.search_concurrency
-        if self.resolved_engine() == "tpu-nnue":
+        if self.resolved_engine() in ("tpu-nnue", "az-mcts"):
             return min(256, 32 * self.resolved_cores())
         return self.resolved_cores()
 
@@ -241,8 +243,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats-file", help="File for local statistics (default: ~/.fishnet-tpu-stats).")
     p.add_argument("--no-stats-file", action="store_true", help="Do not record local statistics.")
     p.add_argument("--engine", choices=ENGINE_BACKENDS, default=None,
-                   help="Engine backend: tpu-nnue (default; batched GPU evaluator) or mock.")
+                   help="Engine backend: tpu-nnue (default; batched GPU "
+                        "evaluator), az-mcts (batched PUCT MCTS over a "
+                        "policy+value net on the GPU) or mock.")
     p.add_argument("--nnue-file", help="Path to HalfKAv2_hm .nnue weights (default: random, seed 0).")
+    p.add_argument("--az-net-file", default=None,
+                   help="Policy+value net checkpoint (.npz) for --engine "
+                        "az-mcts (default: random, seed 0).")
     p.add_argument("--microbatch", type=int, default=None, help="Eval microbatch size (default 1024).")
     p.add_argument("--pipeline", type=int, default=None,
                    help="In-flight device batches per driver thread (default 2).")
@@ -251,8 +258,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: one per core).")
     p.add_argument("--search-concurrency", type=int, default=None,
                    help="Concurrent position analyses (worker pull loops). "
-                        "Default: 32 per core (at most 256) for tpu-nnue, "
-                        "1 per core for mock.")
+                        "Default: 32 per core (at most 256) for tpu-nnue "
+                        "and az-mcts, 1 per core for mock.")
     p.add_argument("--batch-deadline", default=None,
                    help="Per-batch deadline budget (duration, e.g. 120s): "
                         "batches older than this are flushed as partial "
@@ -267,7 +274,8 @@ def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
     opt = Opt(command=ns.command, verbose=ns.verbose, conf=ns.conf,
               no_conf=ns.no_conf, no_stats_file=ns.no_stats_file,
               stats_file=ns.stats_file, nnue_file=ns.nnue_file,
-              engine=ns.engine, device=ns.device)
+              engine=ns.engine, device=ns.device,
+              az_net_file=ns.az_net_file)
     if ns.conf and ns.no_conf:
         raise ConfigError("--conf conflicts with --no-conf")
     if ns.stats_file and ns.no_stats_file:
@@ -312,6 +320,7 @@ _INI_FIELDS = (
     ("MaxBackoff", "max_backoff", parse_duration),
     ("Engine", "engine", lambda v: _choice(v, "engine backend", ENGINE_BACKENDS)),
     ("NnueFile", "nnue_file", str),
+    ("AzNetFile", "az_net_file", str),
     ("SearchThreads", "search_threads", lambda v: _positive_int(v, "SearchThreads")),
     ("SearchConcurrency", "search_concurrency",
      lambda v: _positive_int(v, "SearchConcurrency")),

@@ -7,7 +7,9 @@ be swapped. Engines here are:
 
 * ``mock``     — deterministic instant engine for tests;
 * ``tpu-nnue`` — the native C++ search core with leaf evaluations batched
-                 onto the GPU (the name is the JAX package's).
+                 onto the GPU (the name is the JAX package's);
+* ``az-mcts``  — batched PUCT MCTS over the AlphaZero-style policy+value
+                 net (engine/az_engine.py).
 """
 
 from __future__ import annotations

@@ -29,11 +29,18 @@ first (a generation advances at batch completion, see
 ``sched/queue.py``) — the JAX package's striped table, entry for
 entry.
 
+``AzEvalCache`` is the AZ family's twin (``search/az_plane.py``): object
+values (the fp16 policy row and the value a dispatch returned), keyed
+``az_position_key(zobrist, halfmove) ^ az_net_fingerprint(params)``. It
+stays a Python store: each entry is 9344 bytes of logits, so a few
+thousand of them are the working set and the interpreter's dict costs
+nothing beside them.
+
 Snapshots (``FISHNET_EVAL_CACHE_SNAPSHOT``) use the JAX package's
-``.npz`` format, so a file written by either package loads in the
-other. Left out against the JAX package: the AZ cache (a snapshot's AZ
-section is skipped on load and never written) and the registry
-collectors (the service reports through ``counters()``).
+``.npz`` format, AZ section included, so a file written by either
+package loads in the other. Left out against the JAX package: the
+registry collectors (the service and the plane report through
+``counters()``).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import os
 import threading
 import zipfile
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -105,6 +112,37 @@ def net_fingerprint(path: str) -> int:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return int.from_bytes(h.digest(), "little")
+
+
+def az_net_fingerprint(params) -> int:
+    """64-bit blake2b over an AZ parameter dict's raw array bytes: the
+    network-identity salt the AZ dispatch plane XORs into every AZ cache
+    key. The JAX package's serialisation exactly (ROADMAP C4): leaves in
+    ``jax.tree_util`` order, which for a dict is its sorted keys, each
+    prefixed by ``str(shape)`` and the numpy dtype's name, so one
+    ``.npz`` keys the same entries in both packages. It hashes the
+    JAX-layout numpy arrays, never a torch ``state_dict``."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(b"az-params/1")
+    for key in sorted(params):
+        arr = np.asarray(params[key])
+        h.update(str(arr.shape).encode())
+        h.update(str(arr.dtype).encode())
+        h.update(arr.tobytes())
+    return int.from_bytes(h.digest(), "little")
+
+
+#: Odd 64-bit multiplier (golden ratio) mixing the halfmove clock into an
+#: AZ position key: the AZ planes see the clock (plane 17), Zobrist does
+#: not, so two positions that differ only in clock must not alias.
+_HALFMOVE_MIX = 0x9E3779B97F4A7C15
+
+
+def az_position_key(zobrist: int, halfmove: int) -> int:
+    """The UNSALTED AZ cache key of one position: Zobrist hash mixed with
+    the halfmove clock. The dispatch plane XORs
+    :func:`az_net_fingerprint` on top before probing."""
+    return (zobrist ^ ((halfmove * _HALFMOVE_MIX) & _U64)) & _U64
 
 
 #: The native tables' source (built with the core's flags at first use).
@@ -378,11 +416,197 @@ class BoundsCache(EvalCache):
         return values, evals, depths, bounds, moves
 
 
+#: Default AZ-cache bound: an entry is a whole fp16 policy row (9344 B)
+#: and a value, so 4096 entries hold ~38 MB of logits.
+DEFAULT_AZ_CAPACITY = 1 << 12
+
+
+class AzEvalCache:
+    """Object-valued twin of :class:`EvalCache` for the AZ family: each
+    entry is ``(policy_logits float16 [4672], value float32)``, the exact
+    wire payload a device dispatch returns, so a hit reconstructs the
+    same float32 logits bit for bit (``.astype(np.float32)`` of the same
+    fp16 bits) and a warm replay equals a cold one.
+
+    The JAX package's striped store entry for entry, in Python: hashes
+    fall into stripes (one lock each) of at most ``capacity // stripes``
+    entries, and a full stripe evicts its oldest generations first. All
+    methods are thread-safe."""
+
+    def __init__(self, capacity: int = DEFAULT_AZ_CAPACITY,
+                 stripes: int = DEFAULT_STRIPES) -> None:
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        stripes = max(1, min(int(stripes), int(capacity)))
+        self._stripe_cap = max(1, (int(capacity) + stripes - 1) // stripes)
+        self._n_stripes = stripes
+        self._locks = [threading.Lock() for _ in range(stripes)]
+        self._stripes: List[Dict[int, Tuple[object, int]]] = [
+            {} for _ in range(stripes)
+        ]
+        self._meta_lock = threading.Lock()
+        self._generation = 0
+        self._hits = 0
+        self._misses = 0
+        self._insertions = 0
+        self._evictions = 0
+
+    def _stripe_of(self, h: int) -> int:
+        return ((h >> 48) ^ h) % self._n_stripes
+
+    def _evict_locked(self, s: int) -> None:
+        """Drop the oldest generation(s) from stripe ``s`` until it is
+        under its cap. The caller holds the stripe's lock."""
+        stripe = self._stripes[s]
+        dropped = 0
+        while len(stripe) >= self._stripe_cap and stripe:
+            oldest = min(g for (_, g) in stripe.values())
+            stale = [h for h, (_, g) in stripe.items() if g == oldest]
+            for h in stale:
+                del stripe[h]
+            dropped += len(stale)
+        if dropped:
+            with self._meta_lock:
+                self._evictions += dropped
+
+    def _store(self, h: int, value, gen: int) -> None:
+        s = self._stripe_of(h)
+        with self._locks[s]:
+            stripe = self._stripes[s]
+            if h not in stripe and len(stripe) >= self._stripe_cap:
+                self._evict_locked(s)
+            stripe[h] = (value, gen)
+
+    def insert(self, h: int, value) -> None:
+        self._store(int(h), value, self._generation)
+        with self._meta_lock:
+            self._insertions += 1
+
+    def contains(self, h: int) -> bool:
+        """Membership without hit/miss accounting or a generation
+        refresh (speculation admission)."""
+        h = int(h)
+        s = self._stripe_of(h)
+        with self._locks[s]:
+            return h in self._stripes[s]
+
+    def probe_many(self, keys) -> List[Optional[object]]:
+        """``out[i]`` is the cached value of ``keys[i]`` or None; hits
+        refresh the entry's generation."""
+        out: List[Optional[object]] = []
+        hits = 0
+        gen = self._generation
+        for k in keys:
+            h = int(k)
+            s = self._stripe_of(h)
+            with self._locks[s]:
+                ent = self._stripes[s].get(h)
+                if ent is not None:
+                    self._stripes[s][h] = (ent[0], gen)
+            out.append(None if ent is None else ent[0])
+            hits += ent is not None
+        with self._meta_lock:
+            self._hits += hits
+            self._misses += len(out) - hits
+        return out
+
+    def advance_generation(self) -> int:
+        with self._meta_lock:
+            self._generation += 1
+            return self._generation
+
+    def __len__(self) -> int:
+        total = 0
+        for s in range(self._n_stripes):
+            with self._locks[s]:
+                total += len(self._stripes[s])
+        return total
+
+    def stats(self) -> Dict[str, int]:
+        with self._meta_lock:
+            st = {"hits": self._hits, "misses": self._misses,
+                  "insertions": self._insertions,
+                  "evictions": self._evictions,
+                  "generation": self._generation}
+        st["entries"] = len(self)
+        return st
+
+    def clear(self) -> None:
+        """Drop all entries (stats and generation survive)."""
+        for s in range(self._n_stripes):
+            with self._locks[s]:
+                self._stripes[s].clear()
+
+    def dump_az_entries(
+        self,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """All entries as ``(hashes, logits_fp16 [n, P], values_f32,
+        generations)``; rows whose width differs from the first row's
+        are skipped (a snapshot holds one architecture)."""
+        hashes: List[int] = []
+        rows: List[np.ndarray] = []
+        values: List[float] = []
+        gens: List[int] = []
+        width: Optional[int] = None
+        for s in range(self._n_stripes):
+            with self._locks[s]:
+                items = list(self._stripes[s].items())
+            for h, (ent, g) in items:
+                lg, val = ent
+                lg = np.asarray(lg, dtype=np.float16).reshape(-1)
+                if width is None:
+                    width = len(lg)
+                elif len(lg) != width:
+                    continue
+                hashes.append(h)
+                rows.append(lg)
+                values.append(float(val))
+                gens.append(g)
+        logits = np.stack(rows) if rows else np.empty((0, 0), np.float16)
+        return (np.array(hashes, dtype=np.uint64),
+                logits.astype(np.float16, copy=False),
+                np.array(values, dtype=np.float32),
+                np.array(gens, dtype=np.int64))
+
+    def load_az_entries(self, hashes: np.ndarray, logits: np.ndarray,
+                        values: np.ndarray, gens: np.ndarray) -> int:
+        """Restore dumped entries, each as the exact ``(fp16 row,
+        float32 value)`` the plane inserts; the generation clock advances
+        to at least the newest restored generation."""
+        n = min(len(hashes), len(logits), len(values), len(gens))
+        top = 0
+        for i in range(n):
+            g = int(gens[i])
+            top = max(top, g)
+            self._store(int(hashes[i]), (np.array(logits[i], dtype=np.float16),
+                                         np.float32(values[i])), g)
+        with self._meta_lock:
+            self._generation = max(self._generation, top)
+        return n
+
+
 # -- process-wide singletons ------------------------------------------------
 
 _global_lock = threading.Lock()
 _global_cache: Optional[EvalCache] = None
 _global_bounds_cache: Optional[BoundsCache] = None
+_global_az_cache: Optional[AzEvalCache] = None
+
+
+def get_az_cache() -> Optional[AzEvalCache]:
+    """The process-wide AZ eval cache, or None when the shared
+    ``FISHNET_NO_EVAL_CACHE=1`` hatch is set. Created on first use;
+    capacity via ``FISHNET_AZ_EVAL_CACHE_CAPACITY``. Its own instance,
+    so AZ rows never evict NNUE's million-entry working set."""
+    if cache_disabled():
+        return None
+    global _global_az_cache
+    with _global_lock:
+        if _global_az_cache is None:
+            cap = int(os.environ.get(
+                "FISHNET_AZ_EVAL_CACHE_CAPACITY", DEFAULT_AZ_CAPACITY))
+            _global_az_cache = AzEvalCache(capacity=cap)
+        return _global_az_cache
 
 
 def get_bounds_cache() -> Optional[BoundsCache]:
@@ -416,32 +640,50 @@ def get_cache() -> Optional[EvalCache]:
 
 
 def reset_cache() -> None:
-    """Tear down the process caches, both: a cold start is a cold
-    start (tests, cold runs)."""
-    global _global_cache, _global_bounds_cache
+    """Tear down the process caches, all three families: a cold start
+    is a cold start (tests, cold runs)."""
+    global _global_cache, _global_bounds_cache, _global_az_cache
     with _global_lock:
         _global_cache = None
         _global_bounds_cache = None
+        _global_az_cache = None
 
 
 # -- warm-restart snapshot --------------------------------------------------
 
 
-def save_snapshot(path: Optional[str] = None,
-                  fingerprint: int = 0) -> Optional[str]:
-    """Persist the process cache to ``path`` (default: the
+def save_snapshot(path: Optional[str] = None, fingerprint: int = 0,
+                  az_fingerprint: int = 0) -> Optional[str]:
+    """Persist the process caches to ``path`` (default: the
     ``FISHNET_EVAL_CACHE_SNAPSHOT`` file; None with neither = no-op).
-    ``fingerprint`` is the serving net's identity
+    ``fingerprint`` is the serving NNUE's identity
     (:func:`net_fingerprint`; 0 for dev-mode random weights): a restart
     onto different weights must not read this snapshot's evals, so
-    :func:`load_snapshot` discards on mismatch. Atomic (tmp + rename):
-    a kill mid-write leaves the previous snapshot intact. Returns the
-    path written, or None."""
+    :func:`load_snapshot` discards on mismatch. The AZ cache rides the
+    same file under its own ``az_fingerprint``
+    (:func:`az_net_fingerprint`); either family may be empty. Atomic
+    (tmp + rename): a kill mid-write leaves the previous snapshot
+    intact. Returns the path written, or None."""
     path = path or snapshot_path()
     cache = _global_cache
-    if path is None or cache is None:
+    az_cache = _global_az_cache
+    if path is None or (cache is None and az_cache is None):
         return None
-    hashes, values, gens = cache.dump_entries()
+    if cache is not None:
+        hashes, values, gens = cache.dump_entries()
+        generation = cache.stats()["generation"]
+    else:
+        hashes = np.empty(0, np.uint64)
+        values = np.empty(0, np.int32)
+        gens = np.empty(0, np.int64)
+        generation = 0
+    arrays = {}
+    if az_cache is not None:
+        az_hashes, az_logits, az_values, az_gens = az_cache.dump_az_entries()
+        if len(az_hashes):
+            arrays = dict(az_fingerprint=np.uint64(az_fingerprint & _U64),
+                          az_hashes=az_hashes, az_logits=az_logits,
+                          az_values=az_values, az_gens=az_gens)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         parent = os.path.dirname(path)
@@ -454,10 +696,11 @@ def save_snapshot(path: Optional[str] = None,
                 f,
                 version=np.int64(SNAPSHOT_VERSION),
                 fingerprint=np.uint64(fingerprint & _U64),
-                generation=np.int64(cache.stats()["generation"]),
+                generation=np.int64(generation),
                 hashes=hashes,
                 values=values,
                 gens=gens,
+                **arrays,
             )
         os.replace(tmp, path)
     except OSError:
@@ -470,19 +713,23 @@ def save_snapshot(path: Optional[str] = None,
     return path
 
 
-def load_snapshot(path: Optional[str] = None, fingerprint: int = 0) -> bool:
-    """Restore a snapshot into the process cache. Returns True when
-    entries were restored. A version or fingerprint mismatch (or a
+def load_snapshot(path: Optional[str] = None, fingerprint: int = 0,
+                  az_fingerprint: int = 0) -> bool:
+    """Restore a snapshot into the process caches. Returns True when
+    entries were restored. A version or NNUE fingerprint mismatch (or a
     corrupt file) DISCARDS the snapshot — the file is removed so a
     process that upgraded its net does not retry it on every restart —
-    and returns False. An AZ section (written by the JAX package) is
-    skipped: the file and its NNUE entries stay."""
+    and returns False. The AZ section is checked against
+    ``az_fingerprint`` on its own: a mismatch skips just that section,
+    and a malformed one is dropped from the AZ cache and discards the
+    file."""
     path = path or snapshot_path()
     if path is None or not os.path.exists(path):
         return False
     cache = get_cache()
     if cache is None:
         return False
+    restored = False
     try:
         with np.load(path) as data:
             if int(data["version"]) != SNAPSHOT_VERSION or int(
@@ -490,12 +737,24 @@ def load_snapshot(path: Optional[str] = None, fingerprint: int = 0) -> bool:
             ) != (fingerprint & _U64):
                 raise ValueError("snapshot version/fingerprint mismatch")
             cache.load_entries(data["hashes"], data["values"], data["gens"])
+            restored = True
+            if "az_hashes" in data.files and int(
+                    data["az_fingerprint"]) == (az_fingerprint & _U64):
+                az_cache = get_az_cache()
+                if az_cache is not None:
+                    try:
+                        az_cache.load_az_entries(
+                            data["az_hashes"], data["az_logits"],
+                            data["az_values"], data["az_gens"])
+                    except (TypeError, ValueError, KeyError):
+                        az_cache.clear()
+                        raise
     except (OSError, ValueError, KeyError, zipfile.BadZipFile):
         try:
             os.remove(path)
         except OSError:
             pass
-        return False
+        return restored
     return True
 
 

@@ -37,7 +37,9 @@ import fishnet_tpu_torch
 
 names = [m.name for m in pkgutil.walk_packages(
     fishnet_tpu_torch.__path__, "fishnet_tpu_torch.")]
-assert "fishnet_tpu_torch.search.eval_cache" in names, names
+for name in ("search.eval_cache", "models.az", "models.az_encoding",
+             "search.mcts", "search.az_plane", "engine.az_engine"):
+    assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
@@ -134,11 +136,23 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_weights(w)
     assert resolve_device("cpu") == torch.device("cpu")
-    # `run` (and `uci`) without --device cpu refuse to start.
-    for command in ("run", "uci"):
-        assert main([command, "--no-conf", "--no-stats-file", "--endpoint",
-                     "http://127.0.0.1:9/fishnet"]) == 2
+    # `run` (and `uci`) without --device cpu refuse to start; so does
+    # `run --engine az-mcts`, and its service and plane.
+    for args in (["run"], ["uci"], ["run", "--engine", "az-mcts"]):
+        assert main(args + ["--no-conf", "--no-stats-file", "--endpoint",
+                            "http://127.0.0.1:9/fishnet"]) == 2
         assert "no CUDA device" in capsys.readouterr().err
+    from fishnet_tpu_torch.engine.az_engine import AzMctsService
+    from fishnet_tpu_torch.models.az import AzConfig, init_az_params
+    from fishnet_tpu_torch.search.az_plane import AzDispatchPlane
+    from fishnet_tpu_torch.search.mcts import MctsConfig
+
+    tiny = AzConfig(channels=16, blocks=2, value_hidden=16)
+    cfg = MctsConfig(batch_capacity=64, az=tiny)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AzMctsService(init_az_params(0, tiny), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AzDispatchPlane(init_az_params(0, tiny), cfg, device="cuda")
     # So does the split plane's evaluator host (its --device is cuda by
     # default): it exits 2 before it serves any link.
     from fishnet_tpu_torch.rpc import host as rpc_host
