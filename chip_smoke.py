@@ -22,9 +22,11 @@ mode against its plain version, the service with the cache off, cold
 and warm, position dedup, a snapshot restart and the bounds tier, then
 the burst and the ``run`` workload with the cache off and on; runs
 the split evaluator plane: an evaluator host process on the GPU serving
-search frontend processes over shared-memory rings; and runs the AZ/MCTS
+search frontend processes over shared-memory rings; runs the AZ/MCTS
 family: the policy+value tower on the card, batched PUCT MCTS over the
-shared AZ dispatch plane and ``run --engine az-mcts``.
+shared AZ dispatch plane and ``run --engine az-mcts``; and trains: teacher
+labels through the card's search, the NNUE and AZ trainers, self-play
+over the shared AZ plane and over an evaluator host, checkpoints.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
@@ -32,14 +34,15 @@ the UCI answers with the kernel's launch count, the scalar parity, the
 kernel's times, the coalescer's checks and the fused launch's times,
 the client runs' throughput and latencies, the cache phase's checks and
 numbers, the split phase's checks and numbers, the az phase's checks
-and numbers (and one JSON object ``{"az": {...}}``), then on the last
+and numbers (and one JSON object ``{"az": {...}}``), the train phase's
+(and ``{"train": {...}}``), then on the last
 three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split, az; default all ten) limits a run to some phases
+run, cli, cache, split, az, train; default all eleven) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -64,6 +67,21 @@ B, A, all the same trees); and the ``run`` path with ``--engine az-mcts`` (4 gam
 job, a variant game on the scalar tier). The AZ path reaches no
 hand kernel: the tower is PyTorch's convolutions and matmuls, as the
 JAX package leaves it to XLA.
+``train`` runs training at full width (last): 512 seeded
+playout positions labelled at 400 nodes through a gated SearchService on
+the card (one packed launch per dispatch) == the CPU plain service's
+batch bit for bit (computed in a child process beside the rest); the
+NNUE trainer at full spec (``NetConfig()``) and the AZ trainer at the
+default AzConfig, each with step 1 held against the CPU's from the same
+params, 20 steps with the loss falling, the step timed at B = 16384 and
+at 1024 rows with peak memory; the exported NNUE net served by the kernel
+bit for bit against its plain version (timed, with its bound and
+``embedding_bag``) and tracking the float forward; the exported AZ
+``.npz`` reloading to the same net; 16 self-play games over the shared
+plane; two frontend processes self-playing over ``RemoteAzPlane``s
+served by one host process (``--az-seed``) == the in-process plane,
+fused on the host, no frontend CUDA context; checkpoint round trips and
+resume at 5 == uninterrupted at 10, on the CPU and on the card.
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -102,7 +120,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
-          "cache", "split", "az")
+          "cache", "split", "az", "train")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1775,6 +1793,50 @@ def gated_searches(weights, dev, coalesce: bool):
     hatch = (dict(FISHNET_COALESCE_WIDTH="4", FISHNET_NO_COALESCE=None)
              if coalesce else dict(FISHNET_NO_COALESCE="1"))
     return gated_run(weights, dev, random_lines(8, seed=3), **hatch)
+
+
+def gated_service(weights, dev, **kwargs):
+    """A SearchService on ``dev`` with one driver thread that parks after
+    its warm-up until ``service.gate`` is set, its prefetch pinned to 0
+    (``kwargs``: the rest of its settings). Searched through
+    ``gated_labels``, its schedule is a function of the submission
+    sequence, so two such services (the card's and the CPU's) label the
+    same positions with the same bits."""
+    from fishnet_tpu_torch.search.service import SearchService
+
+    class Gated(SearchService):
+        def __init__(self, *args, **kw):
+            self.gate = threading.Event()
+            super().__init__(*args, **kw)
+
+        def warmup(self):
+            super().warmup()
+            self.gate.wait()
+
+    svc = Gated(weights=weights, device=dev, driver_threads=1, **kwargs)
+    svc.set_prefetch(0, adaptive=False)
+    return svc
+
+
+def gated_labels(service, positions, nodes: int) -> dict:
+    """``train.data.label_positions(service, positions, nodes)`` on a
+    ``gated_service``: the gate opens once every search is queued."""
+    from fishnet_tpu_torch.train.data import label_positions
+
+    async def go():
+        task = asyncio.ensure_future(label_positions(service, positions, nodes))
+        deadline = time.monotonic() + 120
+        while len(service._submissions[0]) < len(positions):
+            check(time.monotonic() < deadline and not task.done(),
+                  "labels: the searches were not all queued")
+            await asyncio.sleep(0.005)
+        service.gate.set()
+        return await task
+
+    try:
+        return asyncio.run(go())
+    finally:
+        service.gate.set()
 
 
 def phase_coalesce(torch, weights, params, dev) -> dict:
@@ -3595,6 +3657,795 @@ def phase_az(torch, dev) -> dict:
             "run": {k: v for k, v in run.items() if k != "move_s"}}
 
 
+#: The train phase (the NNUE and AZ trainers, labels, self-play, the
+#: split plane's AZ half, checkpoints) at full width.
+TRAIN_LABELS = (32, 60, 512, 400)  # playout games, plies, positions, nodes
+TRAIN_SERVICE = dict(pool_slots=512, batch_capacity=1024, pipeline_depth=2,
+                     tt_bytes=64 << 20)
+TRAIN_STEPS = 20
+#: nnue-pytorch's default --batch-size, and the CLI's AZ microbatch.
+TRAIN_NNUE_BATCH = 16384
+TRAIN_AZ_ROWS = 1024
+TRAIN_SELFPLAY = (16, 64, 40)  # games, visits, max plies
+TRAIN_SPLIT_SELFPLAY = (4, 32, 20)
+TRAIN_SPLIT_SEED = 5  # the host's --az-seed
+TRAIN_RESUME = (5, 10)  # checkpoint at step 5, compare at step 10
+#: The CPU's intra-op threads for the phase's CPU references.
+TRAIN_CPU_THREADS = 4
+#: Step 1 on the card against the CPU, from the same params and batch:
+#: the loss within 2**-7 of its magnitude (AZ, bf16) or rtol 1e-4 (NNUE,
+#: float32); each parameter's gradient within TRAIN_GRAD_TOL (AZ) or
+#: 1e-4 (NNUE) of its norm; the parameters after the step within rtol
+#: 2e-4, atol 2e-6 (the CPU tests' bound), except for at most
+#: TRAIN_OFF_SHARE of a parameter's entries: Adam's first update is
+#: lr x g / (|g| + eps), so an entry whose gradient is rounding noise
+#: (another sign, or |g| near eps) moves by up to 2 x lr.
+TRAIN_GRAD_TOL = 0.05
+TRAIN_OFF_SHARE = 0.05
+
+
+def train_synthetic_nnue(rows: int, seed: int) -> dict:
+    """A seeded full-spec NNUE batch: 20-32 live features a perspective."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec
+
+    rng = np.random.default_rng(seed)
+    idx = np.full((rows, 2, 32), spec.NUM_FEATURES, np.int32)
+    live = rng.integers(20, 33, rows)
+    feats = rng.integers(0, spec.NUM_FEATURES, (rows, 2, 32), dtype=np.int32)
+    mask = np.broadcast_to(np.arange(32)[None, None, :] < live[:, None, None],
+                           idx.shape)
+    idx[mask] = feats[mask]
+    return {"indices": idx,
+            "buckets": rng.integers(0, 8, rows).astype(np.int32),
+            "score_cp": rng.normal(0, 300, rows).astype(np.float32),
+            "outcome": rng.choice([0.0, 0.5, 1.0], rows).astype(np.float32)}
+
+
+def train_synthetic_az(rows: int, seed: int) -> dict:
+    """A seeded AZ batch: 0/1 planes (clock plane in [0, 1]), visit
+    targets on 8 moves a row, values in [-1, 1]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(0, 2, (rows, 8, 8, 19)).astype(np.float32)
+    planes[..., 17] = rng.integers(0, 101, (rows, 1, 1)) / 100.0
+    pol = np.zeros((rows, 4672), np.float32)
+    for r in range(rows):
+        w = rng.random(8).astype(np.float32)
+        pol[r, rng.choice(4672, 8, replace=False)] = w / w.sum()
+    return {"planes": planes, "policy_target": pol,
+            "value_target": rng.uniform(-1, 1, rows).astype(np.float32)}
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Wall time of one ``fn()`` on the card: CUDA events around ``reps``
+    calls after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def step_profile(torch, fn, steps: int = 5) -> Optional[dict]:
+    """Where a training step's time goes: torch.profiler over ``steps``
+    calls of ``fn`` (one step each): device ms and kernels a step, the
+    device's busy share of the profiled wall time (the profiler's own
+    host cost included), and the six kernels with the most device time.
+    None when the profiler shows no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    total = sum(device_us(e) for e in kernels)
+    top = sorted(kernels, key=device_us, reverse=True)[:6]
+    return {"device_ms": total / 1e3 / steps,
+            "kernels": sum(e.count for e in kernels) / steps,
+            "profiled_wall_ms": wall * 1e3 / steps,
+            "busy_share": total / 1e6 / wall,
+            "top_ms": {e.key[:80]: device_us(e) / 1e3 / steps for e in top}}
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state on the host: the parameters by name
+    and the optimizer's state by (parameter index, key)."""
+    out = {f"param {n}": p.detach().cpu().clone()
+           for n, p in state.params.named_parameters()}
+    for i, s in state.opt_state.state_dict()["state"].items():
+        for k, v in s.items():
+            if hasattr(v, "cpu"):
+                out[f"opt {i} {k}"] = v.detach().cpu().clone()
+    return out
+
+
+def max_tensor_diff(a: dict, b: dict) -> float:
+    check(a.keys() == b.keys(), "train states with other tensors")
+    return max(float((a[k].double() - b[k].double()).abs().max())
+               if a[k].numel() else 0.0 for k in a)
+
+
+def step_vs_cpu(torch, trainer_cls, cfg, params, batch, dev, loss_tol,
+                grad_tol, what: str) -> dict:
+    """Step 1 from the same carried ``params`` on the card and on the CPU,
+    held to the tolerances above TRAIN_GRAD_TOL. Returns the numbers and
+    the card's trainer and state."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TRAIN_CPU_THREADS)
+    try:
+        cpu_t = trainer_cls(cfg, device="cpu")
+        cpu_s, cpu_m = cpu_t.step(cpu_t.init(params=params), batch)
+    finally:
+        torch.set_num_threads(threads)
+    card_t = trainer_cls(cfg, device=dev)
+    card_s, card_m = card_t.step(card_t.init(params=params), batch)
+    lr = card_s.opt_state.param_groups[0]["lr"]
+    metric_diff = {k: abs(card_m[k] - v) for k, v in cpu_m.items()}
+    check(metric_diff["loss"] <= loss_tol * max(1.0, abs(cpu_m["loss"])),
+          f"{what}: step 1's loss on the card {card_m['loss']} against the "
+          f"CPU's {cpu_m['loss']}")
+    cpu_p = dict(cpu_s.params.named_parameters())
+    grads, off, worst = {}, {}, 0.0
+    for name, p in card_s.params.named_parameters():
+        g_card, g_cpu = p.grad.double().cpu(), cpu_p[name].grad.double()
+        grads[name] = float((g_card - g_cpu).norm()
+                            / g_cpu.norm().clamp(min=1e-30))
+        got, want = p.detach().cpu(), cpu_p[name].detach()
+        diff = (got - want).abs()
+        outside = diff > 2e-6 + 2e-4 * want.abs()
+        off[name] = float(outside.float().mean())
+        worst = max(worst, float(diff.max()))
+        check(grads[name] <= grad_tol, f"{what}: step 1's {name} gradient on "
+              f"the card is {grads[name]} of its norm off the CPU's")
+    log(f"  {what}: step 1 card vs CPU: metrics |diff| {metric_diff}; "
+        f"gradients, |diff| / |cpu| by parameter: largest {max(grads.values())}"
+        f" ({max(grads, key=grads.get)}); parameters max |diff| {worst} (2 x "
+        f"lr = {2 * lr}), entries off rtol 2e-4 / atol 2e-6: largest share "
+        f"{max(off.values()):.6f} ({max(off, key=off.get)})")
+    check(worst <= 2 * lr * (1 + 1e-3) and max(off.values()) <= TRAIN_OFF_SHARE,
+          f"{what}: step 1's parameters on the card are off the CPU's")
+    return {"metric_diff": metric_diff, "grad_rel": grads,
+            "param_max_diff": worst, "off_share": max(off.values()),
+            "state": card_s, "trainer": card_t, "card_loss": card_m["loss"]}
+
+
+def resume_checks(torch, make_trainer, params, batch, dev, tmp: str,
+                  what: str) -> dict:
+    """Checkpoints: save -> restore reproduces every tensor bit for bit
+    (on the card); resuming at step 5 and running to 10 equals the
+    uninterrupted run to 10 on the CPU bit for bit, and on the card bit
+    for bit or within the spread of two uninterrupted runs from the same
+    state (at most twice it)."""
+    from fishnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    mid, end = TRAIN_RESUME
+
+    def run(device, steps, state=None):
+        trainer = make_trainer(device)
+        state = trainer.init(params=params) if state is None else state
+        for _ in range(steps):
+            state, _ = trainer.step(state, batch)
+        return trainer, state
+
+    def resumed(device, tag):
+        trainer, state = run(device, mid)
+        path = os.path.join(tmp, f"{what}-{tag}.pt")
+        save_checkpoint(path, state)
+        before = state_tensors(state)
+        restored = restore_checkpoint(path, trainer.init(params=params))
+        check(restored.step == mid
+              and max_tensor_diff(before, state_tensors(restored)) == 0.0
+              and all(p.device.type == torch.device(device).type
+                      for p in restored.params.parameters()),
+              f"{what}: a checkpoint round trip on {tag} changed a tensor")
+        return state_tensors(run(device, end - mid, restored)[1])
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TRAIN_CPU_THREADS)
+    try:
+        cpu_ref = state_tensors(run("cpu", end)[1])
+        cpu_res = resumed("cpu", "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    cpu_diff = max_tensor_diff(cpu_ref, cpu_res)
+    card_a = state_tensors(run(dev, end)[1])
+    card_b = state_tensors(run(dev, end)[1])
+    card_res = resumed(dev, "card")
+    spread = max_tensor_diff(card_a, card_b)
+    card_diff = max_tensor_diff(card_a, card_res)
+    log(f"  {what}: resume at {mid} to {end} vs uninterrupted: CPU max "
+        f"|diff| {cpu_diff}; card {card_diff}, two uninterrupted card runs "
+        f"{spread} ({'deterministic' if spread == 0 else 'not deterministic'})")
+    check(cpu_diff == 0.0, f"{what}: the resumed CPU run differs")
+    check(card_diff <= 2 * spread, f"{what}: the resumed card run differs by "
+                                   f"{card_diff}, beyond the spread {spread}")
+    return {"cpu_diff": cpu_diff, "card_diff": card_diff, "spread": spread}
+
+
+def label_run(torch, where, positions, nodes: int) -> tuple:
+    """``positions`` labelled at ``nodes`` through a ``gated_service`` on
+    ``where`` (TRAIN_SERVICE, bounds tier off, a cold cache), its
+    warm-up's launch before the count. Returns the batch, the service's
+    counters, the seconds and the packed and dense launches."""
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.search.service import SearchService
+
+    fresh_cache()
+    with env_vars(FISHNET_NO_BOUNDS="1"):
+        svc = gated_service(NnueWeights.random(seed=0), where, **TRAIN_SERVICE)
+    try:
+        SearchService.warmup(svc)
+        ft_gather.ft_accumulate_packed_cuda.launches = 0
+        ft_gather.ft_accumulate_cuda.launches = 0
+        t0 = time.perf_counter()
+        batch = gated_labels(svc, positions, nodes)
+        wall = time.perf_counter() - t0
+        return (batch, svc.counters(), wall,
+                ft_gather.ft_accumulate_packed_cuda.launches,
+                ft_gather.ft_accumulate_cuda.launches)
+    finally:
+        svc.close()
+
+
+def label_positions_of_phase(games: int, plies: int, count: int):
+    """The first ``count`` positions of ``games`` seeded playouts."""
+    from fishnet_tpu_torch.train.data import playout_positions
+
+    positions = playout_positions(n_games=games, max_plies=plies, seed=7)[:count]
+    check(len(positions) == count, f"labels: {len(positions)} positions")
+    return positions
+
+
+def train_cpu_labels_child(argv) -> int:
+    """The labels' CPU reference, in a process of its own so it runs
+    beside the card's work: the positions of ``argv[1]`` (JSON: the
+    parent's TRAIN_LABELS, TRAIN_SERVICE and TRAIN_CPU_THREADS) through
+    the CPU plain service, the batch saved to ``argv[0]`` (npz) with its
+    seconds."""
+    import numpy as np
+    import torch
+
+    global TRAIN_SERVICE
+    labels, TRAIN_SERVICE, threads = json.loads(argv[1])
+    torch.set_num_threads(threads)
+    batch, _c, wall, _p, _d = label_run(
+        torch, "cpu", label_positions_of_phase(*labels[:3]), labels[3])
+    np.savez(argv[0], seconds=np.float64(wall), **batch)
+    return 0
+
+
+def train_labels(torch, dev) -> dict:
+    """Check 1, the card's half: the teacher labels of seeded playout
+    positions through a SearchService on the card (the hand kernel, one
+    packed launch per device dispatch). ``train_labels_equal`` holds them
+    against the CPU plain service's."""
+    nodes = TRAIN_LABELS[3]
+    batch, counters, wall, packed, dense = label_run(
+        torch, dev, label_positions_of_phase(*TRAIN_LABELS[:3]), nodes)
+    rate = len(batch["indices"]) / wall
+    log(f"  labels: {len(batch['indices'])} positions x {nodes} nodes on the "
+        f"card in {wall:.3f} s = {rate:.1f} positions/s ({counters['nodes']} "
+        f"nodes); {counters['dispatches']} dispatches, {packed} packed "
+        f"launches, {dense} dense")
+    check(packed == counters["dispatches"] > 0 and dense == 0,
+          f"labels: {packed} packed launches for {counters['dispatches']} "
+          "dispatches")
+    check(len(batch["indices"]) == TRAIN_LABELS[2],
+          "labels: a position lost its label")
+    return {"batch": batch, "positions_per_s": rate, "seconds": wall,
+            "nodes": counters["nodes"], "dispatches": counters["dispatches"],
+            "launches": packed}
+
+
+def train_labels_equal(labels: dict, child, path: str) -> float:
+    """Check 1, the CPU's half: the CPU child's batch == the card's, bit
+    for bit. Returns the child's seconds."""
+    import numpy as np
+
+    check(child.wait(timeout=600) == 0, "labels: the CPU reference failed")
+    ref = np.load(path)
+    batch = labels["batch"]
+    same = all(np.array_equal(batch[k], ref[k]) and batch[k].dtype == ref[k].dtype
+               for k in batch)
+    log(f"  labels: the card's batch == the CPU plain service's {same} (CPU "
+        f"{float(ref['seconds']):.3f} s, beside the card's work)")
+    check(same, "labels: the card's batch differs from the CPU's")
+    return float(ref["seconds"])
+
+
+def train_export_kernel(torch, weights, batch, dev) -> dict:
+    """The exported net on the serving path: the kernel's dense mode
+    (with fused PSQT, as ``evaluate_batch`` calls it) on the labelled
+    positions equals its plain version on CPU copies, accumulators and
+    values; timed as the split phase times host batches. Returns the
+    kernel entry's numbers and the card's integer values."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec
+    from fishnet_tpu_torch.nnue.torch_eval import evaluate_batch, params_from_weights
+    from fishnet_tpu_torch.ops import ft_gather
+
+    params = params_from_weights(weights, dev)
+    cpu = params_from_weights(weights, "cpu")
+    idx_np = batch["indices"]
+    idx_h = torch.from_numpy(idx_np)
+    bk_h = torch.from_numpy(batch["buckets"])
+    idx, bk = idx_h.to(dev), bk_h.to(dev)
+    w, b, psqt = params["ft_w"], params["ft_b"], params["ft_psqt"]
+    launches0 = ft_gather.ft_accumulate_cuda.launches
+    acc, ps = ft_gather.ft_accumulate_cuda(w, b, idx, ft_psqt=psqt)
+    values = evaluate_batch(params, idx, bk).cpu()
+    launches = ft_gather.ft_accumulate_cuda.launches - launches0
+    ref_acc, ref_ps = ft_gather.ft_accumulate_plain(
+        cpu["ft_w"], cpu["ft_b"], idx_h, ft_psqt=cpu["ft_psqt"])
+    ref_values = evaluate_batch(cpu, idx_h, bk_h)
+    diff = max(max_diff([acc.cpu(), ps.cpu()], [ref_acc, ref_ps]),
+               max_diff([values], [ref_values]))
+    check(launches == 2, f"export: {launches} dense launches for 2 calls")
+    check(diff == 0, f"export: the kernel on the exported net != plain ({diff})")
+    ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_cuda(
+        w, b, idx, ft_psqt=psqt))
+    plain_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_plain(
+        w, b, idx, ft_psqt=psqt))
+    parent_np = np.full(len(idx_np), -1, np.int32)
+    bound_ms, bound_by, nbytes, ops = bound(idx_np, parent_np, False, True,
+                                            spec.L1)
+    flat, w_f = idx.view(-1, 32).long(), w.float()
+    # embedding_bag sums the same rows (the sentinel rows excluded by a
+    # zero per-sample weight), without PSQT: the library's yardstick.
+    live = (flat < spec.NUM_FEATURES).float()
+    safe = flat.clamp(max=spec.NUM_FEATURES - 1)
+    lib = torch.nn.functional.embedding_bag(safe, w_f, mode="sum",
+                                            per_sample_weights=live)
+    check(torch.equal(lib.view(len(idx_np), 2, -1).to(torch.int32)
+                      + b.to(torch.int32), acc),
+          "export: embedding_bag does not compute the same sums")
+    library_ms = graph_time_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        safe, w_f, mode="sum", per_sample_weights=live))
+    entry = {"entries": len(idx_np), "max_abs_err": diff, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_bytes": nbytes, "bound_ops": ops, "library_ms": library_ms}
+    log(f"  export: the kernel (dense, fused PSQT) on the exported net == "
+        f"plain on {len(idx_np)} labelled positions: {entry}")
+    return {"entry": entry, "values": values}
+
+
+def train_nnue(torch, labels: dict, dev, tmp: str) -> dict:
+    """Check 2: the NNUE trainer at full spec on the labelled batch: step
+    1 on the card == the CPU's within tolerance, 20 steps with the loss
+    falling, the step timed at B = TRAIN_NNUE_BATCH, the export served by
+    the kernel bit for bit against its plain version and tracking the
+    float forward, and the checkpoints."""
+    import numpy as np
+
+    from fishnet_tpu_torch.train import NetConfig, Trainer
+    from fishnet_tpu_torch.train.model import NNUE2SCORE, forward, init_params
+
+    cfg = NetConfig()
+    params = init_params(0, cfg)
+    batch = labels["batch"]
+    first = step_vs_cpu(torch, Trainer, cfg, params, batch, dev, 1e-4, 1e-4,
+                        "nnue")
+    trainer, state = first["trainer"], first["state"]
+    losses = [first["card_loss"]]
+    for _ in range(TRAIN_STEPS - 1):
+        state, metrics = trainer.step(state, batch)
+        losses.append(metrics["loss"])
+    log(f"  nnue: {TRAIN_STEPS} steps on {len(batch['indices'])} labelled "
+        f"positions, loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    check(losses[-1] < losses[0] and all(np.isfinite(losses)),
+          "nnue: the loss did not fall")
+    weights = trainer.export(state)
+    export = train_export_kernel(torch, weights, batch, dev)
+    with torch.no_grad():
+        float_cp = (forward(state.params, torch.from_numpy(batch["indices"]).to(dev),
+                            torch.from_numpy(batch["buckets"]).to(dev), cfg)
+                    * NNUE2SCORE).cpu().numpy()
+    int_cp = export["values"].numpy().astype(np.float64)
+    err = np.abs(float_cp - int_cp)
+    corr = float(np.corrcoef(float_cp, int_cp)[0, 1])
+    slope = float(np.polyfit(float_cp, int_cp, 1)[0])
+    log(f"  nnue: exported net, integer eval vs float forward x 600 on the "
+        f"labelled positions: slope {slope:.4f} (0.8-1.25), corr {corr:.6f} "
+        f"(> 0.95), mean |err| {err.mean():.3f} cp (<= 60)")
+    check(0.8 <= slope <= 1.25 and corr > 0.95 and err.mean() <= 60.0,
+          "nnue: the quantized net does not track the float forward")
+
+    big = train_synthetic_nnue(TRAIN_NNUE_BATCH, seed=3)
+    timed = trainer.init(params=params)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in big.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    holder = [timed]
+
+    def one():
+        holder[0], _ = trainer.step(holder[0], data)
+
+    ms = cuda_ms(torch, one, reps=10)
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = step_profile(torch, one)
+    log(f"  nnue: step at B = {TRAIN_NNUE_BATCH}: {ms:.3f} ms "
+        f"({TRAIN_NNUE_BATCH / ms * 1e3:.0f} positions/s), peak memory "
+        f"{peak / 2**30:.3f} GiB; profiled: {prof}")
+    resume = resume_checks(torch, lambda d: Trainer(cfg, device=d), params,
+                           batch, dev, tmp, "nnue")
+    return {"losses": losses, "step1": {k: first[k] for k in (
+        "metric_diff", "grad_rel", "param_max_diff", "off_share")},
+        "export": export["entry"], "float_vs_int": {
+            "slope": slope, "corr": corr, "mean_err_cp": float(err.mean())},
+        "step_ms": ms, "positions_per_s": TRAIN_NNUE_BATCH / ms * 1e3,
+        "peak_bytes": peak, "profile": prof, "resume": resume}
+
+
+def train_pool(params, dev, cap: int = AZ_CAP):
+    """An MctsPool over the shared AZ plane on ``dev`` (default AzConfig),
+    warmed up."""
+    from fishnet_tpu_torch.models.az import AzConfig
+    from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool
+
+    pool = MctsPool(params, MctsConfig(batch_capacity=cap, az=AzConfig()),
+                    device=dev)
+    pool.warmup()
+    return pool
+
+
+def train_selfplay(dev) -> dict:
+    """Check 3a: a generation of self-play over the shared plane on the
+    card at the default AzConfig and microbatch 1024: games, rows,
+    visits/s."""
+    import numpy as np
+
+    from fishnet_tpu_torch.train.selfplay import SelfPlayConfig, selfplay_batch
+
+    games, visits, plies = TRAIN_SELFPLAY
+    fresh_cache()
+    pool = train_pool(az_params(), dev)
+    try:
+        t0 = time.perf_counter()
+        batch = selfplay_batch(pool, SelfPlayConfig(
+            games=games, visits=visits, max_plies=plies), seed=11)
+        wall = time.perf_counter() - t0
+        c = pool.counters()
+    finally:
+        pool.close()
+    rows = len(batch["planes"])
+    d = c["dispatch"]
+    log(f"  self-play: {games} games x {visits} visits (<= {plies} plies) in "
+        f"{wall:.3f} s: {rows} rows, {c['visits']} visits = "
+        f"{c['visits'] / wall:.1f} visits/s; {d['dispatches']} dispatches, "
+        f"{d['forwards']} forwards, rows over slots {d['dispatch_fill']:.4f}")
+    check(0 < rows <= games * plies
+          and np.allclose(batch["policy_target"].sum(1), 1.0, atol=1e-5)
+          and set(np.unique(batch["value_target"])) <= {-1.0, 0.0, 1.0},
+          "self-play: a malformed batch")
+    return {"batch": batch, "rows": rows, "games": games,
+            "visits": c["visits"], "seconds": wall,
+            "visits_per_s": c["visits"] / wall, "dispatches": d["dispatches"]}
+
+
+def train_az(torch, batch: dict, dev, tmp: str) -> dict:
+    """Check 3b: the AZ trainer at the default AzConfig on the self-play
+    batch: step 1 on the card == the CPU's within the bf16 tolerance, 20
+    steps with the loss falling, the export reloaded through the JAX
+    layout equal to the trained net bit for bit with an equal
+    fingerprint, the step timed at TRAIN_AZ_ROWS rows, and the
+    checkpoints."""
+    import numpy as np
+
+    from fishnet_tpu_torch.models.az import (
+        AzConfig,
+        jax_layout,
+        load_az_params,
+        params_from_jax,
+        wire_forward,
+    )
+    from fishnet_tpu_torch.search.eval_cache import az_net_fingerprint
+    from fishnet_tpu_torch.train import AzTrainer
+
+    cfg = AzConfig()
+    params = az_params()
+    first = step_vs_cpu(torch, AzTrainer, cfg, params, batch, dev, 2.0 ** -7,
+                        TRAIN_GRAD_TOL, "az")
+    trainer, state = first["trainer"], first["state"]
+    losses = [first["card_loss"]]
+    for _ in range(TRAIN_STEPS - 1):
+        state, metrics = trainer.step(state, batch)
+        losses.append(metrics["loss"])
+    log(f"  az: {TRAIN_STEPS} steps on {len(batch['planes'])} self-play rows, "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}")
+    check(losses[-1] < losses[0] and all(np.isfinite(losses)),
+          "az: the loss did not fall")
+    path = os.path.join(tmp, "az.npz")
+    trainer.export(state, path)
+    loaded = load_az_params(path)
+    reloaded = params_from_jax(loaded, dev)
+    x = torch.from_numpy(az_planes(AZ_CAP, seed=5)).to(dev)
+    got, want = wire_forward(reloaded, x), wire_forward(state.params, x)
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fp = az_net_fingerprint(loaded) == az_net_fingerprint(jax_layout(state.params))
+    log(f"  az: export .npz -> load_az_params -> params_from_jax: forward "
+        f"== the trained net's {same}, fingerprint equal {fp}")
+    check(same and fp, "az: the exported net is not the trained net")
+
+    big = train_synthetic_az(TRAIN_AZ_ROWS, seed=6)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in big.items()}
+    holder = [trainer.init(params=params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def one():
+        holder[0], _ = trainer.step(holder[0], data)
+
+    ms = cuda_ms(torch, one, reps=10)
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = step_profile(torch, one)
+    log(f"  az: step at {TRAIN_AZ_ROWS} rows: {ms:.3f} ms "
+        f"({TRAIN_AZ_ROWS / ms * 1e3:.0f} rows/s), peak memory "
+        f"{peak / 2**30:.3f} GiB; profiled: {prof}")
+    resume = resume_checks(torch, lambda d: AzTrainer(cfg, device=d), params,
+                           batch, dev, tmp, "az")
+    return {"losses": losses, "step1": {k: first[k] for k in (
+        "metric_diff", "grad_rel", "param_max_diff", "off_share")},
+        "step_ms": ms, "rows_per_s": TRAIN_AZ_ROWS / ms * 1e3,
+        "peak_bytes": peak, "profile": prof, "resume": resume}
+
+
+def train_host_child(argv) -> int:
+    """The train phase's evaluator host: ``python -m
+    fishnet_tpu_torch.rpc.host``'s ``main`` on ``argv[1:]``. At exit
+    (SIGTERM) it writes to ``argv[0]`` (JSON) the host's counters, the
+    ring counters and the records' rows of its largest fused AZ
+    dispatch."""
+    from fishnet_tpu_torch.rpc import host as host_mod
+    from fishnet_tpu_torch.rpc import rings
+
+    made, fused = [], [[]]
+    run_fn = host_mod._HostAzBackend._run
+
+    def run(self, segs):
+        if len(segs) > 1 and sum(map(len, segs)) > sum(map(len, fused[0])):
+            fused[0] = list(segs)
+        return run_fn(self, segs)
+
+    class Host(host_mod.EvaluatorHost):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    host_mod._HostAzBackend._run = run
+    host_mod.EvaluatorHost = Host
+    rc = host_mod.main(argv[1:])
+    stats = {"rc": rc, "rings": rings.stats(),
+             "largest_fused": [len(s) for s in fused[0]]}
+    if made:
+        stats.update(made[0].counters())
+    with open(argv[0], "w", encoding="utf-8") as fp:
+        json.dump(stats, fp)
+    return rc
+
+
+def train_frontend_child(argv) -> int:
+    """One split-plane self-play frontend: an MctsPool over a
+    ``RemoteAzPlane`` (``argv[0]``, JSON: link dir, link name, seed,
+    --az-seed, capacity, self-play sizes, output path), warmed up, then
+    "ready" on its standard output; on a line on its standard input it
+    plays ``selfplay_batch``, saves the batch (npz) and prints one JSON
+    line: the plane's counters, the largest record it sent, and whether
+    this process holds a CUDA context."""
+    import numpy as np
+    import torch
+
+    from fishnet_tpu_torch.models.az import AzConfig, init_az_params
+    from fishnet_tpu_torch.rpc.client import RemoteAzPlane
+    from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool
+    from fishnet_tpu_torch.train.selfplay import SelfPlayConfig, selfplay_batch
+
+    spec = json.loads(argv[0])
+    cfg = MctsConfig(batch_capacity=spec["cap"], az=AzConfig())
+    params = init_az_params(spec["az_seed"], cfg.az)
+    plane = RemoteAzPlane(cfg, params, rpc_dir=spec["dir"],
+                          link_name=spec["link"])
+    largest = [0]
+    submit = plane._client.submit
+
+    def counted(kind, n, payload):
+        largest[0] = max(largest[0], n)
+        return submit(kind, n, payload)
+
+    plane._client.submit = counted
+    try:
+        pool = MctsPool(params, cfg, evaluator=plane)
+        pool.warmup()
+        print("ready", flush=True)
+        sys.stdin.readline()
+        games, visits, plies = spec["selfplay"]
+        t0 = time.time()
+        batch = selfplay_batch(pool, SelfPlayConfig(
+            games=games, visits=visits, max_plies=plies), seed=spec["seed"])
+        t1 = time.time()
+        np.savez(spec["out"], **batch)
+        print(json.dumps({"t0": t0, "t1": t1, "rows": len(batch["planes"]),
+                          "visits": pool.counters()["visits"],
+                          "plane": plane.counters(), "largest_record": largest[0],
+                          "cuda_context": torch.cuda.is_initialized()}),
+              flush=True)
+    finally:
+        plane.close()
+    return 0
+
+
+def train_split(dev, tmp: str) -> dict:
+    """Check 4: the split plane's AZ half on the card: one host process
+    (``--az-seed``, ``--device cuda``) and two frontend processes, each
+    self-playing over a RemoteAzPlane; each frontend's batch equals the
+    in-process plane's at the same seed and params, bit for bit; no
+    frontend holds a CUDA context; the host fused records of both
+    frontends into one dispatch."""
+    import numpy as np
+
+    from fishnet_tpu_torch.models.az import AzConfig, init_az_params
+    from fishnet_tpu_torch.train.selfplay import SelfPlayConfig, selfplay_batch
+
+    games, visits, plies = TRAIN_SPLIT_SELFPLAY
+    seeds = (21, 22)
+    params = init_az_params(TRAIN_SPLIT_SEED, AzConfig())
+    want = {}
+    for seed in seeds:
+        fresh_cache()
+        pool = train_pool(params, dev)
+        try:
+            want[seed] = selfplay_batch(pool, SelfPlayConfig(
+                games=games, visits=visits, max_plies=plies), seed=seed)
+        finally:
+            pool.close()
+    rpc_dir = os.path.join(tmp, "rpc")
+    os.makedirs(rpc_dir, exist_ok=True)
+    out_dir = ROOT / "chiprun_out" / "train"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stats_path = os.path.join(tmp, "host.json")
+    host_log = open(out_dir / "host.log", "w", encoding="utf-8")
+    fe_log = open(out_dir / "frontends.log", "w", encoding="utf-8")
+    host = subprocess.Popen(
+        _child_cmd("train_host_child", stats_path, "--dir", rpc_dir,
+                   "--az-seed", str(TRAIN_SPLIT_SEED), "--az-capacity",
+                   str(AZ_CAP), "--device", "cuda"),
+        stdout=host_log, stderr=subprocess.STDOUT)
+    procs = []
+    try:
+        deadline = time.monotonic() + 300
+        while "rpc host: serving" not in (out_dir / "host.log").read_text():
+            check(host.poll() is None and time.monotonic() < deadline,
+                  f"train split: the host did not start (rc {host.poll()})")
+            time.sleep(0.05)
+        for i, seed in enumerate(seeds):
+            spec = dict(dir=rpc_dir, link=f"train-{i}.ring", seed=seed,
+                        az_seed=TRAIN_SPLIT_SEED, cap=AZ_CAP,
+                        selfplay=TRAIN_SPLIT_SELFPLAY,
+                        out=os.path.join(tmp, f"split-{seed}.npz"))
+            procs.append(subprocess.Popen(
+                _child_cmd("train_frontend_child", json.dumps(spec)),
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=fe_log,
+                text=True))
+        deadline = time.monotonic() + 300
+        for p in procs:
+            check(_read_line(p, deadline, "train split frontend") == "ready",
+                  "train split: a frontend did not warm up")
+        for p in procs:
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        deadline = time.monotonic() + 600
+        reports = [json.loads(_read_line(p, deadline, "train split frontend"))
+                   for p in procs]
+        rcs = [_stop(p) for p in procs]
+        check(rcs == [0, 0], f"train split: frontend exit codes {rcs}")
+    finally:
+        for p in procs:
+            _stop(p, signal.SIGTERM)
+        host_rc = _stop(host, signal.SIGTERM)
+        host_log.close()
+        fe_log.close()
+    check(host_rc == 0, f"train split: the host exited {host_rc}")
+    with open(stats_path, encoding="utf-8") as fp:
+        stats = json.load(fp)
+    for seed, r in zip(seeds, reports):
+        got = np.load(os.path.join(tmp, f"split-{seed}.npz"))
+        same = all(np.array_equal(got[k], want[seed][k]) for k in want[seed])
+        check(same, f"train split: frontend seed {seed}'s batch differs from "
+                    "the in-process plane's")
+        check(not r["cuda_context"], "train split: a frontend created a CUDA "
+                                     "context")
+    az, ring = stats["az"], stats["rings"]
+    for key in ("eval_errors", "refused.nnue", "refused.az", "result_drops",
+                "torn", "stale_refusals", "unserviceable"):
+        check(ring.get(key, 0) == 0, f"train split: host counted {key} "
+                                     f"{ring.get(key)}")
+    largest = stats["largest_fused"]
+    record = max(r["largest_record"] for r in reports)
+    wall = max(r["t1"] for r in reports) - min(r["t0"] for r in reports)
+    visits_all = sum(r["visits"] for r in reports)
+    row = {"frontends": len(reports), "rows": [r["rows"] for r in reports],
+           "visits": visits_all, "seconds": wall,
+           "visits_per_s": visits_all / wall,
+           "host_dispatches": az["dispatches"],
+           "host_fused_dispatches": az["fused_dispatches"],
+           "host_forwards": az["forwards"],
+           "host_ms_per_dispatch": az["run_s"] * 1e3 / max(1, az["dispatches"]),
+           "rows_over_slots": az["rows"] / max(1, az["slots"]),
+           "largest_fused_records": largest, "largest_record": record}
+    log(f"  split AZ: 2 frontends' self-play == in-process at the same seeds "
+        f"and params; {row}")
+    check(az["fused_dispatches"] > 0 and len(largest) > 1
+          and sum(largest) > max(largest),
+          "train split: the host fused no records of the two frontends")
+    return row
+
+
+def phase_train(torch, dev) -> dict:
+    """The train phase: checks 1-5 of training on the card."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
+        cpu_path = os.path.join(tmp, "cpu-labels.npz")
+        cpu_child = subprocess.Popen(_child_cmd(
+            "train_cpu_labels_child", cpu_path,
+            json.dumps([TRAIN_LABELS, TRAIN_SERVICE, TRAIN_CPU_THREADS])))
+        try:
+            out.update(train_steps(torch, dev, tmp, cpu_child, cpu_path))
+        finally:
+            _stop(cpu_child, signal.SIGTERM)
+    return out
+
+
+def train_steps(torch, dev, tmp: str, cpu_child, cpu_path: str) -> dict:
+    """The train phase's checks, the CPU labels running beside them."""
+    out = {}
+    t0 = time.perf_counter()
+    labels = train_labels(torch, dev)
+    out["labels"] = {k: v for k, v in labels.items() if k != "batch"}
+    log(f"  [train] labels in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["nnue"] = train_nnue(torch, labels, dev, tmp)
+    log(f"  [train] nnue in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sp = train_selfplay(dev)
+    out["selfplay"] = {k: v for k, v in sp.items() if k != "batch"}
+    log(f"  [train] self-play in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["az"] = train_az(torch, sp["batch"], dev, tmp)
+    log(f"  [train] az in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["split"] = train_split(dev, tmp)
+    log(f"  [train] split in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["labels"]["cpu_seconds"] = train_labels_equal(labels, cpu_child,
+                                                      cpu_path)
+    log(f"  [train] waited {time.perf_counter() - t0:.1f} s for the CPU "
+        "labels")
+    return out
+
+
 def phase_fen() -> None:
     """ROADMAP C7, in this process (torch imported, the core loaded):
     the port's Board gives back the expected FEN of every FEN_CHECKS
@@ -4202,6 +5053,34 @@ def main() -> int:
             "batched PUCT MCTS over the shared AZ dispatch plane, the AZ "
             "eval cache and run --engine az-mcts")
         print(json.dumps({"az": phase_az(torch, dev)}), flush=True)
+    if "train" in phases:
+        log("[train] training on the card: teacher labels through the "
+            "kernel, the NNUE and AZ trainers at full width, self-play over "
+            "the shared plane and the split plane's AZ half, checkpoints")
+        train = phase_train(torch, dev)
+        export = train["nnue"]["export"]
+        facts = {"label_launches": train["labels"]["launches"],
+                 "label_dispatches": train["labels"]["dispatches"],
+                 "export": export}
+        if entries:
+            entries[0]["launches_train"] = train["labels"]["launches"]
+            entries[0]["train"] = facts
+            entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
+                                            export["max_abs_err"])
+        else:
+            entries.append({
+                "name": "ft_gather", "route": "cuda",
+                "source": "fishnet_tpu_torch/ops/csrc/ft_gather.cu",
+                "replaces": "fishnet_tpu/ops/ft_gather.py:402",
+                "launches": train["labels"]["launches"],
+                "max_abs_err": export["max_abs_err"], "ms": export["ms"],
+                "plain_ms": export["plain_ms"], "bound_ms": export["bound_ms"],
+                "bound_by": export["bound_by"],
+                "library_ms": export["library_ms"],
+                "mode": "packed (labels); dense with fused PSQT, timed on "
+                        "the exported net",
+                "train": facts})
+        print(json.dumps({"train": train}), flush=True)
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

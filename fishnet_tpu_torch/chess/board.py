@@ -142,3 +142,23 @@ class Board:
             raise NativeCoreError("legal_moves buffer overflow")
         text = buf.value.decode()
         return text.split() if text else []
+
+    def nnue_features(self):
+        """(indices, bucket): HalfKAv2_hm feature indices as an int32
+        [2, 32] array (perspective 0 = side to move, padded with
+        NUM_FEATURES) plus the layer-stack bucket. Raises
+        ``UnsupportedVariantError`` outside standard chess."""
+        import numpy as np
+
+        from fishnet_tpu_torch.nnue.spec import NUM_FEATURES
+
+        out = np.full((2, 32), NUM_FEATURES, dtype=np.int32)
+        for perspective in (0, 1):
+            buf = (ctypes.c_int32 * 32)()
+            n = self._lib.fc_pos_features(self._pos, perspective, buf)
+            if n < 0:
+                raise UnsupportedVariantError(
+                    "HalfKAv2_hm features are defined for standard chess only"
+                )
+            out[perspective, :n] = np.frombuffer(buf, dtype=np.int32, count=n)
+        return out, self._lib.fc_pos_psqt_bucket(self._pos)

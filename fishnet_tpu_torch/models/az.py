@@ -11,9 +11,10 @@ conv + add + relu.
 Parameters travel as the JAX package's dict of float32 numpy arrays
 (``init_az_params``, ``.npz`` checkpoints): HWIO conv kernels, fc
 weights as ``[in, out]``. ``params_from_jax`` carries such a dict onto
-an ``AzNet`` (conv kernels to OIHW); the dict itself stays the net's
-identity (``search/eval_cache.az_net_fingerprint`` hashes it), so one
-``.npz`` keys the same cache entries in both packages.
+an ``AzNet`` (conv kernels to OIHW), ``jax_layout`` carries it back;
+the dict itself stays the net's identity
+(``search/eval_cache.az_net_fingerprint`` hashes it), so one ``.npz``
+keys the same cache entries in both packages.
 
 The forward keeps the reference's bf16 arithmetic op for op, so the two
 packages differ only by accumulation order inside a conv or matmul:
@@ -213,10 +214,12 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + b.view(1, -1, 1, 1)
 
 
-def _tower(net: AzNet, x: torch.Tensor):
+def _tower(net: AzNet, x: torch.Tensor, w: Optional[Dict[str, torch.Tensor]] = None):
     """bf16 NHWC planes [B, 8, 8, 19] -> (flat policy logits [B, P],
-    value [B]), both bf16."""
-    w = net.bf16_weights()
+    value [B]), both bf16; ``w`` the bf16 weights (default: the net's
+    cached copies)."""
+    if w is None:
+        w = net.bf16_weights()
     x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels-last)
     x = torch.relu(_conv(x, w["stem_w"], w["stem_b"]))
     for i in range(net.cfg.blocks):
@@ -238,6 +241,31 @@ def az_forward(net: AzNet, planes: torch.Tensor):
     with torch.no_grad():
         pol, v = _tower(net, planes.to(torch.bfloat16))
         return pol.float(), v.float()
+
+
+def train_forward(net: AzNet, planes: torch.Tensor):
+    """The forward with gradients (the AZ trainer's): ``az_forward``'s
+    arithmetic — every parameter cast to bfloat16, bf16 convs and
+    matmuls, each bias its own bf16 op — with autograd running through
+    the casts back to the float32 parameters, as ``jax.grad`` runs
+    through ``astype``. planes float [B, 8, 8, 19] -> (policy_logits
+    [B, 4672], value [B]), float32."""
+    w = {name: p.to(torch.bfloat16) for name, p in net.named_parameters()}
+    pol, v = _tower(net, planes.to(torch.bfloat16), w)
+    return pol.float(), v.float()
+
+
+def jax_layout(net: AzNet) -> Params:
+    """The reverse of the weight carry: the net's parameters as the JAX
+    package's dict of float32 numpy arrays (OIHW kernels back to HWIO),
+    the layout an ``.npz`` for ``--az-net-file`` holds."""
+    out: Params = {}
+    for name, p in net.named_parameters():
+        arr = p.detach().cpu().numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        out[name] = np.ascontiguousarray(arr, np.float32)
+    return out
 
 
 def wire_forward(net: AzNet, planes_u8: torch.Tensor):

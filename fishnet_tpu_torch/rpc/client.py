@@ -1,7 +1,9 @@
-"""Frontend side of the split plane: a SearchService whose evaluator is
-another process.
+"""Frontend side of the split plane: a SearchService, and an AZ dispatch
+plane, whose evaluator is another process.
 
-The port of ``fishnet_tpu/rpc/client.py`` (its NNUE half).
+The port of ``fishnet_tpu/rpc/client.py``. Two entry points, one per
+search family:
+
 :class:`RemoteBackend` IS a ``SearchService`` whose evaluator ships each
 group's padded dense microbatch over this frontend's ring link instead
 of evaluating it on a device of its own: the service's external-
@@ -10,8 +12,18 @@ the self-contained arrays the wire carries, so the engines and the UCI
 server ride unchanged. The evaluator returns a LAZY handle; the
 service's ``_resolve_eval`` materialises it before the group's next
 step, which keeps the per-group pipeline overlap across the process
-boundary. A frontend holds no device: it never resolves one, never
-creates a CUDA context and never loads the kernel.
+boundary.
+
+:class:`RemoteAzPlane` implements the AZ dispatch plane's lane API
+(``register_lane``, ``warmup``, ``evaluate``, ``counters``, ``close``),
+so ``MctsPool``'s ``hasattr(evaluator, "register_lane")`` wrap routes
+its leaf microbatches over the same transport (self-play rides it
+unchanged). Its rows cross as the plane's exact uint8 plane wire and
+come back as its fp16 logits wire, behind the same salted pre-wire
+probe of the process's AZ eval cache.
+
+A frontend holds no device: it never resolves one, never creates a CUDA
+context and never loads the kernel.
 
 Failure contract: a demand wait survives an evaluator death by watching
 the host epoch. When the evaluator is reborn (epoch bump) the client
@@ -25,8 +37,7 @@ fails the driver, and with it the service's searches. Results are
 deduplicated by ticket id, so an at-least-once transport still yields
 exactly-once consumption.
 
-Left out against the JAX package: ``RemoteAzPlane`` (it comes with the
-AZ family) and the spans.
+Left out against the JAX package: the spans.
 """
 
 from __future__ import annotations
@@ -43,8 +54,10 @@ from fishnet_tpu_torch.chess.core import NativeCoreError
 from fishnet_tpu_torch.rpc import rings
 from fishnet_tpu_torch.search.service import SearchService
 
-__all__ = ["EvaluatorLostError", "EvaluatorRefusedError", "RemoteBackend",
-           "RemoteEvaluator"]
+__all__ = ["EvaluatorLostError", "EvaluatorRefusedError", "RemoteAzPlane",
+           "RemoteBackend", "RemoteEvaluator"]
+
+_U64 = (1 << 64) - 1
 
 
 class EvaluatorLostError(NativeCoreError):
@@ -81,7 +94,8 @@ class _RpcClient:
         with self._lock:
             self._link.beat()
             self._link.push(kind, ticket, self._epoch, n, payload)
-        rings.note("submits.nnue")
+        family = "nnue" if kind == rings.KIND_NNUE_SUBMIT else "az"
+        rings.note(f"submits.{family}")
         return ticket
 
     def _drain_locked(self) -> None:
@@ -235,3 +249,153 @@ class RemoteBackend(SearchService):
             super().close()
         finally:
             self._rpc.close()
+
+
+class RemoteAzPlane:
+    """The AZ dispatch plane's lane API over the ring transport.
+
+    ``MctsPool`` wraps any evaluator exposing ``register_lane`` in its
+    ``_PlaneEvaluator`` adapter, so handing this to a pool routes every
+    leaf microbatch through the evaluator host, where microbatches from
+    ALL frontends fuse into shared forwards. ``params`` (the JAX-layout
+    dict, optional) only salts the pre-wire probe of the process's
+    ``AzEvalCache``; the wire carries the exact uint8 planes and fp16
+    logits the in-process plane uses, so the results are the same bits
+    either way (the host runs the plane's forward at the plane's bucket
+    shapes).
+
+    A microbatch whose answer would not fit one ring slot (rows x (2 x
+    policy + 4) bytes) goes as several records, all submitted before the
+    first wait, so the host can still fuse them. Link names are per
+    frontend: planes in one process must pass distinct ``link_name``s,
+    or the second attach bumps the frontend epoch and fences the first
+    plane's in-flight submits as stale."""
+
+    def __init__(self, cfg, params: Optional[Dict] = None,
+                 rpc_dir: Optional[str] = None,
+                 link_name: Optional[str] = None) -> None:
+        from fishnet_tpu_torch.search import eval_cache as _eval_cache
+
+        self.cfg = cfg
+        self._policy_size = cfg.az.policy_size
+        self._client = _RpcClient(
+            rpc_dir, name=link_name or f"link-{os.getpid()}-az.ring"
+        )
+        self._max_rows = max(1, self._client.link.slot_capacity
+                             // (self._policy_size * 2 + 4))
+        self._salt = None
+        if params is not None and not _eval_cache.cache_disabled():
+            self._salt = _eval_cache.az_net_fingerprint(params)
+        self._lane_lock = threading.Lock()
+        self._next_lane = 0
+        self._stats_lock = threading.Lock()
+        self._prewire_hits = 0
+        self._skipped_dispatches = 0
+        self._rows_submitted = 0
+        self._records = 0
+        self._dispatches = 0
+
+    def register_lane(self) -> int:
+        with self._lane_lock:
+            lane = self._next_lane
+            self._next_lane += 1
+            return lane
+
+    def _round_trip(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Ship ``rows`` (uint8 planes) as records of at most
+        ``_max_rows``; the fp16 logits and float32 values in row order.
+        Raises ``EvaluatorRefusedError`` when the host refused a record."""
+        sent = []
+        for off in range(0, len(rows), self._max_rows):
+            part = rows[off: off + self._max_rows]
+            payload = rings.pack_az_submit(part)
+            ticket = self._client.submit(rings.KIND_AZ_SUBMIT, len(part),
+                                         payload)
+            sent.append((ticket, len(part), payload))
+        logits, values = [], []
+        for ticket, k, payload in sent:
+            _kind, n, result = self._client.wait(
+                ticket, k, rings.KIND_AZ_SUBMIT, payload)
+            if n != k:
+                raise EvaluatorRefusedError(
+                    f"the evaluator host refused AZ microbatch ticket "
+                    f"{ticket} ({k} rows); its log names the fault")
+            lg16, vals = rings.unpack_az_result(result, k, self._policy_size)
+            logits.append(lg16)
+            values.append(vals)
+        with self._stats_lock:
+            self._rows_submitted += len(rows)
+            self._records += len(sent)
+            self._dispatches += 1
+        if len(sent) == 1:
+            return logits[0], values[0]
+        return np.concatenate(logits), np.concatenate(values)
+
+    def warmup(self) -> None:
+        """One one-row round trip: proves the link is served before real
+        traffic."""
+        self._round_trip(np.zeros((1,) + rings.AZ_PLANE_SHAPE, np.uint8))
+
+    def evaluate(
+        self, lane: int, planes_u8: np.ndarray, n: int, keys=None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """``planes_u8[:n]`` for ``lane`` -> ``(logits_f32 [n, P],
+        values_f32 [n])`` in row order; with ``keys`` (UNSALTED
+        ``az_position_key`` ints) and a salt, cache hits resolve before
+        the wire and the misses' exact fp16 payload is inserted."""
+        from fishnet_tpu_torch.search import eval_cache as _eval_cache
+
+        out_logits = np.empty((n, self._policy_size), np.float32)
+        out_values = np.empty((n,), np.float32)
+        if n == 0:
+            return out_logits, out_values
+        cache = None
+        salted = None
+        miss = list(range(n))
+        if keys is not None and self._salt is not None:
+            cache = _eval_cache.get_az_cache()
+        if cache is not None:
+            salted = [(int(k) ^ self._salt) & _U64 for k in keys]
+            miss = []
+            hits = 0
+            for i, ent in enumerate(cache.probe_many(salted)):
+                if ent is None:
+                    miss.append(i)
+                    continue
+                lg16, val = ent
+                out_logits[i] = lg16.astype(np.float32)
+                out_values[i] = val
+                hits += 1
+            with self._stats_lock:
+                self._prewire_hits += hits
+                if not miss:
+                    self._skipped_dispatches += 1
+            if not miss:
+                return out_logits, out_values
+        idx = np.asarray(miss, np.intp)
+        logits16, values = self._round_trip(
+            np.ascontiguousarray(planes_u8[idx]))
+        out_logits[idx] = logits16.astype(np.float32)
+        out_values[idx] = values
+        if cache is not None:
+            for j, i in enumerate(miss):
+                # The exact fp16 wire payload: warm replays reconstruct
+                # identical fp32 bits (the plane's contract).
+                cache.insert(salted[i], (np.array(logits16[j], np.float16),
+                                         np.float32(values[j])))
+        return out_logits, out_values
+
+    def counters(self) -> Dict[str, float]:
+        """The client side's view: pre-wire hits, skipped dispatches,
+        rows shipped, records and round trips (the host keeps the fill)."""
+        with self._stats_lock:
+            return {
+                "prewire_hits": self._prewire_hits,
+                "skipped_dispatches": self._skipped_dispatches,
+                "rows_dispatched": self._rows_submitted,
+                "records": self._records,
+                "dispatches": self._dispatches,
+            }
+
+    def close(self) -> None:
+        self._client.close()

@@ -1,30 +1,42 @@
 """Evaluator host: one device-holding process serving N frontends.
 
-The port of ``fishnet_tpu/rpc/host.py`` (its NNUE half). The host's
-sweep drains every attached frontend's submit ring and stages each
-record as a ticket on ONE process-local ``_DispatchCoalescer``, the
+The port of ``fishnet_tpu/rpc/host.py``. The host's sweep drains every
+attached frontend's submit ring and stages each record as a ticket on
+ONE process-local ``_DispatchCoalescer`` per search family, the
 machinery a monolith uses to fuse its pipeline groups, so microbatches
-from DIFFERENT PROCESSES fuse into one dispatch: on the GPU, ONE launch
-of the hand FT-gather kernel in its dense mode with in-batch parents
-(``evaluate_batch`` with ``parent=`` and the host material term), then
-the int8 head. The sweep thread is the host's only driver and has the
-process's interpreter lock to itself.
+from DIFFERENT PROCESSES fuse into one dispatch. NNUE: on the GPU, ONE
+launch of the hand FT-gather kernel in its dense mode with in-batch
+parents (``evaluate_batch`` with ``parent=`` and the host material
+term), then the int8 head. AZ: the fused leaf rows of every frontend's
+MCTS pools through ``models/az.py:wire_forward``, the forward the
+in-process ``AzDispatchPlane`` runs. The sweep thread is the host's
+only driver and has the process's interpreter lock to itself.
 
 Parity: NNUE records carry the exact padded dense arrays of the
 frontend's external-evaluator seam, evaluated through the same integer
 arithmetic; each entry's value does not depend on its batch, so concat
-and pad leave it bit-identical.
+and pad leave it bit-identical. AZ records carry the exact uint8 plane
+wire and are answered with the same fp16 logits wire. Their forward
+shapes are the in-process plane's ladder (``az_plane._bucket_ladder``:
+powers of two from 32 on the CPU, from 256 on CUDA, up to
+``--az-capacity``), and a fused batch above the capacity is cut into
+capacity-sized forwards: on the H100 cuDNN's rows agree bit for bit only
+between shapes of that ladder, so a remote row equals the plane's. (The
+JAX host pads to the next power of two from 32 with no upper bound; on
+the CPU the rows are the same at every shape, so only the forwards'
+count differs.)
 
-Every record is checked before it is staged (``check_nnue_record``):
-its length, its buckets, its feature indices, and its parent codes,
-each -1 or an earlier plain full entry of the same record (a persistent
-anchor code, which needs device tables this wire does not carry, is
-refused). A refused record never reaches the kernel: the host logs why,
-counts ``refused.nnue`` and answers with an empty result, which the
-frontend raises as ``EvaluatorRefusedError``. A kernel that refuses an
-index anyway (its device error word grows) fails the dispatch
-(``NativeCoreError``): its tickets go unanswered (``eval_errors``) and
-their frontends' demand waits time out.
+Every NNUE record is checked before it is staged
+(``check_nnue_record``): its length, its buckets, its feature indices,
+and its parent codes, each -1 or an earlier plain full entry of the
+same record (a persistent anchor code, which needs device tables this
+wire does not carry, is refused). An AZ record must hold ``n`` rows of
+planes. A refused record never reaches the device: the host logs why,
+counts ``refused.nnue`` / ``refused.az`` and answers with an empty
+result, which the frontend raises as ``EvaluatorRefusedError``. A kernel
+that refuses an index anyway (its device error word grows) fails the
+dispatch (``NativeCoreError``): its tickets go unanswered
+(``eval_errors``) and their frontends' demand waits time out.
 
 Failure contract: submit records carrying an epoch older than the
 link's current frontend epoch are refused (a restarted frontend's
@@ -33,10 +45,11 @@ a heartbeat has its link detached and unlinked, staged work dropped;
 every (re)attach bumps the host epoch, so frontends resubmit what a
 dead host consumed without answering.
 
-Run it: ``python -m fishnet_tpu_torch.rpc.host --nnue-file w.nnue``
-(``--device cuda`` by default; without a GPU that raises). Left out
-against the JAX package: the AZ backend (``--az-seed``,
-``--az-capacity``; AZ records are refused by name), the metrics
+Run it: ``python -m fishnet_tpu_torch.rpc.host --nnue-file w.nnue
+--az-seed 0`` (``--device cuda`` by default; without a GPU that
+raises). ``--az-seed`` draws the port's own numpy parameters
+(``models/az.py:init_az_params``), not the JAX package's
+``jax.random`` ones. Left out against the JAX package: the metrics
 exporter and spans, and the fault-injection poll (``rpc.detach``).
 """
 
@@ -62,6 +75,9 @@ from fishnet_tpu_torch.search.coalesce import (
 )
 
 __all__ = ["EvaluatorHost", "check_nnue_record", "main"]
+
+#: Bytes of one AZ submit row (uint8 planes).
+_AZ_ROW_BYTES = 8 * 8 * 19
 
 
 def _pad_bucket(total: int, floor: int = 32) -> int:
@@ -265,6 +281,158 @@ class _HostNnueBackend(CoalesceBackend):
             off += k
 
 
+class _HostAzBackend(CoalesceBackend):
+    """The AZ twin of ``_HostNnueBackend``: the in-process plane's forward
+    (``wire_forward``: uint8 planes in, fp16 logits and float32 values
+    out) over the concatenated leaf rows of every frontend's MCTS pools,
+    at the plane's bucket ladder for ``cfg.batch_capacity`` (module
+    docstring). ``params`` is the JAX-layout dict of numpy arrays
+    (models/az.py). Each forward makes one upload from a pinned staging
+    slot of its bucket, the tower, and one read-back into pinned fp16
+    and float32 tensors."""
+
+    driver_threads = 1
+
+    def __init__(self, params, cfg, device: torch.device) -> None:
+        from fishnet_tpu_torch.models.az import params_from_jax
+        from fishnet_tpu_torch.search.az_plane import (
+            CPU_MIN_BUCKET,
+            CUDA_MIN_BUCKET,
+            _bucket_ladder,
+            configure_backends,
+        )
+
+        self.device = configure_backends(device)
+        self._gpu = self.device.type == "cuda"
+        self._net = params_from_jax(params, self.device)
+        if self._net.cfg != cfg.az:
+            raise ValueError(f"params are a {self._net.cfg}, not {cfg.az}")
+        self._cap = int(cfg.batch_capacity)
+        self._buckets = _bucket_ladder(
+            self._cap, CUDA_MIN_BUCKET if self._gpu else CPU_MIN_BUCKET)
+        self.policy_size = self._net.cfg.policy_size
+        self._staged: Dict[int, np.ndarray] = {}
+        self._async_pipes: List = []
+        self._coalescer = _DispatchCoalescer(
+            self, pinned_width=_DispatchCoalescer.MAX_WIDTH
+        )
+        # bucket -> (pinned planes, pinned fp16 logits, pinned values)
+        self._slots: Dict[int, Tuple] = {}
+        # Dispatch accounting, as the NNUE backend's, plus forwards (a
+        # dispatch above the capacity runs several) and the most rows one
+        # fused dispatch carried.
+        self.dispatches = 0
+        self.fused_dispatches = 0
+        self.segments = 0
+        self.rows = 0
+        self.slots = 0
+        self.forwards = 0
+        self.max_rows = 0
+        self.run_s = 0.0
+
+    @property
+    def buckets(self) -> List[int]:
+        return list(self._buckets)
+
+    def warmup(self) -> None:
+        """Every bucket's forward once (cuDNN and the allocator warm up
+        before the first frontend's demand)."""
+        for bucket in self._buckets:
+            self._forward(np.zeros((0,) + rings.AZ_PLANE_SHAPE, np.uint8),
+                          bucket)
+
+    def stage(self, group: int, planes_u8: np.ndarray) -> None:
+        self._staged[group] = planes_u8
+
+    def _slot(self, bucket: int) -> Tuple:
+        slot = self._slots.get(bucket)
+        if slot is None:
+            pin = self._gpu
+            slot = (
+                torch.zeros((bucket,) + rings.AZ_PLANE_SHAPE,
+                            dtype=torch.uint8, pin_memory=pin),
+                torch.empty((bucket, self.policy_size), dtype=torch.float16,
+                            pin_memory=pin),
+                torch.empty((bucket,), dtype=torch.float32, pin_memory=pin),
+            )
+            self._slots[bucket] = slot
+        return slot
+
+    def _forward(self, rows: np.ndarray, bucket: int):
+        """One forward of ``rows`` padded with zero planes to ``bucket``;
+        returns copies of the rows' fp16 logits and float32 values."""
+        from fishnet_tpu_torch.models.az import wire_forward
+
+        k = len(rows)
+        planes, logits_h, values_h = self._slot(bucket)
+        buf = planes.numpy()
+        buf[:k] = rows
+        buf[k:] = 0
+        if not self._gpu:
+            logits, values = wire_forward(self._net, planes)
+            return logits[:k].numpy().copy(), values[:k].numpy().copy()
+        logits, values = wire_forward(
+            self._net, planes.to(self.device, non_blocking=True))
+        logits_h[:k].copy_(logits[:k], non_blocking=True)
+        values_h[:k].copy_(values[:k], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return logits_h[:k].numpy().copy(), values_h[:k].numpy().copy()
+
+    def _bucket_for(self, k: int) -> int:
+        for b in self._buckets:
+            if b >= k:
+                return b
+        return self._buckets[-1]
+
+    def _run(self, segs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        t0 = time.perf_counter()
+        rows = segs[0] if len(segs) == 1 else np.concatenate(segs)
+        total = len(rows)
+        logits, values, slots = [], [], 0
+        for off in range(0, total, self._cap):
+            chunk = rows[off: off + self._cap]
+            bucket = self._bucket_for(len(chunk))
+            lg, v = self._forward(chunk, bucket)
+            logits.append(lg)
+            values.append(v)
+            slots += bucket
+            self.forwards += 1
+        self.run_s += time.perf_counter() - t0
+        self.dispatches += 1
+        self.fused_dispatches += len(segs) > 1
+        self.segments += len(segs)
+        self.rows += total
+        self.slots += slots
+        self.max_rows = max(self.max_rows, total)
+        rings.note("fused.rows.az", total)
+        rings.note("fused.slots.az", slots)
+        if slots > total:
+            rings.note("pad.rows", slots - total)
+        if len(logits) == 1:
+            return logits[0], values[0]
+        return np.concatenate(logits), np.concatenate(values)
+
+    def _acct(self, k: int) -> Tuple[int, int, int]:
+        return (k, k * _AZ_ROW_BYTES, k * (self.policy_size * 2 + 4))
+
+    def _dispatch_eval(self, group: int, n: int, rows: int):
+        logits16, values = self._run([self._staged.pop(group)])
+        return (logits16[:n], values[:n]), self._acct(n)
+
+    def _dispatch_segmented(self, tickets) -> None:
+        segs = [self._staged.pop(tk.group) for tk in tickets]
+        logits16, values = self._run(segs)
+        off = 0
+        for tk, seg in zip(tickets, segs):
+            k = len(seg)
+            tk.values = (logits16[off: off + k], values[off: off + k])
+            tk.start, tk.seg_size = 0, k
+            tk.acct = self._acct(k)
+            off += k
+
+
 class EvaluatorHost:
     """Discovers link files in the rpc dir, drains their submit rings
     into the coalescer, fans results back by link. One sweep thread owns
@@ -273,11 +441,17 @@ class EvaluatorHost:
     ``sweep()`` is public and synchronous so in-process tests can drive
     the host deterministically without the polling thread.
     ``nnue_params`` (``torch_eval.params_from_weights`` on ``device``)
-    None serves nothing: every record is unserviceable."""
+    serves NNUE records; ``az_params`` (the JAX-layout dict of numpy
+    arrays, as an ``.npz`` holds it) with ``az_cfg`` (an ``MctsConfig``:
+    its ``batch_capacity`` is the ladder's top; default 256 and the
+    params' own ``AzConfig``) serves AZ records. A family without params
+    is unserviceable."""
 
     def __init__(
         self,
         nnue_params=None,
+        az_params=None,
+        az_cfg=None,
         rpc_dir: Optional[str] = None,
         lease_s: float = rings.LEASE_S,
         poll_s: float = 0.002,
@@ -294,12 +468,21 @@ class EvaluatorHost:
         self._linger_s = max(0.0, linger_s)
         self._links: Dict[str, rings.RingLink] = {}
         self._groups = itertools.count(1)
-        self._nnue = None
+        self._nnue = self._az = None
+        self.device: Optional[torch.device] = None
+        if nnue_params is not None or az_params is not None:
+            self.device = resolve_device(device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
         if nnue_params is not None:
-            dev = resolve_device(device)
-            if dev.type == "cuda":
-                torch.cuda.set_device(dev)
-            self._nnue = _HostNnueBackend(nnue_params, dev)
+            self._nnue = _HostNnueBackend(nnue_params, self.device)
+        if az_params is not None:
+            if az_cfg is None:
+                from fishnet_tpu_torch.models.az import az_config_from_params
+                from fishnet_tpu_torch.search.mcts import MctsConfig
+
+                az_cfg = MctsConfig(az=az_config_from_params(az_params))
+            self._az = _HostAzBackend(az_params, az_cfg, self.device)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # Guards _links: the sweep loop runs on its own thread while
@@ -308,20 +491,28 @@ class EvaluatorHost:
         rings.set_role("evaluator")
 
     def warmup(self) -> None:
-        """Build the kernel and initialise the device before the first
-        frontend attaches (a no-op without NNUE params)."""
+        """Build the kernel, run every AZ bucket's forward once and
+        initialise the device before the first frontend attaches."""
         if self._nnue is not None:
             self._nnue.warmup()
+        if self._az is not None:
+            self._az.warmup()
 
     def counters(self) -> Dict[str, float]:
         """The NNUE backend's dispatch accounting: dispatches, fused
         dispatches, records, real rows, padded slots and the wall
-        seconds of its dispatches; the attached links."""
+        seconds of its dispatches; the attached links; under ``az`` the
+        AZ backend's, with its forwards and the most rows one dispatch
+        fused."""
         be = self._nnue
         out = {"links": len(self._links)}
-        for key in ("dispatches", "fused_dispatches", "segments", "rows",
-                    "slots", "run_s"):
+        keys = ("dispatches", "fused_dispatches", "segments", "rows",
+                "slots", "run_s")
+        for key in keys:
             out[key] = getattr(be, key) if be is not None else 0
+        if self._az is not None:
+            out["az"] = {key: getattr(self._az, key)
+                         for key in keys + ("forwards", "max_rows")}
         return out
 
     # -- link lifecycle ----------------------------------------------------
@@ -386,16 +577,17 @@ class EvaluatorHost:
         return work
 
     def _refuse(self, link: rings.RingLink, ticket: int, epoch: int,
-                why: str) -> None:
+                why: str, family: str = "nnue") -> None:
         """Answer a malformed record with an empty result (n = 0): the
         frontend raises it at once instead of waiting out its timeout."""
-        rings.note("refused.nnue")
+        rings.note(f"refused.{family}")
         sys.stderr.write(
-            f"rpc host: refused nnue microbatch ticket {ticket} from "
+            f"rpc host: refused {family} microbatch ticket {ticket} from "
             f"{os.path.basename(link.path)}: {why}\n")
+        kind = (rings.KIND_NNUE_RESULT if family == "nnue"
+                else rings.KIND_AZ_RESULT)
         try:
-            link.push(rings.KIND_NNUE_RESULT, ticket, epoch, 0, b"",
-                      deadline_s=2.0)
+            link.push(kind, ticket, epoch, 0, b"", deadline_s=2.0)
         except (rings.RingFull, ValueError):
             rings.note("result_drops")
 
@@ -421,48 +613,55 @@ class EvaluatorHost:
                 work.extend(self._drain())
         staged = []
         for link, kind, ticket, epoch, n, payload in work:
-            if kind == rings.KIND_AZ_SUBMIT:
-                rings.note("refused.az")
-                sys.stderr.write(
-                    f"rpc host: refused AZ microbatch ticket {ticket} from "
-                    f"{os.path.basename(link.path)}: the AZ family is not "
-                    "served by this host\n")
-                continue
-            if kind != rings.KIND_NNUE_SUBMIT or self._nnue is None:
+            if kind == rings.KIND_NNUE_SUBMIT and self._nnue is not None:
+                family, be = "nnue", self._nnue
+                try:
+                    record = rings.unpack_nnue_submit(payload, n)
+                    check_nnue_record(*record[:3])
+                except ValueError as err:
+                    self._refuse(link, ticket, epoch, str(err))
+                    continue
+            elif kind == rings.KIND_AZ_SUBMIT and self._az is not None:
+                family, be = "az", self._az
+                try:
+                    if n <= 0:
+                        raise ValueError("empty microbatch")
+                    record = (rings.unpack_az_submit(payload, n),)
+                except ValueError as err:
+                    self._refuse(link, ticket, epoch, str(err), "az")
+                    continue
+            else:
                 rings.note("unserviceable")
                 continue
-            try:
-                record = rings.unpack_nnue_submit(payload, n)
-                check_nnue_record(*record[:3])
-            except ValueError as err:
-                self._refuse(link, ticket, epoch, str(err))
-                continue
             gid = next(self._groups)
-            be = self._nnue
             be.stage(gid, *record)
             # Submit-all-then-demand: everything drained this sweep parks
             # together, so the first demand's flush fuses the cross-
-            # process batch into one dispatch.
+            # process batch into one dispatch per family.
             tk = be._coalescer.submit(gid, n, n)
-            staged.append((link, ticket, epoch, n, be, tk))
+            staged.append((link, ticket, epoch, n, family, be, tk))
         served = 0
-        for link, ticket, epoch, n, be, tk in staged:
+        for link, ticket, epoch, n, family, be, tk in staged:
             try:
                 values = be._coalescer.demand(tk)
             except NativeCoreError as err:
                 rings.note("eval_errors")
                 sys.stderr.write(f"rpc host: dispatch failed: {err}\n")
                 continue  # the frontend's demand timeout requeues it
-            out = rings.pack_nnue_result(values)
+            if family == "nnue":
+                rkind, out = (rings.KIND_NNUE_RESULT,
+                              rings.pack_nnue_result(values))
+            else:
+                rkind, out = (rings.KIND_AZ_RESULT,
+                              rings.pack_az_result(*values))
             try:
-                link.push(rings.KIND_NNUE_RESULT, ticket, epoch, n, out,
-                          deadline_s=2.0)
+                link.push(rkind, ticket, epoch, n, out, deadline_s=2.0)
             except (rings.RingFull, rings.RecordTooLarge, ValueError):
                 # A frontend not draining results is dying; the lease
                 # will reap it, and a survivor re-pays via resubmit.
                 rings.note("result_drops")
                 continue
-            rings.note("results.nnue")
+            rings.note(f"results.{family}")
             served += 1
         return served
 
@@ -475,11 +674,10 @@ class EvaluatorHost:
         self._thread.start()
 
     def _loop(self) -> None:
-        be = self._nnue
-        if be is not None and be.device.type == "cuda":
+        if self.device is not None and self.device.type == "cuda":
             # The current device is per thread: the sweep's launches and
             # events go to the host's device.
-            torch.cuda.set_device(be.device)
+            torch.cuda.set_device(self.device)
         while not self._stop.is_set():
             if self.sweep() == 0:
                 time.sleep(self._poll_s)
@@ -506,13 +704,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m fishnet_tpu_torch.rpc.host",
         description="Evaluator host for the split plane: serves the NNUE "
-        "microbatches of every FISHNET_RPC=1 frontend on one device.",
+        "microbatches of every FISHNET_RPC=1 frontend and the AZ leaf "
+        "microbatches of every RemoteAzPlane on one device.",
     )
     parser.add_argument("--dir", default=None,
                         help="link directory (default: FISHNET_RPC_DIR)")
     parser.add_argument("--nnue-file", default=None,
                         help="NNUE weights to serve alpha-beta traffic "
                         "(the frontends' net)")
+    parser.add_argument("--az-seed", type=int, default=None,
+                        help="serve AZ/MCTS traffic with the default "
+                        "AzConfig's params from init_az_params(seed) (the "
+                        "port's numpy draw)")
+    parser.add_argument("--az-capacity", type=int, default=256,
+                        help="AZ bucket-ladder capacity (the largest "
+                        "forward)")
     parser.add_argument("--lease", type=float, default=rings.LEASE_S)
     parser.add_argument("--poll", type=float, default=0.002)
     parser.add_argument("--linger-ms", type=float, default=None,
@@ -522,17 +728,26 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="where the microbatches are evaluated "
                         "(default cuda; without a GPU it refuses)")
     args = parser.parse_args(argv)
-    if not args.nnue_file:
-        parser.error("nothing to serve: pass --nnue-file")
+    if not args.nnue_file and args.az_seed is None:
+        parser.error("nothing to serve: pass --nnue-file and/or --az-seed")
 
     from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
     from fishnet_tpu_torch.nnue.weights import NnueWeights
 
     try:
         device = resolve_device(args.device)
+        nnue_params = az_params = az_cfg = None
+        if args.nnue_file:
+            nnue_params = params_from_weights(
+                NnueWeights.load(args.nnue_file), device)
+        if args.az_seed is not None:
+            from fishnet_tpu_torch.models.az import init_az_params
+            from fishnet_tpu_torch.search.mcts import MctsConfig
+
+            az_cfg = MctsConfig(batch_capacity=args.az_capacity)
+            az_params = init_az_params(args.az_seed, az_cfg.az)
         host = EvaluatorHost(
-            nnue_params=params_from_weights(
-                NnueWeights.load(args.nnue_file), device),
+            nnue_params=nnue_params, az_params=az_params, az_cfg=az_cfg,
             rpc_dir=args.dir, lease_s=args.lease, poll_s=args.poll,
             linger_s=(
                 None if args.linger_ms is None else args.linger_ms / 1000.0

@@ -1,7 +1,7 @@
 """Shared-memory ring transport: one mmap'd link file per frontend.
 
-The port of ``fishnet_tpu/rpc/rings.py`` (its NNUE half), pure standard
-library plus numpy, and the same link-file format: magic ``FNRPCLK1``,
+The port of ``fishnet_tpu/rpc/rings.py``, pure standard library plus
+numpy, and the same link-file format: magic ``FNRPCLK1``,
 version 1, a 4096-byte header and 40-byte record headers, so a link
 file written by one package reads in the other.
 
@@ -39,9 +39,9 @@ Fencing:
 Knobs: ``FISHNET_RPC`` gates the split path, ``FISHNET_RPC_DIR`` places
 the link files, ``FISHNET_RPC_RING_SLOTS`` and ``FISHNET_RPC_SLOT_BYTES``
 size the rings, ``FISHNET_RPC_TIMEOUT`` bounds a frontend's total wait
-for one result. Left out against the JAX package: the AZ record codecs
-(they come with the AZ family) and the metric-registry collector (the
-port has no telemetry plane yet; ``stats()`` returns the counters).
+for one result. Left out against the JAX package: the metric-registry
+collector (the port has no telemetry plane yet; ``stats()`` returns the
+counters).
 """
 
 from __future__ import annotations
@@ -121,6 +121,9 @@ KIND_AZ_RESULT = 4
 #: Bytes one entry takes on the dense NNUE submit record: 64 uint16
 #: feature indices, then the bucket, parent and material int32s.
 NNUE_ENTRY_BYTES = 2 * 32 * 2 + 3 * 4
+
+#: One AZ submit row: the uint8 input planes of one position.
+AZ_PLANE_SHAPE = (8, 8, 19)
 
 
 def rpc_enabled() -> bool:
@@ -475,7 +478,9 @@ def _validate_header(path: str, header: np.ndarray, size: int) -> None:
 # -- wire payload codecs -----------------------------------------------------
 # NNUE submits carry the exact padded dense arrays the service's
 # external-evaluator seam produces (search/service.py _dispatch_eval),
-# so the host replays them through evaluate_batch verbatim.
+# so the host replays them through evaluate_batch verbatim; AZ records
+# carry the exact uint8 plane wire / fp16 logits wire the shared AZ plane
+# uses, so a remote round trip reconstructs bit-identical fp32 values.
 
 
 def pack_nnue_submit(feats: np.ndarray, buckets: np.ndarray,
@@ -516,6 +521,40 @@ def unpack_nnue_result(payload: bytes, n: int) -> np.ndarray:
     return np.frombuffer(payload, np.int32, count=n).copy()
 
 
+def pack_az_submit(planes_u8: np.ndarray) -> bytes:
+    return np.ascontiguousarray(planes_u8, np.uint8).tobytes()
+
+
+def unpack_az_submit(payload: bytes, n: int) -> np.ndarray:
+    """A read-only view of an AZ submit record: uint8 planes [n, 8, 8,
+    19]. Raises ``ValueError`` when the payload is not ``n`` rows long."""
+    row = int(np.prod(AZ_PLANE_SHAPE))
+    if len(payload) != n * row:
+        raise ValueError(f"az submit of {n} rows holds {len(payload)} "
+                         f"bytes, want {n * row}")
+    return np.frombuffer(payload, np.uint8).reshape((n,) + AZ_PLANE_SHAPE)
+
+
+def pack_az_result(logits_f16: np.ndarray, values_f32: np.ndarray) -> bytes:
+    return (
+        np.ascontiguousarray(logits_f16, np.float16).tobytes()
+        + np.ascontiguousarray(values_f32, np.float32).tobytes()
+    )
+
+
+def unpack_az_result(payload: bytes, n: int,
+                     policy_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """fp16 logits [n, policy_size] and float32 values [n] (read-only
+    views of ``payload``)."""
+    logits = np.frombuffer(
+        payload, np.float16, count=n * policy_size
+    ).reshape(n, policy_size)
+    values = np.frombuffer(
+        payload, np.float32, count=n, offset=n * policy_size * 2
+    )
+    return logits, values
+
+
 # -- module counters ---------------------------------------------------------
 # A process-lifetime counter dict (the JAX package also emits these as
 # fishnet_rpc_* metric families; the port reads them through stats()).
@@ -532,8 +571,8 @@ def _count(key: str, n: int) -> None:
 
 def note(key: str, n: int = 1) -> None:
     """Public counter hook for the client and host layers
-    (``submits.nnue``, ``results.nnue``, ``stale_refusals``,
-    ``resubmits``, ``detach.lease``, ``fused.rows.nnue``, ...)."""
+    (``submits.nnue``, ``results.az``, ``stale_refusals``,
+    ``resubmits``, ``detach.lease``, ``fused.rows.az``, ...)."""
     _count(key, n)
 
 

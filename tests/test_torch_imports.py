@@ -1,5 +1,5 @@
 """The port imports torch, numpy and the standard library only: nothing of
-jax, flax, optax, aiohttp or the JAX package fishnet_tpu, and its entry
+jax, flax, optax, orbax, aiohttp or the JAX package fishnet_tpu, and its entry
 points never fall back to the CPU on their own.
 
 The import check runs in a subprocess: this test process has imported
@@ -17,7 +17,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "aiohttp", "fishnet_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "aiohttp", "fishnet_tpu")
 
 _BLOCKED_RUN = r"""
 import importlib, io, pkgutil, runpy, sys
@@ -38,7 +38,9 @@ import fishnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     fishnet_tpu_torch.__path__, "fishnet_tpu_torch.")]
 for name in ("search.eval_cache", "models.az", "models.az_encoding",
-             "search.mcts", "search.az_plane", "engine.az_engine"):
+             "search.mcts", "search.az_plane", "engine.az_engine", "train",
+             "train.model", "train.trainer", "train.az_trainer",
+             "train.checkpoint", "train.data", "train.selfplay"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -162,6 +164,16 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
                           "--dir", str(tmp_path / "rpc")]) == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "rpc").exists()
+    assert rpc_host.main(["--az-seed", "0", "--dir", str(tmp_path / "rpc")]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "rpc").exists()
+    # So do the trainers.
+    from fishnet_tpu_torch.train import AzTrainer, Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AzTrainer(cfg=tiny)
     # The scalar backend evaluates on the host and needs no device.
     svc = SearchService(weights=w, backend="scalar", pool_slots=8,
                         batch_capacity=64, tt_bytes=1 << 20)

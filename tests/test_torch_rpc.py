@@ -14,6 +14,13 @@ against the port's and the JAX package's monoliths under the parity
 settings: no eval cache or bounds tier, the host-material wire, the
 prefetch budget pinned to 0, fixed FENs at fixed nodes, one driver
 thread. A malformed record is refused before the evaluator runs.
+
+The AZ half: the record codecs byte for byte against the JAX package's;
+the host's AZ backend (the plane's forward at the plane's bucket ladder)
+against the plane's forward bit for bit and the JAX host backend within
+a bf16 tolerance; MCTS trees and self-play batches over a
+``RemoteAzPlane`` (the host in process, or a ``--az-seed`` subprocess)
+equal to the in-process shared plane's, bit for bit.
 """
 
 import asyncio
@@ -617,3 +624,271 @@ def test_flag_off_builds_monolith_flag_on_builds_remote(monkeypatch,
     assert "device" not in probe.kwargs
     factory = cli.build_engine_factory(Opt(engine="tpu-nnue"), logger)
     assert factory.supervisor.rung == "host-material"
+
+
+# -- the AZ half ---------------------------------------------------------------
+# The tree-side evaluator seam: a RemoteAzPlane in a pool's evaluator slot,
+# served by a port EvaluatorHost with AZ params, against the pool's own
+# in-process shared plane on the same params (TINY, on the CPU).
+
+import jax.numpy as jnp  # noqa: E402
+
+from fishnet_tpu.models.az import AzConfig as JaxAzConfig  # noqa: E402
+from fishnet_tpu.rpc.host import _HostAzBackend as JaxHostAzBackend  # noqa: E402
+from fishnet_tpu.search.mcts import MctsConfig as JaxMctsConfig  # noqa: E402
+from fishnet_tpu_torch.models.az import (  # noqa: E402
+    AzConfig,
+    init_az_params,
+    params_from_jax as az_params_from_jax,
+    wire_forward,
+)
+from fishnet_tpu_torch.rpc.client import RemoteAzPlane  # noqa: E402
+from fishnet_tpu_torch.rpc.host import _HostAzBackend  # noqa: E402
+from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool  # noqa: E402
+from fishnet_tpu_torch.train.selfplay import SelfPlayConfig, selfplay_batch  # noqa: E402
+
+AZ_TINY = AzConfig(channels=16, blocks=2, value_hidden=16)
+AZ_CFG = MctsConfig(batch_capacity=64, az=AZ_TINY)
+#: The JAX forward against the port's: within 2**-5 of the largest
+#: logit's magnitude (tests/test_torch_az_model.py's bound).
+AZ_TOLERANCE = 2.0 ** -5
+AZ_ROOTS = [[], ["e2e4"], ["d2d4", "d7d5"], ["g1f3", "g8f6", "c2c4"]]
+
+
+def _az_planes(rng, n):
+    x = rng.integers(0, 2, (n, 8, 8, 19)).astype(np.uint8)
+    x[..., 17] = rng.integers(0, 101, (n, 1, 1))
+    return x
+
+
+@pytest.fixture(scope="module")
+def az_params():
+    """The TINY dev-mode draw with every zero leaf given small seeded
+    values (live biases and value head)."""
+    rng = np.random.default_rng(11)
+    params = init_az_params(11, AZ_TINY)
+    for k, v in params.items():
+        if not v.any():
+            params[k] = (rng.standard_normal(v.shape) * 0.05).astype(np.float32)
+    return params
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_az_codecs_bytes_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    n = 3 + 5 * seed
+    planes = _az_planes(rng, n)
+    payload = rings.pack_az_submit(planes)
+    assert payload == jax_rings.pack_az_submit(planes)
+    assert rings.AZ_PLANE_SHAPE == jax_rings.AZ_PLANE_SHAPE
+    assert np.array_equal(rings.unpack_az_submit(payload, n),
+                          jax_rings.unpack_az_submit(payload, n))
+    logits = rng.standard_normal((n, 4672)).astype(np.float16)
+    values = rng.uniform(-1, 1, n).astype(np.float32)
+    result = rings.pack_az_result(logits, values)
+    assert result == jax_rings.pack_az_result(logits, values)
+    assert len(result) == n * (4672 * 2 + 4)
+    for got, want in zip(rings.unpack_az_result(result, n, 4672),
+                         jax_rings.unpack_az_result(result, n, 4672)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    with pytest.raises(ValueError, match="az submit"):
+        rings.unpack_az_submit(payload[:-1], n)
+
+
+@pytest.mark.parametrize("sizes", [(5,), (17, 40), (40, 50, 3)],
+                         ids=["1seg", "2segs", "over-capacity"])
+def test_host_az_backend_equals_the_plane_forward_and_jax(az_params, sizes):
+    """The port host's fused AZ dispatch gives each row the plane's
+    forward bits (a fused batch above the capacity runs as capacity-
+    sized forwards of the ladder) and the JAX host backend's within
+    AZ_TOLERANCE."""
+    rng = np.random.default_rng(sum(sizes))
+    segs = [_az_planes(rng, k) for k in sizes]
+    host = _HostAzBackend(az_params, AZ_CFG, torch.device("cpu"))
+    assert host.buckets == [32, 64]
+    logits, values = host._run(segs)
+    rows = np.concatenate(segs)
+    net = az_params_from_jax(az_params)
+    want_l, want_v = wire_forward(net, torch.from_numpy(rows))
+    assert logits.dtype == np.float16 and values.dtype == np.float32
+    assert np.array_equal(logits, want_l.numpy())
+    assert np.array_equal(values, want_v.numpy())
+    assert host.forwards == -(-len(rows) // 64) and host.rows == len(rows)
+    ref = JaxHostAzBackend({k: jnp.asarray(v) for k, v in az_params.items()},
+                           JaxMctsConfig(batch_capacity=64, az=JaxAzConfig(
+                               channels=16, blocks=2, value_hidden=16)))
+    ref_l, ref_v = ref._run(segs)  # padded to its own bucket
+    ref_l, ref_v = ref_l[: len(rows)], ref_v[: len(rows)]
+    scale = max(1.0, float(np.abs(ref_l.astype(np.float32)).max()))
+    assert np.abs(logits.astype(np.float32) - ref_l.astype(np.float32)).max() \
+        <= AZ_TOLERANCE * scale
+    assert np.abs(values - ref_v).max() <= AZ_TOLERANCE
+
+
+def _trees(pool, roots, visits=48):
+    sids = [pool.submit(MATE_START, line, visits) for line in roots]
+    while pool.active() > 0:
+        pool.step()
+    return [(r.best_move, r.visits, r.value, tuple(r.root_visits), tuple(r.pv))
+            for r in map(pool.harvest, sids)]
+
+
+MATE_START = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
+
+
+def _in_process(params, fn):
+    pool = MctsPool(params, AZ_CFG, device="cpu")
+    try:
+        return fn(pool)
+    finally:
+        pool.close()
+
+
+def test_remote_az_plane_trees_equal_the_in_process_plane(tmp_path, az_params):
+    """MCTS over a RemoteAzPlane (the host swept in this process) gives
+    the in-process plane's trees bit for bit, cold and warm (a warm
+    replay resolves rows from the salted cache before the wire), and the
+    frontend holds no device."""
+    want = _in_process(az_params, lambda p: _trees(p, AZ_ROOTS))
+    eval_cache.reset_cache()
+    host = EvaluatorHost(az_params=az_params, az_cfg=AZ_CFG,
+                         rpc_dir=str(tmp_path), device="cpu")
+    host.warmup()
+    with _swept(host):
+        plane = RemoteAzPlane(AZ_CFG, az_params, rpc_dir=str(tmp_path),
+                              link_name="a.ring")
+        try:
+            plane.warmup()
+            pool = MctsPool(az_params, AZ_CFG, evaluator=plane)
+            cold = _trees(pool, AZ_ROOTS)
+            c_cold = plane.counters()
+            warm = _trees(MctsPool(az_params, AZ_CFG, evaluator=plane),
+                          AZ_ROOTS)
+            c_warm = plane.counters()
+        finally:
+            plane.close()
+        az = host.counters()["az"]
+    assert cold == want and warm == want
+    assert c_cold["dispatches"] > 0 and c_cold["rows_dispatched"] > 0
+    assert c_warm["prewire_hits"] > c_cold["prewire_hits"]
+    assert az["dispatches"] >= c_cold["dispatches"] and az["rows"] > 0
+    assert not torch.cuda.is_initialized()
+
+
+def test_remote_az_plane_splits_a_record_too_large_for_a_slot(
+        tmp_path, az_params, monkeypatch):
+    """A microbatch whose answer outgrows one ring slot crosses as
+    several records, submitted together; the rows come back in order,
+    the plane's bits."""
+    row = 4672 * 2 + 4
+    monkeypatch.setenv(rings.SLOT_BYTES_ENV, str(rings.REC_HEADER_BYTES + 10 * row))
+    host = EvaluatorHost(az_params=az_params, az_cfg=AZ_CFG,
+                         rpc_dir=str(tmp_path), device="cpu")
+    planes = _az_planes(np.random.default_rng(3), 25)
+    with _swept(host):
+        plane = RemoteAzPlane(AZ_CFG, rpc_dir=str(tmp_path), link_name="b.ring")
+        try:
+            logits, values = plane.evaluate(plane.register_lane(), planes, 25)
+            counters = plane.counters()
+        finally:
+            plane.close()
+    want_l, want_v = wire_forward(az_params_from_jax(az_params),
+                                  torch.from_numpy(planes))
+    assert counters["records"] == 3 and counters["dispatches"] == 1
+    assert np.array_equal(logits, want_l.float().numpy())
+    assert np.array_equal(values, want_v.numpy())
+
+
+def test_two_remote_frontends_self_play_as_the_in_process_plane(tmp_path,
+                                                                az_params):
+    """Two frontends (each a pool over its own RemoteAzPlane, on its own
+    thread) self-play through one host: each batch equals the in-process
+    plane's at its seed, bit for bit."""
+    cfg = SelfPlayConfig(games=2, visits=16, max_plies=8)
+    want = {seed: _in_process(az_params, lambda p, s=seed: selfplay_batch(p, cfg, s))
+            for seed in (0, 1)}
+    eval_cache.reset_cache()
+    host = EvaluatorHost(az_params=az_params, az_cfg=AZ_CFG,
+                         rpc_dir=str(tmp_path), device="cpu")
+    got, errors = {}, []
+
+    def frontend(seed):
+        plane = RemoteAzPlane(AZ_CFG, az_params, rpc_dir=str(tmp_path),
+                              link_name=f"f{seed}.ring")
+        try:
+            got[seed] = selfplay_batch(MctsPool(az_params, AZ_CFG,
+                                                evaluator=plane), cfg, seed)
+        except BaseException as err:  # noqa: BLE001 - raised below
+            errors.append(err)
+        finally:
+            plane.close()
+
+    with _swept(host):
+        threads = [threading.Thread(target=frontend, args=(s,)) for s in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        az = host.counters()["az"]
+    assert not errors, errors
+    for seed in (0, 1):
+        for k in want[seed]:
+            np.testing.assert_array_equal(got[seed][k], want[seed][k],
+                                          err_msg=f"{seed} {k}")
+    assert az["segments"] >= az["dispatches"] > 0
+
+
+def test_malformed_az_record_is_refused(tmp_path, az_params):
+    host = EvaluatorHost(az_params=az_params, az_cfg=AZ_CFG,
+                         rpc_dir=str(tmp_path), device="cpu")
+    client = _RpcClient(str(tmp_path))
+    before = rings.stats()
+    try:
+        payload = rings.pack_az_submit(_az_planes(np.random.default_rng(0), 2))
+        ticket = client.submit(rings.KIND_AZ_SUBMIT, 3, payload)
+        host.sweep()
+        _kind, n, result = client.wait(ticket, 3, rings.KIND_AZ_SUBMIT, payload)
+        assert n == 0 and result == b""
+        assert _delta(before, "refused.az") == 1
+        assert host.counters()["az"]["dispatches"] == 0
+    finally:
+        client.close()
+        host.close()
+
+
+def test_host_subprocess_serves_az_seed(tmp_path):
+    """``python -m fishnet_tpu_torch.rpc.host --az-seed 3 --device cpu``
+    serves the default AzConfig's seeded params: self-play through it
+    equals the in-process plane on ``init_az_params(3)``."""
+    cfg = MctsConfig(batch_capacity=64)
+    params = init_az_params(3, cfg.az)
+    sp = SelfPlayConfig(games=2, visits=8, max_plies=3)
+    pool = MctsPool(params, cfg, device="cpu")
+    try:
+        want = selfplay_batch(pool, sp, seed=4)
+    finally:
+        pool.close()
+    eval_cache.reset_cache()
+    rpc_dir = tmp_path / "rpc"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    host = subprocess.Popen(
+        [sys.executable, "-m", "fishnet_tpu_torch.rpc.host", "--dir",
+         str(rpc_dir), "--az-seed", "3", "--az-capacity", "64", "--device",
+         "cpu", "--poll", "0.001"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        plane = RemoteAzPlane(cfg, params, rpc_dir=str(rpc_dir))
+        try:
+            got = selfplay_batch(MctsPool(params, cfg, evaluator=plane), sp, seed=4)
+        finally:
+            plane.close()
+    finally:
+        host.terminate()
+        try:
+            _, err = host.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            host.kill()
+            _, err = host.communicate(timeout=20)
+    assert host.returncode == 0, err.decode()[-2000:]
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
