@@ -24,9 +24,13 @@ the burst and the ``run`` workload with the cache off and on; runs
 the split evaluator plane: an evaluator host process on the GPU serving
 search frontend processes over shared-memory rings; runs the AZ/MCTS
 family: the policy+value tower on the card, batched PUCT MCTS over the
-shared AZ dispatch plane and ``run --engine az-mcts``; and trains: teacher
+shared AZ dispatch plane and ``run --engine az-mcts``; trains: teacher
 labels through the card's search, the NNUE and AZ trainers, self-play
-over the shared AZ plane and over an evaluator host, checkpoints.
+over the shared AZ plane and over an evaluator host, checkpoints; and
+runs the serving mesh: the kernel's partials mode, two launching
+threads on one card, the service and the AZ plane on two logical shards
+of the card, the per-shard ladder and drain, the legacy sharded
+evaluator.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
@@ -35,14 +39,15 @@ kernel's times, the coalescer's checks and the fused launch's times,
 the client runs' throughput and latencies, the cache phase's checks and
 numbers, the split phase's checks and numbers, the az phase's checks
 and numbers (and one JSON object ``{"az": {...}}``), the train phase's
-(and ``{"train": {...}}``), then on the last
+(and ``{"train": {...}}``), the mesh phase's (and ``{"mesh": {...}}``),
+then on the last
 three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split, az, train; default all eleven) limits a run to some phases
+run, cli, cache, split, az, train, mesh; default all twelve) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -82,6 +87,23 @@ plane; two frontend processes self-playing over ``RemoteAzPlane``s
 served by one host process (``--az-seed``) == the in-process plane,
 fused on the host, no frontend CUDA context; checkpoint round trips and
 resume at 5 == uninterrupted at 10, on the CPU and on the card.
+``mesh`` runs the serving mesh at full width (last), on this host's
+one card as two logical shards: the kernel's partials mode (``sparse=``)
+== its plain version (timed, with its bound and embedding_bag), two
+threads launching 200 times on one card == plain; 20 gated positions at
+3000 nodes (one driver thread, 32 slots, microbatch 1024: all at once)
+through ``mesh_devices="auto"`` and
+FISHNET_NO_MESH=1 over [cuda:0, cuda:0] (one shard each on one card)
+and through two logical shards under FISHNET_SHARD_PLACEMENT rr and lb,
+all == the no-mesh service, both shards dispatching; shard 1 stepped
+down to host-material and drained mid-search (shard 0's rung unmoved,
+migrated table blocks equal, the first dispatch after a move == plain
+on CPU copies, analyses unchanged); 2 driver threads x pipeline 2 on two
+shards (checks that do not depend on timing); the legacy
+``ShardedEvaluator`` over two shards == single-device evaluate_packed;
+the AZ plane over two shards == one shard; and the burst, one shard
+(A) and two (B), A, B, B, A at 600 nodes (numbers only). Launches on
+``cuda:N`` with N > 0 need a host with more cards.
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -120,7 +142,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
-          "cache", "split", "az", "train")
+          "cache", "split", "az", "train", "mesh")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1715,17 +1737,21 @@ def time_fused(torch, params, harness, k_segs: int) -> dict:
 
 
 def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
-              hook=None, **env):
+              hook=None, mesh_devices=None, pool_slots: int = 8,
+              batch_capacity: int = 256, **env):
     """``walks`` (move lists from the start position) searched at
-    ``nodes`` nodes on one service (8 slots in 4 groups, one driver
-    thread, prefetch pinned) whose driver parks after its warm-up until
+    ``nodes`` nodes on one service (``pool_slots`` slots, 8 by default,
+    in 4 groups, one driver thread, ``batch_capacity`` entries, prefetch
+    pinned) whose driver parks after its warm-up until
     every search is submitted, so the schedule is a function of the
     submission sequence. ``env`` is set while the service is built (the
     hatches are read there), ``fresh`` starts from a cold eval cache,
-    ``hook(service)`` runs before the searches. On the card the packed
-    kernel must launch once per device dispatch and the dense mode
-    never, and the kernel's error word must not move. Returns the
-    analyses and the counters, with the copy-source launches."""
+    ``hook(service)`` runs before the searches, ``mesh_devices`` is the
+    service's serving mesh. On the card the packed kernel must launch
+    once per device dispatch and the dense mode never, and the kernel's
+    error word must not move. Returns the analyses and the counters,
+    with the copy-source launches (and with a mesh the shard report,
+    under "shards")."""
     from fishnet_tpu_torch.ops import ft_gather
     from fishnet_tpu_torch.search.service import SearchService
 
@@ -1741,9 +1767,10 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
     if fresh:
         fresh_cache()
     with env_vars(**env):
-        svc = Gated(weights=weights, pool_slots=8, batch_capacity=256,
-                    tt_bytes=8 << 20, pipeline_depth=4, driver_threads=1,
-                    device=dev)
+        svc = Gated(weights=weights, pool_slots=pool_slots,
+                    batch_capacity=batch_capacity, tt_bytes=8 << 20,
+                    pipeline_depth=4, driver_threads=1, device=dev,
+                    mesh_devices=mesh_devices)
     gpu = svc.device.type == "cuda"
     launches = ft_gather.ft_accumulate_packed_cuda
     try:
@@ -1765,6 +1792,8 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
 
         results = asyncio.run(go())
         counters = svc.counters()
+        if mesh_devices is not None:
+            counters["shards"] = svc.shard_report()
     finally:
         svc.gate.set()
         svc.close()
@@ -4446,6 +4475,590 @@ def train_steps(torch, dev, tmp: str, cpu_child, cpu_path: str) -> dict:
     return out
 
 
+#: The mesh phase's sizes: gated positions at one driver thread (the
+#: coalesce phase's search depth) on a service whose slots hold them
+#: all at once, at the CLI's microbatch; the concurrent 2 x 2 run's
+#: searches; the A/B burst's nodes (the coalesce phase's burst, cut
+#: from 3000 nodes a search, as the cache phase's, so the phase keeps
+#: near its time); and shard 1's dispatches at which the drain check
+#: steps it down a rung and then drains it.
+MESH_POSITIONS = 20
+MESH_NODES = 3000
+MESH_GATED = dict(pool_slots=32, batch_capacity=1024)
+MESH_CONCURRENT = 32
+MESH_BURST_NODES = 600
+MESH_DRAIN_AT = (6, 12)
+
+
+def mesh_sparse_kernel(torch, params, dev) -> dict:
+    """The kernel's partials mode (``sparse=``, dense mode without
+    parents) at the serving width: a B = 512 batch, half fulls and half
+    sparse deltas with removals, fused PSQT; == the plain version on
+    the card and on the CPU, bit for bit, one launch counted; timed
+    against its plain version, its bound and ``embedding_bag`` with
+    signed per-sample weights (the same signed sums)."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec
+    from fishnet_tpu_torch.ops import ft_gather
+
+    rng = np.random.default_rng(41)
+    b, nf, db, ds = 512, spec.NUM_FEATURES, spec.DELTA_BASE, spec.DELTA_SLOTS
+    idx = np.full((b, 2, spec.MAX_ACTIVE_FEATURES), nf, np.int32)
+    sparse = rng.integers(0, 2, b).astype(np.int32)
+    for e in range(b):
+        if not sparse[e]:
+            live = int(rng.integers(20, 33))
+            idx[e, :, :live] = rng.integers(0, nf, (2, live))
+            continue
+        for p in range(2):
+            n_add, n_rem = (int(x) for x in rng.integers(0, ds + 1, 2))
+            idx[e, p, :n_add] = rng.integers(0, nf, n_add)
+            idx[e, p, ds: ds + n_rem] = db + rng.integers(0, nf, n_rem)
+            idx[e, p, ds + n_rem: 2 * ds] = db + nf
+    w, bias, fp = params["ft_w"], params["ft_b"], params["ft_psqt"]
+    t_idx, t_sp = (torch.from_numpy(a).to(dev) for a in (idx, sparse))
+    kw = dict(delta_base=db, sparse=t_sp, ft_psqt=fp)
+    errors0 = ft_gather.kernel_errors(dev)
+    before = ft_gather.ft_accumulate_cuda.sparse_launches
+    got = ft_gather.ft_accumulate_cuda(w, bias, t_idx, **kw)
+    check(ft_gather.ft_accumulate_cuda.sparse_launches == before + 1,
+          "the partials mode was not counted")
+    ref = ft_gather.ft_accumulate_plain(w, bias, t_idx, **kw)
+    cpu = ft_gather.ft_accumulate_plain(
+        w.cpu(), bias.cpu(), t_idx.cpu(), delta_base=db, sparse=t_sp.cpu(),
+        ft_psqt=fp.cpu())
+    err = max(max_diff(got, ref), max_diff([g.cpu() for g in got], cpu))
+    check(err == 0, f"partials mode: kernel != plain by {err}")
+    dec = np.where(idx >= db, idx - db, idx).reshape(-1, 32)
+    sign = np.where(idx >= db, -1.0, 1.0).astype(np.float32).reshape(-1, 32)
+    flat = torch.from_numpy(dec).long().to(dev)
+    psw = torch.from_numpy(sign).to(dev)
+    w_f = w.float()
+
+    def library():
+        return torch.nn.functional.embedding_bag(
+            flat, w_f, per_sample_weights=psw, mode="sum")
+
+    check(torch.equal(library().view(b, 2, -1).to(torch.int32)
+                      + bias.to(torch.int32), got[0]),
+          "embedding_bag does not compute the partials")
+    ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_cuda(
+        w, bias, t_idx, **kw))
+    plain_ms = graph_time_ms(torch, lambda: ft_gather.ft_accumulate_plain(
+        w, bias, t_idx, **kw))
+    library_ms = graph_time_ms(torch, library)
+    # The bound counts the partials' reads as the kernel's: a flagged
+    # entry's 2*DELTA_SLOTS slots, as a delta's (a stand-in code).
+    fake = np.where(sparse == 1, pers_code(0, True), -1).astype(np.int32)
+    bound_ms, bound_by, nbytes, ops = bound(idx, fake, False, True, spec.L1)
+    torch.cuda.synchronize()
+    check(ft_gather.kernel_errors(dev) == errors0,
+          "partials mode: the kernel's error word moved")
+    row = {"entries": b, "sparse": int(sparse.sum()), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+           "bound_ops": ops, "max_abs_err": err}
+    log(f"  partials mode (sparse=), B={b} ({row['sparse']} sparse, fused "
+        f"PSQT): == plain on the card and the CPU; kernel {ms:.6f} ms, "
+        f"plain {plain_ms:.6f} ms, embedding_bag {library_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {nbytes} B)")
+    return row
+
+
+def mesh_threads_kernel(torch, params, dev, launches: int = 100) -> dict:
+    """Two threads launching on one card, as two shards' pack workers do:
+    each ``launches`` dense launches with in-batch deltas and persistent
+    codes (the ready words and the entry ticket in play), met at a
+    barrier before each, thread 1's first launch growing the device's
+    ready words while thread 0's may be in flight; every result == the
+    plain version's, and the error word stays where it was."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec
+    from fishnet_tpu_torch.ops import ft_gather
+
+    rng = np.random.default_rng(43)
+    w, bias, fp = params["ft_w"], params["ft_b"], params["ft_psqt"]
+    held = ft_gather._states.get(dev.index or 0, (None, None))[1]
+    grow = (4096 if held is None else held.shape[0]) + 512
+    jobs = []
+    for size in (512, grow):
+        (pk, off, par, tab, ptab), _, _ = device_wire(torch, rng, dev, size,
+                                                      64)
+        dense = ft_gather.expand_packed(pk, off, par)
+        kw = dict(delta_base=spec.DELTA_BASE, parent=par, anchor_tab=tab,
+                  ft_psqt=fp, psqt_tab=ptab)
+        jobs.append((dense, kw, ft_gather.ft_accumulate_plain(
+            w, bias, dense, **kw)))
+    errors0 = ft_gather.kernel_errors(dev)
+    barrier = threading.Barrier(2)
+    bad, failures = [0, 0], []
+
+    def drive(i):
+        dense, kw, ref = jobs[i]
+        try:
+            for _ in range(launches):
+                barrier.wait(timeout=60)
+                out = ft_gather.ft_accumulate_cuda(w, bias, dense, **kw)
+                bad[i] += int(max_diff(out, ref) != 0)
+        except BaseException as err:  # noqa: BLE001 - raised below
+            failures.append(err)
+            barrier.abort()
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failures:
+        raise failures[0]
+    torch.cuda.synchronize()
+    errors = ft_gather.kernel_errors(dev)
+    log(f"  two threads x {launches} launches on one card (B = 512 and "
+        f"{grow}, the second growing the ready words): {bad} results != "
+        f"plain, error word {errors0} -> {errors}")
+    check(bad == [0, 0], f"two launching threads: {bad} results != plain")
+    check(errors == errors0, "two launching threads: the error word moved")
+    return {"launches": 2 * launches, "batches": [512, grow], "wrong": bad}
+
+
+def mesh_drain_run(torch, weights, dev, walks, ref) -> dict:
+    """Check 4: the gated positions on two logical shards (round-robin),
+    shard 1 stepped down one rung (host-material) at its
+    MESH_DRAIN_AT[0]-th dispatch and drained at its [1]-th, mid-search:
+    the analyses stay ``ref``'s; shard 0 never leaves its rung; every
+    group ends on shard 0; each drained group's table block arrives on
+    shard 0 equal to the block it left; the first dispatch after such a
+    move equals the plain version on CPU copies of its inputs and
+    tables."""
+    from fishnet_tpu_torch.nnue import torch_eval
+    from fishnet_tpu_torch.resilience.supervisor import ladder_for
+
+    ladder = ladder_for(dev.type)  # cuda: fused -> host-material
+    state = {"seen": 0, "mid": None, "moved": [], "armed": False,
+             "first": None}
+
+    def hook(svc):
+        solo, fused = svc._dispatch_eval, svc._dispatch_segmented
+        place, evaluate = svc._place_group_tables, svc._eval_fn
+
+        def count(group):
+            if svc._router.shard_of(group) == 1:
+                state["seen"] += 1
+                if state["seen"] in MESH_DRAIN_AT:
+                    svc._degrade_shard_for(group,
+                                           RuntimeError("forced ladder step"))
+                    if state["mid"] is None:
+                        state["mid"] = svc.shard_report()
+
+        def on_solo(group, n, rows):
+            count(group)
+            return solo(group, n, rows)
+
+        def on_fused(tickets):
+            count(tickets[0].group)
+            return fused(tickets)
+
+        def on_place(group, shard):
+            old = svc._table_home[group]
+            place(group, shard)
+            if old != shard:
+                same = (torch.equal(svc._anchor_shards[shard][group],
+                                    svc._anchor_shards[old][group])
+                        and torch.equal(svc._psqt_shards[shard][group],
+                                        svc._psqt_shards[old][group]))
+                state["moved"].append((group, old, shard, same))
+                state["armed"] = True
+
+        def on_eval(params, packed, buckets, parent, material, tab, n_rows,
+                    ptab, **kw):
+            if not state["armed"] or state["first"] is not None:
+                return evaluate(params, packed, buckets, parent, material,
+                                tab, n_rows, ptab, **kw)
+            state["armed"] = False
+            snap = {"args": [t.cpu().clone() if t is not None else None
+                             for t in (packed, buckets, parent, material,
+                                       tab)],
+                    "n_rows": n_rows, "ptab": ptab.cpu().clone(),
+                    "kw": {k: (v.cpu().clone() if hasattr(v, "cpu")
+                               else v.copy() if hasattr(v, "copy") else v)
+                           for k, v in kw.items()}}
+            out = evaluate(params, packed, buckets, parent, material, tab,
+                           n_rows, ptab, **kw)
+            snap["out"] = [out[0].cpu(), tab.cpu().clone(),
+                           ptab.cpu().clone()]
+            state["first"] = snap
+            return out
+
+        svc._dispatch_eval, svc._dispatch_segmented = on_solo, on_fused
+        svc._place_group_tables, svc._eval_fn = on_place, on_eval
+
+    run = gated_run(weights, dev, walks, MESH_NODES, hook=hook,
+                    mesh_devices=[dev, dev], FISHNET_SHARD_PLACEMENT="rr",
+                    FISHNET_COALESCE_WIDTH="2", **MESH_GATED)
+    rep = run[1]["shards"]
+    mid = state["mid"]
+    log(f"  ladder: at shard 1's dispatch {MESH_DRAIN_AT[0]} "
+        f"{mid['rungs'] if mid else None}, at {MESH_DRAIN_AT[1]} drained; "
+        f"end {rep['rungs']}, groups {rep['groups']}, dispatches "
+        f"{rep['dispatches']}, moved blocks "
+        f"{[(g, o, s) for g, o, s, _ in state['moved']]}; == no mesh "
+        f"{run[0] == ref}")
+    check(run[0] == ref, "ladder and drain: the analyses changed")
+    check(mid is not None and mid["rungs"] == list(ladder)
+          and all(mid["alive"]), f"ladder: the step went wrong ({mid})")
+    check(rep["rungs"] == [ladder[0], "drained"] and rep["groups"][1] == []
+          and sorted(rep["groups"][0]) == [0, 1, 2, 3],
+          f"drain: shard 1 not drained onto shard 0 ({rep})")
+    check(state["moved"] and all(m[3] for m in state["moved"]),
+          f"drain: a migrated table block differs ({state['moved']})")
+    snap = state["first"]
+    check(snap is not None, "drain: no dispatch after a move")
+    cpu_params = {k: v.cpu() for k, v in
+                  torch_eval.params_from_weights(weights, "cpu").items()}
+    packed, buckets, parent, material, tab = snap["args"]
+    ptab = snap["ptab"]
+    values, _, _ = torch_eval.evaluate_packed_anchored(
+        cpu_params, packed, buckets, parent, material, tab, snap["n_rows"],
+        ptab, **snap["kw"])
+    # The table rows this dispatch reads and stores: its groups' blocks.
+    # (The rest of the flat table may take another shard's pack worker's
+    # stores between the snapshot and the launch.)
+    rows = torch.unique((-parent[parent <= -2] - 2) >> 2).long()
+    out_v, out_t, out_pt = snap["out"]
+    dv = max_diff([values], [out_v])
+    dt = max_diff([tab[rows], ptab[rows]], [out_t[rows], out_pt[rows]])
+    diff = max(dv, dt)
+    log(f"  the first dispatch after a move ({len(parent)} entries, "
+        f"{len(rows)} table rows, "
+        f"{'host-material' if material is not None else 'PSQT on the card'}"
+        f"): == plain on CPU copies, values and its table rows (max diff "
+        f"{dv}, {dt})")
+    check(diff == 0, f"drain: the first dispatch after a move != plain "
+                     f"({diff})")
+    return {"moved": [m[:3] for m in state["moved"]],
+            "dispatches": rep["dispatches"], "first_after_move_diff": diff}
+
+
+def mesh_concurrent(torch, weights, dev) -> dict:
+    """Two logical shards under 2 driver threads x pipeline 2 (4 groups,
+    concurrent driver threads: their shared TT makes the analyses depend
+    on timing, so this run checks what does not): every search answers,
+    both shards dispatch, one packed launch per dispatch and no dense
+    launch, the error word unmoved."""
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.search.service import SearchService
+
+    fresh_cache()
+    svc = SearchService(weights=weights, batch_capacity=1024,
+                        pipeline_depth=2, driver_threads=2, device=dev,
+                        mesh_devices=[dev, dev])
+    try:
+        svc.warmup()
+        errors0 = ft_gather.kernel_errors(dev)
+        packed0 = ft_gather.ft_accumulate_packed_cuda.launches
+        dense0 = ft_gather.ft_accumulate_cuda.launches
+        c0 = svc.counters()
+        walks = random_lines(MESH_CONCURRENT, seed=59)
+
+        async def go():
+            return await asyncio.gather(*[
+                svc.search(STARTPOS, m, nodes=MESH_NODES) for m in walks])
+
+        results = asyncio.run(go())
+        c = {k: v - c0[k] for k, v in svc.counters().items()}
+        rep = svc.shard_report()
+        packed = ft_gather.ft_accumulate_packed_cuda.launches - packed0
+        dense = ft_gather.ft_accumulate_cuda.launches - dense0
+        torch.cuda.synchronize()
+        errors = ft_gather.kernel_errors(dev)
+    finally:
+        svc.close()
+    widths = [st / max(1, d) for st, d in zip(rep["steps"], rep["dispatches"])]
+    log(f"  2 driver threads x pipeline 2 on two logical shards: "
+        f"{len(results)} searches, dispatches per shard {rep['dispatches']}, "
+        f"mean width per shard {[round(x, 3) for x in widths]}, re-homes "
+        f"{rep['rehomes']}, groups {rep['groups']}; launches {packed} packed, "
+        f"{dense} dense for {c['dispatches']} dispatches")
+    check(all(r.best_move for r in results), "2 x 2: a search failed")
+    check(all(d > 0 for d in rep["dispatches"]), "2 x 2: a shard idled")
+    check(packed == c["dispatches"] and dense == 0,
+          f"2 x 2: {packed} packed / {dense} dense launches for "
+          f"{c['dispatches']} dispatches")
+    check(errors == errors0, "2 x 2: the kernel's error word moved")
+    return {"dispatches": rep["dispatches"], "widths": widths,
+            "rehomes": rep["rehomes"]}
+
+
+def mesh_sharded_evaluator(torch, weights, params, dev) -> dict:
+    """Check 5: the legacy tier of an explicit ``--mesh DxM`` with M > 1,
+    ``ShardedEvaluator`` over two logical shards on the card, behind the
+    service (one entry bucket, the pool's emission aligned to the shard
+    size, the per-shard repack ``_dispatch_sharded_packed``): every
+    captured dispatch's values == the single-device ``evaluate_packed``
+    of the same group wire; two dense launches (one per shard) per
+    dispatch."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import torch_eval
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.parallel.mesh import ShardedEvaluator, make_mesh
+    from fishnet_tpu_torch.search.service import SearchService
+
+    fresh_cache()
+    ev = ShardedEvaluator(params, mesh=make_mesh([dev, dev]),
+                          batch_capacity=1024)
+    svc = SearchService(weights=weights, evaluator=ev, batch_capacity=1024,
+                        pipeline_depth=2, driver_threads=1)
+    captured = []
+    real = svc._dispatch_sharded_packed
+
+    def record(size, n, rows, packed, buckets, parents, material, offsets):
+        values, acct = real(size, n, rows, packed, buckets, parents,
+                            material, offsets)
+        if len(captured) < 16:
+            captured.append((n, packed[: rows + 4].copy(),
+                             offsets[:size].copy(), buckets[:size].copy(),
+                             parents[:size].copy(), material[:size].copy(),
+                             np.asarray(values).copy()))
+        return values, acct
+
+    svc._dispatch_sharded_packed = record
+    try:
+        svc.warmup()
+        dense0 = ft_gather.ft_accumulate_cuda.launches
+        c0 = svc.counters()
+
+        async def go():
+            return await asyncio.gather(*[
+                svc.search(STARTPOS, m, nodes=1000)
+                for m in random_lines(8, seed=61)])
+
+        results = asyncio.run(go())
+        c = {k: v - c0[k] for k, v in svc.counters().items()}
+        dense = ft_gather.ft_accumulate_cuda.launches - dense0
+        align, sizes = svc._shard_align, svc._eval_sizes
+    finally:
+        svc.close()
+    check(all(r.best_move for r in results), "sharded evaluator: a search "
+                                             "failed")
+    worst = 0
+    for n, packed, offsets, buckets, parents, material, got in captured:
+        one = torch_eval.evaluate_packed(
+            params, *(torch.from_numpy(a).to(dev) for a in (
+                packed.view(np.int16), offsets, buckets, parents,
+                material))).cpu().numpy()
+        worst = max(worst, int(np.abs(one.astype(np.int64)
+                                      - got.astype(np.int64)).max()))
+    log(f"  ShardedEvaluator over two logical shards (bucket {sizes}, "
+        f"align {align}): {len(captured)} captured dispatches == "
+        f"single-device evaluate_packed (max diff {worst}); {dense} dense "
+        f"launches for {c['dispatches']} dispatches")
+    check(captured and worst == 0,
+          f"sharded evaluator != evaluate_packed by {worst}")
+    check(dense == 2 * c["dispatches"],
+          f"sharded evaluator: {dense} dense launches for "
+          f"{c['dispatches']} dispatches of two shards")
+    return {"dispatches": c["dispatches"], "dense_launches": dense,
+            "max_abs_err": worst}
+
+
+def mesh_az(dev) -> dict:
+    """Check 6: the AZ plane on two logical shards (the default AzConfig,
+    ``devices=[dev, dev]``, lanes round-robin): the parity roots split
+    between two pools, each on its own lane, give the trees of the same
+    two pools on a one-shard plane, and both shards dispatch."""
+    from fishnet_tpu_torch.models.az import AzConfig
+    from fishnet_tpu_torch.search.az_plane import AzDispatchPlane
+    from fishnet_tpu_torch.search.mcts import MctsConfig, MctsPool
+
+    params = az_params()
+    cfg = MctsConfig(batch_capacity=AZ_CAP, az=AzConfig())
+    searches, visits = AZ_PARITY
+    roots = random_lines(searches, 53)
+    halves = [roots[: searches // 2], roots[searches // 2:]]
+    runs = {}
+    for name, devices in (("one shard", None), ("two shards", [dev, dev])):
+        fresh_cache()
+        with env_vars(FISHNET_SHARD_PLACEMENT="rr"):
+            plane = AzDispatchPlane(params, cfg, device=dev, devices=devices)
+        pools = [MctsPool(params, cfg, evaluator=plane, device=dev)
+                 for _ in halves]
+        try:
+            got = drive_in_lockstep(pools, halves, visits)
+            counters = plane.counters()
+        finally:
+            for pool in pools:
+                pool.close()
+            plane.close()
+        runs[name] = (got, counters)
+    shard_d = runs["two shards"][1]["shard_dispatches"]
+    same = runs["two shards"][0] == runs["one shard"][0]
+    log(f"  AZ plane, {searches} searches x {visits} visits over two pools: "
+        f"two logical shards == one shard {same}; dispatches per shard "
+        f"{shard_d} (one shard: {runs['one shard'][1]['dispatches']})")
+    check(same, "AZ plane: two shards' trees differ from one shard's")
+    check(all(d > 0 for d in shard_d), "AZ plane: a shard never dispatched")
+    return {"shard_dispatches": shard_d}
+
+
+def mesh_burst(weights, dev) -> list:
+    """Numbers 7, not gates: the coalesce phase's burst (the default
+    service) at MESH_BURST_NODES a search, one shard (A) and two logical
+    shards (B) on the card, in the order A, B, B, A: nodes/s, dispatches
+    and mean width per shard, and each pack worker's ms per dispatch
+    (its ``_execute`` calls). One packed launch per dispatch."""
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.search.service import SearchService
+
+    threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
+    rows = []
+    for label in ("A", "B", "B", "A"):
+        fresh_cache()
+        svc = SearchService(weights=weights, batch_capacity=1024,
+                            pipeline_depth=2, driver_threads=threads,
+                            device=dev,
+                            mesh_devices=None if label == "A" else [dev, dev])
+        pack = {}
+        try:
+            svc.warmup()
+            co = svc._coalescer
+            real = co._execute
+
+            def timed(tickets, _real=real):
+                t0 = time.perf_counter()
+                try:
+                    return _real(tickets)
+                finally:
+                    name = threading.current_thread().name
+                    if name.startswith("dispatch-pack"):
+                        cell = pack.setdefault(name, [0, 0.0])
+                        cell[0] += 1
+                        cell[1] += time.perf_counter() - t0
+
+            co._execute = timed
+            packed0 = ft_gather.ft_accumulate_packed_cuda.launches
+            burst = {}
+            nps = load_burst(svc, burst, nodes=MESH_BURST_NODES)
+            packed = ft_gather.ft_accumulate_packed_cuda.launches - packed0
+            rep = svc.shard_report()
+        finally:
+            svc.close()
+        c = burst["counters"]
+        check(packed == c["dispatches"],
+              f"burst {label}: {packed} launches for {c['dispatches']} "
+              "dispatches")
+        row = {"label": label, "shards": rep["n_shards"],
+               "nodes_per_s": nps, "dispatches": rep["dispatches"],
+               "mean_width": [st / max(1, d) for st, d in
+                              zip(rep["steps"], rep["dispatches"])],
+               "pack_ms_per_dispatch": {k: v[1] * 1e3 / max(1, v[0])
+                                        for k, v in sorted(pack.items())},
+               "pack_busy_s": {k: v[1] for k, v in sorted(pack.items())},
+               "seconds": burst["seconds"]}
+        rows.append(row)
+        log(f"  burst {label} ({rep['n_shards']} shard(s), {threads} driver "
+            f"threads): {row}")
+    return rows
+
+
+def phase_mesh(torch, weights, params, dev) -> dict:
+    """The serving mesh on the card, with the full-width net and the
+    CLI's microbatch. Kernel: the partials mode == plain (timed), two
+    launching threads on one card exact. Services (gated, one driver
+    thread, MESH_POSITIONS positions at MESH_NODES nodes; every run one
+    packed launch per dispatch): ``mesh_devices="auto"`` on this host
+    and FISHNET_NO_MESH=1 over [cuda:0, cuda:0] == the no-mesh service;
+    two logical shards on the card == it under FISHNET_SHARD_PLACEMENT
+    rr (the phase's main path, its launches counted from 0) and lb, both
+    shards dispatching; the ladder step and the drain with migrated
+    table blocks; 2 driver threads x pipeline 2 on two shards. Then the
+    legacy ShardedEvaluator, the AZ plane on two shards, and the burst
+    A, B, B, A (numbers only)."""
+    from fishnet_tpu_torch.ops import ft_gather
+
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        log(f"  ({time.perf_counter() - t_phase:.1f} s into the phase: "
+            f"{what} done)")
+
+    two = [dev, dev]
+    out = {"sparse": mesh_sparse_kernel(torch, params, dev),
+           "threads": mesh_threads_kernel(torch, params, dev)}
+    mark("kernel")
+    walks = random_lines(MESH_POSITIONS, seed=47)
+    ref = gated_run(weights, dev, walks, MESH_NODES, **MESH_GATED)[0]
+    seen = {}
+
+    def watch(name):
+        def hook(svc):
+            seen[name] = svc._n_shards
+        return hook
+
+    auto = gated_run(weights, dev, walks, MESH_NODES, hook=watch("auto"),
+                     mesh_devices="auto", **MESH_GATED)[0]
+    hatch = gated_run(weights, dev, walks, MESH_NODES, hook=watch("hatch"),
+                      mesh_devices=two, FISHNET_NO_MESH="1", **MESH_GATED)[0]
+    one_card = torch.cuda.device_count() == 1
+    log(f"  one shard: --mesh auto on {torch.cuda.device_count()} card(s) "
+        f"({seen['auto']} shard(s)) == no mesh {auto == ref}; "
+        f"FISHNET_NO_MESH=1 over [{dev}, {dev}] ({seen['hatch']} shard) == "
+        f"no mesh {hatch == ref}")
+    check(auto == ref and hatch == ref, "one shard: analyses differ from "
+                                        "the no-mesh service's")
+    check(seen["hatch"] == 1 and (seen["auto"] == 1) == one_card,
+          f"one shard: the mesh turned on or off wrongly {seen}")
+    mark("one shard (3 gated runs)")
+    runs = {}
+    for placement in ("rr", "lb"):
+        if placement == "rr":  # the phase's main path: counts from 0
+            ft_gather.ft_accumulate_packed_cuda.launches = 0
+        analyses, c = gated_run(weights, dev, walks, MESH_NODES,
+                                mesh_devices=two,
+                                FISHNET_SHARD_PLACEMENT=placement,
+                                **MESH_GATED)
+        if placement == "rr":
+            out["launches"] = ft_gather.ft_accumulate_packed_cuda.launches
+        rep = c["shards"]
+        widths = [st / max(1, d) for st, d in zip(rep["steps"],
+                                                  rep["dispatches"])]
+        runs[placement] = {"dispatches": rep["dispatches"],
+                           "widths": widths, "rehomes": rep["rehomes"]}
+        log(f"  two logical shards, placement {placement}: == no mesh "
+            f"{analyses == ref}; dispatches per shard {rep['dispatches']} "
+            f"(= packed launches), mean width per shard "
+            f"{[round(x, 3) for x in widths]}, group re-homes "
+            f"{rep['rehomes']}, groups {rep['groups']}")
+        check(analyses == ref, f"two shards ({placement}): analyses differ "
+                               "from the no-mesh service's")
+        check(all(d > 0 for d in rep["dispatches"]),
+              f"two shards ({placement}): a shard never dispatched")
+        check(sum(rep["dispatches"]) == c["dispatches"],
+              "two shards: the shards' dispatches do not add up")
+    check(out["launches"] > 0, "the mesh's main path never launched the "
+                               "kernel")
+    out["shards"] = runs
+    mark("two shards (2 gated runs)")
+    out["drain"] = mesh_drain_run(torch, weights, dev, walks, ref)
+    mark("ladder and drain")
+    out["concurrent"] = mesh_concurrent(torch, weights, dev)
+    mark("2 x 2")
+    out["sharded_evaluator"] = mesh_sharded_evaluator(torch, weights, params,
+                                                      dev)
+    mark("sharded evaluator")
+    out["az"] = mesh_az(dev)
+    mark("AZ plane")
+    out["burst"] = mesh_burst(weights, dev)
+    mark("burst")
+    out["worst"] = max(out["sparse"]["max_abs_err"],
+                       out["drain"]["first_after_move_diff"],
+                       out["sharded_evaluator"]["max_abs_err"])
+    return out
+
+
 def phase_fen() -> None:
     """ROADMAP C7, in this process (torch imported, the core loaded):
     the port's Board gives back the expected FEN of every FEN_CHECKS
@@ -5081,6 +5694,34 @@ def main() -> int:
                         "the exported net",
                 "train": facts})
         print(json.dumps({"train": train}), flush=True)
+    if "mesh" in phases:
+        log("[mesh] the serving mesh: the kernel's partials mode and two "
+            "launching threads, the service and the AZ plane on two logical "
+            "shards of the card, the per-shard ladder and drain, the legacy "
+            "sharded evaluator, the burst on one shard and two")
+        mesh = phase_mesh(torch, weights, params, dev)
+        facts = {"launches": mesh["launches"], "sparse": mesh["sparse"],
+                 "shards": mesh["shards"], "drain": mesh["drain"],
+                 "sharded_evaluator": mesh["sharded_evaluator"]}
+        if entries:
+            entries[0]["launches_mesh"] = mesh["launches"]
+            entries[0]["mesh"] = facts
+            entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"],
+                                            mesh["worst"])
+        else:
+            sp = mesh["sparse"]
+            entries.append({
+                "name": "ft_gather", "route": "cuda",
+                "source": "fishnet_tpu_torch/ops/csrc/ft_gather.cu",
+                "replaces": "fishnet_tpu/ops/ft_gather.py:402",
+                "launches": mesh["launches"], "max_abs_err": mesh["worst"],
+                "ms": sp["ms"], "plain_ms": sp["plain_ms"],
+                "bound_ms": sp["bound_ms"], "bound_by": sp["bound_by"],
+                "library_ms": sp["library_ms"],
+                "mode": "packed on two logical shards; dense partials "
+                        "(sparse=), timed",
+                "mesh": facts})
+        print(json.dumps({"mesh": mesh}), flush=True)
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

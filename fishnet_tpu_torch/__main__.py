@@ -16,6 +16,13 @@ With ``FISHNET_RPC=1`` either command is a split-plane FRONTEND: its
 searches run here and every eval microbatch rides a shared-memory ring
 to the evaluator host (``python -m fishnet_tpu_torch.rpc.host``), which
 holds the device; the frontend never resolves or touches one.
+
+``--mesh`` (default ``auto``): with more than one visible GPU the
+service — and the az-mcts plane — drive every card, shards placed from
+the coalescer (parallel/mesh.py); with one, nothing changes. An
+explicit ``DxM`` pins the shard count (``M > 1``: the legacy
+``ShardedEvaluator``, one evaluator splitting every microbatch);
+``off`` keeps one device.
 """
 
 from __future__ import annotations
@@ -37,6 +44,87 @@ from fishnet_tpu_torch.version import __version__
 #: Seconds a SIGTERM drain may flush in-flight batches before the rest
 #: are aborted upstream (the JAX package's default drain deadline).
 DRAIN_DEADLINE_SECONDS = 25.0
+
+
+def _visible_devices(opt: Opt) -> int:
+    """The devices a mesh could span: the visible GPUs, or 1 with
+    ``--device cpu``."""
+    if opt.resolved_device() == "cpu":
+        return 1
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def validate_mesh(opt: Opt) -> None:
+    """Fail an explicit --mesh DxM that exceeds the visible devices now,
+    with a ConfigError: the service builds lazily (inside the engine
+    factory's rebuild path), where the mistake would surface as an
+    endless worker-restart backoff."""
+    mesh_spec = opt.resolved_mesh()
+    if mesh_spec in ("auto", "off"):
+        return
+    data, model = (int(x) for x in mesh_spec.split("x"))
+    n = _visible_devices(opt)
+    if data * model > n:
+        raise ConfigError(
+            f"--mesh {mesh_spec} needs {data * model} devices, found {n}")
+
+
+def build_sharded_evaluator(opt: Opt, weights, logger: Logger):
+    """The legacy multi-device tier: one ShardedEvaluator splitting
+    every eval microbatch over the mesh. Only for an explicit --mesh DxM
+    with M > 1, which per-shard placement cannot express; "auto", "off"
+    and data-only meshes return None (the service places those shards
+    from its coalescer)."""
+    mesh_spec = opt.resolved_mesh()
+    if mesh_spec in ("off", "auto"):
+        return None
+    validate_mesh(opt)
+    data, model = (int(x) for x in mesh_spec.split("x"))
+    if model <= 1:
+        return None
+    from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
+    from fishnet_tpu_torch.parallel.mesh import ShardedEvaluator, make_mesh
+
+    import torch
+
+    devs = [torch.device(opt.resolved_device(), i)
+            for i in range(data * model)]
+    mesh = make_mesh(devs, data=data, model=model)
+    logger.info(
+        f"Sharding eval batches over a {data}x{model} device mesh "
+        "(one evaluator per microbatch).")
+    return ShardedEvaluator(
+        params_from_weights(weights, devs[0]), mesh=mesh,
+        batch_capacity=opt.resolved_microbatch())
+
+
+def resolve_mesh_devices(opt: Opt, evaluator, logger: Logger):
+    """The serving mesh request for SearchService and the AZ plane:
+    "auto" follows the visible devices (None with fewer than two), an
+    explicit data-only DxM pins the shard count, and --mesh off or a
+    legacy sharded evaluator stay on one device. The service itself
+    falls back to one device when fewer than two remain
+    (FISHNET_NO_MESH=1)."""
+    mesh_spec = opt.resolved_mesh()
+    if evaluator is not None or mesh_spec == "off":
+        return None
+    if mesh_spec == "auto":
+        n = _visible_devices(opt)
+        if n < 2:
+            return None
+        logger.info(f"Serving mesh over {n} devices (per-shard dispatch "
+                    "from the coalescer).")
+        return "auto"
+    validate_mesh(opt)
+    data, model = (int(x) for x in mesh_spec.split("x"))
+    n = data * model
+    if n < 2:
+        return None
+    logger.info(f"Serving mesh over {n} devices (per-shard dispatch "
+                "from the coalescer).")
+    return n
 
 
 def build_search_service(opt: Opt, logger: Logger, psqt_path=None):
@@ -76,6 +164,8 @@ def build_search_service(opt: Opt, logger: Logger, psqt_path=None):
             psqt_path=psqt_path,
         )
     else:
+        evaluator = build_sharded_evaluator(opt, weights, logger)
+        mesh_devices = resolve_mesh_devices(opt, evaluator, logger)
         depth = opt.resolved_pipeline()
         logger.info(f"Pipelining {depth} eval batches on {device}.")
         service = SearchService(
@@ -85,7 +175,9 @@ def build_search_service(opt: Opt, logger: Logger, psqt_path=None):
             pipeline_depth=depth,
             driver_threads=opt.resolved_search_threads(),
             psqt_path=psqt_path,
-            device=device,
+            device=None if evaluator is not None else device,
+            evaluator=evaluator,
+            mesh_devices=mesh_devices,
         )
     try:
         service.warmup()
@@ -110,13 +202,15 @@ def build_engine_factory(opt: Opt, logger: Logger,
 
         from fishnet_tpu_torch.rpc import rpc_enabled
 
-        # Fail fast on a missing GPU: the service itself builds lazily. A
-        # split-plane frontend holds no device: its one rung is the
-        # host-material wire the evaluator host serves.
+        # Fail fast on a missing GPU or a mesh larger than the host: the
+        # service itself builds lazily. A split-plane frontend holds no
+        # device: its one rung is the host-material wire the evaluator
+        # host serves.
         if rpc_enabled():
             rungs = ("host-material",)
         else:
             rungs = ladder_for(resolve_device(opt.resolved_device()).type)
+            validate_mesh(opt)
         # The supervisor owns respawns: every rebuild of a dead service
         # goes through its bounded respawn budget and — after repeated
         # rapid deaths — steps the eval path down the device's ladder
@@ -187,7 +281,8 @@ def build_az_factory(opt: Opt, logger: Logger, az_net=None) -> EngineFactory:
     cfg = MctsConfig(batch_capacity=opt.resolved_microbatch(), az=az_cfg)
     logger.info(f"az-mcts: {az_cfg} on {device}, microbatch "
                 f"{cfg.batch_capacity}.")
-    service = AzMctsService(params, cfg, device=device)
+    service = AzMctsService(params, cfg, device=device,
+                            devices=resolve_mesh_devices(opt, None, logger))
     try:
         fallback = SearchService(
             weights=NnueWeights.random(seed=0), backend="scalar",

@@ -2,8 +2,9 @@
 
 The port's copy of the ``run`` and ``uci`` parts of
 ``fishnet_tpu/configure.py``: the same flags under the same names and
-defaults, with the same precedence CLI > ``fishnet.ini`` (section
-``[Fishnet]``), plus the port's ``--device cuda|cpu``. The interactive
+defaults (``--mesh`` among them), with the same precedence CLI >
+``fishnet.ini`` (section ``[Fishnet]``), plus the port's ``--device
+cuda|cpu``. The interactive
 first-run dialog, systemd, update and telemetry flags are not ported: a
 missing ini file is simply not read.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import argparse
 import configparser
 import os
+import re
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -106,6 +108,17 @@ def parse_duration(s: str) -> float:
     return value * factor
 
 
+def parse_mesh(s: str) -> str:
+    """``auto`` | ``off`` | explicit ``DATAxMODEL`` (e.g. ``4x2``)."""
+    t = s.strip().lower()
+    if t in ("auto", "off"):
+        return t
+    m = re.fullmatch(r"(\d+)x(\d+)", t)
+    if m and int(m.group(1)) >= 1 and int(m.group(2)) >= 1:
+        return t
+    raise ConfigError(f"invalid mesh spec: {s!r} (use auto, off, or DATAxMODEL)")
+
+
 def parse_backlog(s: str) -> float:
     """``short`` = 30 s, ``long`` = 1 h, else a duration
     (configure.rs:240-276)."""
@@ -176,6 +189,11 @@ class Opt:
     #: Where the evaluator runs: "cuda" (default; no GPU is an error) or
     #: "cpu" (the plain versions, never chosen silently).
     device: Optional[str] = None
+    #: Device-mesh policy of the serving evaluator: "auto" (every visible
+    #: GPU, shards placed from the coalescer, when more than one is
+    #: visible), "off" (one device), or an explicit "DATAxMODEL" such as
+    #: "4x2".
+    mesh: Optional[str] = None
 
     def conf_path(self) -> Path:
         return Path(self.conf) if self.conf else Path("fishnet.ini")
@@ -215,6 +233,9 @@ class Opt:
 
     def resolved_device(self) -> str:
         return self.device or "cuda"
+
+    def resolved_mesh(self) -> str:
+        return self.mesh or "auto"
 
     def resolved_command(self) -> str:
         return self.command or "run"
@@ -267,6 +288,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=DEVICES, default=None,
                    help="Where the evaluator runs (default cuda; no GPU is "
                         "an error, never a silent CPU run).")
+    p.add_argument("--mesh", default=None,
+                   help="Device mesh for the serving evaluator: auto (default; "
+                        "shard eval batches over all visible devices), off "
+                        "(single device), or DATAxMODEL (e.g. 4x2).")
     return p
 
 
@@ -303,6 +328,8 @@ def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
         opt.batch_deadline = parse_duration(ns.batch_deadline)
         if opt.batch_deadline <= 0:
             raise ConfigError("--batch-deadline must be positive")
+    if ns.mesh is not None:
+        opt.mesh = parse_mesh(ns.mesh)
     return opt
 
 
@@ -321,6 +348,7 @@ _INI_FIELDS = (
     ("Engine", "engine", lambda v: _choice(v, "engine backend", ENGINE_BACKENDS)),
     ("NnueFile", "nnue_file", str),
     ("AzNetFile", "az_net_file", str),
+    ("Mesh", "mesh", parse_mesh),
     ("SearchThreads", "search_threads", lambda v: _positive_int(v, "SearchThreads")),
     ("SearchConcurrency", "search_concurrency",
      lambda v: _positive_int(v, "SearchConcurrency")),

@@ -9,11 +9,23 @@ deployment, not a slower one).
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import ContextManager, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+
+def on_device(device: torch.device) -> ContextManager:
+    """Make ``device`` the calling thread's current CUDA device for the
+    block (a no-op for the CPU). The CUDA runtime launches kernels,
+    records events and picks the current stream on the calling thread's
+    current device, so work for ``cuda:N`` from a thread whose current
+    device is another card runs under this guard."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -61,11 +61,12 @@ class AzMctsService:
     """Owns the MctsPool and its driver thread. ``params`` is the
     JAX-layout dict of numpy arrays (models/az.py); the pool's plane
     runs the tower on ``device``, ``cuda`` unless the caller asks for
-    the CPU (a CUDA request without a GPU raises here)."""
+    the CPU (a CUDA request without a GPU raises here), over the shards
+    ``devices`` (the plane's serving mesh; None: ``device`` alone)."""
 
     def __init__(self, params: Dict, cfg: MctsConfig = MctsConfig(),
-                 device=None) -> None:
-        self.pool = MctsPool(params, cfg, device=device)
+                 device=None, devices=None) -> None:
+        self.pool = MctsPool(params, cfg, device=device, devices=devices)
         self._pending: Dict[int, _PendingSearch] = {}
         self._submissions: List[tuple] = []
         self._cancelled_tokens: set = set()

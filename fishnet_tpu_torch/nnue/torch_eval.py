@@ -233,6 +233,22 @@ def _evaluate_from_acc(
     return _trunc_div(positional + material, spec.FV_SCALE).to(torch.int32)
 
 
+def evaluate_packed(
+    params: Params,
+    packed: torch.Tensor,
+    offsets: torch.Tensor,
+    buckets: torch.Tensor,
+    parent: torch.Tensor,
+    material: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """evaluate_batch over the compact wire without anchor tables (the
+    legacy sharded evaluator's shard call): ``expand_packed`` on the
+    inputs' device, then the kernel's dense mode with in-batch
+    parents."""
+    dense = expand_packed(packed, offsets, parent)
+    return evaluate_batch(params, dense, buckets, parent, material)
+
+
 def evaluate_packed_anchored(
     params: Params,
     packed: torch.Tensor,
@@ -246,6 +262,7 @@ def evaluate_packed_anchored(
     offsets: Optional[torch.Tensor] = None,
     copy_src=None,
     parent_host=None,
+    store_psqt: bool = False,
 ):
     """evaluate_batch over the compact wire with PERSISTENT device-
     resident anchors: ``anchor_tab`` [A, 2, L1] int32 holds one feature-
@@ -271,7 +288,10 @@ def evaluate_packed_anchored(
     has the pool's offsets (int32 [B], padding entries already pointing
     at ``n_rows``) passes them instead and saves the derivation.
     ``copy_src``, ``parent_host``: the fan-in of
-    ``_packed_anchored_core``."""
+    ``_packed_anchored_core``. ``store_psqt`` (the serving mesh's
+    host-material rung): with ``material`` given, still compute and
+    store the PSQT of anchor entries, so ``psqt_tab`` stays exact for a
+    later dispatch on a device-PSQT rung; the head reads ``material``."""
     parent = parent.to(torch.int32)
     if offsets is None:
         rows_per = torch.where(_is_delta(parent), 1, 4).to(torch.int32)
@@ -280,6 +300,7 @@ def evaluate_packed_anchored(
     return _packed_anchored_core(
         params, packed, offsets, buckets, parent, material,
         anchor_tab, psqt_tab, copy_src=copy_src, parent_host=parent_host,
+        store_psqt=store_psqt,
     )
 
 
@@ -294,6 +315,7 @@ def _packed_anchored_core(
     psqt_tab: torch.Tensor,
     copy_src: Optional[torch.Tensor] = None,
     parent_host=None,
+    store_psqt: bool = False,
 ):
     """Accumulate over the row stream with table resolution and the
     anchor stores (one kernel launch on CUDA; expand_packed,
@@ -326,12 +348,14 @@ def _packed_anchored_core(
         copy_src = copy_src.to(device=parent.device, dtype=torch.int32,
                                non_blocking=True)
     psqt = None
-    if material is None:
+    if material is None or store_psqt:
         acc, psqt = ft_accumulate_packed(
             params["ft_w"], params["ft_b"], packed, offsets, parent,
             anchor_tab, ft_psqt=params["ft_psqt"], psqt_tab=psqt_tab,
             copy_src=copy_src,
         )
+        if material is not None:
+            psqt = None  # the head reads the wire's material
     else:
         acc = ft_accumulate_packed(
             params["ft_w"], params["ft_b"], packed, offsets, parent,

@@ -84,6 +84,18 @@
 // range, not earlier, or itself redirected is counted and never waited
 // on (the entry keeps its own result); the host checks the same contract
 // before upload (ops/ft_gather.py check_copy_src).
+//
+// Partials mode (dense mode with sparse, int32 [batch], and no parent):
+// the JAX kernel's `sparse=` mode (flags bit 0 without the anchor path).
+// An entry with sparse[b] != 0 reads only its 2*DELTA_SLOTS live slots,
+// decodes removals, and comes back as a bias-included PARTIAL, bias +
+// adds - removes (PSQT: adds - removes); nothing resolves it, the caller
+// does. The other entries are plain fulls. It is the delta
+// accumulation with the resolve step skipped.
+//
+// Several cards: the wrapper launches under the tensors' device
+// (torch.cuda.device), so a shard on cuda:N launches on cuda:N's stream
+// whatever the calling thread's current device is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +125,7 @@ struct Args {
   const int32_t* offsets;     // packed mode [batch]
   const int32_t* parent;      // [batch] or NULL (every entry plain full)
   const int32_t* copy_src;    // packed mode [batch] or NULL (identity)
+  const int32_t* sparse;      // dense mode [batch] or NULL: partials mode
   int32_t* anchor_tab;        // [n_anchor, 2, l1] or NULL
   int32_t* psqt_tab;          // [n_anchor, 2, 8] or NULL
   int n_anchor, delta_base, batch;
@@ -190,7 +203,7 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
   __shared__ int s_sign[2][kSlots];
   __shared__ int s_live[2];
   __shared__ int s_b, s_epoch, s_follow, s_ready, s_copy;
-  __shared__ int s_code, s_slot[2][kSlots];
+  __shared__ int s_code, s_partial, s_slot[2][kSlots];
 
   const int tid = threadIdx.x;
   const int tpp = a.l1 / kLanes;  // threads per perspective
@@ -217,7 +230,11 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
     // The parent code and the slot indices load together: every slot a
     // full entry could own, masked below once the code is known.
     if (pt < kSlots) {
-      if (tid == 0) s_code = a.parent != nullptr ? __ldg(a.parent + b) : -1;
+      if (tid == 0) {
+        s_code = a.parent != nullptr ? __ldg(a.parent + b) : -1;
+        s_partial = a.parent == nullptr && a.sparse != nullptr &&
+                    __ldg(a.sparse + b) != 0;
+      }
       if constexpr (kPacked) {
         int row = __ldg(a.offsets + b) + pt / kWireRow;
         row = min(max(row, 0), a.n_wire - 1);
@@ -231,7 +248,9 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
     __syncthreads();
     const int code = s_code;
     const Parent d = decode_parent(code);
-    const bool sparse = d.in_batch || d.persistent;
+    // Deltas carry no bias (their anchor does); partials keep it.
+    const bool resolves = d.in_batch || d.persistent;
+    const bool sparse = resolves || s_partial;
     const int n_slots = sparse ? 2 * kDeltaSlots : kSlots;
 
     // Decode and compact each perspective's slot list in its first
@@ -293,7 +312,7 @@ __global__ void __launch_bounds__(1024) ft_kernel(const Args a) {
       add_row32_l2(acc, a.anchor_tab + tab_row * a.l1 + lane0);
       if (psqt_lane) ps += __ldcg(a.psqt_tab + tab_row * kPsqtBuckets + pt);
     }
-    if (!sparse)
+    if (!resolves)
       add_row16(acc, __ldg(reinterpret_cast<const int4*>(a.ft_b + lane0)), 1);
 
     for (int k0 = 0; k0 < n_live; k0 += kInFlight) {
@@ -407,7 +426,9 @@ void launch(const Args& a, cudaStream_t stream) {
 // 8] uint16 and offsets [batch] int32, idx NULL; packed mode also
 // writes anchor entries back to the tables. parent [batch] int32 or
 // NULL (every entry full); copy_src [batch] int32 or NULL (packed mode
-// only: the copy-source fan-in above); anchor_tab [n_anchor, 2, l1] / psqt_tab
+// only: the copy-source fan-in above); sparse [batch] int32 or NULL (dense
+// mode without parent only: the partials mode above); anchor_tab
+// [n_anchor, 2, l1] / psqt_tab
 // [n_anchor, 2, 8] int32 or NULL; delta_base < 0 disables removal
 // decoding. Outputs acc [batch,
 // 2, l1] and psqt [batch, 2, 8] int32. state is the device's int32 [4]
@@ -421,7 +442,7 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
                             const void* idx, const void* wire, int n_wire,
                             const void* offsets, int batch,
                             const void* parent, const void* copy_src,
-                            void* anchor_tab,
+                            const void* sparse, void* anchor_tab,
                             void* psqt_tab, int n_anchor, int delta_base,
                             void* acc, void* psqt,
                             void* state, void* ready, void* stream) {
@@ -438,6 +459,7 @@ extern "C" int fc_ft_gather(const void* ft_w, int n_rows, int l1,
     a.offsets = static_cast<const int32_t*>(offsets);
     a.parent = static_cast<const int32_t*>(parent);
     a.copy_src = static_cast<const int32_t*>(copy_src);
+    a.sparse = static_cast<const int32_t*>(sparse);
     a.anchor_tab = static_cast<int32_t*>(anchor_tab);
     a.psqt_tab = static_cast<int32_t*>(psqt_tab);
     a.n_anchor = n_anchor;

@@ -14,7 +14,9 @@ TPU kernel ``fishnet_tpu/ops/ft_gather.py:_kernel``), one launch per
 call:
 
 * dense — ``ft_accumulate``: int32 [B, 2, 32] indices in, accumulators
-  out, the anchor tables only read;
+  out, the anchor tables only read; with ``sparse=`` instead of
+  ``parent`` the flagged entries come back as bias-included partials
+  (adds minus removes), unresolved (the JAX package's partials mode);
 * packed — ``ft_accumulate_packed``: the compact wire in (rows at each
   entry's offset, see ``expand_packed``), accumulators out, and every
   anchor entry's result stored back to its table rows in place. This is
@@ -55,8 +57,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fishnet_tpu_torch.device import on_device
 from fishnet_tpu_torch.nnue.spec import (
     DELTA_BASE,
+    DELTA_SLOTS,
     MAX_ACTIVE_FEATURES,
     NUM_FEATURES,
 )
@@ -516,6 +520,17 @@ def _plain_resolve_parents(acc: torch.Tensor, bias,
     return torch.where(in_batch[:, None, None], acc + ref_acc - bias, acc)
 
 
+def _partial_slots(ft_w: torch.Tensor, indices: torch.Tensor,
+                   sparse: torch.Tensor) -> torch.Tensor:
+    """The partials mode's reads: a flagged entry keeps only its
+    2*DELTA_SLOTS live slots (the rest read as the zero sentinel row),
+    as the kernel fetches only those."""
+    tail = torch.arange(indices.shape[2], device=indices.device) >= (
+        2 * DELTA_SLOTS)
+    mask = sparse.to(torch.bool)[:, None, None] & tail
+    return torch.where(mask, ft_w.shape[0] - 1, indices)
+
+
 def ft_accumulate_plain(
     ft_w: torch.Tensor,
     ft_b: torch.Tensor,
@@ -526,10 +541,13 @@ def ft_accumulate_plain(
     anchor_tab: Optional[torch.Tensor] = None,
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
+    sparse: Optional[torch.Tensor] = None,
 ):
     """The plain PyTorch version of the kernel's dense mode (the JAX
     package's XLA twin), on any device. Same arguments and result as
     ``ft_accumulate``, whose checks it assumes were made."""
+    if parent is None and sparse is not None:
+        indices = _partial_slots(ft_w, indices, sparse)
     acc = _plain_ft_rows(ft_w, ft_b, indices, delta_base)
     if parent is not None:
         acc = _plain_resolve_parents(
@@ -603,6 +621,7 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,  # wire, R, offs
             ctypes.c_int, ctypes.c_void_p,  # B, parent
             ctypes.c_void_p,  # copy_src
+            ctypes.c_void_p,  # sparse
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # tables, A
             ctypes.c_int,  # delta_base
             ctypes.c_void_p, ctypes.c_void_p,  # acc, psqt
@@ -617,7 +636,12 @@ def _kernel_lib() -> ctypes.CDLL:
 def _device_state(device: torch.device, batch: int):
     """The device's kernel state and ready words (at least ``batch``).
     Allocated zeroed on first use; the kernel keeps them consistent from
-    launch to launch without a reset of its own."""
+    launch to launch without a reset of its own. Several threads launch
+    on one device (two shards on one card, a service's pack workers and
+    drivers): the lookup and the growth of the ready words are under
+    the lock, and every launch that shares the state goes to the
+    device's one default stream, so the launches — and the reuse of a
+    replaced ready block — stay in stream order."""
     index = device.index if device.index is not None else 0
     with _launch_lock:
         state, ready = _states.get(index, (None, None))
@@ -692,10 +716,12 @@ def _check_tables(ft_w, ft_b, anchor_tab, ft_psqt, psqt_tab, device):
 
 def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
             anchor_tab, psqt_tab, n_anchor, delta_base, ft_psqt, device,
-            copy_src=None):
-    """One kernel launch on the current stream (packed mode when ``wire``
-    is given: it also stores the anchor entries, after the ``copy_src``
-    fan-in); returns (acc, psqt)."""
+            copy_src=None, sparse=None):
+    """One kernel launch on ``device``'s current stream (packed mode when
+    ``wire`` is given: it also stores the anchor entries, after the
+    ``copy_src`` fan-in; ``sparse``: the dense mode's partials), under
+    that device whatever the calling thread's current device is;
+    returns (acc, psqt)."""
     acc = torch.empty((batch, 2, l1), dtype=torch.int32, device=device)
     psqt = (
         torch.empty((batch, 2, 8), dtype=torch.int32, device=device)
@@ -705,16 +731,17 @@ def _launch(ft_w, ft_b, *, n_rows, l1, batch, idx, wire, offsets, parent,
         return acc, psqt
     state, ready = _device_state(device, batch)
     lib = _kernel_lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.fc_ft_gather(
-        ft_w.data_ptr(), n_rows, l1, ft_b.data_ptr(), _ptr(ft_psqt),
-        _ptr(idx), _ptr(wire), 0 if wire is None else wire.shape[0],
-        _ptr(offsets), batch, _ptr(parent), _ptr(copy_src),
-        _ptr(anchor_tab), _ptr(psqt_tab), n_anchor,
-        -1 if delta_base is None else int(delta_base),
-        acc.data_ptr(), _ptr(psqt), state.data_ptr(), ready.data_ptr(),
-        stream,
-    )
+    with on_device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.fc_ft_gather(
+            ft_w.data_ptr(), n_rows, l1, ft_b.data_ptr(), _ptr(ft_psqt),
+            _ptr(idx), _ptr(wire), 0 if wire is None else wire.shape[0],
+            _ptr(offsets), batch, _ptr(parent), _ptr(copy_src),
+            _ptr(sparse), _ptr(anchor_tab), _ptr(psqt_tab), n_anchor,
+            -1 if delta_base is None else int(delta_base),
+            acc.data_ptr(), _ptr(psqt), state.data_ptr(), ready.data_ptr(),
+            stream,
+        )
     if rc != 0:
         raise RuntimeError(f"ft_gather kernel launch failed: CUDA error {rc}")
     return acc, psqt
@@ -730,14 +757,16 @@ def ft_accumulate_cuda(
     anchor_tab: Optional[torch.Tensor] = None,
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
+    sparse: Optional[torch.Tensor] = None,
 ):
     """Launch the hand kernel's dense mode (``csrc/ft_gather.cu``) on the
-    current stream. All inputs on one CUDA device, contiguous: ``ft_w``
-    int16 [R, L1] (L1 a multiple of 256, at most 4096), ``ft_b`` int16
-    [L1], ``indices`` int32 [B, 2, 32], ``parent`` int32 [B], tables
-    int32 (read only), ``ft_psqt`` int32 [R, 8]. Raises on anything
-    else, and when the launch is refused. Same result as
-    ``ft_accumulate_plain``."""
+    current stream of the inputs' device. All inputs on one CUDA device,
+    contiguous: ``ft_w`` int16 [R, L1] (L1 a multiple of 256, at most
+    4096), ``ft_b`` int16 [L1], ``indices`` int32 [B, 2, 32], ``parent``
+    int32 [B], tables int32 (read only), ``ft_psqt`` int32 [R, 8],
+    ``sparse`` int32 [B] (the partials mode; ignored with ``parent``).
+    Raises on anything else, and when the launch is refused. Same result
+    as ``ft_accumulate_plain``."""
     device = indices.device
     batch = indices.shape[0]
     n_rows, l1, n_anchor = _check_tables(
@@ -746,6 +775,9 @@ def ft_accumulate_cuda(
            (batch, 2, MAX_ACTIVE_FEATURES), device)
     if parent is not None:
         _check(parent, "parent", torch.int32, (batch,), device)
+        sparse = None  # the resolving mode: parent decides
+    if sparse is not None:
+        _check(sparse, "sparse", torch.int32, (batch,), device)
     if device.type != "cuda":
         raise ValueError(f"ft_accumulate_cuda needs CUDA tensors, got {device}")
     acc, psqt = _launch(
@@ -753,16 +785,20 @@ def ft_accumulate_cuda(
         wire=None, offsets=None, parent=parent, anchor_tab=anchor_tab,
         psqt_tab=psqt_tab if ft_psqt is not None else None,
         n_anchor=n_anchor, delta_base=delta_base, ft_psqt=ft_psqt,
-        device=device,
+        device=device, sparse=sparse,
     )
     if batch > 0:
         with _launch_lock:
             ft_accumulate_cuda.launches += 1
+            if sparse is not None:
+                ft_accumulate_cuda.sparse_launches += 1
     return (acc, psqt) if ft_psqt is not None else acc
 
 
-#: Kernel launches by this wrapper (one per call with a non-empty batch).
+#: Kernel launches by this wrapper (one per call with a non-empty batch),
+#: and those of them in the partials mode.
 ft_accumulate_cuda.launches = 0
+ft_accumulate_cuda.sparse_launches = 0
 
 
 def ft_accumulate_packed_cuda(
@@ -836,6 +872,7 @@ def ft_accumulate(
     anchor_tab: Optional[torch.Tensor] = None,
     ft_psqt: Optional[torch.Tensor] = None,
     psqt_tab: Optional[torch.Tensor] = None,
+    sparse: Optional[torch.Tensor] = None,
 ):
     """Feature-transformer accumulators, bias included: int32 [B, 2, L1].
 
@@ -854,11 +891,21 @@ def ft_accumulate(
     ``(acc, psqt)``: the [B, 2, 8] PSQT accumulator from the same index
     stream, persistent codes resolving against ``psqt_tab`` [A, 2, 8].
 
+    ``sparse`` (bool or int [B]) without ``parent`` is the partials
+    mode: a flagged entry reads only its 2*DELTA_SLOTS live slots and
+    comes back as a bias-included partial (adds minus removes; PSQT
+    without bias), unresolved — the caller owns the resolution. With
+    ``parent`` it is ignored, as in the JAX package.
+
     CUDA inputs run the hand kernel, CPU inputs the plain version; both
     give the same integers. Persistent codes without a table raise
     ``ValueError`` before anything runs (on a CUDA ``parent`` that check
     reads the codes back to the host)."""
     indices = indices.to(torch.int32).contiguous()
+    if sparse is not None and parent is None:
+        sparse = sparse.to(torch.int32).contiguous()
+    else:
+        sparse = None
     if parent is not None:
         parent = parent.to(torch.int32).contiguous()
         if anchor_tab is None or (ft_psqt is not None and psqt_tab is None):
@@ -869,7 +916,8 @@ def ft_accumulate(
                     "psqt_tab was given with ft_psqt"
                 )
     kwargs = dict(delta_base=delta_base, parent=parent,
-                  anchor_tab=anchor_tab, ft_psqt=ft_psqt, psqt_tab=psqt_tab)
+                  anchor_tab=anchor_tab, ft_psqt=ft_psqt, psqt_tab=psqt_tab,
+                  sparse=sparse)
     if indices.device.type == "cuda":
         return ft_accumulate_cuda(ft_w, ft_b, indices, **kwargs)
     if indices.device.type != "cpu":

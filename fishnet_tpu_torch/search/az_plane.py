@@ -3,12 +3,18 @@
 The port of ``fishnet_tpu/search/az_plane.py``. The AZ family's leaf
 microbatches ride the same scheduling spine the NNUE family uses: the
 plane is a ``CoalesceBackend`` (search/coalesce.py) owning one
-``_DispatchCoalescer``, a lazily started ``_AsyncDispatchPipeline`` and
-the tower on one device; each MctsPool registers a COALESCE LANE and
-pushes its per-step leaf microbatch through ``evaluate()``. One shard:
-the JAX package's serving mesh, shard router and sequence allocator
-are not ported (ROADMAP Queue A, the mesh), nor is the fleet position
-tier (``FISHNET_POSITION_TIER=1`` raises, as in the NNUE service).
+``_DispatchCoalescer``, lazily started ``_AsyncDispatchPipeline``s and
+the tower; each MctsPool registers a COALESCE LANE and pushes its
+per-step leaf microbatch through ``evaluate()``. The fleet position tier
+is not ported (``FISHNET_POSITION_TIER=1`` raises, as in the NNUE
+service).
+
+Shards (``devices=``, parallel/mesh.py ``serving_devices``): a replica
+of the tower per shard, a ``ShardRouter`` over the lanes, and per shard
+its own rung, async pipeline and staging rings per ``(shard,
+bucket)``; every shard's CUDA ladder starts at ``CUDA_MIN_BUCKET``. A
+shard past its last rung is drained onto its siblings. One device (the
+default) is one shard, as before.
 
 What the tests and ``chip_smoke.py`` pin:
 
@@ -61,7 +67,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fishnet_tpu_torch.device import resolve_device
+from fishnet_tpu_torch.device import on_device, resolve_device
 from fishnet_tpu_torch.models.az import params_from_jax, wire_forward
 from fishnet_tpu_torch.models.az_encoding import POLICY_SIZE
 from fishnet_tpu_torch.search import eval_cache as _eval_cache
@@ -70,6 +76,7 @@ from fishnet_tpu_torch.search.coalesce import (
     _AsyncDispatchPipeline,
     _DispatchCoalescer,
     _FusedValues,
+    _SeqAllocator,
 )
 
 __all__ = ["AZ_RUNGS", "AzDispatchPlane"]
@@ -210,11 +217,16 @@ class AzDispatchPlane(CoalesceBackend):
     second lane registers and the width is above 1, a lane's demand
     lingers up to ``_DispatchCoalescer.MAX_LINGER_S`` for a sibling
     lane's microbatch to join its dispatch, as the NNUE service's driver
-    threads do."""
+    threads do.
+
+    ``devices``: the plane's shards (``serving_devices``: ``"auto"``, an
+    int, or a sequence, one device possibly twice); None is ``device``
+    alone. Its first device must be ``device``."""
 
     def __init__(self, params: Dict, cfg, device=None, max_lanes: int = 8,
                  coalesce_width: Optional[int] = None,
-                 force_rung: Optional[int] = None) -> None:
+                 force_rung: Optional[int] = None,
+                 devices: Optional[Sequence] = None) -> None:
         if (not _eval_cache.cache_disabled()
                 and os.environ.get("FISHNET_POSITION_TIER", "") == "1"):
             raise NotImplementedError(
@@ -227,22 +239,43 @@ class AzDispatchPlane(CoalesceBackend):
         floor = CUDA_MIN_BUCKET if self.device.type == "cuda" else CPU_MIN_BUCKET
         self._buckets = _bucket_ladder(self._cap, floor)
         self._n_groups = max_lanes
-        self._net = params_from_jax(params, self.device)
+        devs = [self.device]
+        if devices is not None:
+            from fishnet_tpu_torch.parallel.mesh import serving_devices
+
+            devs = serving_devices(devices, self.device.type)
+            if devs[0] != self.device or any(
+                    d.type != self.device.type for d in devs):
+                raise ValueError(
+                    f"plane devices {devs} must start with {self.device}, "
+                    "all of its type")
+        self._devices = devs
+        self._n_shards = len(devs)
+        # One tower per shard, built from the caller's numpy dict.
+        self._nets = [params_from_jax(params, d) for d in devs]
+        self._net = self._nets[0]
         if self._net.cfg != cfg.az:
             raise ValueError(f"params are a {self._net.cfg}, not {cfg.az}")
         self._salt = _eval_cache.az_net_fingerprint(params)
-        self._rung = 0
+        self._router = None
+        if self._n_shards > 1:
+            from fishnet_tpu_torch.parallel.mesh import ShardRouter
+
+            self._router = ShardRouter(max_lanes, self._n_shards)
+        self._shard_rungs = [0] * self._n_shards
+        self._degradations: List[Tuple[int, str, str]] = []
         self._forced_rung = force_rung
         self._no_async = os.environ.get("FISHNET_NO_ASYNC", "") == "1"
         self._async_pipes: List[Optional[_AsyncDispatchPipeline]] = (
-            [] if self._no_async else [None])
+            [] if self._no_async else [None] * self._n_shards)
+        self._seq_alloc = _SeqAllocator()
         self._pipe_lock = threading.Lock()
         self._lane_lock = threading.Lock()
         self._next_lane = 0
         # lane -> staged uint8 miss rows of its ONE outstanding ticket.
         self._staged: Dict[int, np.ndarray] = {}
         self._staging_lock = threading.Lock()
-        self._staging: Dict[int, Tuple[List[_Slot], int]] = {}
+        self._staging: Dict[Tuple[int, int], Tuple[List[_Slot], int]] = {}
         self._stats_lock = threading.Lock()
         self._prewire_hits = 0
         self._skipped_dispatches = 0
@@ -347,13 +380,15 @@ class AzDispatchPlane(CoalesceBackend):
     # -- evaluation -----------------------------------------------------------
 
     def warmup(self) -> None:
-        """Run every bucket's shape once (cuDNN and the allocator warm up
-        before the first real dispatch)."""
-        for bucket in self._buckets:
-            planes = torch.zeros((bucket, 8, 8, 19), dtype=torch.uint8,
-                                 device=self.device)
-            _logits, values = wire_forward(self._net, planes)
-            values.cpu()
+        """Run every bucket's shape once on every shard (cuDNN and the
+        allocator warm up before the first real dispatch)."""
+        for net, dev in zip(self._nets, self._devices):
+            for bucket in self._buckets:
+                with on_device(dev):
+                    planes = torch.zeros((bucket, 8, 8, 19),
+                                         dtype=torch.uint8, device=dev)
+                    _logits, values = wire_forward(net, planes)
+                    values.cpu()
 
     def evaluate(self, lane: int, planes_u8: np.ndarray, n: int,
                  keys: Optional[Sequence[int]] = None
@@ -412,14 +447,18 @@ class AzDispatchPlane(CoalesceBackend):
 
     # -- CoalesceBackend surface --------------------------------------------
 
+    def _shard_of(self, lane: int) -> int:
+        return self._router.shard_of(lane) if self._router else 0
+
     def _dispatch_eval(self, group: int, n: int, rows: int):
         seg = self._staged.pop(group)
-        holder = self._run_rungs([seg])
+        holder = self._run_rungs(self._shard_of(group), group, [seg])
         return holder, {"n": n, "wire_bytes": int(seg.nbytes)}
 
     def _dispatch_segmented(self, tickets) -> None:
         segs = [self._staged.pop(tk.group) for tk in tickets]
-        holder = self._run_rungs(segs)
+        group = tickets[0].group
+        holder = self._run_rungs(self._shard_of(group), group, segs)
         off = 0
         for tk, seg in zip(tickets, segs):
             tk.values = holder
@@ -428,42 +467,73 @@ class AzDispatchPlane(CoalesceBackend):
             tk.acct = {"n": tk.n, "wire_bytes": int(seg.nbytes)}
             off += len(seg)
 
-    def _bind_worker(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+    def _bind_worker(self, shard: int = 0) -> None:
+        dev = self._devices[shard]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
 
     # -- dispatch internals ---------------------------------------------------
 
     def _ensure_pipe(self) -> None:
-        if self._no_async or self._async_pipes[0] is not None:
+        """Start every shard's pipeline at the first dispatch (a lane the
+        router re-homes at its first traffic finds its shard's up)."""
+        if self._no_async or self._async_pipes[-1] is not None:
             return
         with self._pipe_lock:
-            if self._async_pipes[0] is None and not self._closed:
-                self._async_pipes[0] = _AsyncDispatchPipeline(self)
+            for s, pipe in enumerate(self._async_pipes):
+                if pipe is None and not self._closed:
+                    self._async_pipes[s] = _AsyncDispatchPipeline(
+                        self, shard=s, seq_alloc=self._seq_alloc)
 
-    def _run_rungs(self, segs: List[np.ndarray]) -> _FusedValues:
-        """One dispatch under the AZ ladder: on failure step down a rung
-        and run it again (every rung gives the same bits); past the last
-        rung, or with a forced rung, the error reaches the owners."""
+    def _run_rungs(self, shard: int, group: int,
+                   segs: List[np.ndarray]) -> _FusedValues:
+        """One dispatch under the AZ ladder of ``shard``: on failure the
+        shard steps down a rung (past its last rung it is drained and the
+        dispatch moves to ``group``'s new shard) and the dispatch runs
+        again — every rung gives the same bits. With a forced rung, or
+        with no shard left, the error reaches the owners."""
         while True:
             rung = (self._forced_rung if self._forced_rung is not None
-                    else self._rung)
+                    else self._shard_rungs[shard])
             try:
-                return self._execute_rung(rung, segs)
-            except Exception:  # noqa: BLE001 - the ladder decides
-                if self._forced_rung is not None or rung >= len(AZ_RUNGS) - 1:
+                return self._execute_rung(shard, rung, segs)
+            except Exception as err:  # noqa: BLE001 - the ladder decides
+                if self._forced_rung is not None:
                     raise
-                self._rung = max(self._rung, rung + 1)
+                shard = self._degrade(shard, group, err, rung)
 
-    def _execute_rung(self, rung: int, segs: List[np.ndarray]) -> _FusedValues:
+    def _degrade(self, shard: int, group: int, err: Exception,
+                 failed: int) -> int:
+        """Step ``shard`` down its ladder from rung ``failed``, or drain
+        it past the last rung; returns the shard the dispatch runs on
+        next. Raises ``err`` when nothing is left."""
+        with self._pipe_lock:
+            rung = self._shard_rungs[shard]
+            if rung > failed:
+                return shard  # a sibling dispatch stepped it down already
+            if rung < len(AZ_RUNGS) - 1:
+                self._shard_rungs[shard] = rung + 1
+                self._degradations.append(
+                    (shard, AZ_RUNGS[rung], AZ_RUNGS[rung + 1]))
+                return shard
+            router = self._router
+            if router is None or len(router.alive_shards()) <= 1:
+                raise err
+            moved = router.drain(shard)
+            self._degradations.append((shard, AZ_RUNGS[rung], "drained"))
+        self._coalescer.migrate(moved)
+        return moved.get(group, router.shard_of(group))
+
+    def _execute_rung(self, shard: int, rung: int,
+                      segs: List[np.ndarray]) -> _FusedValues:
         if rung == 1 and len(segs) > 1:
             chunks: list = []
             for seg in segs:  # solo: one dispatch chain per segment
-                chunks.extend(self._dispatch_chunks(seg, self._cap))
+                chunks.extend(self._dispatch_chunks(shard, seg, self._cap))
         else:
             rows = segs[0] if len(segs) == 1 else np.concatenate(segs)
             limit = self._buckets[0] if rung == 2 else self._cap
-            chunks = self._dispatch_chunks(rows, limit)
+            chunks = self._dispatch_chunks(shard, rows, limit)
         return _FusedValues(tuple(chunks), self._read_chunks)
 
     def _read_chunks(self, chunks) -> _AzRows:
@@ -481,13 +551,14 @@ class AzDispatchPlane(CoalesceBackend):
             return _AzRows(logits[0], values[0])
         return _AzRows(np.concatenate(logits), np.concatenate(values))
 
-    def _dispatch_chunks(self, rows: np.ndarray, cap_limit: int) -> list:
+    def _dispatch_chunks(self, shard: int, rows: np.ndarray,
+                         cap_limit: int) -> list:
         out = []
         off, total = 0, len(rows)
         while off < total:
             k = min(cap_limit, total - off)
             bucket = self._bucket_for(k)
-            slot = self._slot(bucket)
+            slot = self._slot(shard, bucket)
             buf = slot.planes.numpy()
             buf[:k] = rows[off: off + k]
             # Pad rows the bucket already pays for carry queued
@@ -497,7 +568,7 @@ class AzDispatchPlane(CoalesceBackend):
             for j, (_skey, srow) in enumerate(spec):
                 buf[k + j] = srow
             spec_keys = tuple(skey for skey, _srow in spec)
-            out.append(self._forward(slot, bucket, k, spec_keys))
+            out.append(self._forward(shard, slot, bucket, k, spec_keys))
             with self._stats_lock:
                 self._forwards += 1
                 self._bucket_forwards[bucket] += 1
@@ -508,21 +579,23 @@ class AzDispatchPlane(CoalesceBackend):
             off += k
         return out
 
-    def _forward(self, slot: _Slot, bucket: int, k: int,
+    def _forward(self, shard: int, slot: _Slot, bucket: int, k: int,
                  spec_keys: tuple) -> _AzChunk:
-        """One forward of a staged slot: one upload, the tower, one
-        read-back into the slot's pinned tensors (GPU); on the CPU the
-        results are the forward's own tensors."""
-        if self.device.type != "cuda":
-            logits, values = wire_forward(self._net, slot.planes)
+        """One forward of a staged slot on ``shard``'s tower: one upload,
+        the tower, one read-back into the slot's pinned tensors (GPU); on
+        the CPU the results are the forward's own tensors."""
+        net, dev = self._nets[shard], self._devices[shard]
+        if dev.type != "cuda":
+            logits, values = wire_forward(net, slot.planes)
             return _AzChunk(k, bucket, spec_keys, None,
                             (logits.numpy(), values.numpy()))
-        x = slot.planes.to(self.device, non_blocking=True)
-        logits, values = wire_forward(self._net, x)
-        m = k + len(spec_keys)
-        slot.logits[:m].copy_(logits[:m], non_blocking=True)
-        slot.values[:m].copy_(values[:m], non_blocking=True)
-        slot.event.record()
+        with on_device(dev):
+            x = slot.planes.to(dev, non_blocking=True)
+            logits, values = wire_forward(net, x)
+            m = k + len(spec_keys)
+            slot.logits[:m].copy_(logits[:m], non_blocking=True)
+            slot.values[:m].copy_(values[:m], non_blocking=True)
+            slot.event.record()
         chunk = _AzChunk(k, bucket, spec_keys, slot)
         slot.chunk = chunk
         return chunk
@@ -533,15 +606,17 @@ class AzDispatchPlane(CoalesceBackend):
                 return b
         return self._buckets[-1]
 
-    def _slot(self, bucket: int) -> _Slot:
-        """The bucket's next staging slot (a ring of MAX_DEPTH), its last
-        forward read back first."""
+    def _slot(self, shard: int, bucket: int) -> _Slot:
+        """The next staging slot of ``(shard, bucket)`` (a ring of
+        MAX_DEPTH), its last forward read back first."""
         depth = _AsyncDispatchPipeline.MAX_DEPTH
+        key = (shard, bucket)
         with self._staging_lock:
-            ring, idx = self._staging.get(bucket, (None, 0))
+            ring, idx = self._staging.get(key, (None, 0))
             if ring is None:
-                ring = [_Slot(bucket, self.device) for _ in range(depth)]
-            self._staging[bucket] = (ring, idx + 1)
+                dev = self._devices[shard]
+                ring = [_Slot(bucket, dev) for _ in range(depth)]
+            self._staging[key] = (ring, idx + 1)
         slot = ring[idx % depth]
         prev = slot.chunk
         if prev is not None:
@@ -572,7 +647,16 @@ class AzDispatchPlane(CoalesceBackend):
             stats["fused_dispatches"] = co.fused_dispatches
             stats["coalesced_steps"] = co.coalesced_steps
         stats["rung"] = AZ_RUNGS[
-            self._forced_rung if self._forced_rung is not None else self._rung]
+            self._forced_rung if self._forced_rung is not None
+            else self._shard_rungs[0]]
+        if self._router is not None:
+            with co._lock:
+                stats["shard_dispatches"] = list(co.shard_dispatches)
+            with self._pipe_lock:
+                stats["shard_rungs"] = [AZ_RUNGS[r]
+                                        for r in self._shard_rungs]
+                stats["degradations"] = list(self._degradations)
+            stats["alive"] = self._router.alive_shards()
         return stats
 
     def close(self) -> None:

@@ -12,10 +12,16 @@ dispatches are in flight.
 
 Everything here is family-agnostic scheduling: it touches its owner
 only through ``CoalesceBackend``. A ticket carries its microbatch's
-eval-cache probe to the fused planner (position-keyed dedup). Left out
-against the JAX package: the serving mesh (one shard here; the per-shard dictionaries keep their
-shape for it), spans, cost attribution and metric families (the port
-has no telemetry plane yet).
+eval-cache probe to the fused planner (position-keyed dedup).
+
+The serving mesh (parallel/mesh.py): with a ``ShardRouter`` on the
+backend, the coalescer keeps its pending tickets, occupancy EMA and
+width PER SHARD — a flush only ever fuses one shard's microbatches, so
+every dispatch is a single-device launch — and the backend runs one
+async pipeline per shard, whose workers bind that shard's device. A
+single-device backend has one shard, index 0, and behaves as before.
+Left out against the JAX package: spans, cost attribution and metric
+families (the port has no telemetry plane yet).
 """
 
 from __future__ import annotations
@@ -249,9 +255,12 @@ class _CoalesceTicket:
 
 class CoalesceBackend:
     """The dispatch seam: what _DispatchCoalescer and
-    _AsyncDispatchPipeline need from their owner (SearchService).
+    _AsyncDispatchPipeline need from their owner (SearchService, the AZ
+    plane, the evaluator host's backends).
 
     Attributes
+      ``_router``         ShardRouter, or None (one shard)
+      ``_n_shards``       serving-mesh shard count (>= 1)
       ``_n_groups``       pipeline-group count
       ``driver_threads``  threads that call ``submit``/``demand``
       ``_latency_active`` > 0 while a best-move search is in flight
@@ -269,9 +278,12 @@ class CoalesceBackend:
         ``values``/``start``/``seg_size``/``acct``.
       ``_wait_values(values)`` — block until a solo dispatch's values
         are on the host (the decode worker's eager wait).
-      ``_bind_worker()`` — called first on each pipeline worker thread.
+      ``_bind_worker(shard)`` — called first on each worker thread of
+        shard ``shard``'s pipeline (binds that shard's device).
     """
 
+    _router = None
+    _n_shards = 1
     _n_groups = 1
     driver_threads = 1
     _latency_active = 0
@@ -286,7 +298,7 @@ class CoalesceBackend:
     def _wait_values(self, values) -> None:
         raise NotImplementedError
 
-    def _bind_worker(self) -> None:
+    def _bind_worker(self, shard: int = 0) -> None:
         pass
 
 
@@ -323,9 +335,10 @@ class _DispatchCoalescer:
         self._svc = svc
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        # Per-shard pending state, as the JAX package keeps it for its
-        # serving mesh; the port serves one device, shard 0.
-        n_shards = 1
+        # Per-shard pending state (the serving mesh): one parked list,
+        # occupancy EMA and width per shard; a flush only ever fuses one
+        # shard's microbatches. A single-device backend has shard 0.
+        n_shards = getattr(svc, "_n_shards", 1)
         self._n_shards = n_shards
         self._pending: Dict[int, List[_CoalesceTicket]] = {
             s: [] for s in range(n_shards)
@@ -354,11 +367,17 @@ class _DispatchCoalescer:
         self.fused_dispatches = 0
         self.coalesced_steps = 0
         self.deduped_evals = 0
+        self.shard_dispatches = [0] * n_shards
+        self.shard_steps = [0] * n_shards  # microbatches per shard
 
     @property
     def width(self) -> int:
         """The widest per-shard policy width."""
         return max(self._widths.values())
+
+    def _shard_of(self, group: int) -> int:
+        router = self._svc._router
+        return router.shard_of(group) if router is not None else 0
 
     def set_probe(self, probe: DispatchProbe) -> None:
         with self._lock:
@@ -367,15 +386,15 @@ class _DispatchCoalescer:
                 self._recompute_width(s)
 
     def set_width_override(self, width: Optional[int]) -> None:
-        """Force the policy width (None clears back to the probe
-        policy). An env pin (FISHNET_COALESCE_WIDTH) still wins."""
+        """Force the policy width on every shard (None clears back to the
+        probe policy). An env pin (FISHNET_COALESCE_WIDTH) still wins."""
         with self._lock:
             for s in range(self._n_shards):
                 self._override[s] = None if width is None else int(width)
                 self._recompute_width(s)
 
     def _recompute_width(self, shard: int) -> None:
-        # Caller holds self._lock.
+        # Caller holds self._lock (the router's lock is a leaf).
         if self._pinned is not None:
             self._widths[shard] = max(1, min(self._pinned, self.MAX_WIDTH))
             return
@@ -390,9 +409,15 @@ class _DispatchCoalescer:
         slots = self._occ_ema[shard]
         if slots is None:
             slots = 1.0
+        # On the mesh a shard only ever fuses the groups routed to it.
+        router = self._svc._router
+        n_groups = (
+            router.group_count(shard) if router is not None
+            else self._svc._n_groups
+        )
         self._widths[shard] = choose_coalesce_width(
             self._probe.fixed_ms, self._probe.marginal_ms_per_kslot,
-            slots, max(1, self._svc._n_groups), cap=self.MAX_WIDTH,
+            slots, max(1, n_groups), cap=self.MAX_WIDTH,
         )
         if self._svc.driver_threads > 1 and self._widths[shard] > 1:
             self._linger_s = min(
@@ -402,11 +427,18 @@ class _DispatchCoalescer:
     def submit(self, group: int, n: int, rows: int, hashes=None,
                cache_mask=None, cache_vals=None) -> _CoalesceTicket:
         """Park a stepped group's microbatch (with its eval-cache probe,
-        see ``_CoalesceTicket``); returns its ticket. Flushes
-        (dispatches) on this thread when the policy width is reached."""
+        see ``_CoalesceTicket``) on its shard's list; returns its ticket.
+        Flushes (dispatches) on this thread when the shard's policy width
+        is reached."""
         ticket = _CoalesceTicket(group, n, rows, hashes=hashes,
                                  cache_mask=cache_mask, cache_vals=cache_vals)
-        s = 0
+        router = self._svc._router
+        if router is not None:
+            # The placement signal: a group's first note may re-home it,
+            # so it lands before shard_of decides where the ticket parks
+            # (the router's lock is a leaf, taken outside self._lock).
+            router.note_occupancy(group, n)
+        s = self._shard_of(group)
         flush = None
         with self._lock:
             ema = self._occ_ema[s]
@@ -420,15 +452,32 @@ class _DispatchCoalescer:
             self._flush(flush, s)
         return ticket
 
+    def migrate(self, moved: Dict[int, int]) -> None:
+        """Re-park the pending tickets after a shard drain: each moves to
+        its group's current shard, so a demanded ticket is always on the
+        list its owner flushes. Called right after the router's
+        reassignment."""
+        router = self._svc._router
+        if router is None:
+            return
+        with self._lock:
+            parked = [tk for lst in self._pending.values() for tk in lst]
+            for s in self._pending:
+                self._pending[s] = []
+            for tk in parked:
+                self._pending[router.shard_of(tk.group)].append(tk)
+            self._cond.notify_all()
+
     def demand(self, ticket: _CoalesceTicket):
         """Block until ``ticket`` has been dispatched; returns its values
         (a solo dispatch's in-flight values, or this segment's slice of a
         fused dispatch's host array). Called by the owning driver when it
         needs the result: after a bounded linger for sibling threads'
-        microbatches, flushes the parked list (the ticket included,
-        unless another thread's flush already claimed it)."""
+        microbatches on the same shard, flushes that shard's parked list
+        (the ticket included, unless another thread's flush already
+        claimed it)."""
         if not ticket.done.is_set():
-            s = 0
+            s = self._shard_of(ticket.group)
             # Lane-aware: no linger while a best-move search is in
             # flight (racy read; worst case one lingered dispatch).
             if self._linger_s > 0.0 and self._svc._latency_active == 0:
@@ -443,6 +492,12 @@ class _DispatchCoalescer:
                             break
                         self._cond.wait(remaining)
             with self._lock:
+                # The shard that holds the ticket: a drain may have
+                # migrated it while this thread lingered.
+                for sh, lst in self._pending.items():
+                    if ticket in lst:
+                        s = sh
+                        break
                 flush, self._pending[s] = self._pending[s], []
             if flush:
                 self._flush(flush, s)
@@ -468,6 +523,7 @@ class _DispatchCoalescer:
 
     def _execute(self, tickets: List[_CoalesceTicket]) -> None:
         svc = self._svc
+        shard = self._shard_of(tickets[0].group)
         try:
             if len(tickets) == 1:
                 tk = tickets[0]
@@ -484,11 +540,28 @@ class _DispatchCoalescer:
             return
         with self._lock:
             self.dispatches += 1
+            self.shard_dispatches[shard] += 1
+            self.shard_steps[shard] += len(tickets)
             if len(tickets) > 1:
                 self.fused_dispatches += 1
                 self.coalesced_steps += len(tickets)
         for tk in tickets:
             tk.done.set()
+
+
+class _SeqAllocator:
+    """Mesh-global dispatch sequence numbers: with one async pipeline per
+    shard, each dispatch's number stays unique across the mesh."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._next = 0
+
+    def __call__(self) -> int:
+        with self._lock:
+            seq = self._next
+            self._next += 1
+            return seq
 
 
 class _AsyncDispatchPipeline:
@@ -522,6 +595,11 @@ class _AsyncDispatchPipeline:
     Failure semantics are the coalescer's: a flush that raises fails
     every ticket in its batch, and the error reaches each owner at
     demand() time. ``FISHNET_NO_ASYNC=1`` means the service builds none.
+
+    On the serving mesh the backend runs one pipeline per ``shard``, each
+    with its own workers (bound to the shard's device), depth and
+    overlap clock; ``seq_alloc`` (a shared ``_SeqAllocator``) numbers
+    the dispatches across the mesh, kept in ``last_seq``.
     """
 
     #: Two dispatches in flight unless set_depth re-tunes it.
@@ -530,8 +608,14 @@ class _AsyncDispatchPipeline:
     #: Ceiling of the tunable depth, and the size of the staging ring.
     MAX_DEPTH = 4
 
-    def __init__(self, svc: CoalesceBackend) -> None:
+    def __init__(self, svc: CoalesceBackend, shard: int = 0,
+                 seq_alloc: Optional[_SeqAllocator] = None) -> None:
         self._svc = svc
+        self._shard = shard
+        self._seq_alloc = seq_alloc
+        self._seq = 0
+        #: Sequence number of this pipeline's last dispatch (-1: none).
+        self.last_seq = -1
         self._lock = threading.Lock()
         self._pack_q: "queue.Queue" = queue.Queue()
         self._decode_q: "queue.Queue" = queue.Queue()
@@ -548,11 +632,12 @@ class _AsyncDispatchPipeline:
         self._last_ts = 0.0
         self._busy_s = 0.0
         self._dual_s = 0.0
+        sfx = f"-s{shard}" if shard else ""
         self._pack_thread = threading.Thread(
-            target=self._pack_loop, name="dispatch-pack", daemon=True
+            target=self._pack_loop, name="dispatch-pack" + sfx, daemon=True
         )
         self._decode_thread = threading.Thread(
-            target=self._decode_loop, name="dispatch-decode",
+            target=self._decode_loop, name="dispatch-decode" + sfx,
             daemon=True,
         )
         self._pack_thread.start()
@@ -656,9 +741,15 @@ class _AsyncDispatchPipeline:
             tickets.extend(item)
         return tickets, False
 
+    def _next_seq(self) -> int:
+        if self._seq_alloc is not None:
+            return self._seq_alloc()
+        seq, self._seq = self._seq, self._seq + 1
+        return seq
+
     def _pack_loop(self) -> None:
         co = self._svc._coalescer
-        self._svc._bind_worker()
+        self._svc._bind_worker(self._shard)
         held = False  # a flush taken off the queue but not yet merged
         while True:
             item = self._pack_q.get() if held is False else held
@@ -667,6 +758,7 @@ class _AsyncDispatchPipeline:
             self._slots.acquire()  # wait until fewer than depth in flight
             tickets, held = self._merge_queued(
                 item, max(len(item), co.width))
+            self.last_seq = self._next_seq()
             try:
                 co._execute(tickets)
             except BaseException as err:  # noqa: BLE001 - pipeline teardown
@@ -685,7 +777,7 @@ class _AsyncDispatchPipeline:
             self._decode_q.put(tickets)
 
     def _decode_loop(self) -> None:
-        self._svc._bind_worker()
+        self._svc._bind_worker(self._shard)
         while True:
             tickets = self._decode_q.get()
             if tickets is None:

@@ -590,10 +590,12 @@ class MctsPool:
     ``FISHNET_NO_SHARED_AZ_PLANE=1``; an ``AzDispatchPlane`` instance
     registers a lane on it (several pools, one plane); any object with
     ``evaluate(planes_u8, n, keys) -> (logits_f32, values_f32)`` works
-    (the tests inject deterministic fakes through this)."""
+    (the tests inject deterministic fakes through this). ``devices``:
+    the shards of the plane this pool builds (``AzDispatchPlane``'s
+    ``devices``)."""
 
     def __init__(self, params: Dict, cfg: MctsConfig = MctsConfig(),
-                 evaluator=None, device=None) -> None:
+                 evaluator=None, device=None, devices=None) -> None:
         self.cfg = cfg
         self.params = params
         if evaluator is None:
@@ -602,7 +604,8 @@ class MctsPool:
             else:
                 from fishnet_tpu_torch.search.az_plane import AzDispatchPlane
 
-                plane = AzDispatchPlane(params, cfg, device=device)
+                plane = AzDispatchPlane(params, cfg, device=device,
+                                        devices=devices)
                 evaluator = _PlaneEvaluator(
                     plane, plane.register_lane(), owns_plane=True
                 )

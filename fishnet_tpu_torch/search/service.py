@@ -1,11 +1,11 @@
 """SearchService: the bridge between asyncio callers and the native
 fiber pool + the torch NNUE evaluator.
 
-The port of ``fishnet_tpu/search/service.py`` in its single-device
-configuration (no mesh) with the dispatch coalescer, the async pipeline,
-the position-keyed eval cache and the bounds tier, as the JAX service
-runs by default. Every ``search(position)`` is submitted into one shared
-native pool (cpp/src/pool.cpp over ctypes). Driver threads run the
+The port of ``fishnet_tpu/search/service.py`` with the dispatch
+coalescer, the async pipeline, the position-keyed eval cache, the
+bounds tier and the serving mesh, as the JAX service runs by default.
+Every ``search(position)`` is submitted into one shared native pool
+(cpp/src/pool.cpp over ctypes). Driver threads run the
 pool's step/evaluate/provide cycle: ``fc_pool_step`` advances a slot
 group's search fibers to their next leaf evaluations and packs them on
 the compact wire, the leaves are evaluated as ONE microbatch on the
@@ -50,22 +50,47 @@ both off, ``FISHNET_NO_BOUNDS=1`` the bounds tier alone;
 ``FISHNET_CACHE_PREFETCH=1`` steers the pool's speculation budget by
 the cache's hit rate.
 
+Serving mesh (``mesh_devices=``, parallel/mesh.py): with the coalescer
+on and more than one device resolved, the coalescer drives
+``min(devices, groups)`` shards. Each shard has its own parameter
+replica, its own flat anchor and PSQT tables (one block per group, so a
+fused launch rebases persistent codes by ``g * A`` over its shard's
+allocation as the single device does), its own async pipeline and its
+own rung of its device's ladder (``ladder_for``: fused -> host-material
+on CUDA, then a drain onto the siblings). The ``ShardRouter`` places
+each group; a group's live table block follows it when the router
+re-homes it (first traffic, drain): the thread that dispatches it next
+copies the block from the shard that holds it (tracked by shard, not by
+device, so two shards on one card never read each other's stale
+blocks). On the mesh every rung stores the anchors' PSQT (the
+host-material rung too, its head reading the wire's material), so a
+group that moves between rungs finds exact tables. Without a mesh
+nothing of this runs.
+
 External evaluator (``evaluator=``, the split plane's frontend,
-rpc/client.py): the service holds no device. Each group's step goes out
+rpc/client.py, or ``parallel.mesh.ShardedEvaluator``): the service
+holds no device. Each group's step goes out
 as its dense expansion (``expand_packed_np``) on the host-material wire,
 with in-batch parents only (no persistent anchors), one group at a time:
 no coalescer, no async pipeline, no eval cache or bounds tier (those are
 gated on the packed wire, as in the JAX package). The evaluator may
 return a lazy handle; ``_resolve_eval`` materialises it with
-``np.asarray`` before the group's next step.
+``np.asarray`` before the group's next step. An evaluator with a
+``size_multiple`` above 1 (the legacy sharded evaluator) gets capacities
+rounded to it, one entry bucket, the pool's emission aligned to its
+shard size (no delta references across a shard), and — with
+``supports_packed`` — the packed wire, repacked per shard
+(``_dispatch_sharded_packed``).
 
 Streams: every ``ft_gather`` launch of a service — solo or fused, from
-a driver thread or the pack worker — goes to its device's default
-stream (no thread of the service sets another), because the kernel's
-entry ticket and ready words are one state per device (ops/ft_gather.py
-``_device_state``): two launches at once on two streams would share
-them. One stream also keeps a reallocation of the ready words safe
-behind a launch in flight: the freed block is reused in stream order.
+a driver thread or a pack worker, of any shard — goes to its device's
+default stream (no thread of the service sets another), because the
+kernel's entry ticket and ready words are one state per device
+(ops/ft_gather.py ``_device_state``): two launches at once on two
+streams would share them. One stream also keeps a reallocation of the
+ready words safe behind a launch in flight: the freed block is reused
+in stream order. Every dispatch runs under its shard's device
+(``on_device``), whatever thread issues it.
 """
 
 from __future__ import annotations
@@ -90,7 +115,7 @@ from fishnet_tpu_torch.chess.board import (
     InvalidFenError,
 )
 from fishnet_tpu_torch.chess.core import NativeCoreError, load, load_held
-from fishnet_tpu_torch.device import DeviceLike, resolve_device
+from fishnet_tpu_torch.device import DeviceLike, on_device, resolve_device
 from fishnet_tpu_torch.nnue import spec
 from fishnet_tpu_torch.nnue.torch_eval import expand_packed_np
 from fishnet_tpu_torch.nnue.weights import NnueWeights
@@ -102,6 +127,7 @@ from fishnet_tpu_torch.ops.ft_gather import (
     recode_segment_parents_np,
 )
 from fishnet_tpu_torch.protocol.types import Variant
+from fishnet_tpu_torch.resilience.supervisor import ladder_for
 from fishnet_tpu_torch.search import eval_cache as _eval_cache_mod
 from fishnet_tpu_torch.search.coalesce import (
     CoalesceBackend,
@@ -110,6 +136,7 @@ from fishnet_tpu_torch.search.coalesce import (
     _CoalesceTicket,
     _DispatchCoalescer,
     _FusedValues,
+    _SeqAllocator,
     fit_dispatch_cost,
 )
 
@@ -250,6 +277,10 @@ PSQT_PATHS = ("fused", "xla", "host-material")
 MIN_EVAL_BUCKET = 64
 
 
+def _round_up(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
 def eval_bucket_sizes(capacity: int, first: int = MIN_EVAL_BUCKET) -> List[int]:
     """Entry-count buckets of a group: a step ships the smallest power
     of two from ``first`` that holds its entries, capped at the group
@@ -308,6 +339,7 @@ class SearchService(CoalesceBackend):
         psqt_path: Optional[str] = None,
         device: DeviceLike = None,
         evaluator=None,
+        mesh_devices=None,
     ) -> None:
         """``backend="torch"`` evaluates leaves in batches on ``device``
         (``cuda`` unless the caller asks for ``"cpu"``; without a GPU a
@@ -345,7 +377,21 @@ class SearchService(CoalesceBackend):
         None. The service then holds no device (``device`` must be
         None), runs the host-material wire (``psqt_path`` reports
         "host-material" whatever was requested) and builds no coalescer,
-        async pipeline, eval cache or bounds tier.
+        async pipeline, eval cache or bounds tier. An evaluator's
+        ``size_multiple`` (> 1: ``parallel.mesh.ShardedEvaluator``) rounds
+        the capacities to it and aligns the pool's emission to its shard
+        size; with ``supports_packed`` it gets the packed wire, repacked
+        per shard, through its ``packed_eval``.
+
+        ``mesh_devices``: the serving mesh (parallel/mesh.py
+        ``serving_devices``): None (default) is the single-device
+        service; ``"auto"`` every visible device of ``device``'s type; an
+        int the first N; a sequence of devices exactly those (one device
+        may appear twice: two logical shards on one card). Its first
+        device must be ``device``. The mesh is on only with the
+        coalescer on (more than one group, no ``FISHNET_NO_COALESCE``)
+        and more than one device resolved (``FISHNET_NO_MESH=1`` clamps
+        to one); it drives ``min(devices, groups)`` shards.
         """
         if backend not in ("torch", "scalar"):
             raise ValueError(f"unknown backend: {backend!r}")
@@ -399,8 +445,17 @@ class SearchService(CoalesceBackend):
             net_path = self._tmp.name
         self.net_path = str(net_path)
         self.backend = backend
-        self.batch_capacity = batch_capacity = max(
-            batch_capacity, MIN_BATCH_CAPACITY
+        # A sharded evaluator splits every batch over its devices: the
+        # capacities round to its multiple, and each shard must hold one
+        # maximal eval block (aligned emission never splits a block).
+        mult = max(1, int(getattr(evaluator, "size_multiple", 1)))
+        self.shard_multiple = mult
+        self._sharded_packed = (
+            evaluator is not None and mult > 1
+            and bool(getattr(evaluator, "supports_packed", False))
+        )
+        self.batch_capacity = batch_capacity = _round_up(
+            max(batch_capacity, MIN_BATCH_CAPACITY * mult), mult
         )
         # Pipeline depth: the pool's slots are partitioned into this many
         # groups per driver thread, each with its own in-flight device
@@ -417,6 +472,44 @@ class SearchService(CoalesceBackend):
         )
         self._n_groups = k = self.driver_threads * self.pipeline_depth
 
+        # THE SERVING MESH (module docstring). None of its fields leaves
+        # its single-device default unless it turns on.
+        coalesce_on = (
+            self._packed_wire and self._n_groups > 1
+            and os.environ.get("FISHNET_NO_COALESCE", "0") != "1"
+        )
+        self._router = None
+        self._n_shards = 1
+        self._shard_devices = [self.device]
+        self._mesh_lock = threading.Lock()
+        self._ladder = (
+            ladder_for(self.device.type) if self.device is not None
+            else ("host-material",)
+        )
+        self._shard_rungs = [
+            self._ladder.index(self.psqt_path)
+            if self.psqt_path in self._ladder else 0
+        ]
+        self._degradations: List[Tuple[int, str, str]] = []
+        self._migrations = 0
+        if coalesce_on and mesh_devices is not None:
+            from fishnet_tpu_torch.parallel.mesh import (
+                ShardRouter,
+                serving_devices,
+            )
+
+            devs = serving_devices(mesh_devices, self.device.type)
+            if len(devs) > 1:
+                if devs[0] != self.device or any(
+                        d.type != self.device.type for d in devs):
+                    raise ValueError(
+                        f"mesh devices {devs} must start with the "
+                        f"service's device {self.device}, all of its type")
+                self._n_shards = min(len(devs), self._n_groups)
+                self._shard_devices = devs[: self._n_shards]
+                self._router = ShardRouter(self._n_groups, self._n_shards)
+                self._shard_rungs = self._shard_rungs * self._n_shards
+
         self._pool = self._lib.fc_pool_new(
             pool_slots, tt_bytes, self.net_path.encode(), self._n_groups
         )
@@ -426,12 +519,23 @@ class SearchService(CoalesceBackend):
         cap = batch_capacity
         # Each group steps at most cap/k leaves so the k groups together
         # fill one batch_capacity of in-flight work.
-        self._group_capacity = max(
-            MIN_BATCH_CAPACITY, cap // self.pipeline_depth
+        self._group_capacity = _round_up(
+            max(MIN_BATCH_CAPACITY * mult, cap // self.pipeline_depth), mult
         )
-        self._eval_sizes = eval_bucket_sizes(self._group_capacity)
+        if mult > 1:
+            # One bucket: the pool aligns its emission to the shard size
+            # of the shipped batch, a constant only at one size.
+            self._eval_sizes = [self._group_capacity]
+            self._shard_align = self._group_capacity // mult
+        else:
+            self._eval_sizes = eval_bucket_sizes(self._group_capacity)
+            self._shard_align = 0
 
         self._params = None
+        self._shard_params = [None]
+        self._anchor_shards: List[torch.Tensor] = []
+        self._psqt_shards: List[torch.Tensor] = []
+        self._table_home: Optional[List[int]] = None
         self._anchor_tabs: List[torch.Tensor] = []
         self._psqt_tabs: List[torch.Tensor] = []
         self._anchor_rows = 0
@@ -467,6 +571,12 @@ class SearchService(CoalesceBackend):
 
             w = weights if weights is not None else NnueWeights.load(net_path)
             self._params = params_from_weights(w, self.device)
+            self._shard_params = [self._params]
+            if self._router is not None:
+                from fishnet_tpu_torch.parallel.mesh import replicate_params
+
+                self._shard_params = replicate_params(
+                    self._params, self._shard_devices)
             self._eval_fn = evaluate_packed_anchored
             # PERSISTENT DEVICE ANCHORS: one feature-transformer
             # accumulator (and its PSQT twin) per pool slot lives on the
@@ -484,13 +594,32 @@ class SearchService(CoalesceBackend):
                 device=self.device)
             self._anchor_tabs = list(self._anchor_all.unbind(0))
             self._psqt_tabs = list(self._psqt_all.unbind(0))
+            # On the mesh each shard has its own flat allocation of all k
+            # blocks; _table_home[g] is the shard holding group g's live
+            # block (the router's initial placement: all blocks zero).
+            self._anchor_shards = [self._anchor_all] + [
+                torch.zeros_like(self._anchor_all, device=d)
+                for d in self._shard_devices[1:]
+            ]
+            self._psqt_shards = [self._psqt_all] + [
+                torch.zeros_like(self._psqt_all, device=d)
+                for d in self._shard_devices[1:]
+            ]
+            self._table_home = (
+                None if self._router is None
+                else [self._router.shard_of(g) for g in range(k)]
+            )
             self._lib.fc_pool_set_anchors(self._pool, 1)
             if on_gpu:
                 # Each group's copy of the kernel's error word, read with
                 # its values; the count at warm-up is the baseline.
                 self._err_t = host((k, 1), torch.int32)
                 self._err_base = 0
-        if self.psqt_path == "host-material":
+                # The other mesh devices' baselines, by device index.
+                self._err_bases: Dict[int, int] = {}
+        # The pool's material term rides the host-material wire; on the
+        # mesh it is always made, since any shard may step down to it.
+        if self.psqt_path == "host-material" or self._router is not None:
             self._material_t = host((k, cap), torch.int32)
             self._material_buf = self._material_t.numpy()
 
@@ -499,15 +628,13 @@ class SearchService(CoalesceBackend):
         self._coalescer: Optional[_DispatchCoalescer] = None
         self._async_pipes: List[_AsyncDispatchPipeline] = []
         self._dedup_fused = os.environ.get("FISHNET_NO_DEDUP", "0") != "1"
-        self._staging: List[_Staging] = []
-        self._staging_next = 0
+        # One ring of staging slots per shard.
+        self._staging: List[List[_Staging]] = []
+        self._staging_next = [0] * self._n_shards
         self._staging_lock = threading.Lock()
         self.dispatch_probe: Optional[DispatchProbe] = None
         self._latency_active = 0
-        if (
-            self._params is not None and self._n_groups > 1
-            and os.environ.get("FISHNET_NO_COALESCE", "0") != "1"
-        ):
+        if coalesce_on:
             pinned = None
             pin_env = os.environ.get("FISHNET_COALESCE_WIDTH")
             if pin_env:
@@ -516,13 +643,21 @@ class SearchService(CoalesceBackend):
             # One staging slot per dispatch the pipeline may hold in
             # flight, each sized for the widest fused dispatch.
             width = min(self._n_groups, _DispatchCoalescer.MAX_WIDTH)
-            self._staging = [
+            self._staging = [[
                 _Staging(width, self._eval_sizes[-1], host,
                          self._material_buf is not None)
                 for _ in range(_AsyncDispatchPipeline.MAX_DEPTH)
-            ]
+            ] for _ in range(self._n_shards)]
             if os.environ.get("FISHNET_NO_ASYNC", "0") != "1":
-                self._async_pipes = [_AsyncDispatchPipeline(self)]
+                if self._n_shards > 1:
+                    # One pipeline per shard, numbered across the mesh.
+                    alloc = _SeqAllocator()
+                    self._async_pipes = [
+                        _AsyncDispatchPipeline(self, shard=s, seq_alloc=alloc)
+                        for s in range(self._n_shards)
+                    ]
+                else:
+                    self._async_pipes = [_AsyncDispatchPipeline(self)]
         # POSITION-KEYED EVAL REUSE: the process-wide cache (None with
         # FISHNET_NO_EVAL_CACHE=1, or off the packed wire: the scalar
         # backend and an external evaluator — every
@@ -675,30 +810,47 @@ class SearchService(CoalesceBackend):
                 self._warmed = True
                 return
             self._padding_eval(self._eval_sizes[-1])
+            if self._router is not None:
+                self._warm_shards()
             if self.device.type == "cuda":
                 self._err_base = kernel_errors(self.device)
+                for dev in self._shard_devices[1:]:
+                    if dev != self.device:
+                        self._err_bases[dev.index] = kernel_errors(dev)
             co = self._coalescer
             if co is not None and co._pinned is None and not self._stopping:
                 self.dispatch_probe = self._probe_dispatch_cost()
                 co.set_probe(self.dispatch_probe)
             self._warmed = True
 
-    def _padding_eval(self, size: int) -> None:
+    def _padding_eval(self, size: int, shard: int = 0) -> None:
         """One blocking solo dispatch of ``size`` all-padding entries on
-        group 0's table, uploaded from the host as a step's are. All
-        plain fulls: nothing is stored, the tables stay as they were."""
-        dev = self.device
+        block 0 of ``shard``'s table, uploaded from the host as a step's
+        are. All plain fulls: nothing is stored, the tables stay as they
+        were."""
+        dev = self._shard_devices[shard]
         packed = torch.full((4, 2, 8), spec.NUM_FEATURES, dtype=torch.int16)
         zeros = torch.zeros((size,), dtype=torch.int32)
         parents = torch.full((size,), -1, dtype=torch.int32)
-        z = zeros.to(dev, non_blocking=True)
-        values, _, _ = self._eval_fn(
-            self._params, packed.to(dev, non_blocking=True), z,
-            parents.to(dev, non_blocking=True),
-            z if self._material_buf is not None else None,
-            self._anchor_tabs[0], 0, self._psqt_tabs[0], offsets=z,
-        )
-        values.cpu()
+        with on_device(dev):
+            z = zeros.to(dev, non_blocking=True)
+            values, _, _ = self._eval_fn(
+                self._shard_params[shard], packed.to(dev, non_blocking=True),
+                z, parents.to(dev, non_blocking=True),
+                z if self._host_material(shard) else None,
+                self._anchor_shards[shard][0], 0, self._psqt_shards[shard][0],
+                offsets=z,
+            )
+            values.cpu()
+
+    def _warm_shards(self) -> None:
+        """One padding dispatch on every shard past the first (the
+        warm-up covered shard 0): each device initialises its libraries
+        and the kernel's state before the first real step."""
+        for s in range(1, self._n_shards):
+            if self._stopping:
+                return
+            self._padding_eval(self._eval_sizes[-1], shard=s)
 
     def _probe_dispatch_cost(self, rounds: int = 3) -> DispatchProbe:
         """Time blocking solo dispatches at the smallest and largest
@@ -766,6 +918,9 @@ class SearchService(CoalesceBackend):
                 out["fused_dispatches"] = co.fused_dispatches
                 out["coalesced_steps"] = co.coalesced_steps
                 out["fused_dedup"] = co.deduped_evals
+                if self._router is not None:
+                    for s, d in enumerate(co.shard_dispatches):
+                        out[f"shard{s}_dispatches"] = d
         else:
             out["dispatches"] = out["eval_steps"]
             out["fused_dispatches"] = 0
@@ -905,6 +1060,129 @@ class SearchService(CoalesceBackend):
             Path(self._tmp.name).unlink(missing_ok=True)
             self._tmp = None
 
+    # -- the serving mesh's plumbing -------------------------------------
+
+    def _host_material(self, shard: int) -> bool:
+        """Whether ``shard``'s dispatches ship the pool's material term
+        (the host-material rung) instead of computing PSQT on the
+        device."""
+        if self._router is None:
+            return self._material_buf is not None
+        return self._ladder[self._shard_rungs[shard]] == "host-material"
+
+    def _eval_state(self, group: int):
+        """``(shard, params, device, ship_material)`` for ``group``'s
+        current placement: on the mesh its shard's replica, device and
+        rung; otherwise shard 0, the service's own."""
+        shard = 0 if self._router is None else self._router.shard_of(group)
+        return (shard, self._shard_params[shard], self._shard_devices[shard],
+                self._host_material(shard))
+
+    def _mesh_kw(self, material) -> dict:
+        """The evaluator's extra arguments on the mesh: a host-material
+        dispatch still stores the anchors' PSQT there (module
+        docstring). None without a mesh, where a service's rung never
+        changes."""
+        if self._router is None or material is None:
+            return {}
+        return {"store_psqt": True}
+
+    def _handle(self, done, out, err, dev):
+        """A CUDA dispatch's in-flight handle; on a mesh device other
+        than the service's it carries that device's error baseline."""
+        if dev == self.device:
+            return done, out, err
+        return done, out, err, self._err_bases.get(dev.index, 0)
+
+    def _place_group_tables(self, group: int, shard: int) -> None:
+        """Bring ``group``'s live table block to ``shard``'s allocation
+        when the router re-homed it (first traffic, a drain): a copy
+        from the shard that holds it, before the dispatch that reads
+        it, on the thread that issues that dispatch. The group's eval
+        chain is serial — its last dispatch was read back before it
+        stepped again — so the old block is final."""
+        if self._table_home is None:
+            return
+        old = self._table_home[group]
+        if old == shard:
+            return
+        with on_device(self._shard_devices[shard]):
+            self._anchor_shards[shard][group].copy_(
+                self._anchor_shards[old][group])
+            self._psqt_shards[shard][group].copy_(
+                self._psqt_shards[old][group])
+        self._table_home[group] = shard
+        with self._mesh_lock:
+            self._migrations += 1
+
+    def _degrade_shard_for(self, group: int, err: BaseException) -> None:
+        """One step of the per-shard ladder after a device fault on
+        ``group``'s shard: the next rung of its device's ladder
+        (``ladder_for``: fused -> host-material on CUDA), then a DRAIN —
+        the shard is marked dead and its groups re-homed on the
+        survivors (their tables follow at their next dispatch). Other
+        shards never move. Raises ``err`` without a mesh or when no
+        shard is left."""
+        if self._router is None:
+            raise err
+        shard = self._router.shard_of(group)
+        with self._mesh_lock:
+            rung = self._shard_rungs[shard]
+            if rung < len(self._ladder) - 1:
+                self._shard_rungs[shard] = rung + 1
+                self._degradations.append(
+                    (shard, self._ladder[rung], self._ladder[rung + 1]))
+                return
+            try:
+                moved = self._router.drain(shard)
+            except RuntimeError:
+                raise err
+            self._coalescer.migrate(moved)
+            self._degradations.append((shard, self._ladder[rung], "drained"))
+
+    def shard_report(self) -> dict:
+        """Per-shard snapshot: device, dispatches, the microbatches they
+        carried (steps / dispatches: the mean coalesce width), occupancy
+        EMA, rung (``"drained"`` for a dead shard), liveness, groups, and
+        the mesh-wide degradation steps ``(shard, from, to)``, table
+        migrations and router re-homes. A service without a mesh reports
+        one healthy shard."""
+        co = self._coalescer
+        n = self._n_shards
+        if co is not None:
+            with co._lock:
+                dispatches = list(co.shard_dispatches)
+                steps = list(co.shard_steps)
+                occ = [float(co._occ_ema[s] or 0.0) for s in range(n)]
+        else:
+            dispatches = steps = [sum(self._eval_steps)]
+            occ = [0.0]
+        router = self._router
+        alive = set(router.alive_shards()) if router else {0}
+        with self._mesh_lock:
+            rung_idx = [
+                self._shard_rungs[s] if s in alive else len(self._ladder)
+                for s in range(n)
+            ]
+            degradations = list(self._degradations)
+            migrations = self._migrations
+        return {
+            "n_shards": n,
+            "devices": [str(d) for d in self._shard_devices],
+            "dispatches": dispatches,
+            "steps": steps,
+            "occupancy": occ,
+            "rungs": [self._ladder[i] if i < len(self._ladder) else "drained"
+                      for i in rung_idx],
+            "rung_index": rung_idx,
+            "alive": [s in alive for s in range(n)],
+            "groups": ([router.groups_of(s) for s in range(n)] if router
+                       else [list(range(self._n_groups))]),
+            "degradations": degradations,
+            "migrations": migrations,
+            "rehomes": router.rehomes if router else 0,
+        }
+
     # -- evaluation -------------------------------------------------------
 
     def _dispatch_eval(self, group: int, n: int, rows: int):
@@ -934,6 +1212,10 @@ class SearchService(CoalesceBackend):
         parents[n:size] = -1
         if material is not None:
             material[n:size] = 0
+        if self._sharded_packed:
+            return self._dispatch_sharded_packed(
+                size, n, rows, packed, buckets, parents, material,
+                self._offset_buf[group])
         if self._evaluator is not None:
             # The dense expansion, handed to the external evaluator,
             # which reads (or copies) it before this group steps again.
@@ -944,35 +1226,82 @@ class SearchService(CoalesceBackend):
             return self._evaluator(
                 None, feats, buckets[:size], parents[:size],
                 material[:size]), acct
-        dev = self.device
-        pk = self._packed_t[group, : rows + 4].to(dev, non_blocking=True)
-        of = self._offset_t[group, :size].to(dev, non_blocking=True)
-        bk = self._bucket_t[group, :size].to(dev, non_blocking=True)
-        pa = self._parent_t[group, :size].to(dev, non_blocking=True)
-        mat = (
-            None if material is None
-            else self._material_t[group, :size].to(dev, non_blocking=True)
-        )
-        acct = (
-            size,
-            (rows + 4) * 2 * 8 * 2 + size * 3 * 4,
-            0 if mat is None else size * 4,
-        )
-        values, _, _ = self._eval_fn(
-            self._params, pk, bk, pa, mat,
-            self._anchor_tabs[group], rows, self._psqt_tabs[group],
-            offsets=of,
-        )
-        out = self._values_t[group, :size]
-        if dev.type != "cuda":
-            out.copy_(values)
-            return (None, out, None), acct
-        out.copy_(values, non_blocking=True)
-        err = self._err_t[group]
-        err.copy_(error_word(dev), non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return (done, out, err), acct
+        shard, params, dev, ship = self._eval_state(group)
+        self._place_group_tables(group, shard)
+        with on_device(dev):
+            pk = self._packed_t[group, : rows + 4].to(dev, non_blocking=True)
+            of = self._offset_t[group, :size].to(dev, non_blocking=True)
+            bk = self._bucket_t[group, :size].to(dev, non_blocking=True)
+            pa = self._parent_t[group, :size].to(dev, non_blocking=True)
+            mat = (
+                None if not ship
+                else self._material_t[group, :size].to(dev, non_blocking=True)
+            )
+            acct = (
+                size,
+                (rows + 4) * 2 * 8 * 2 + size * 3 * 4,
+                0 if mat is None else size * 4,
+            )
+            values, _, _ = self._eval_fn(
+                params, pk, bk, pa, mat,
+                self._anchor_shards[shard][group], rows,
+                self._psqt_shards[shard][group], offsets=of,
+                **self._mesh_kw(mat),
+            )
+            out = self._values_t[group, :size]
+            if dev.type != "cuda":
+                out.copy_(values)
+                return (None, out, None), acct
+            out.copy_(values, non_blocking=True)
+            err = self._err_t[group]
+            err.copy_(error_word(dev), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return self._handle(done, out, err, dev), acct
+
+    def _dispatch_sharded_packed(self, size, n, rows, packed, buckets,
+                                 parents, material, offsets):
+        """Repack a group's row stream into one row tier per shard of
+        the sharded evaluator and ship it to its ``packed_eval``. The
+        pool's aligned emission keeps every entry's rows and every
+        delta's anchor inside one shard's entry span; the row stream is
+        cut at the shard boundaries (each boundary entry starts a block,
+        so its offset is the cut), each slice padded with sentinel rows
+        to the common tier, offsets made shard-local."""
+        mult = self.shard_multiple
+        shard = size // mult
+        bounds = np.empty(mult + 1, np.int64)
+        for k in range(mult):
+            idx = k * shard
+            bounds[k] = offsets[idx] if idx < n else rows
+        bounds[mult] = rows
+        need = int(np.diff(bounds).max()) + 4
+        tiers = self._shard_row_tiers(shard)
+        tier = next((rt for rt in tiers if need <= rt), tiers[-1])
+        out_packed = np.full((mult * tier, 2, 8), spec.NUM_FEATURES,
+                             np.uint16)
+        out_offsets = np.empty(size, np.int32)
+        for k in range(mult):
+            rs, re = int(bounds[k]), int(bounds[k + 1])
+            out_packed[k * tier: k * tier + (re - rs)] = packed[rs:re]
+            lo, hi = k * shard, (k + 1) * shard
+            real_hi = min(hi, n)
+            if lo < real_hi:
+                out_offsets[lo:real_hi] = offsets[lo:real_hi] - rs
+            if real_hi < hi:
+                # Padding entries read the shard's own sentinel block.
+                out_offsets[real_hi:hi] = tier - 4
+        acct = (size, mult * tier * 2 * 8 * 2 + size * 3 * 4, size * 4)
+        return self._evaluator.packed_eval(
+            None, out_packed, out_offsets, buckets[:size], parents[:size],
+            material[:size]), acct
+
+    @staticmethod
+    def _shard_row_tiers(shard: int) -> List[int]:
+        """Per-shard row tiers of the sharded packed wire (the JAX
+        package's compiled shapes): every shard pads its rows to one
+        common tier; ``4 * shard + 4`` always fits."""
+        return [2 * shard + 4, 3 * shard + 4, 4 * shard + 4]
 
     def _dispatch_segmented(self, tickets: List[_CoalesceTicket]) -> None:
         """ONE device dispatch covering every ticket's group microbatch
@@ -1007,7 +1336,25 @@ class SearchService(CoalesceBackend):
           stores, so its row holds the bytes it would have stored.
         * byte mode (the cache off): a plain full whose feature block
           duplicates an earlier one is dropped the same way; plain
-          fulls store nothing, so no fan-in is needed (checked below)."""
+          fulls store nothing, so no fan-in is needed (checked below).
+
+        On the mesh a flush holds one shard's groups (the coalescer parks
+        per shard), dispatched on that shard's device, replica, tables
+        and rung; a flush queued before a drain re-homed some of its
+        groups is split by their current shards."""
+        if self._router is not None:
+            parts: Dict[int, List[_CoalesceTicket]] = {}
+            for tk in tickets:
+                parts.setdefault(self._router.shard_of(tk.group), []).append(tk)
+            if len(parts) > 1:
+                for part in parts.values():
+                    if len(part) == 1:
+                        tk = part[0]
+                        tk.values, tk.acct = self._dispatch_eval(
+                            tk.group, tk.n, tk.rows)
+                    else:
+                        self._dispatch_segmented(part)
+                return
         k_segs = len(tickets)
         groups = [tk.group for tk in tickets]
         size = self._eval_sizes[-1]
@@ -1015,7 +1362,7 @@ class SearchService(CoalesceBackend):
             if max(tk.n for tk in tickets) <= s:
                 size = s
                 break
-        mat_on = self._material_buf is not None
+        shard, params, dev, mat_on = self._eval_state(tickets[0].group)
         for tk in tickets:
             # The padding writes the solo path makes: a sentinel block
             # past the emitted rows, sentinel entries past n.
@@ -1067,14 +1414,18 @@ class SearchService(CoalesceBackend):
                     if use_hash:
                         self._position_dedup += len(pairs)
                     self._cache_prewire_hits += len(fills)
-        st = self._take_staging()
+        st = self._take_staging(shard)
         try:
+            for g in groups:
+                self._place_group_tables(g, shard)
             # Byte mode drops only plain fulls, which store nothing: the
             # launch needs no fan-in there.
-            handle = self._stage_and_launch(
-                st, tickets, groups, size, eff_rows,
-                drops if dups or fills else None, refs, use_hash,
-                dups if use_hash else None)
+            with on_device(dev):
+                handle = self._stage_and_launch(
+                    st, tickets, groups, size, eff_rows,
+                    drops if dups or fills else None, refs, use_hash,
+                    dups if use_hash else None, shard=shard, params=params,
+                    dev=dev, mat_on=mat_on)
             shared = _FusedValues(
                 handle, lambda h: self._resolve_eval(k_segs * size, h), dups,
                 fills)
@@ -1124,13 +1475,15 @@ class SearchService(CoalesceBackend):
         keys = np.concatenate([tk.hashes[:tk.n] for tk in tickets])
         return len(np.unique(keys)) < len(keys)
 
-    def _take_staging(self) -> _Staging:
-        """The next staging slot, locked. The dispatch last staged there
-        is read back first: until then its uploads may still read the
-        slot and its owners not yet have copied its values out."""
+    def _take_staging(self, shard: int = 0) -> _Staging:
+        """The next staging slot of ``shard``'s ring, locked. The
+        dispatch last staged there is read back first: until then its
+        uploads may still read the slot and its owners not yet have
+        copied its values out."""
+        ring = self._staging[shard]
         with self._staging_lock:
-            st = self._staging[self._staging_next % len(self._staging)]
-            self._staging_next += 1
+            st = ring[self._staging_next[shard] % len(ring)]
+            self._staging_next[shard] += 1
         st.lock.acquire()
         prev, st.holder = st.holder, None
         if prev is not None:
@@ -1142,14 +1495,17 @@ class SearchService(CoalesceBackend):
 
     def _stage_and_launch(self, st: _Staging, tickets, groups, size: int,
                           eff_rows, drops, refs, ready_codes: bool = False,
-                          dups=None):
-        """Write the fused wire into ``st``, upload it, launch, and queue
-        the copies of the values and the error word back; returns the
-        in-flight handle as ``_dispatch_eval`` does. ``refs`` are the
-        dropped entries' new parent codes (``ready_codes``: as the
-        position-keyed planner gives them) or in-batch anchor indices
-        (byte mode); ``dups`` (flat ``(dst, src)`` pairs) become the
-        launch's ``copy_src`` fan-in."""
+                          dups=None, *, shard: int = 0, params=None,
+                          dev=None, mat_on: bool = False):
+        """Write the fused wire into ``st``, upload it to ``dev`` (the
+        dispatch's shard ``shard``, with ``params`` its replica and
+        ``mat_on`` its rung's material wire), launch on that shard's flat
+        tables, and queue the copies of the values and the error word
+        back; returns the in-flight handle as ``_dispatch_eval`` does.
+        ``refs`` are the dropped entries' new parent codes
+        (``ready_codes``: as the position-keyed planner gives them) or
+        in-batch anchor indices (byte mode); ``dups`` (flat ``(dst,
+        src)`` pairs) become the launch's ``copy_src`` fan-in."""
         k_segs = len(tickets)
         n_all = k_segs * size
         parents = st.parents_t.numpy()[:n_all].reshape(k_segs, size)
@@ -1160,7 +1516,7 @@ class SearchService(CoalesceBackend):
             g = tk.group
             parents[k] = self._parent_buf[g][:size]
             buckets[k * size: (k + 1) * size] = self._bucket_buf[g][:size]
-            if st.material_t is not None:
+            if mat_on:
                 st.material_t.numpy()[k * size: (k + 1) * size] = \
                     self._material_buf[g][:size]
             bases[k] = pos
@@ -1184,13 +1540,12 @@ class SearchService(CoalesceBackend):
             parents, eff_rows, bases)
         st.parents_t.numpy()[:n_all] = recode_segment_parents_np(
             parents, self._anchor_rows, groups)
-        dev = self.device
         pk = st.packed_t[:pos].to(dev, non_blocking=True)
         of = st.offsets_t[:n_all].to(dev, non_blocking=True)
         bk = st.buckets_t[:n_all].to(dev, non_blocking=True)
         pa = st.parents_t[:n_all].to(dev, non_blocking=True)
         mat = (
-            None if st.material_t is None
+            None if not mat_on
             else st.material_t[:n_all].to(dev, non_blocking=True)
         )
         copy_src = None
@@ -1204,12 +1559,12 @@ class SearchService(CoalesceBackend):
             copy_src = st.copy_src_t[:n_all]
         n_tab = self._anchor_all.shape[0] * self._anchor_rows
         values, _, _ = self._eval_fn(
-            self._params, pk, bk, pa, mat,
-            self._anchor_all.view(n_tab, 2, spec.L1), pos,
-            self._psqt_all.view(n_tab, 2, spec.NUM_PSQT_BUCKETS),
+            params, pk, bk, pa, mat,
+            self._anchor_shards[shard].view(n_tab, 2, spec.L1), pos,
+            self._psqt_shards[shard].view(n_tab, 2, spec.NUM_PSQT_BUCKETS),
             offsets=of, copy_src=copy_src,
             parent_host=None if copy_src is None
-            else st.parents_t.numpy()[:n_all],
+            else st.parents_t.numpy()[:n_all], **self._mesh_kw(mat),
         )
         out = st.values_t[:n_all]
         if dev.type != "cuda":
@@ -1219,7 +1574,7 @@ class SearchService(CoalesceBackend):
         st.err_t.copy_(error_word(dev), non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return done, out, st.err_t
+        return self._handle(done, out, st.err_t, dev)
 
     def _compact_segment(self, dst: np.ndarray, g: int, n: int,
                          drops) -> None:
@@ -1248,11 +1603,12 @@ class SearchService(CoalesceBackend):
         if handle[0] is not None:
             handle[0].synchronize()
 
-    def _bind_worker(self) -> None:
-        """The pipeline workers' CUDA device is this service's (events
-        and launches go to its default stream)."""
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+    def _bind_worker(self, shard: int = 0) -> None:
+        """A pipeline worker's CUDA device is its shard's (events and
+        launches go to that device's default stream)."""
+        dev = self._shard_devices[shard]
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.set_device(dev)
 
     def _resolve_eval(self, n: int, handle) -> np.ndarray:
         """Block until a dispatched eval is done; contiguous int32 [n].
@@ -1264,14 +1620,16 @@ class SearchService(CoalesceBackend):
             handle = np.asarray(handle)
         if isinstance(handle, np.ndarray):
             return np.array(handle[:n], dtype=np.int32)
-        done, out, err = handle
+        done, out, err = handle[:3]
         if done is not None:
             done.synchronize()
-        if err is not None and int(err[0]) > self._err_base:
-            raise NativeCoreError(
-                f"ft_gather kernel refused {int(err[0]) - self._err_base} "
-                "out-of-range indices or malformed references"
-            )
+        if err is not None:
+            base = handle[3] if len(handle) > 3 else self._err_base
+            if int(err[0]) > base:
+                raise NativeCoreError(
+                    f"ft_gather kernel refused {int(err[0]) - base} "
+                    "out-of-range indices or malformed references"
+                )
         return np.array(out.numpy()[:n], dtype=np.int32)
 
     # -- driver thread ----------------------------------------------------
@@ -1443,7 +1801,7 @@ class SearchService(CoalesceBackend):
                     self._pool, g, packed_ptrs[g], offset_ptrs[g],
                     bucket_ptrs[g], slot_ptrs[g],
                     parent_ptrs[g], material_ptrs[g], self._group_capacity,
-                    0, ctypes.byref(rows),
+                    self._shard_align, ctypes.byref(rows),
                 )
                 stepped += n
                 if n > 0:

@@ -224,6 +224,77 @@ def test_two_pools_on_one_plane_equal_the_hatch_on_every_rung(params, rung, monk
     assert c["fused_dispatches"] > 0 and c["rung"] == az_plane.AZ_RUNGS[rung]
 
 
+def _two_pool_hatch(params, cfg, halves, monkeypatch):
+    monkeypatch.setenv("FISHNET_NO_SHARED_AZ_PLANE", "1")
+    hatch = []
+    for half in halves:
+        pool = MctsPool(params, cfg, device="cpu")
+        hatch.append(drive_in_lockstep([pool], [half], 80)[0])
+        pool.close()
+    monkeypatch.delenv("FISHNET_NO_SHARED_AZ_PLANE")
+    eval_cache.reset_cache()
+    return hatch
+
+
+def test_two_shards_equal_the_hatch(params, monkeypatch):
+    """The plane over two shards (``devices=["cpu", "cpu"]``, a replica
+    each, the lanes routed round-robin): each pool's trees equal the
+    private evaluator's, and both shards dispatch."""
+    monkeypatch.setenv("FISHNET_SHARD_PLACEMENT", "rr")
+    cfg = MctsConfig(batch_capacity=64, az=TINY)
+    halves = [OPENINGS[:4], OPENINGS[4:]]
+    hatch = _two_pool_hatch(params, cfg, halves, monkeypatch)
+    plane = AzDispatchPlane(params, cfg, device="cpu", devices=["cpu", "cpu"])
+    pools = [MctsPool(params, cfg, evaluator=plane, device="cpu")
+             for _ in halves]
+    try:
+        assert plane._nets[1] is not plane._nets[0]
+        got = drive_in_lockstep(pools, halves, 80)
+        c = plane.counters()
+    finally:
+        for pool in pools:
+            pool.close()
+        plane.close()
+    assert got == hatch
+    assert all(d > 0 for d in c["shard_dispatches"]), c
+    assert sum(c["shard_dispatches"]) == c["dispatches"]
+    assert c["shard_rungs"] == ["fused", "fused"] and c["alive"] == [0, 1]
+
+
+def test_a_failing_shard_steps_down_its_ladder_then_drains(params,
+                                                           monkeypatch):
+    """A shard whose forwards fail walks down its own ladder (fused ->
+    solo -> chunk), is then drained, and its lane's dispatches move to
+    its sibling: the trees never change and the healthy shard never
+    leaves its rung."""
+    monkeypatch.setenv("FISHNET_SHARD_PLACEMENT", "rr")
+    cfg = MctsConfig(batch_capacity=64, az=TINY)
+    halves = [OPENINGS[:4], OPENINGS[4:]]
+    hatch = _two_pool_hatch(params, cfg, halves, monkeypatch)
+    plane = AzDispatchPlane(params, cfg, device="cpu", devices=["cpu", "cpu"])
+    real = plane._execute_rung
+
+    def sick(shard, rung, segs):
+        if shard == 1:
+            raise RuntimeError("injected shard fault")
+        return real(shard, rung, segs)
+
+    plane._execute_rung = sick
+    pools = [MctsPool(params, cfg, evaluator=plane, device="cpu")
+             for _ in halves]
+    try:
+        got = drive_in_lockstep(pools, halves, 80)
+        c = plane.counters()
+    finally:
+        for pool in pools:
+            pool.close()
+        plane.close()
+    assert got == hatch
+    assert c["alive"] == [0] and c["shard_rungs"][0] == "fused"
+    assert c["degradations"] == [(1, "fused", "solo"), (1, "solo", "chunk"),
+                                 (1, "chunk", "drained")]
+
+
 def test_warm_replay_resolves_before_the_wire(params, monkeypatch):
     """A fresh pool (fresh memo, fresh plane) against the surviving
     process AzEvalCache resolves its leaves pre-wire and gives the cold

@@ -274,6 +274,58 @@ def test_persistent_codes_without_table_raise_eagerly():
         _port(ft_w, ft_b, idx, anchor_tab=tab, ft_psqt=ft_psqt, **kw)
 
 
+def _sparse_batch(rng, batch=8, active=32):
+    """tests/test_ops.py's partials batch: even entries full, odd ones
+    sparse deltas (adds, encoded removals, region-padded)."""
+    delta_base = N_FEATURES + 1
+    idx = np.full((batch, 2, active), N_FEATURES, np.int32)
+    sparse = np.zeros((batch,), bool)
+    for b in range(batch):
+        if b % 2 == 0:
+            idx[b, :, : active - 3] = rng.integers(
+                0, N_FEATURES, (2, active - 3))
+            continue
+        sparse[b] = True
+        for p in range(2):
+            n_add = int(rng.integers(0, DELTA_SLOTS + 1))
+            n_rem = int(rng.integers(0, DELTA_SLOTS + 1))
+            idx[b, p, :n_add] = rng.integers(0, N_FEATURES, n_add)
+            idx[b, p, DELTA_SLOTS: DELTA_SLOTS + n_rem] = (
+                delta_base + rng.integers(0, N_FEATURES, n_rem))
+            idx[b, p, DELTA_SLOTS + n_rem: 2 * DELTA_SLOTS] = (
+                delta_base + N_FEATURES)
+    return idx, sparse, delta_base
+
+
+def test_sparse_partials_match_pallas_interpret():
+    """The partials mode (``sparse=`` without ``parent``): flagged deltas
+    come back bias-included and unresolved, adds minus removes, with
+    their PSQT partials; equal to the JAX kernel in interpret mode
+    (tests/test_ops.py's case, without PSQT) and to its XLA twin. A
+    flagged entry reads only its live slots, as the JAX kernel does, so
+    a stray index past them changes nothing. (16 slots and 4 entries:
+    the interpreter's cost is its unrolled trace.)"""
+    rng = np.random.default_rng(3)
+    ft_w, ft_b, ft_psqt = _tables(rng)
+    idx, sparse, delta_base = _sparse_batch(rng, batch=4, active=16)
+    kw = dict(delta_base=delta_base, ft_psqt=ft_psqt)
+    got = _port(ft_w, ft_b, idx, sparse=sparse, **kw)
+    _assert_same(got[0], _jax(ft_w, ft_b, idx, interpret=True,
+                              delta_base=delta_base, sparse=sparse))
+    _assert_same(got, _jax(ft_w, ft_b, idx, use_pallas=False, **kw))
+    _assert_same(_port(ft_w, ft_b, idx, delta_base=delta_base,
+                       sparse=sparse), got[0])
+    stray = idx.copy()
+    stray[1, :, 12] = 5  # past a sparse entry's live slots
+    _assert_same(_port(ft_w, ft_b, stray, sparse=sparse, **kw), got)
+    # With a parent the resolving mode decides, as in the JAX package.
+    parent = np.full((idx.shape[0],), -1, np.int32)
+    _assert_same(_port(ft_w, ft_b, stray, sparse=sparse, parent=parent,
+                       **kw),
+                 _jax(ft_w, ft_b, stray, use_pallas=False, parent=parent,
+                      **kw))
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel's wrapper never runs the plain version: it launches
     on CUDA tensors or raises."""
@@ -285,7 +337,17 @@ def test_cuda_wrapper_refuses_cpu_tensors():
             torch.from_numpy(ft_w), torch.from_numpy(ft_b),
             torch.from_numpy(idx),
         )
+    with pytest.raises(ValueError, match="CUDA"):
+        port_ft.ft_accumulate_cuda(
+            torch.from_numpy(ft_w), torch.from_numpy(ft_b),
+            torch.from_numpy(idx), delta_base=N_FEATURES + 1,
+            sparse=torch.ones(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="sparse"):
+        port_ft.ft_accumulate_cuda(
+            torch.from_numpy(ft_w), torch.from_numpy(ft_b),
+            torch.from_numpy(idx), sparse=torch.ones(3, dtype=torch.int32))
     assert port_ft.ft_accumulate_cuda.launches == 0
+    assert port_ft.ft_accumulate_cuda.sparse_launches == 0
 
 
 def test_kernel_build_needs_nvcc_and_is_keyed_by_source(monkeypatch, tmp_path):

@@ -40,7 +40,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "search.mcts", "search.az_plane", "engine.az_engine", "train",
              "train.model", "train.trainer", "train.az_trainer",
-             "train.checkpoint", "train.data", "train.selfplay"):
+             "train.checkpoint", "train.data", "train.selfplay",
+             "parallel", "parallel.mesh"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -181,3 +182,26 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
         assert svc.device is None
     finally:
         svc.close()
+
+
+def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, capsys):
+    """The serving mesh resolves CUDA devices or raises: "auto", an int
+    and an explicit ``cuda`` list never quietly become CPU shards, nor
+    does the legacy evaluator's default mesh; ``--mesh`` on the CPU
+    refuses more devices than the one it has."""
+    import torch
+
+    from fishnet_tpu_torch.__main__ import main
+    from fishnet_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for req in ("auto", None, 2, ["cuda:0", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.serving_devices(req)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_mesh()
+    assert mesh.serving_devices("auto", "cpu") == [torch.device("cpu")]
+    assert main(["uci", "--no-conf", "--mesh", "2x1"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert main(["uci", "--no-conf", "--device", "cpu", "--mesh", "1x2"]) == 2
+    assert "--mesh 1x2 needs 2 devices, found 1" in capsys.readouterr().err
