@@ -40,14 +40,15 @@ the client runs' throughput and latencies, the cache phase's checks and
 numbers, the split phase's checks and numbers, the az phase's checks
 and numbers (and one JSON object ``{"az": {...}}``), the train phase's
 (and ``{"train": {...}}``), the mesh phase's (and ``{"mesh": {...}}``),
-then on the last
+the trainshard and metrics phases' (and their objects), then on the last
 three lines the card again, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split, az, train, mesh; default all twelve) limits a run to some phases
+run, cli, cache, split, az, train, mesh, trainshard, metrics; default all
+fourteen) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -67,7 +68,7 @@ searches x 200 visits with the plane == the private evaluator on the
 default and each forced rung, a warm replay == cold with pre-wire hits,
 speculation off == on, and the same roots split between two pools on
 one plane, fusing their lanes, == the private evaluator on each forced
-rung; a 256-search x 400-visit burst with the cache off and on (A, B,
+rung; a 256-search x 200-visit burst with the cache off and on (A, B,
 B, A, all the same trees); and the ``run`` path with ``--engine az-mcts`` (4 games, a move
 job, a variant game on the scalar tier). The AZ path reaches no
 hand kernel: the tower is PyTorch's convolutions and matmuls, as the
@@ -104,6 +105,23 @@ shards (checks that do not depend on timing); the legacy
 the AZ plane over two shards == one shard; and the burst, one shard
 (A) and two (B), A, B, B, A at 600 nodes (numbers only). Launches on
 ``cuda:N`` with N > 0 need a host with more cards.
+``trainshard`` runs the sharded trainers on logical shards of the card
+(after ``train``, whose labelled positions it serves the export on; alone,
+on 512 seeded positions): NNUE at full spec, B = 16384, 3 steps on 2x1,
+1x2 and 2x2 meshes against the single-device steps (every step held to
+the train phase's step-1 gate; the single run on the batch's rows
+permuted beside them), timed; a 1x2 export of carried parameters ==
+the single-device export byte for byte; the 1x2 run's export on the
+packed kernel == plain; AZ at the default AzConfig, 1024 rows, one step on
+1x2 and 2x1 held to the AZ step-1 gate, timed; a 1x2 checkpoint resumed
+in a 1x2 trainer bit for bit and in a single-device one within the gate.
+``metrics`` runs the coalesce phase's service under the ``/metrics``
+exporter: the burst without an exporter (A) and scraped every second
+(B), A, B, B, A (numbers only; each leg a fresh service and cache), the
+first B's scrapes all valid exposition 0.0.4 and, after it, the
+service's families == ``counters()`` == the packed launches; after
+``close()`` the scrape answers without the service's families; a
+two-logical-shard service's ``fishnet_shard_*`` == ``shard_report()``.
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -142,7 +160,7 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
-          "cache", "split", "az", "train", "mesh")
+          "cache", "split", "az", "train", "mesh", "trainshard", "metrics")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -3166,9 +3184,10 @@ def phase_split(torch, weights, params, dev) -> dict:
 #: at the CLI's microbatch, the parity runs and the burst.
 AZ_CAP = 1024
 AZ_PARITY = (32, 200)  # searches, visits
-#: 400 visits a search, not 800, so the phase stays near 150 s: the
-#: burst is host-bound Python at ~4500 visits/s (PERF.md).
-AZ_BURST = (256, 400)
+#: 200 visits a search (800, then 400 before), so the default run keeps
+#: under its time limit on a slow host: the burst is host-bound Python
+#: at ~4500 visits/s (PERF.md).
+AZ_BURST = (256, 200)
 #: The forward on the card against the port's CPU forward: both bf16,
 #: cuDNN and the CPU sum a conv's products in other orders, so a result
 #: may move by a few bf16 steps: at most AZ_STEPS steps of the largest
@@ -4470,6 +4489,7 @@ def train_steps(torch, dev, tmp: str, cpu_child, cpu_path: str) -> dict:
     t0 = time.perf_counter()
     out["labels"]["cpu_seconds"] = train_labels_equal(labels, cpu_child,
                                                       cpu_path)
+    out["_batch"] = labels["batch"]  # for the trainshard phase; not printed
     log(f"  [train] waited {time.perf_counter() - t0:.1f} s for the CPU "
         "labels")
     return out
@@ -5059,6 +5079,582 @@ def phase_mesh(torch, weights, params, dev) -> dict:
     return out
 
 
+#: The trainshard phase: the sharded trainers on logical shards of the
+#: card, (data, model) meshes over [cuda:0] * (data x model). NNUE at
+#: full spec at the train phase's B for TRAINSHARD_STEPS steps against
+#: the single-device steps; AZ at the default AzConfig, one step at the
+#: train phase's rows (each data slice >= 256 rows: cuDNN's rows below
+#: 256 depend on the batch shape, PERF.md §6).
+TRAINSHARD_MESHES = ((2, 1), (1, 2), (2, 2))
+TRAINSHARD_AZ_MESHES = ((1, 2), (2, 1))
+TRAINSHARD_STEPS = 3
+
+
+def card_mesh(dev, data: int, model: int):
+    """A ``data x model`` mesh of logical shards of ``dev``."""
+    from fishnet_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([dev] * (data * model), data=data, model=model)
+
+
+def nnue_arrays(net) -> dict:
+    """A net's parameters (single-device or sharded, gathered) as numpy
+    copies in the JAX layout."""
+    from fishnet_tpu_torch.train.model import PARAM_NAMES
+
+    return {k: net[k].detach().cpu().numpy().copy() for k in PARAM_NAMES}
+
+
+#: A sharded NNUE step on the card is held to the train phase's step-1
+#: gate of the card against the CPU (PERF.md §2) at every step: the loss
+#: within rtol 1e-4; each parameter within rtol 2e-4 / atol 2e-6 but for
+#: at most TRAIN_OFF_SHARE of its entries, each within 2 x lr a step.
+#: On the card cuBLAS picks its kernels (and their sum order) by the
+#: rows of a slice, so an activation that sits on a clamp's edge can
+#: round to the other side and flip its gradient, and Adam (an update
+#: of ~lr x g / |g|) spreads such noise to lr size in entries whose
+#: gradient is small. The CPU, whose sums do not depend on the slice,
+#: meets rtol 2e-4 / atol 2e-6 on every entry (the CPU tests, and
+#: PERF.md §6).
+
+
+def nnue_off(got: dict, want: dict) -> dict:
+    """Per parameter: (max |diff|, entries outside rtol 2e-4 / atol 2e-6,
+    their share)."""
+    import numpy as np
+
+    out = {}
+    for k, w in want.items():
+        d = np.abs(got[k].astype(np.float64) - w)
+        off = int((d > 2e-6 + 2e-4 * np.abs(w)).sum())
+        out[k] = (float(d.max()), off, off / d.size)
+    return out
+
+
+def nnue_gate(per: dict, lr: float, step: int) -> tuple:
+    """(max |diff|, entries off, largest share off and its parameter,
+    passes) of ``nnue_off`` after ``step`` Adam steps at ``lr``."""
+    worst = max(v[0] for v in per.values())
+    off = sum(v[1] for v in per.values())
+    name = max(per, key=lambda k: per[k][2])
+    share = per[name][2]
+    ok = share <= TRAIN_OFF_SHARE and worst <= 2 * lr * step * (1 + 1e-3)
+    return worst, off, f"{share:.2e} ({name})", ok
+
+
+def packed_export_kernel(torch, weights, batch, dev) -> dict:
+    """The exported net on the packed kernel: ``batch``'s positions as
+    plain full entries of the packed wire (4 rows of 8 feature pairs
+    each, then the sentinel block), the kernel == its plain version on
+    CPU copies (accumulators, PSQT and both tables), bit for bit."""
+    import numpy as np
+
+    from fishnet_tpu_torch.nnue import spec, torch_eval
+    from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
+    from fishnet_tpu_torch.ops import ft_gather
+
+    idx = batch["indices"]
+    b = len(idx)
+    packed = np.full((4 * b + 4, 2, 8), spec.NUM_FEATURES, np.uint16)
+    packed[:4 * b] = idx.reshape(b, 2, 4, 8).transpose(0, 2, 1, 3).reshape(
+        4 * b, 2, 8)
+    parent = np.full(b, -1, np.int32)
+    offsets = torch_eval.derive_offsets_np(parent, 4 * b)
+    tab = np.zeros((1, 2, spec.L1), np.int32)
+    ptab = np.zeros((1, 2, 8), np.int32)
+    host = [torch.from_numpy(a) for a in (packed.view(np.int16), offsets,
+                                          parent, tab, ptab)]
+    wire = tuple(t.to(dev) for t in host)
+    params = params_from_weights(weights, dev)
+    cpu = params_from_weights(weights, "cpu")
+    launches0 = ft_gather.ft_accumulate_packed_cuda.launches
+    got = packed_outputs(torch, ft_gather.ft_accumulate_packed_cuda, params,
+                         wire, True)
+    launches = ft_gather.ft_accumulate_packed_cuda.launches - launches0
+    want = packed_outputs(torch, ft_gather.ft_accumulate_packed_plain, cpu,
+                          tuple(host), True)
+    diff = max_diff([t.cpu() for t in got], want)
+    check(launches == 1, f"trainshard export: {launches} packed launches")
+    check(diff == 0, f"trainshard export: the packed kernel != plain ({diff})")
+    log(f"  export of the 1x2 run's step {TRAINSHARD_STEPS}: the packed kernel "
+        f"== plain on {b} positions as plain full entries (accumulators, PSQT, "
+        "tables)")
+    return {"entries": b, "max_abs_err": diff, "launches": launches}
+
+
+def trainshard_nnue(torch, dev, export_batch) -> dict:
+    """NNUE at full spec: TRAINSHARD_STEPS steps at B = TRAIN_NNUE_BATCH
+    on each of TRAINSHARD_MESHES against the single-device steps on the
+    card (TF32 off), every step held to ``nnue_gate`` (the train phase's
+    step-1 gate). Beside them the single-device run on the batch's rows
+    permuted (the same step, its batch sums in another order). Timed;
+    the export
+    of carried parameters from a 1x2 trainer == the single-device export
+    byte for byte; the 1x2 run's last state exported and served by the
+    packed kernel."""
+    import numpy as np
+
+    from fishnet_tpu_torch.train import NetConfig, Trainer
+    from fishnet_tpu_torch.train.model import init_params
+
+    cfg = NetConfig()
+    params = init_params(0, cfg)
+    big = train_synthetic_nnue(TRAIN_NNUE_BATCH, seed=3)
+    perm = np.random.default_rng(1).permutation(TRAIN_NNUE_BATCH)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in big.items()}
+    permuted = {k: torch.from_numpy(np.ascontiguousarray(v[perm])).to(dev)
+                for k, v in big.items()}
+
+    def run(mesh, batch, ref=None):
+        trainer = Trainer(cfg, mesh=mesh, device=dev)
+        state = trainer.init(params=params)
+        lr = state.opt_state.param_groups[0]["lr"]
+        losses, ms, snaps = [], [], []
+        for step in range(1, TRAINSHARD_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"])
+            arrays = nnue_arrays(state.params)
+            snaps.append(arrays if ref is None else
+                         nnue_gate(nnue_off(arrays, ref[step - 1]), lr, step))
+        return trainer, state, losses, ms, snaps
+
+    single_t, single_s, ref_losses, ref_ms, ref = run(None, data)
+    del single_s
+    out = {"single": {"losses": ref_losses, "ms": ref_ms}}
+    log(f"  nnue single device: losses {ref_losses}, ms a step {ref_ms}")
+    _, _, p_losses, _, floor = run(None, permuted, ref)
+    out["permuted"] = {"losses": p_losses, "steps": [g[:3] for g in floor]}
+    log(f"  nnue single device, the batch's rows permuted (the noise floor): "
+        f"per step (max |diff|, entries off, largest share) "
+        f"{[g[:3] for g in floor]}")
+    last = None
+    for shape in TRAINSHARD_MESHES:
+        name = f"{shape[0]}x{shape[1]}"
+        trainer, state, losses, ms, gates = run(card_mesh(dev, *shape), data,
+                                                ref)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        out[name] = {"losses": losses, "ms": ms, "loss_rel": loss_rel,
+                     "steps": [g[:3] for g in gates]}
+        log(f"  nnue {name}: losses {losses} (max rel diff {loss_rel:.3e}), "
+            f"ms a step {ms} (single {ref_ms}); per step (max |diff|, entries "
+            f"off, largest share) {[g[:3] for g in gates]}")
+        check(loss_rel <= 1e-4, f"trainshard {name}: the loss is off the "
+                                "single-device step's")
+        check(all(g[3] for g in gates), f"trainshard {name}: the parameters "
+                                        "are off the single-device steps'")
+        if shape == (1, 2):
+            last = (trainer, state)
+        else:
+            del trainer, state
+    trainer, state = last
+    a = single_t.export(single_t.init(params=params))
+    b = trainer.export(trainer.init(params=params))
+    fields = ("ft_weight", "ft_bias", "ft_psqt", "l1_weight", "l1_bias",
+              "l2_weight", "l2_bias", "out_weight", "out_bias")
+    same = all(getattr(a, f).tobytes() == getattr(b, f).tobytes() for f in fields)
+    log(f"  nnue: carried parameters exported from a 1x2 trainer == the "
+        f"single-device export, byte for byte: {same}")
+    check(same, "trainshard: the 1x2 export differs from the single-device one")
+    out["export"] = packed_export_kernel(torch, trainer.export(state),
+                                         export_batch, dev)
+    return out
+
+
+def trainshard_az(torch, dev) -> dict:
+    """AZ at the default AzConfig: one step at TRAIN_AZ_ROWS rows on each
+    of TRAINSHARD_AZ_MESHES against the single-device step on the card,
+    held to the train phase's AZ step-1 gate (the loss within 2**-7 of
+    its magnitude; each gradient within TRAIN_GRAD_TOL of its norm; the
+    parameters within 2 x lr, at most TRAIN_OFF_SHARE of a parameter's
+    entries outside rtol 2e-4 / atol 2e-6); ms a step, timed."""
+    from fishnet_tpu_torch.models.az import AzConfig
+    from fishnet_tpu_torch.train import AzTrainer
+
+    cfg = AzConfig()
+    params = az_params()
+    batch = train_synthetic_az(TRAIN_AZ_ROWS, seed=6)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def one_step(mesh):
+        trainer = AzTrainer(cfg, mesh=mesh, device=dev)
+        state, metrics = trainer.step(trainer.init(params=params), data)
+        net = state.params
+        if mesh is None:
+            grads = {n: p.grad.detach().cpu().double()
+                     for n, p in net.named_parameters()}
+            values = {n: p.detach().cpu() for n, p in net.named_parameters()}
+        else:
+            grads = {n: net.gather(n, [p.grad for p in net.leaves(n)]).double()
+                     for n in net.names}
+            values = {n: net.gather(n) for n in net.names}
+        holder = [trainer.init(params=params)]
+
+        def step():
+            holder[0], _ = trainer.step(holder[0], data)
+
+        ms = cuda_ms(torch, step, reps=3)
+        lr = state.opt_state.param_groups[0]["lr"]
+        return metrics, grads, values, ms, lr
+
+    ref_m, ref_g, ref_v, ref_ms, lr = one_step(None)
+    out = {"single": {"loss": ref_m["loss"], "ms": ref_ms}}
+    log(f"  az single device: loss {ref_m['loss']}, {ref_ms:.3f} ms a step")
+    for shape in TRAINSHARD_AZ_MESHES:
+        name = f"{shape[0]}x{shape[1]}"
+        m, g, v, ms, _ = one_step(card_mesh(dev, *shape))
+        loss_diff = abs(m["loss"] - ref_m["loss"])
+        grad_rel = {n: float((g[n] - ref_g[n]).norm()
+                             / ref_g[n].norm().clamp(min=1e-30)) for n in ref_g}
+        worst, share = 0.0, 0.0
+        for n, want in ref_v.items():
+            diff = (v[n] - want).abs()
+            worst = max(worst, float(diff.max()))
+            share = max(share, float((diff > 2e-6 + 2e-4 * want.abs())
+                                     .float().mean()))
+        out[name] = {"loss": m["loss"], "loss_diff": loss_diff,
+                     "grad_rel_max": max(grad_rel.values()),
+                     "param_max_diff": worst, "off_share": share, "ms": ms}
+        log(f"  az {name}: loss {m['loss']} (|diff| {loss_diff:.3e}), "
+            f"gradients |diff| / |single| largest {max(grad_rel.values()):.3e} "
+            f"({max(grad_rel, key=grad_rel.get)}), parameters max |diff| "
+            f"{worst:.3e} (2 x lr = {2 * lr}), off share {share:.6f}; "
+            f"{ms:.3f} ms a step (single {ref_ms:.3f})")
+        check(loss_diff <= 2.0 ** -7 * max(1.0, abs(ref_m["loss"])),
+              f"trainshard az {name}: the loss is off the single step's")
+        check(max(grad_rel.values()) <= TRAIN_GRAD_TOL,
+              f"trainshard az {name}: a gradient is off the single step's")
+        check(worst <= 2 * lr * (1 + 1e-3) and share <= TRAIN_OFF_SHARE,
+              f"trainshard az {name}: the parameters are off the single step's")
+    return out
+
+
+def trainshard_resume(torch, dev, tmp: str) -> dict:
+    """A 1x2 checkpoint after step 1: restored into a 1x2 trainer, its
+    step 2 == the uninterrupted 1x2 run's step 2 bit for bit; restored
+    into a single-device trainer, its step 2 matches that step at the
+    NNUE tolerances."""
+    import numpy as np
+
+    from fishnet_tpu_torch.train import NetConfig, Trainer
+    from fishnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from fishnet_tpu_torch.train.model import init_params
+
+    cfg = NetConfig()
+    params = init_params(0, cfg)
+    big = train_synthetic_nnue(TRAIN_NNUE_BATCH, seed=4)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in big.items()}
+    mesh = card_mesh(dev, 1, 2)
+    trainer = Trainer(cfg, mesh=mesh)
+    state, _ = trainer.step(trainer.init(params=params), data)
+    path = os.path.join(tmp, "shard.pt")
+    save_checkpoint(path, state)
+    state, m_ref = trainer.step(state, data)
+    ref = nnue_arrays(state.params)
+    del state
+    again = Trainer(cfg, mesh=mesh)
+    r, m_again = again.step(restore_checkpoint(path, again.init(seed=1)), data)
+    got = nnue_arrays(r.params)
+    del r
+    bits = m_again["loss"] == m_ref["loss"] and all(
+        np.array_equal(got[k], ref[k]) for k in ref)
+    single = Trainer(cfg, device=dev)
+    s, m_single = single.step(restore_checkpoint(path, single.init(seed=1)), data)
+    lr = s.opt_state.param_groups[0]["lr"]
+    worst, off, share, ok = nnue_gate(nnue_off(nnue_arrays(s.params), ref), lr, 1)
+    loss_rel = abs(m_single["loss"] - m_ref["loss"]) / abs(m_ref["loss"])
+    log(f"  resume: 1x2 checkpoint -> 1x2 step 2 == uninterrupted bit for bit: "
+        f"{bits}; -> single-device step 2: loss rel diff {loss_rel:.3e}, "
+        f"parameters max |diff| {worst:.3e}, {off} entries off (largest "
+        f"share {share})")
+    check(bits, "trainshard: the 1x2 resume is not the uninterrupted run")
+    check(loss_rel <= 1e-4 and ok,
+          "trainshard: the single-device resume is off the 1x2 run")
+    return {"sharded_bits": bits, "single_loss_rel": loss_rel,
+            "single_param_max_diff": worst, "single_params_off": off,
+            "single_share_off": share}
+
+
+def phase_trainshard(torch, dev, export_batch=None) -> dict:
+    """The trainshard phase: the sharded trainers on logical shards of
+    the card (NNUE, AZ, resume). ``export_batch`` holds the positions
+    the packed kernel serves the export on: the train phase's labelled
+    positions when it ran, else 512 seeded positions."""
+    import tempfile
+
+    from fishnet_tpu_torch.ops import ft_gather
+
+    if export_batch is None:
+        export_batch = train_synthetic_nnue(TRAIN_LABELS[2], seed=9)
+    ft_gather.ft_accumulate_packed_cuda.launches = 0
+    ft_gather.ft_accumulate_cuda.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    out["nnue"] = trainshard_nnue(torch, dev, export_batch)
+    log(f"  [trainshard] nnue in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["az"] = trainshard_az(torch, dev)
+    log(f"  [trainshard] az in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="trainshard-") as tmp:
+        out["resume"] = trainshard_resume(torch, dev, tmp)
+    log(f"  [trainshard] resume in {time.perf_counter() - t0:.1f} s")
+    out["launches"] = ft_gather.ft_accumulate_packed_cuda.launches
+    dense = ft_gather.ft_accumulate_cuda.launches
+    check(out["launches"] == 1 and dense == 0,
+          f"trainshard: {out['launches']} packed, {dense} dense launches")
+    return out
+
+
+#: The metrics phase's bursts (the cache phase's size: 256 searches of
+#: 1000 nodes, cut from the coalesce phase's 3000 so its four bursts fit
+#: the phase's time) and the scraper's period.
+METRICS_BURST_NODES = 1000
+METRICS_SCRAPE_S = 1.0
+
+
+def exposition_families(text: str) -> dict:
+    """Parse Prometheus text exposition 0.0.4 strictly: every line a
+    HELP/TYPE comment or a sample of a typed family. Returns {family:
+    type}; raises SmokeFailure on a bad line."""
+    import re
+
+    type_re = re.compile(r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) "
+                         r"(counter|gauge|histogram|summary|untyped)$")
+    help_re = re.compile(r"^# HELP [a-zA-Z_:][a-zA-Z0-9_:]* .*$")
+    sample_re = re.compile(
+        r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"
+        r'(?:\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*"'
+        r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*")*\})?'
+        r" -?(?:[0-9]+(?:\.[0-9]+)?(?:[eE][-+]?[0-9]+)?|inf|nan)$")
+    types = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        m = type_re.match(line)
+        if m:
+            types[m.group(1)] = m.group(2)
+            continue
+        if line.startswith("#"):
+            check(help_re.match(line) is not None, f"metrics: bad line {line!r}")
+            continue
+        m = sample_re.match(line)
+        check(m is not None, f"metrics: bad sample line {line!r}")
+        name = m.group(1)
+        family = name if name in types else re.sub(r"_(bucket|sum|count)$", "",
+                                                     name)
+        check(family in types, f"metrics: untyped sample {name}")
+    return types
+
+
+def metric_value(text: str, name: str, **labels) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            if all(f'{k}="{v}"' in line for k, v in labels.items()):
+                return float(line.rsplit(" ", 1)[1])
+    raise SmokeFailure(f"metrics: no sample {name}{labels}")
+
+
+def http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as res:
+        return res.read().decode()
+
+
+class Scraper:
+    """A thread polling ``url`` every METRICS_SCRAPE_S seconds; each
+    scrape must parse as exposition 0.0.4 (``exposition_families``)."""
+
+    def __init__(self, url: str) -> None:
+        self.url, self.scrapes, self.errors = url, 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            try:
+                exposition_families(http_get(self.url))
+                self.scrapes += 1
+            except Exception as err:  # noqa: BLE001 - reported by stop()
+                self.errors.append(repr(err))
+            if self._stop.wait(METRICS_SCRAPE_S):
+                return
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(30)
+        check(not self._thread.is_alive(), "metrics: the scraper hung")
+        check(not self.errors, f"metrics: scrapes failed: {self.errors[:3]}")
+        return self.scrapes
+
+
+#: counters() key -> the family that adapts it (the JAX names).
+METRICS_ADAPTED = {
+    "nodes": "fishnet_pool_nodes_total", "steps": "fishnet_pool_steps_total",
+    "evals_shipped": "fishnet_pool_evals_shipped_total",
+    "suspensions": "fishnet_pool_suspensions_total",
+    "delta_evals": "fishnet_pool_delta_evals_total",
+    "tt_eval_hits": "fishnet_pool_tt_eval_hits_total",
+    "eval_steps": "fishnet_service_eval_steps_total",
+    "dispatches": "fishnet_dispatches_total",
+    "fused_dispatches": "fishnet_coalesced_dispatches_total",
+    "bucket_slots": "fishnet_service_bucket_slots_total",
+    "wire_bytes": "fishnet_service_wire_bytes_total",
+    "fused_dedup": "fishnet_fused_dedup_total",
+    "position_dedup": "fishnet_position_dedup_total",
+    "cache_skipped_dispatches": "fishnet_eval_cache_skipped_dispatches_total",
+    "bounds_seeded": "fishnet_bounds_seeded_total",
+    "bounds_harvested": "fishnet_bounds_harvested_total",
+}
+
+
+def metrics_service(weights, dev):
+    """The coalesce phase's service at the defaults (one driver thread
+    per core, pipeline 2, microbatch 1024, the cache on), from a cold
+    process cache, warmed up, with ``host_timers`` on it."""
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.search.service import SearchService
+
+    fresh_cache()
+    threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
+    service = SearchService(weights=weights, batch_capacity=1024,
+                            pipeline_depth=2, driver_threads=threads,
+                            device=dev)
+    service.warmup()
+    return service, host_timers(service)
+
+
+def metrics_gates(service, url: str, c0: dict, scrapes: int) -> dict:
+    """After a scraped burst: the service's families == ``counters()``
+    (read once the pipeline's last decode is in: two equal reads around
+    a scrape) and == the packed launches counted since ``c0``."""
+    from fishnet_tpu_torch.ops import ft_gather
+
+    launches = ft_gather.ft_accumulate_packed_cuda.launches
+    dense = ft_gather.ft_accumulate_cuda.launches
+    for _ in range(100):
+        counters = service.counters()
+        text = http_get(url)
+        if service.counters() == counters:
+            break
+        time.sleep(0.05)
+    families = exposition_families(text)
+    off = {key: (metric_value(text, fam), counters[key])
+           for key, fam in METRICS_ADAPTED.items()
+           if metric_value(text, fam) != counters[key]}
+    burst = counters["dispatches"] - c0["dispatches"]
+    log(f"  {scrapes} scrapes of {len(families)} families during the burst, "
+        f"all valid 0.0.4; after it fishnet_dispatches_total "
+        f"{metric_value(text, 'fishnet_dispatches_total')}, counters() "
+        f"{counters['dispatches']} ({burst} in the burst), packed launches "
+        f"{launches}, dense {dense}; {len(METRICS_ADAPTED)} adapted "
+        f"counters, off: {off}")
+    check(scrapes >= 2, f"metrics: {scrapes} scrapes during the burst")
+    check(not off, f"metrics: families != counters(): {off}")
+    check(launches == burst > 0 and dense == 0,
+          f"metrics: {launches} packed launches for {burst} dispatches")
+    check(metric_value(text, "fishnet_shard_dispatches_total", shard="0")
+          == counters["dispatches"], "metrics: shard 0's dispatches")
+    return {"launches": launches, "families": len(families)}
+
+
+def metrics_leg(weights, dev, scraped: bool, gate: bool = False) -> dict:
+    """One burst at METRICS_BURST_NODES on a service of its own (a cold
+    cache and table each leg): with ``scraped`` an exporter on an
+    ephemeral port and a Scraper polling it, else no exporter; with
+    ``gate`` the launch counts set to 0 before the burst and
+    ``metrics_gates`` after it."""
+    from fishnet_tpu_torch import telemetry
+    from fishnet_tpu_torch.ops import ft_gather
+
+    service, timers = metrics_service(weights, dev)
+    exporter = scraper = None
+    out, gated = {}, None
+    try:
+        if scraped:
+            exporter = telemetry.start_exporter(0)
+            scraper = Scraper(f"{exporter.url}/metrics")
+        ft_gather.ft_accumulate_packed_cuda.launches = 0
+        ft_gather.ft_accumulate_cuda.launches = 0
+        c0 = service.counters()
+        try:
+            nps = load_burst(service, out, nodes=METRICS_BURST_NODES)
+        finally:
+            scrapes = scraper.stop() if scraper is not None else 0
+        if gate:
+            gated = metrics_gates(service, f"{exporter.url}/metrics", c0,
+                                  scrapes)
+    finally:
+        if exporter is not None:
+            exporter.close()
+        service.close()
+    calls, seconds = timers.get("pack", [0, 0.0])
+    return {"nps": nps, "dispatches": out["counters"]["dispatches"],
+            "pack_ms_per_dispatch": seconds * 1e3 / max(1, calls),
+            "scrapes": scrapes, "gate": gated}
+
+
+def phase_metrics(torch, weights, dev) -> dict:
+    """The metrics plane over the coalesce phase's service (one driver
+    thread per core, pipeline 2, microbatch 1024, the cache on): the
+    burst without an exporter (A) and with one on an ephemeral port
+    scraped every second (B), A, B, B, A, numbers only; on the first B
+    every scrape valid exposition 0.0.4, and after it the service's
+    families == ``counters()`` and the packed launches. After close() a
+    scrape still answers, without the service's families; two shards on
+    a two-logical-shard mesh service."""
+    from fishnet_tpu_torch import telemetry
+    from fishnet_tpu_torch.search.service import SearchService
+
+    legs = [metrics_leg(weights, dev, scraped, gate)
+            for scraped, gate in ((False, False), (True, True),
+                                  (True, False), (False, False))]
+    log("  A, B, B, A (A without an exporter, B scraped every "
+        f"{METRICS_SCRAPE_S:.0f} s): nodes/s "
+        f"{[round(leg['nps']) for leg in legs]}, dispatches "
+        f"{[leg['dispatches'] for leg in legs]}, pack ms a dispatch "
+        f"{[round(leg['pack_ms_per_dispatch'], 4) for leg in legs]}, "
+        f"scrapes {[leg['scrapes'] for leg in legs]}")
+    exporter = telemetry.start_exporter(0)
+    try:
+        url = f"{exporter.url}/metrics"
+        text = http_get(url)
+        exposition_families(text)
+        gone = ("fishnet_pool_nodes_total" not in text
+                and "fishnet_service_info" not in text)
+        log(f"  after close(): a scrape answers, the service's families "
+            f"gone: {gone}")
+        check(gone, "metrics: the closed service's families are exported")
+        fresh_cache()
+        mesh = SearchService(weights=weights, batch_capacity=1024,
+                             pipeline_depth=2, driver_threads=2, device=dev,
+                             mesh_devices=[dev, dev])
+        try:
+            mesh.warmup()
+            load_burst(mesh, nodes=300)
+            rep = mesh.shard_report()
+            text = http_get(url)
+            shards = [metric_value(text, "fishnet_shard_dispatches_total",
+                                   shard=str(s)) for s in range(2)]
+        finally:
+            mesh.close()
+    finally:
+        exporter.close()
+    log(f"  two logical shards: fishnet_shard_dispatches_total {shards}, "
+        f"shard_report {rep['dispatches']}")
+    check(shards == [float(d) for d in rep["dispatches"]] and min(shards) > 0,
+          "metrics: the mesh service's shard families")
+    gated = legs[1]["gate"]
+    return {"launches": gated["launches"], "families": gated["families"],
+            "legs": [{k: v for k, v in leg.items() if k != "gate"}
+                     for leg in legs], "shard_dispatches": shards}
+
+
 def phase_fen() -> None:
     """ROADMAP C7, in this process (torch imported, the core loaded):
     the port's Board gives back the expected FEN of every FEN_CHECKS
@@ -5586,6 +6182,7 @@ def main() -> int:
     phase_fen()
 
     worst = None
+    train_batch = None
     if "kernel" in phases:
         log("[kernel] hand kernel vs plain version, every entry kind")
         worst = phase_kernel(torch, params, dev)
@@ -5671,6 +6268,7 @@ def main() -> int:
             "kernel, the NNUE and AZ trainers at full width, self-play over "
             "the shared plane and the split plane's AZ half, checkpoints")
         train = phase_train(torch, dev)
+        train_batch = train.pop("_batch")
         export = train["nnue"]["export"]
         facts = {"label_launches": train["labels"]["launches"],
                  "label_dispatches": train["labels"]["dispatches"],
@@ -5722,6 +6320,23 @@ def main() -> int:
                         "(sparse=), timed",
                 "mesh": facts})
         print(json.dumps({"mesh": mesh}), flush=True)
+    if "trainshard" in phases:
+        log("[trainshard] the sharded trainers on logical shards of the card: "
+            "NNUE 2x1, 1x2, 2x2 and AZ 1x2, 2x1 against one device, the "
+            "export on the packed kernel, resume across placements")
+        trainshard = phase_trainshard(torch, dev, train_batch)
+        for entry in entries:
+            entry["launches_trainshard"] = trainshard["launches"]
+            entry["trainshard_export"] = trainshard["nnue"]["export"]
+        print(json.dumps({"trainshard": trainshard}), flush=True)
+    if "metrics" in phases:
+        log("[metrics] the /metrics exporter over the service: scrapes "
+            "during a burst, families == counters(), close(), two shards; "
+            "the burst without and with scrapes, A, B, B, A")
+        metrics = phase_metrics(torch, weights, dev)
+        for entry in entries:
+            entry["launches_metrics"] = metrics["launches"]
+        print(json.dumps({"metrics": metrics}), flush=True)
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

@@ -28,6 +28,7 @@ explicit ``DxM`` pins the shard count (``M > 1``: the legacy
 from __future__ import annotations
 
 import asyncio
+import os
 import signal
 import sys
 from pathlib import Path
@@ -339,6 +340,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         stats_file=Path(opt.stats_file) if opt.stats_file else None,
         no_stats_file=opt.no_stats_file,
     )
+    exporter = start_metrics(opt, stats, logger)
     # Warm-restart snapshot (FISHNET_EVAL_CACHE_SNAPSHOT): reload the
     # previous process's eval caches, keyed by the net file's
     # fingerprint (0 for dev-mode random weights) and the AZ net's, so
@@ -467,8 +469,37 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         # driver thread still inside native code when Python unwinds
         # takes the process down.
         engine_factory.close()
+        # Flush the (interval-debounced) stats file and stop serving
+        # scrapes before teardown completes.
         stats.flush()
+        if exporter is not None:
+            exporter.close()
     logger.fishnet_info(client.stats_summary())
+
+
+def start_metrics(opt: Opt, stats: StatsRecorder, logger: Logger):
+    """Live telemetry, opt-in through ``--metrics-port`` (or the
+    ``MetricsPort`` ini key): ``/metrics`` + ``/json`` on an
+    ``http.server`` thread, the stats recorder's collector registered.
+    The port file (``--metrics-port-file``) is written after bind, by
+    an atomic rename, so a reader never sees a half-written number.
+    Returns the exporter, or None."""
+    if opt.metrics_port is None:
+        return None
+    from fishnet_tpu_torch import telemetry
+    from fishnet_tpu_torch.utils.stats import register_stats_collector
+
+    exporter = telemetry.start_exporter(opt.metrics_port)
+    register_stats_collector(stats)
+    logger.info(
+        f"Serving telemetry on http://127.0.0.1:{exporter.port}/metrics."
+    )
+    if opt.metrics_port_file is not None:
+        tmp = f"{opt.metrics_port_file}.tmp"
+        with open(tmp, "w", encoding="utf-8") as fp:
+            fp.write(f"{exporter.port}\n")
+        os.replace(tmp, opt.metrics_port_file)
+    return exporter
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import asyncio
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.engine.base import Engine, EngineError, EngineFactory
 from fishnet_tpu_torch.ipc import Position, PositionFailed
 from fishnet_tpu_torch.net import api as api_mod
@@ -45,12 +47,20 @@ async def worker(
     factory: EngineFactory,
     queue: queue_mod.QueueStub,
     logger: Logger,
+    states: Optional[List[str]] = None,
 ) -> None:
+    """``states``: optional shared per-worker state table for the
+    telemetry collector — this worker owns (and only writes) slot ``i``
+    (values: starting_engine / searching / pulling / stopped)."""
     logger.debug(f"Started worker {i}.")
     job: Optional[Position] = None
     engines: Dict[EngineFlavor, Engine] = {}
     engine_backoff = RandomizedBackoff()
     budget = DEFAULT_BUDGET_SECONDS
+
+    def note(state: str) -> None:
+        if states is not None:
+            states[i] = state
 
     try:
         while True:
@@ -64,6 +74,7 @@ async def worker(
                     level(f"Waiting {backoff:.1f}s before attempting to start engine")
                     await asyncio.sleep(backoff)
                     budget = DEFAULT_BUDGET_SECONDS
+                    note("starting_engine")
                     try:
                         engine = await factory.create(flavor)
                     except EngineError as err:
@@ -76,6 +87,7 @@ async def worker(
                 if engine is not None:
                     budget = min(DEFAULT_BUDGET_SECONDS, budget) + job.work.timeout_seconds()
                     started = time.monotonic()
+                    note("searching")
                     try:
                         response = await asyncio.wait_for(engine.go(job), timeout=budget)
                         engines[flavor] = engine
@@ -108,12 +120,14 @@ async def worker(
                     job = None
 
             callback = asyncio.get_running_loop().create_future()
+            note("pulling")
             await queue.pull(Pull(response=response, callback=callback))
             try:
                 job = await callback
             except asyncio.CancelledError:
                 break
     finally:
+        note("stopped")
         for engine in engines.values():
             await engine.close()
         logger.debug(f"Stopped worker {i}")
@@ -152,6 +166,38 @@ class Client:
     _tasks: List[asyncio.Task] = field(default_factory=list)
     _queue_stub: Optional[queue_mod.QueueStub] = None
     _api_actor: Optional[api_mod.ApiActor] = None
+    _worker_states: Optional[List[str]] = None
+    _collector_token: Optional[int] = None
+
+    def _register_worker_collector(self) -> None:
+        """``fishnet_workers{state=...}`` gauge: worker pull loops by
+        state, pulled at scrape time from the shared state table (each
+        worker single-writes its own slot; the collector reads a
+        snapshot)."""
+        ref = weakref.ref(self)
+
+        def collect():
+            client = ref()
+            if client is None or client._worker_states is None:
+                return None
+            counts: Dict[str, int] = {}
+            for s in list(client._worker_states):
+                counts[s] = counts.get(s, 0) + 1
+            fam = _telemetry.MetricFamily(
+                "fishnet_workers", "gauge",
+                "Worker pull loops by state.",
+                [
+                    _telemetry.Sample(
+                        "fishnet_workers", n, {"state": state}
+                    )
+                    for state, n in sorted(counts.items())
+                ],
+            )
+            return [fam]
+
+        self._collector_token = _telemetry.REGISTRY.register_collector(
+            collect, name="workers"
+        )
 
     def __post_init__(self) -> None:
         if self.tenants != 1:
@@ -180,10 +226,13 @@ class Client:
         self._tasks.append(asyncio.create_task(queue_actor.run(), name="queue"))
 
         n_workers = self.cores if self.workers is None else self.workers
+        self._worker_states = ["idle"] * n_workers
+        self._register_worker_collector()
         for i in range(n_workers):
             self._tasks.append(
                 asyncio.create_task(
-                    worker(i, self.engine_factory, queue_stub, self.logger),
+                    worker(i, self.engine_factory, queue_stub, self.logger,
+                           states=self._worker_states),
                     name=f"worker-{i}",
                 )
             )
@@ -254,3 +303,6 @@ class Client:
                 if not t.done():
                     t.cancel()
         self._tasks.clear()
+        if self._collector_token is not None:
+            _telemetry.REGISTRY.unregister_collector(self._collector_token)
+            self._collector_token = None

@@ -2,11 +2,12 @@
 
 The port's copy of the ``run`` and ``uci`` parts of
 ``fishnet_tpu/configure.py``: the same flags under the same names and
-defaults (``--mesh`` among them), with the same precedence CLI >
-``fishnet.ini`` (section ``[Fishnet]``), plus the port's ``--device
-cuda|cpu``. The interactive
-first-run dialog, systemd, update and telemetry flags are not ported: a
-missing ini file is simply not read.
+defaults (``--mesh`` and ``--metrics-port`` / ``--metrics-port-file``
+among them), with the same precedence CLI > ``fishnet.ini`` (section
+``[Fishnet]``), plus the port's ``--device cuda|cpu``. The interactive
+first-run dialog, systemd, update and span flags (``--spans-dir``,
+``--spans-journal``) are not ported: a missing ini file is simply not
+read.
 
 Durations parse like the reference (configure.rs:323-342): ``90s``,
 ``2h``, ``1d``, ``500ms``, bare seconds.
@@ -194,6 +195,13 @@ class Opt:
     #: visible), "off" (one device), or an explicit "DATAxMODEL" such as
     #: "4x2".
     mesh: Optional[str] = None
+    #: Telemetry exposition port (doc/observability.md). None = no
+    #: exporter (the default); 0 = an ephemeral port (logged at
+    #: startup); otherwise the port /metrics binds on.
+    metrics_port: Optional[int] = None
+    #: File to write the exporter's BOUND port to once it is listening
+    #: (one decimal integer), for ``--metrics-port 0``. None = none.
+    metrics_port_file: Optional[str] = None
 
     def conf_path(self) -> Path:
         return Path(self.conf) if self.conf else Path("fishnet.ini")
@@ -292,6 +300,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device mesh for the serving evaluator: auto (default; "
                         "shard eval batches over all visible devices), off "
                         "(single device), or DATAxMODEL (e.g. 4x2).")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="Serve live telemetry (/metrics Prometheus text, "
+                        "/json, /healthz) on this port; 0 picks an "
+                        "ephemeral port. Default: off.")
+    p.add_argument("--metrics-port-file", default=None,
+                   help="Write the bound metrics port to this file once "
+                        "listening (pairs with --metrics-port 0).")
     return p
 
 
@@ -330,7 +345,21 @@ def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
             raise ConfigError("--batch-deadline must be positive")
     if ns.mesh is not None:
         opt.mesh = parse_mesh(ns.mesh)
+    if ns.metrics_port is not None:
+        opt.metrics_port = _parse_port(str(ns.metrics_port))
+    if ns.metrics_port_file is not None:
+        opt.metrics_port_file = ns.metrics_port_file
     return opt
+
+
+def _parse_port(value: str) -> int:
+    try:
+        port = int(value)
+    except ValueError as err:
+        raise ConfigError(f"invalid port: {value!r}") from err
+    if not 0 <= port <= 65535:
+        raise ConfigError("metrics port must be in 0..65535 (0 = ephemeral)")
+    return port
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +383,8 @@ _INI_FIELDS = (
      lambda v: _positive_int(v, "SearchConcurrency")),
     ("BatchDeadline", "batch_deadline", parse_duration),
     ("Device", "device", lambda v: _choice(v, "device", DEVICES)),
+    ("MetricsPort", "metrics_port", lambda v: _parse_port(v)),
+    ("MetricsPortFile", "metrics_port_file", str),
 )
 
 

@@ -214,17 +214,19 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + b.view(1, -1, 1, 1)
 
 
-def _tower(net: AzNet, x: torch.Tensor, w: Optional[Dict[str, torch.Tensor]] = None):
+def _tower(net: AzNet, x: torch.Tensor, w: Optional[Dict[str, torch.Tensor]] = None,
+           conv=_conv):
     """bf16 NHWC planes [B, 8, 8, 19] -> (flat policy logits [B, P],
     value [B]), both bf16; ``w`` the bf16 weights (default: the net's
-    cached copies)."""
+    cached copies); ``conv`` runs the stem and residual convs (the
+    sharded AZ trainer's splits them by output channel)."""
     if w is None:
         w = net.bf16_weights()
     x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory (channels-last)
-    x = torch.relu(_conv(x, w["stem_w"], w["stem_b"]))
+    x = torch.relu(conv(x, w["stem_w"], w["stem_b"]))
     for i in range(net.cfg.blocks):
-        h = torch.relu(_conv(x, w[f"res{i}_w1"], w[f"res{i}_b1"]))
-        h = _conv(h, w[f"res{i}_w2"], w[f"res{i}_b2"])
+        h = torch.relu(conv(x, w[f"res{i}_w1"], w[f"res{i}_b1"]))
+        h = conv(h, w[f"res{i}_w2"], w[f"res{i}_b2"])
         x = torch.relu(x + h)
     pol = _conv(x, w["policy_w"], w["policy_b"])
     pol = pol.permute(0, 2, 3, 1).reshape(pol.shape[0], -1)

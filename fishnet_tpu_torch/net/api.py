@@ -31,6 +31,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 from urllib.parse import urlencode, urlsplit
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.protocol.types import (
     Acquired,
     AcquireResponseBody,
@@ -59,6 +60,76 @@ MAX_SUBMIT_ATTEMPTS = 4
 #: seconds it stays open before a probe.
 BREAKER_THRESHOLD = 5
 BREAKER_COOLDOWN_SECONDS = 30.0
+
+# Server-traffic telemetry (doc/observability.md), the JAX package's
+# families. Recorded unconditionally: one histogram observe + one
+# counter inc per HTTP round trip is noise next to the request itself,
+# and the instruments' per-thread cells take no shared lock.
+# ``endpoint`` is the message kind (acquire / submit_analysis /
+# submit_move / abort / status / check_key); ``outcome`` is ok /
+# rate_limited / error.
+_REQUEST_SECONDS = _telemetry.REGISTRY.histogram(
+    "fishnet_api_request_seconds",
+    "Server round-trip latency per endpoint.",
+    labelnames=("endpoint",),
+)
+_REQUESTS = _telemetry.REGISTRY.counter(
+    "fishnet_api_requests_total",
+    "Completed server requests per endpoint and outcome.",
+    labelnames=("endpoint", "outcome"),
+)
+_REJECTS = _telemetry.REGISTRY.counter(
+    "fishnet_api_rejected_total",
+    "Acquire-path rejections (HTTP 400/401/403/406): the server "
+    "refused this client and the queue will stop.",
+    labelnames=("endpoint", "status"),
+)
+_SUSPENSIONS = _telemetry.REGISTRY.counter(
+    "fishnet_api_suspensions_total",
+    "429 responses that suspended ALL server traffic.",
+)
+_SUSPENDED_SECONDS = _telemetry.REGISTRY.counter(
+    "fishnet_api_suspended_seconds_total",
+    "Cumulative seconds of 429-imposed traffic suspension.",
+)
+_STUB_ERRORS = _telemetry.REGISTRY.counter(
+    "fishnet_api_stub_errors_total",
+    "Stub-side calls resolved as errors and returned to the caller as "
+    "None (the actor already counted the transport error itself).",
+    labelnames=("endpoint",),
+)
+_SUBMIT_RETRIES = _telemetry.REGISTRY.counter(
+    "fishnet_api_submit_retries_total",
+    "Final-submission transport failures that were requeued for retry "
+    "(exactly-once accounting, doc/resilience.md).",
+)
+_SUBMIT_DROPPED = _telemetry.REGISTRY.counter(
+    "fishnet_api_submit_dropped_total",
+    "Final submissions abandoned after exhausting retries (the server "
+    "reassigns the batch by timeout).",
+)
+_PARKED = _telemetry.REGISTRY.gauge(
+    "fishnet_api_parked_submissions",
+    "Analysis submissions parked behind an open circuit breaker.",
+)
+#: Shed-aware acquire pacing belongs to the multi-tenant front end
+#: (not ported): the family is exported, and stays empty.
+_ACQUIRE_PACED = _telemetry.REGISTRY.counter(
+    "fishnet_acquire_paced_total",
+    "Acquire attempts slowed by shed-aware pacing (the front end is "
+    "shedding; pulling more bulk work would only be aborted back).",
+    labelnames=("tenant",),
+)
+_CONN_RESETS = _telemetry.REGISTRY.counter(
+    "fishnet_api_conn_resets_total",
+    "Requests that died to a connection-level failure (reset, refused, "
+    "dropped mid-flight) rather than an HTTP error — the client-side "
+    "signature of a network partition.",
+    labelnames=("endpoint",),
+)
+#: The exceptions ``_CONN_RESETS`` counts: the stdlib transport's
+#: connection-level failures and the request timeout.
+_CONN_ERRORS = (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError)
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +359,7 @@ class ApiStub:
         try:
             return await fut
         except Exception:  # noqa: BLE001
+            _STUB_ERRORS.inc(endpoint="status")
             return None
 
     def abort(self, batch_id: str) -> None:
@@ -299,6 +371,7 @@ class ApiStub:
         try:
             return await fut
         except Exception:  # noqa: BLE001
+            _STUB_ERRORS.inc(endpoint="acquire")
             return None
 
     def submit_analysis(
@@ -327,6 +400,7 @@ class ApiStub:
         try:
             return await fut
         except Exception:  # noqa: BLE001
+            _STUB_ERRORS.inc(endpoint="submit_move")
             return None
 
 
@@ -409,11 +483,13 @@ class ApiActor:
                 # Submissions still parked behind an open breaker at
                 # shutdown: abandoned (the server reassigns by timeout)
                 # rather than risking a hung exit on a dead endpoint.
+                _SUBMIT_DROPPED.inc(len(self._parked))
                 self.logger.error(
                     f"Dropped {len(self._parked)} parked submission(s) at "
                     "shutdown (circuit breaker open)."
                 )
                 self._parked.clear()
+                _PARKED.set(0)
             self.logger.debug("Api actor exited")
 
     async def _hold_off(self) -> None:
@@ -429,12 +505,14 @@ class ApiActor:
 
     def _park(self, msg: _Message) -> None:
         self._parked.append(msg)
+        _PARKED.set(len(self._parked))
         self._schedule_breaker_wake()
 
     def _drain_parked(self) -> None:
         for parked in self._parked:
             self.queue.put_nowait(parked)
         self._parked.clear()
+        _PARKED.set(0)
 
     def _schedule_breaker_wake(self) -> None:
         """Arm a one-shot wake that re-enqueues one parked submission
@@ -450,7 +528,9 @@ class ApiActor:
         self._breaker_wake = None
         if self._stopped or not self._parked:
             return
-        self.queue.put_nowait(self._parked.pop(0))
+        probe = self._parked.pop(0)
+        _PARKED.set(len(self._parked))
+        self.queue.put_nowait(probe)
 
     def _submit_retryable(self, msg: _Message) -> bool:
         """Messages whose loss would lose work: completed analyses and
@@ -464,8 +544,10 @@ class ApiActor:
         (False). Caller resolves the future only on drop."""
         if msg.attempts + 1 < MAX_SUBMIT_ATTEMPTS:
             msg.attempts += 1
+            _SUBMIT_RETRIES.inc()
             self.queue.put_nowait(msg)
             return True
+        _SUBMIT_DROPPED.inc()
         self.logger.error(
             f"Dropping {msg.kind} for {msg.batch_id} after "
             f"{MAX_SUBMIT_ATTEMPTS} attempts ({err!r})."
@@ -479,8 +561,11 @@ class ApiActor:
             # submissions. The cooldown wake re-enqueues a probe.
             self._park(msg)
             return
+        started = time.monotonic()
         try:
             await self._handle_inner(msg)
+            _REQUEST_SECONDS.observe(time.monotonic() - started, endpoint=msg.kind)
+            _REQUESTS.inc(endpoint=msg.kind, outcome="ok")
             if msg.kind == "submit_analysis" and self.breaker.record_success():
                 self.logger.info("Submit circuit breaker closed; draining.")
                 self._drain_parked()
@@ -492,7 +577,11 @@ class ApiActor:
                 msg.future.set_exception(ConnectionError("api actor stopped"))
             raise
         except RateLimited:
+            _REQUEST_SECONDS.observe(time.monotonic() - started, endpoint=msg.kind)
+            _REQUESTS.inc(endpoint=msg.kind, outcome="rate_limited")
             backoff = 60.0 + self.error_backoff.next()
+            _SUSPENSIONS.inc()
+            _SUSPENDED_SECONDS.inc(backoff)
             self.logger.error(
                 f"Too many requests. Suspending requests for {backoff:.1f}s."
             )
@@ -506,6 +595,10 @@ class ApiActor:
                 msg.future.set_exception(RateLimited())
             self._back_off(backoff)
         except Exception as err:  # noqa: BLE001 - any transport/protocol error
+            _REQUEST_SECONDS.observe(time.monotonic() - started, endpoint=msg.kind)
+            _REQUESTS.inc(endpoint=msg.kind, outcome="error")
+            if isinstance(err, _CONN_ERRORS):
+                _CONN_RESETS.inc(endpoint=msg.kind)
             if msg.kind == "submit_analysis" and self.breaker.record_failure():
                 self.logger.error(
                     "Submit circuit breaker OPEN: parking submissions for "
@@ -538,6 +631,7 @@ class ApiActor:
         if res.status == 204:
             self._fulfil(msg, Acquired.no_content())
         elif res.status in (400, 401, 403, 406):
+            _REJECTS.inc(endpoint=msg.kind, status=str(res.status))
             self.logger.error(f"Server rejected request: {res.text()}")
             self._fulfil(msg, Acquired.rejected())
         elif res.status in (200, 202):
@@ -615,6 +709,7 @@ class ApiActor:
                 # Fenced: the server no longer recognizes this work — it
                 # was reassigned while we were slow, or another process
                 # completed it. Retrying can only duplicate work.
+                _REJECTS.inc(endpoint="submit_analysis", status="404")
                 self.logger.warn(
                     f"Work {msg.batch_id} no longer ours (404); "
                     "dropping submission."
@@ -637,6 +732,7 @@ class ApiActor:
             if res.status == 404:
                 # Fenced move (see submit_analysis): drop it and let the
                 # normal acquire loop fetch fresh work.
+                _REJECTS.inc(endpoint="submit_move", status="404")
                 self.logger.warn(
                     f"Work {msg.batch_id} no longer ours (404); dropping move."
                 )

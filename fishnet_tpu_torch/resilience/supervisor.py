@@ -1,8 +1,10 @@
 """Degradation ladder and circuit breaker: recovery *policy* for the
 serving stack.
 
-The port's copy of ``fishnet_tpu/resilience/supervisor.py``, without
-its metrics and spans. Two policy objects:
+The port's copy of ``fishnet_tpu/resilience/supervisor.py``, with its
+metrics (``fishnet_degradations_total{from,to}``,
+``fishnet_pool_respawns_total``, ``fishnet_breaker_state{endpoint}``)
+and without its spans. Two policy objects:
 
 * :class:`ServiceSupervisor` wraps a ``SearchService`` builder for
   ``TpuNnueEngineFactory``. When the factory rebuilds a dead service,
@@ -34,8 +36,25 @@ import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
+from fishnet_tpu_torch import telemetry as _telemetry
+
 #: The rung names of the JAX package's lattice, best rung first.
 RUNGS = ("fused", "xla", "host-material")
+
+_DEGRADATIONS = _telemetry.REGISTRY.counter(
+    "fishnet_degradations_total",
+    "Degradation-ladder steps (requested eval path, from -> to).",
+    labelnames=("from", "to"),
+)
+_RESPAWNS = _telemetry.REGISTRY.counter(
+    "fishnet_pool_respawns_total",
+    "Search-service (fc_pool) respawns performed by the supervisor.",
+)
+_BREAKER_STATE = _telemetry.REGISTRY.gauge(
+    "fishnet_breaker_state",
+    "Circuit-breaker state: 0 closed, 1 open, 2 half-open.",
+    labelnames=("endpoint",),
+)
 
 
 def ladder_for(device_type: str) -> Tuple[str, ...]:
@@ -62,6 +81,7 @@ class CircuitBreaker:
     """
 
     CLOSED, OPEN, HALF_OPEN = "closed", "open", "half-open"
+    _GAUGE_VALUES = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0}
 
     def __init__(
         self,
@@ -80,6 +100,12 @@ class CircuitBreaker:
         self._state = self.CLOSED
         self._failures = 0
         self._opened_at = 0.0
+        self._export()
+
+    def _export(self) -> None:
+        _BREAKER_STATE.set(
+            self._GAUGE_VALUES[self._state], endpoint=self.name
+        )
 
     @property
     def state(self) -> str:
@@ -106,6 +132,7 @@ class CircuitBreaker:
             if self._state == self.OPEN:
                 if self._clock() - self._opened_at >= self.cooldown_seconds:
                     self._state = self.HALF_OPEN
+                    self._export()
                     return True
                 return False
             return False  # half-open: probe already in flight
@@ -117,6 +144,7 @@ class CircuitBreaker:
             was = self._state
             self._state = self.CLOSED
             self._failures = 0
+            self._export()
             return was != self.CLOSED
 
     def record_failure(self) -> bool:
@@ -127,6 +155,7 @@ class CircuitBreaker:
                 # Failed probe: straight back to open, fresh cooldown.
                 self._state = self.OPEN
                 self._opened_at = self._clock()
+                self._export()
                 return True
             self._failures += 1
             if self._state == self.CLOSED and (
@@ -134,6 +163,7 @@ class CircuitBreaker:
             ):
                 self._state = self.OPEN
                 self._opened_at = self._clock()
+                self._export()
                 return True
             return False
 
@@ -230,6 +260,7 @@ class ServiceSupervisor:
                     self._rung_idx += 1
                     self._streak = 0
                     to = self.rungs[self._rung_idx]
+                    _DEGRADATIONS.inc(**{"from": frm, "to": to})
                     if self._logger is not None:
                         self._logger.error(
                             f"Degrading eval path {frm} -> {to} after "
@@ -237,6 +268,8 @@ class ServiceSupervisor:
                         )
             request = self.rungs[self._rung_idx]
             builds = self._builds
+        if respawn:
+            _RESPAWNS.inc()
         svc = self._builder(request)
         with self._lock:
             self._builds = builds + 1

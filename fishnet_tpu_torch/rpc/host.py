@@ -49,8 +49,10 @@ Run it: ``python -m fishnet_tpu_torch.rpc.host --nnue-file w.nnue
 --az-seed 0`` (``--device cuda`` by default; without a GPU that
 raises). ``--az-seed`` draws the port's own numpy parameters
 (``models/az.py:init_az_params``), not the JAX package's
-``jax.random`` ones. Left out against the JAX package: the metrics
-exporter and spans, and the fault-injection poll (``rpc.detach``).
+``jax.random`` ones. Left out against the JAX package: the host's
+``--metrics-port`` (its ``fishnet_rpc_*`` families are in the process's
+registry, but this entry point starts no exporter), spans, and the
+fault-injection poll (``rpc.detach``).
 """
 
 from __future__ import annotations

@@ -39,9 +39,9 @@ Fencing:
 Knobs: ``FISHNET_RPC`` gates the split path, ``FISHNET_RPC_DIR`` places
 the link files, ``FISHNET_RPC_RING_SLOTS`` and ``FISHNET_RPC_SLOT_BYTES``
 size the rings, ``FISHNET_RPC_TIMEOUT`` bounds a frontend's total wait
-for one result. Left out against the JAX package: the metric-registry
-collector (the port has no telemetry plane yet; ``stats()`` returns the
-counters).
+for one result. The counters (``note``/``stats()``) feed the JAX
+package's ``fishnet_rpc_*`` registry families (``_collect_rpc``),
+registered at the first link or ``set_role``.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ import os
 import tempfile
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -221,11 +222,18 @@ class RingLink:
             offset=_HEADER_BYTES + ring_bytes,
         )
         self._closed = False
+        _track_link(self)
 
     # -- header accessors --------------------------------------------------
 
     def _h(self, field: str) -> int:
         return int(self._header[field][0])
+
+    def depth(self, ring: str) -> int:
+        """Records currently queued (written, not yet consumed)."""
+        if ring == "submit":
+            return self._h("submit_head") - self._h("submit_tail")
+        return self._h("result_head") - self._h("result_tail")
 
     @property
     def frontend_epoch(self) -> int:
@@ -364,6 +372,14 @@ class RingLink:
         if self._closed:
             return
         self._closed = True
+        _links.discard(self)
+        if _collector_token is not None:
+            # A scrape reading this link's depths ends before the map
+            # goes (the registry's scrape lock), and no later one sees
+            # the link.
+            from fishnet_tpu_torch.telemetry.registry import REGISTRY
+
+            REGISTRY.scrape_barrier()
         self._header = None
         self._submit = self._result = None
         try:
@@ -556,12 +572,14 @@ def unpack_az_result(payload: bytes, n: int,
 
 
 # -- module counters ---------------------------------------------------------
-# A process-lifetime counter dict (the JAX package also emits these as
-# fishnet_rpc_* metric families; the port reads them through stats()).
+# A process-lifetime counter dict, read through stats() and exported as
+# the fishnet_rpc_* families by _collect_rpc.
 
 _count_lock = threading.Lock()
 _counts: Dict[str, int] = {}
 _role: Optional[str] = None
+_links: "weakref.WeakSet[RingLink]" = weakref.WeakSet()
+_collector_token: Optional[int] = None
 
 
 def _count(key: str, n: int) -> None:
@@ -583,6 +601,121 @@ def stats() -> Dict[str, int]:
 
 def set_role(role: str) -> None:
     """Declare this process's split-plane role (``frontend`` |
-    ``evaluator``)."""
+    ``evaluator``); the ``fishnet_rpc_role`` gauge reads it."""
     global _role
     _role = role
+    _ensure_collector()
+
+
+def _track_link(link: "RingLink") -> None:
+    _links.add(link)
+    _ensure_collector()
+
+
+def _ensure_collector() -> None:
+    global _collector_token
+    with _count_lock:
+        if _collector_token is not None:
+            return
+        from fishnet_tpu_torch.telemetry.registry import REGISTRY
+
+        _collector_token = REGISTRY.register_collector(
+            _collect_rpc, name="rpc-transport"
+        )
+
+
+def _collect_rpc() -> Optional[List]:
+    """The ``fishnet_rpc_*`` families over ``stats()`` and the live
+    links' ring depths."""
+    from fishnet_tpu_torch.telemetry.registry import counter_family, gauge_family
+
+    with _count_lock:
+        snap = dict(_counts)
+    fams = []
+    for family in ("nnue", "az"):
+        fams.append(counter_family(
+            "fishnet_rpc_submits_total",
+            "Eval microbatch records pushed onto submit rings, by "
+            "family.",
+            snap.get(f"submits.{family}", 0),
+            labels={"family": family},
+        ))
+        fams.append(counter_family(
+            "fishnet_rpc_results_total",
+            "Eval result records pushed onto result rings, by family.",
+            snap.get(f"results.{family}", 0),
+            labels={"family": family},
+        ))
+        fams.append(counter_family(
+            "fishnet_rpc_fused_rows_total",
+            "Real eval rows the host dispatched, by family (over "
+            "fishnet_rpc_fused_slots_total = cross-process batch fill).",
+            snap.get(f"fused.rows.{family}", 0),
+            labels={"family": family},
+        ))
+        fams.append(counter_family(
+            "fishnet_rpc_fused_slots_total",
+            "Padded bucket slots the host dispatched, by family.",
+            snap.get(f"fused.slots.{family}", 0),
+            labels={"family": family},
+        ))
+    fams.append(counter_family(
+        "fishnet_dispatch_pad_rows_total",
+        "Padding slots shipped in device dispatches (bucket size minus "
+        "real entries), by dispatch path.",
+        snap.get("pad.rows", 0),
+        labels={"path": "host"},
+    ))
+    fams.append(counter_family(
+        "fishnet_rpc_torn_total",
+        "Ring records skipped by the seqlock/checksum validation (a "
+        "SIGKILLed peer's torn write reads as a miss, never a value).",
+        snap.get("torn", 0),
+    ))
+    fams.append(counter_family(
+        "fishnet_rpc_stale_refusals_total",
+        "Submit records refused for carrying a fenced (pre-restart) "
+        "frontend epoch.",
+        snap.get("stale_refusals", 0),
+    ))
+    fams.append(counter_family(
+        "fishnet_rpc_reattach_total",
+        "Link attach/reattach events (create = fresh link file, "
+        "reattach = epoch-bumping rebirth, host = evaluator attach).",
+        snap.get("attach.create", 0)
+        + snap.get("attach.reattach", 0)
+        + snap.get("attach.host", 0),
+    ))
+    for reason in ("lease", "fault"):
+        fams.append(counter_family(
+            "fishnet_rpc_detach_total",
+            "Links the host dropped, by reason (lease = dead frontend, "
+            "fault = injected rpc.detach).",
+            snap.get(f"detach.{reason}", 0),
+            labels={"reason": reason},
+        ))
+    fams.append(counter_family(
+        "fishnet_rpc_resubmits_total",
+        "Microbatches re-submitted after an evaluator epoch change or "
+        "stale host heartbeat (the requeue-not-hang contract).",
+        snap.get("resubmits", 0),
+    ))
+    if _role is not None:
+        fams.append(gauge_family(
+            "fishnet_rpc_role",
+            "This process's split-plane role (1 = active role label).",
+            1,
+            labels={"role": _role},
+        ))
+    for link in list(_links):
+        if link._closed:
+            continue
+        name = os.path.basename(link.path)
+        for ring in ("submit", "result"):
+            fams.append(gauge_family(
+                "fishnet_rpc_ring_depth",
+                "Records queued (written, unconsumed) per link ring.",
+                link.depth(ring),
+                labels={"link": name, "ring": ring},
+            ))
+    return fams

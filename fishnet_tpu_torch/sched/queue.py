@@ -3,8 +3,10 @@ positions, schedules positions to workers, reassembles results, and
 submits completed batches.
 
 The port's copy of ``fishnet_tpu/sched/queue.py`` for the single-stream
-client, without its metrics, spans, fault sites, accounting ledger and
-eval-cache generation tick. Queued positions go through a
+client, with its metrics (``fishnet_batches_*``,
+``fishnet_queue_exceptions_total`` and the ``fishnet_queue_*`` gauges),
+without its spans, fault sites, accounting ledger and eval-cache
+generation tick. Queued positions go through a
 ``LaneScheduler`` of one tenant: best-move jobs ride the latency lane
 ahead of analysis positions, which keep their FIFO order. Behavioral
 equivalent of the reference's queue layer (src/queue.rs):
@@ -29,10 +31,12 @@ from __future__ import annotations
 
 import asyncio
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess import (
     Board,
     InvalidFenError,
@@ -60,6 +64,25 @@ from fishnet_tpu_torch.utils.stats import NpsRecorder, Stats, StatsRecorder
 #: the retry loop a deterministically-failing position would otherwise
 #: spin forever (doc/resilience.md).
 MAX_REQUEUE_GENERATIONS = 2
+
+_REQUEUED = _telemetry.REGISTRY.counter(
+    "fishnet_batches_requeued_total",
+    "Failed positions re-queued for retry (bounded generations).",
+)
+_FLUSHED = _telemetry.REGISTRY.counter(
+    "fishnet_batches_flushed_total",
+    "Batches flushed as partial analyses by the per-batch deadline "
+    "budget.",
+)
+_ABANDONED = _telemetry.REGISTRY.counter(
+    "fishnet_batches_abandoned_total",
+    "Batches abandoned to the server's reassignment timeout.",
+    labelnames=("reason",),
+)
+_QUEUE_ERRORS = _telemetry.REGISTRY.counter(
+    "fishnet_queue_exceptions_total",
+    "Unexpected exceptions caught (and survived) by the queue actor.",
+)
 
 #: Serving lanes (resilience/shedding.py in the JAX package).
 LANE_LATENCY = "latency"
@@ -345,6 +368,55 @@ class LaneScheduler:
 # ---------------------------------------------------------------------------
 
 
+def _register_queue_collector(state: "QueueState") -> int:
+    """Expose queue depth as gauges, computed at scrape time from the
+    live QueueState: positions in flight, batch count, incoming queue
+    depth, backlog seconds (age of the oldest pending batch) and move
+    submissions waiting. Holds only a weakref, so a finished client's
+    state is collectable (the collector then unregisters itself); reads
+    are snapshot copies and never mutate. The JAX queue adds
+    ``fishnet_lane_depth`` and ``fishnet_tenant_positions_served`` when
+    the multi-tenant front end (``sched/frontend.py``, not ported)
+    gives it a scheduler of its own; the port has none."""
+    ref = weakref.ref(state)
+
+    def collect():
+        st = ref()
+        if st is None:
+            return None
+        batches = list(st.pending.values())
+        oldest = min((b.started_at for b in batches), default=None)
+        backlog = 0.0 if oldest is None else max(
+            0.0, time.monotonic() - oldest
+        )
+        return [
+            _telemetry.gauge_family(
+                "fishnet_queue_pending_positions",
+                "Positions assigned to workers but not yet analysed.",
+                sum(b.pending() for b in batches),
+            ),
+            _telemetry.gauge_family(
+                "fishnet_queue_pending_batches",
+                "Acquired batches not yet fully analysed.", len(batches),
+            ),
+            _telemetry.gauge_family(
+                "fishnet_queue_incoming_positions",
+                "Positions queued for worker pull.", st.incoming_len(),
+            ),
+            _telemetry.gauge_family(
+                "fishnet_queue_backlog_seconds",
+                "Age of the oldest pending batch.", backlog,
+            ),
+            _telemetry.gauge_family(
+                "fishnet_queue_move_submissions",
+                "Completed move jobs awaiting submission.",
+                len(st.move_submissions),
+            ),
+        ]
+
+    return _telemetry.REGISTRY.register_collector(collect, name="queue")
+
+
 class QueueState:
     def __init__(
         self,
@@ -390,6 +462,7 @@ class QueueState:
             del self.pending[batch_id]
             self.scheduler.drop_batch(batch_id)
             if batch.work.is_analysis:
+                _FLUSHED.inc()
                 completed = batch.into_partial_completed(now)
                 done = sum(
                     1 for p in completed.positions
@@ -407,6 +480,7 @@ class QueueState:
                     final=True,
                 )
             else:
+                _ABANDONED.inc(reason="deadline")
                 self.logger.error(
                     f"Move job {batch_id} exceeded its deadline; aborting."
                 )
@@ -557,12 +631,14 @@ class QueueStub:
             )
             state.pending.pop(res.batch_id, None)
             state.scheduler.drop_batch(res.batch_id)
+            _ABANDONED.inc(reason=reason)
             state.logger.warn(
                 f"Abandoning batch {batch.url or res.batch_id} ({reason}); "
                 "the server will reassign it."
             )
             return
         batch.generation += 1
+        _REQUEUED.inc()
         state.incoming_push(src, lane=batch.lane, front=True)
         state.logger.debug(
             f"Requeued position {res.position_id} of {res.batch_id} "
@@ -726,6 +802,7 @@ class QueueActor:
             # Accepted while shutting down (an in-flight acquire
             # resolving after shutdown()): nobody will run it. Hand it
             # back to the server instead of dropping it on the floor.
+            _ABANDONED.inc(reason="shutdown_incoming")
             self.api.abort(context)
             return
         self.state.add_incoming_batch(incoming)
@@ -763,6 +840,7 @@ class QueueActor:
                 except asyncio.CancelledError:
                     raise
                 except Exception as err:  # noqa: BLE001 - keep the queue alive
+                    _QUEUE_ERRORS.inc()
                     self.logger.error(f"Queue error: {err!r}")
                     if not callback.done():
                         callback.cancel()
@@ -834,6 +912,7 @@ def channel(
         cores, stats or StatsRecorder(cores, no_stats_file=True), logger,
         batch_deadline=batch_deadline,
     )
+    _register_queue_collector(state)
     stub = QueueStub(rx, interrupt, state, api)
     actor = QueueActor(
         rx, interrupt, state, api, backlog or BacklogOpt(), logger, max_backoff

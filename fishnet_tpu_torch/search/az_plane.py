@@ -61,17 +61,20 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.device import on_device, resolve_device
 from fishnet_tpu_torch.models.az import params_from_jax, wire_forward
 from fishnet_tpu_torch.models.az_encoding import POLICY_SIZE
 from fishnet_tpu_torch.search import eval_cache as _eval_cache
 from fishnet_tpu_torch.search.coalesce import (
+    SHARD_DEGRADATIONS,
     CoalesceBackend,
     _AsyncDispatchPipeline,
     _DispatchCoalescer,
@@ -297,6 +300,16 @@ class AzDispatchPlane(CoalesceBackend):
         self._coalescer = _DispatchCoalescer(self, pinned_width=(
             coalesce_width if coalesce_width is not None
             else _env_int("FISHNET_AZ_COALESCE_WIDTH")))
+        ref = weakref.ref(self)
+
+        def _collect():
+            plane = ref()
+            if plane is None or plane._closed:
+                return None  # self-unregister
+            return plane._families()
+
+        self._collector_token = _telemetry.REGISTRY.register_collector(
+            _collect, name="az-dispatch-plane")
 
     # -- lane API (MctsPool side) -----------------------------------------
 
@@ -515,12 +528,17 @@ class AzDispatchPlane(CoalesceBackend):
                 self._shard_rungs[shard] = rung + 1
                 self._degradations.append(
                     (shard, AZ_RUNGS[rung], AZ_RUNGS[rung + 1]))
+                SHARD_DEGRADATIONS.inc(**{
+                    "shard": str(shard), "from": AZ_RUNGS[rung],
+                    "to": AZ_RUNGS[rung + 1]})
                 return shard
             router = self._router
             if router is None or len(router.alive_shards()) <= 1:
                 raise err
             moved = router.drain(shard)
             self._degradations.append((shard, AZ_RUNGS[rung], "drained"))
+            SHARD_DEGRADATIONS.inc(**{
+                "shard": str(shard), "from": AZ_RUNGS[rung], "to": "drained"})
         self._coalescer.migrate(moved)
         return moved.get(group, router.shard_of(group))
 
@@ -659,11 +677,56 @@ class AzDispatchPlane(CoalesceBackend):
             stats["alive"] = self._router.alive_shards()
         return stats
 
+    def _families(self):
+        """The plane's registry families (the JAX plane's): its
+        pre-wire cache hits, skipped dispatches, pad and speculative
+        rows, and the speculation budget."""
+        with self._stats_lock:
+            hits = self._prewire_hits
+            skipped = self._skipped_dispatches
+            pad = self._pad_rows
+            spec = self._spec_rows
+        return [
+            _telemetry.counter_family(
+                "fishnet_eval_cache_hits_total",
+                "Eval-cache hits by scope.",
+                hits,
+                labels={"scope": "prewire", "family": "az"},
+            ),
+            _telemetry.counter_family(
+                "fishnet_az_skipped_dispatches_total",
+                "AZ microbatches fully satisfied pre-wire (no dispatch).",
+                skipped,
+            ),
+            _telemetry.counter_family(
+                "fishnet_dispatch_pad_rows_total",
+                "Padding slots shipped in device dispatches (bucket "
+                "size minus real entries), by dispatch path.",
+                pad,
+                labels={"path": "az"},
+            ),
+            _telemetry.counter_family(
+                "fishnet_az_speculative_rows_total",
+                "Pad rows repurposed as speculative evals (results "
+                "land in the cache/fleet tier).",
+                spec,
+            ),
+            _telemetry.gauge_family(
+                "fishnet_az_speculation_budget",
+                "Current speculative rows-per-dispatch cap (control-"
+                "plane actuator).",
+                self.speculation_budget(),
+            ),
+        ]
+
     def close(self) -> None:
-        """Tear down the pipeline. Idempotent."""
+        """Tear down the pipeline and unregister the collector (under
+        the registry's scrape lock: no scrape reads the plane after).
+        Idempotent."""
         if self._closed:
             return
         self._closed = True
+        _telemetry.REGISTRY.unregister_collector(self._collector_token)
         with self._pipe_lock:
             pipes = [p for p in self._async_pipes if p is not None]
             self._async_pipes = [None] * len(self._async_pipes)

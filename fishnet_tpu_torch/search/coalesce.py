@@ -20,8 +20,12 @@ width PER SHARD — a flush only ever fuses one shard's microbatches, so
 every dispatch is a single-device launch — and the backend runs one
 async pipeline per shard, whose workers bind that shard's device. A
 single-device backend has one shard, index 0, and behaves as before.
-Left out against the JAX package: spans, cost attribution and metric
-families (the port has no telemetry plane yet).
+Metrics: the JAX package's coalesce-width histogram, flush-error counter
+and service pad-row counter (``fishnet_dispatch_coalesce_width``,
+``fishnet_coalesce_flush_errors_total``,
+``fishnet_dispatch_pad_rows_total{path="service"}``), always on as
+there. Left out against the JAX package: spans and cost attribution
+(the port has no span recorder yet).
 """
 
 from __future__ import annotations
@@ -34,7 +38,40 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess.core import NativeCoreError
+
+#: Microbatches fused per device dispatch (1 = an uncoalesced solo
+#: dispatch). Observed once per dispatch — cheap per-thread cells, so
+#: it stays always-on like the net/api counters.
+COALESCE_WIDTH = _telemetry.REGISTRY.histogram(
+    "fishnet_dispatch_coalesce_width",
+    "Pipeline-group microbatches fused into one device dispatch.",
+    buckets=(1, 2, 3, 4, 6, 8, 12, 16),
+)
+COALESCE_ERRORS = _telemetry.REGISTRY.counter(
+    "fishnet_coalesce_flush_errors_total",
+    "Coalesced-dispatch flushes that raised; the error is re-raised on "
+    "every owning driver thread at resolve time (R5: counted, not "
+    "swallowed).",
+)
+#: Pad-row waste: slots shipped to the device beyond the dispatch's real
+#: entries (the bucket ladder's padding), by path; the AZ plane and the
+#: rpc host export the same family under their own labels.
+PAD_ROWS = _telemetry.REGISTRY.counter(
+    "fishnet_dispatch_pad_rows_total",
+    "Padding slots shipped in device dispatches (bucket size minus "
+    "real entries), by dispatch path.",
+    labelnames=("path",),
+)
+#: Per-shard ladder steps of the serving mesh and the AZ plane.
+SHARD_DEGRADATIONS = _telemetry.REGISTRY.counter(
+    "fishnet_shard_degradations_total",
+    "Per-shard degradation-ladder steps on the serving mesh "
+    "(shard, from -> to rung; 'drained' as the to-rung means the shard "
+    "was marked dead and its groups moved to siblings).",
+    labelnames=("shard", "from", "to"),
+)
 
 
 @dataclass(frozen=True)
@@ -532,6 +569,7 @@ class _DispatchCoalescer:
             else:
                 svc._dispatch_segmented(tickets)
         except BaseException as err:  # noqa: BLE001 - delivered to every owner
+            COALESCE_ERRORS.inc()
             for tk in tickets:
                 tk.error = err
                 tk.done.set()
@@ -545,6 +583,16 @@ class _DispatchCoalescer:
             if len(tickets) > 1:
                 self.fused_dispatches += 1
                 self.coalesced_steps += len(tickets)
+        COALESCE_WIDTH.observe(len(tickets))
+        # Tuple accts (the NNUE wire) carry each segment's shipped bucket
+        # in acct[0]: bucket minus real entries is the padding. Dict
+        # accts (the AZ plane) count their pad rows themselves.
+        slots = sum(tk.acct[0] for tk in tickets
+                    if isinstance(tk.acct, tuple) and tk.acct)
+        if slots > 0:
+            pad = slots - sum(tk.n for tk in tickets)
+            if pad > 0:
+                PAD_ROWS.inc(pad, path="service")
         for tk in tickets:
             tk.done.set()
 
@@ -654,6 +702,16 @@ class _AsyncDispatchPipeline:
                 return False
         self._pack_q.put(tickets)
         return True
+
+    def queue_depth(self) -> int:
+        """Flush batches queued in front of the pack and decode
+        workers."""
+        return self._pack_q.qsize() + self._decode_q.qsize()
+
+    def decode_queue_depth(self) -> int:
+        """Issued dispatches queued behind the decode worker (the
+        output-side backlog)."""
+        return self._decode_q.qsize()
 
     def inflight(self) -> int:
         with self._lock:
@@ -791,6 +849,6 @@ class _AsyncDispatchPipeline:
             except Exception:  # noqa: BLE001 - owners re-raise at resolve
                 # The owners' own resolve raises the same device error
                 # (a driver crash), so nothing is swallowed here.
-                pass
+                COALESCE_ERRORS.inc()
             self._mark(-1)
             self._release()

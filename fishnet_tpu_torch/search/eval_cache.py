@@ -38,9 +38,11 @@ nothing beside them.
 
 Snapshots (``FISHNET_EVAL_CACHE_SNAPSHOT``) use the JAX package's
 ``.npz`` format, AZ section included, so a file written by either
-package loads in the other. Left out against the JAX package: the
-registry collectors (the service and the plane report through
-``counters()``).
+package loads in the other. Each process cache has the JAX package's
+registry collector (``fishnet_eval_cache_entries`` and
+``fishnet_eval_cache_evictions_total``, tagged ``family="az"`` and
+``family="bounds"`` for the AZ and bounds caches; the hit counters are
+the service's and the AZ plane's).
 """
 
 from __future__ import annotations
@@ -591,6 +593,47 @@ _global_lock = threading.Lock()
 _global_cache: Optional[EvalCache] = None
 _global_bounds_cache: Optional[BoundsCache] = None
 _global_az_cache: Optional[AzEvalCache] = None
+#: Registry tokens of the caches' collectors, by family ("" = NNUE).
+_collector_tokens: Dict[str, int] = {}
+
+
+def _collect(family: str):
+    """Registry collector of one process cache: its entry count and
+    eviction total. Returns None (self-unregisters) once the cache is
+    gone (``reset_cache``); the next cache registers anew."""
+    with _global_lock:
+        cache = {"": _global_cache, "az": _global_az_cache,
+                 "bounds": _global_bounds_cache}[family]
+        if cache is None:
+            _collector_tokens.pop(family, None)
+            return None
+    from fishnet_tpu_torch.telemetry.registry import counter_family, gauge_family
+
+    st = cache.stats()
+    labels = {"family": family} if family else None
+    return [
+        gauge_family(
+            "fishnet_eval_cache_entries",
+            "Live entries in the process-wide eval cache.",
+            st["entries"], labels=labels,
+        ),
+        counter_family(
+            "fishnet_eval_cache_evictions_total",
+            "Entries evicted from the eval cache (generation sweeps).",
+            st["evictions"], labels=labels,
+        ),
+    ]
+
+
+def _ensure_collector(family: str) -> None:
+    """Register ``family``'s collector once (under ``_global_lock``)."""
+    if family in _collector_tokens:
+        return
+    from fishnet_tpu_torch.telemetry.registry import REGISTRY
+
+    name = {"": "eval-cache", "az": "az-eval-cache", "bounds": "bounds-cache"}
+    _collector_tokens[family] = REGISTRY.register_collector(
+        lambda: _collect(family), name=name[family])
 
 
 def get_az_cache() -> Optional[AzEvalCache]:
@@ -606,6 +649,7 @@ def get_az_cache() -> Optional[AzEvalCache]:
             cap = int(os.environ.get(
                 "FISHNET_AZ_EVAL_CACHE_CAPACITY", DEFAULT_AZ_CAPACITY))
             _global_az_cache = AzEvalCache(capacity=cap)
+            _ensure_collector("az")
         return _global_az_cache
 
 
@@ -622,6 +666,7 @@ def get_bounds_cache() -> Optional[BoundsCache]:
             cap = int(os.environ.get(
                 "FISHNET_BOUNDS_CACHE_CAPACITY", DEFAULT_BOUNDS_CAPACITY))
             _global_bounds_cache = BoundsCache(capacity=cap)
+            _ensure_collector("bounds")
         return _global_bounds_cache
 
 
@@ -636,6 +681,7 @@ def get_cache() -> Optional[EvalCache]:
             cap = int(os.environ.get(
                 "FISHNET_EVAL_CACHE_CAPACITY", DEFAULT_CAPACITY))
             _global_cache = EvalCache(capacity=cap)
+            _ensure_collector("")
         return _global_cache
 
 

@@ -23,10 +23,11 @@ LRU; a later submit for the same game one or two plies deeper rebases
 the played-move subtree), and a pool-wide EXPANSION MEMO.
 
 The tree logic is the JAX package's line for line, so the same
-evaluator gives the same trees in both packages. Left out against it:
-spans, the registry collector and the control plane's leaf-width
-actuator (the port has no telemetry or control plane yet); the pool
-reports through ``counters()``.
+evaluator gives the same trees in both packages. Telemetry: the JAX
+package's ``fishnet_mcts_*`` families, process-wide totals and live
+gauges over every pool (``_collect_mcts_families``). Left out against
+it: spans and the control plane's leaf-width actuator (neither module
+is ported); the pool also reports through ``counters()``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import math
 import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -576,6 +578,64 @@ class _PlaneEvaluator:
 
 
 
+# -- pool-level telemetry (process-wide, across pools) ----------------------
+
+_TEL_LOCK = threading.Lock()
+_TOTALS = {"visits": 0, "collisions": 0, "reuse": 0}
+_POOLS: "weakref.WeakSet[MctsPool]" = weakref.WeakSet()
+_collector_on = False
+
+
+def _collect_mcts_families():
+    """Registry collector for the MCTS tree-side families: process-wide
+    monotone totals plus live gauges summed over every live pool.
+    Registered on first pool construction, never unregistered — totals
+    outlive pools the way dispatch counters outlive services."""
+    from fishnet_tpu_torch.telemetry.registry import counter_family, gauge_family
+
+    with _TEL_LOCK:
+        visits = _TOTALS["visits"]
+        collisions = _TOTALS["collisions"]
+        reuse = _TOTALS["reuse"]
+        pools = list(_POOLS)
+    trees = 0
+    fills = []
+    for pool in pools:
+        trees += pool.active()
+        if pool._fill_ema is not None:
+            fills.append(pool._fill_ema)
+    fill = sum(fills) / len(fills) if fills else 0.0
+    return [
+        counter_family(
+            "fishnet_mcts_visits_total",
+            "Completed MCTS visits (backups) across all pools.",
+            visits,
+        ),
+        counter_family(
+            "fishnet_mcts_collisions_total",
+            "Selection walks that hit an in-flight edge and released "
+            "their virtual loss.",
+            collisions,
+        ),
+        counter_family(
+            "fishnet_mcts_subtree_reuse_total",
+            "Submitted searches seeded by rebasing a harvested tree.",
+            reuse,
+        ),
+        gauge_family(
+            "fishnet_mcts_batch_fill_ratio",
+            "EMA of evaluated leaves per step over batch capacity "
+            "(mean across live pools).",
+            fill,
+        ),
+        gauge_family(
+            "fishnet_mcts_trees_active",
+            "Unfinished searches across all live pools.",
+            trees,
+        ),
+    ]
+
+
 class MctsPool:
     """Many concurrent PUCT searches sharing one evaluator.
 
@@ -647,6 +707,16 @@ class MctsPool:
         self._evals = 0
         self._steps = 0
         self._spec_offered = 0
+        global _collector_on
+        with _TEL_LOCK:
+            _POOLS.add(self)
+            if not _collector_on:
+                from fishnet_tpu_torch.telemetry.registry import REGISTRY
+
+                REGISTRY.register_collector(
+                    _collect_mcts_families, name="mcts-pool"
+                )
+                _collector_on = True
 
     def warmup(self) -> None:
         self._evaluator.warmup(self.cfg.batch_capacity)
@@ -689,6 +759,8 @@ class MctsPool:
                 search = stored.rebase(played, board, visits, multipv)
                 if search is not None:
                     self._reuse_hits += 1
+                    with _TEL_LOCK:
+                        _TOTALS["reuse"] += 1
         if search is None:
             search = _Search(board, visits, self.cfg, multipv=multipv)
         search.key = (fen, tuple(moves))
@@ -719,6 +791,10 @@ class MctsPool:
             self._memo_hits += dm
         self._visits += dv
         self._collisions += dc
+        if dv or dc:
+            with _TEL_LOCK:
+                _TOTALS["visits"] += dv
+                _TOTALS["collisions"] += dc
         return dv, dc
 
     def step(self) -> int:

@@ -12,6 +12,13 @@ the compact wire, the leaves are evaluated as ONE microbatch on the
 device (``evaluate_packed_anchored``), ``fc_pool_provide`` wakes the
 fibers. Results resolve asyncio futures back on the event loop.
 
+Metrics: ``counters()`` and ``shard_report()`` are adapted as the JAX
+service's registry families (``_register_service_collector``:
+``fishnet_pool_*``, ``fishnet_service_*``, ``fishnet_dispatches_total``,
+``fishnet_shard_*`` with one ``shard="0"`` sample without a mesh, ...),
+pulled only when something scrapes; ``close()`` unregisters them, under
+the registry's scrape lock, before it frees the pool.
+
 Pipelining: each driver thread owns ``pipeline_depth`` slot groups.
 A group's step uploads its packed rows, row offsets, buckets and
 parents from pinned host buffers with ``non_blocking`` copies, queues
@@ -101,6 +108,7 @@ import os
 import tempfile
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
@@ -108,6 +116,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess.board import (
     _VARIANT_CODES,
     Board,
@@ -127,9 +136,12 @@ from fishnet_tpu_torch.ops.ft_gather import (
     recode_segment_parents_np,
 )
 from fishnet_tpu_torch.protocol.types import Variant
-from fishnet_tpu_torch.resilience.supervisor import ladder_for
+from fishnet_tpu_torch.resilience.supervisor import RUNGS, ladder_for
 from fishnet_tpu_torch.search import eval_cache as _eval_cache_mod
 from fishnet_tpu_torch.search.coalesce import (
+    COALESCE_WIDTH,
+    PAD_ROWS,
+    SHARD_DEGRADATIONS,
     CoalesceBackend,
     DispatchProbe,
     _AsyncDispatchPipeline,
@@ -321,6 +333,210 @@ class _Staging:
         self.err_t = host((1,), torch.int32)
         self.lock = threading.Lock()
         self.holder: Optional[_FusedValues] = None
+
+
+#: ``SearchService.counters()`` key -> (metric name, type, help). The
+#: exported names are part of the doc/observability.md contract; the
+#: native keys mirror cpp SearchCounters, the service keys the per-
+#: thread wire accounting.
+_COUNTER_METRICS = {
+    "steps": ("fishnet_pool_steps_total", "counter",
+              "Native pool step calls that advanced search fibers."),
+    "evals_shipped": ("fishnet_pool_evals_shipped_total", "counter",
+                      "Eval slots shipped to the device, cumulative."),
+    "suspensions": ("fishnet_pool_suspensions_total", "counter",
+                    "Fiber suspensions at leaf-eval blocks."),
+    "step_capacity": ("fishnet_pool_step_capacity_slots_total", "counter",
+                      "Configured batch capacity summed over steps."),
+    "demand_evals": ("fishnet_pool_demand_evals_total", "counter",
+                     "Demand (non-speculative) eval slots shipped."),
+    "prefetch_shipped": ("fishnet_pool_prefetch_shipped_total", "counter",
+                         "Speculative prefetch eval slots shipped."),
+    "prefetch_hits": ("fishnet_pool_prefetch_hits_total", "counter",
+                      "Speculative evals later consumed by a search."),
+    "tt_eval_hits": ("fishnet_pool_tt_eval_hits_total", "counter",
+                     "Leaf evals answered from the transposition table."),
+    "prefetch_budget": ("fishnet_pool_prefetch_budget", "gauge",
+                        "Current AIMD speculation budget (slots)."),
+    "delta_evals": ("fishnet_pool_delta_evals_total", "counter",
+                    "Eval slots shipped as incremental delta entries."),
+    "dedup_retired": ("fishnet_pool_dedup_retired_total", "counter",
+                      "Eval slots retired by in-batch deduplication."),
+    "nodes": ("fishnet_pool_nodes_total", "counter",
+              "Search nodes visited across all fibers."),
+    "anchor_deltas": ("fishnet_pool_anchor_deltas_total", "counter",
+                      "Delta evals resolved against device-resident "
+                      "anchors."),
+    "eval_steps": ("fishnet_service_eval_steps_total", "counter",
+                   "Device microbatches dispatched by the service."),
+    "dispatches": ("fishnet_dispatches_total", "counter",
+                   "Device dispatch calls actually issued — a fused "
+                   "segmented dispatch counts ONCE for all its groups, "
+                   "so dispatches < eval_steps measures coalescing."),
+    "fused_dispatches": ("fishnet_coalesced_dispatches_total", "counter",
+                         "Dispatches that fused >= 2 group microbatches."),
+    "bucket_slots": ("fishnet_service_bucket_slots_total", "counter",
+                     "Slots actually transferred (size-bucketed)."),
+    "wire_feature_bytes": ("fishnet_service_wire_feature_bytes_total",
+                           "counter",
+                           "Host->device feature payload bytes shipped."),
+    "wire_material_bytes": ("fishnet_service_wire_material_bytes_total",
+                            "counter",
+                            "Host->device material payload bytes shipped."),
+    "wire_bytes": ("fishnet_service_wire_bytes_total", "counter",
+                   "Total host->device payload bytes shipped."),
+    "fused_dedup": ("fishnet_fused_dedup_total", "counter",
+                    "Eval entries deduplicated across segments of fused "
+                    "dispatches (duplicate plain fulls shipped as one-row "
+                    "sentinel deltas; values restored host-side)."),
+    "position_dedup": ("fishnet_position_dedup_total", "counter",
+                       "Eval entries dropped because another entry in the "
+                       "same fused dispatch carries the identical position "
+                       "(hash-keyed; value fanned out host-side)."),
+    "cache_skipped_dispatches": (
+        "fishnet_eval_cache_skipped_dispatches_total", "counter",
+        "Device dispatches skipped entirely because every entry of the "
+        "batch was satisfied by the process-wide eval cache."),
+    "bounds_seeded": (
+        "fishnet_bounds_seeded_total", "counter",
+        "Bound records seeded into the pool TT pre-dispatch (batch "
+        "probe + submit-time best-move chain walk)."),
+    "bounds_harvested": (
+        "fishnet_bounds_harvested_total", "counter",
+        "Bound records exported from the pool TT into the bounds tier "
+        "at search finish (PV replay)."),
+    "inflight_dispatches": ("fishnet_inflight_dispatches", "gauge",
+                            "Device dispatches currently in flight in the "
+                            "async pipeline (0..2: the ping-pong double "
+                            "buffer's depth)."),
+    "async_ready_queue": ("fishnet_dispatch_ready_queue_depth", "gauge",
+                          "Flush batches queued in front of the async "
+                          "pack/decode workers."),
+    "decode_queue": ("fishnet_decode_queue_depth", "gauge",
+                     "Issued dispatches queued behind the decode worker "
+                     "(output-side backlog; pair with "
+                     "fishnet_dispatch_ready_queue_depth on the input "
+                     "side)."),
+}
+
+
+def _register_service_collector(svc: "SearchService") -> int:
+    """Adapt this service's counters as a pull collector (the JAX
+    package's families). Holds only a weakref: a service that is garbage
+    collected (or closed, which unregisters explicitly) stops being
+    scraped."""
+    ref = weakref.ref(svc)
+
+    def collect():
+        service = ref()
+        if service is None or service._pool is None:
+            return None
+        fams = []
+        counters = service.counters()
+        for key, value in counters.items():
+            spec_ = _COUNTER_METRICS.get(key)
+            if spec_ is None:
+                continue
+            name, kind, help_ = spec_
+            maker = (
+                _telemetry.gauge_family if kind == "gauge"
+                else _telemetry.counter_family
+            )
+            fams.append(maker(name, help_, value))
+        # Eval-cache hit split: `prewire` hits were satisfied host-side
+        # from the process cache before any wire bytes moved; `pool` hits
+        # are the native TT's leaf-eval hits.
+        for scope, key in (("prewire", "cache_prewire_hits"),
+                           ("pool", "tt_eval_hits")):
+            fams.append(_telemetry.counter_family(
+                "fishnet_eval_cache_hits_total",
+                "Leaf evals satisfied by the position-keyed reuse plane, "
+                "by scope (prewire=host cache before dispatch, pool=native "
+                "TT inside the search).",
+                counters.get(key, 0),
+                labels={"scope": scope},
+            ))
+        fams.append(_telemetry.counter_family(
+            "fishnet_eval_steps_total",
+            "Group eval microbatches evaluated (alias of "
+            "fishnet_service_eval_steps_total; pair with "
+            "fishnet_dispatches_total for the coalesce ratio).",
+            counters.get("eval_steps", 0),
+        ))
+        busy = counters.get("overlap_busy_us", 0)
+        dual = counters.get("overlap_dual_us", 0)
+        fams.append(_telemetry.gauge_family(
+            "fishnet_dispatch_overlap_ratio",
+            "Fraction of dispatch-busy wall time with >=2 device "
+            "dispatches in flight (async pipeline; 0 when synchronous).",
+            dual / busy if busy > 0 else 0.0,
+        ))
+        # Per-shard serving-mesh families: one shard="0" sample without
+        # a mesh, so dashboards need no mesh-vs-single special case. The
+        # rung index is into the JAX lattice (0 fused, 1 xla,
+        # 2 host-material; 3 drained).
+        rep = service.shard_report()
+        for s in range(rep["n_shards"]):
+            lbl = {"shard": str(s)}
+            rung = rep["rungs"][s]
+            fams.append(_telemetry.counter_family(
+                "fishnet_shard_dispatches_total",
+                "Device dispatches issued per serving-mesh shard.",
+                rep["dispatches"][s], labels=lbl,
+            ))
+            fams.append(_telemetry.gauge_family(
+                "fishnet_shard_occupancy",
+                "Per-shard occupancy EMA (real entries per microbatch) "
+                "feeding that shard's coalesce-width policy.",
+                rep["occupancy"][s], labels=lbl,
+            ))
+            fams.append(_telemetry.gauge_family(
+                "fishnet_shard_ladder_rung",
+                "Per-shard degradation-ladder rung index "
+                "(0=fused, 1=xla, 2=host-material; 3=drained/dead).",
+                RUNGS.index(rung) if rung in RUNGS else len(RUNGS),
+                labels=lbl,
+            ))
+        with service._lock:
+            pending = sum(len(p) for p in service._pending)
+            queued = sum(len(s) for s in service._submissions)
+        fams.append(_telemetry.gauge_family(
+            "fishnet_service_pending_searches",
+            "Searches currently occupying pool slots.", pending,
+        ))
+        fams.append(_telemetry.gauge_family(
+            "fishnet_service_queued_submissions",
+            "Searches queued but not yet in a slot.", queued,
+        ))
+        fams.append(_telemetry.gauge_family(
+            "fishnet_service_info",
+            "Static service configuration (value is always 1).", 1,
+            labels={
+                "backend": service.backend,
+                "psqt_path": service.psqt_path or "",
+                "driver_threads": str(service.driver_threads),
+                "pipeline_depth": str(service.pipeline_depth),
+            },
+        ))
+        return fams
+
+    return _telemetry.REGISTRY.register_collector(collect, name="search-service")
+
+
+#: The JAX service's other always-on instruments. The port's service has
+#: no failure listener, so the first stays at zero.
+_LISTENER_ERRORS = _telemetry.REGISTRY.counter(
+    "fishnet_service_listener_errors_total",
+    "failure_listener callbacks that raised during driver-crash "
+    "teardown (swallowed so the original crash stays visible).",
+)
+_HARVEST_ERRORS = _telemetry.REGISTRY.counter(
+    "fishnet_bounds_harvest_errors_total",
+    "Bounds-tier harvests that raised after a completed search. "
+    "Harvest is advisory — the search result ships regardless — but a "
+    "silent failure here starves warm re-searches of their seed "
+    "records (R5: counted, not swallowed).",
+)
 
 
 class SearchService(CoalesceBackend):
@@ -719,6 +935,12 @@ class SearchService(CoalesceBackend):
             )
             for t in range(T)
         ]
+        # Telemetry: the native + service counters as a pull collector.
+        # Registration is free until something scrapes /metrics; close()
+        # unregisters BEFORE freeing the pool — the registry's scrape
+        # lock guarantees no collector call is in flight once unregister
+        # returns, so a scrape never reads a freed pool.
+        self._collector_token: Optional[int] = _register_service_collector(self)
         for th in self._threads:
             th.start()
 
@@ -929,10 +1151,14 @@ class SearchService(CoalesceBackend):
         # The async pipeline's in-flight count and busy/dual integrals
         # (microseconds; dual / busy is its overlap ratio).
         out["inflight_dispatches"] = 0
+        out["async_ready_queue"] = 0
+        out["decode_queue"] = 0
         out["overlap_busy_us"] = 0
         out["overlap_dual_us"] = 0
         for pipe in self._async_pipes:
             out["inflight_dispatches"] += pipe.inflight()
+            out["async_ready_queue"] += pipe.queue_depth()
+            out["decode_queue"] += pipe.decode_queue_depth()
             with pipe._lock:
                 out["overlap_busy_us"] += int(pipe._busy_s * 1e6)
                 out["overlap_dual_us"] += int(pipe._dual_s * 1e6)
@@ -1053,6 +1279,11 @@ class SearchService(CoalesceBackend):
             # Driver stuck: leak the pool rather than free memory a
             # thread still dereferences.
             return
+        if self._collector_token is not None:
+            # Under the registry's scrape lock: once this returns no
+            # scrape is reading counters() of the pool freed below.
+            _telemetry.REGISTRY.unregister_collector(self._collector_token)
+            self._collector_token = None
         if self._pool:
             self._lib.fc_pool_free(self._pool)
             self._pool = None
@@ -1132,6 +1363,9 @@ class SearchService(CoalesceBackend):
                 self._shard_rungs[shard] = rung + 1
                 self._degradations.append(
                     (shard, self._ladder[rung], self._ladder[rung + 1]))
+                SHARD_DEGRADATIONS.inc(**{
+                    "shard": str(shard), "from": self._ladder[rung],
+                    "to": self._ladder[rung + 1]})
                 return
             try:
                 moved = self._router.drain(shard)
@@ -1139,6 +1373,9 @@ class SearchService(CoalesceBackend):
                 raise err
             self._coalescer.migrate(moved)
             self._degradations.append((shard, self._ladder[rung], "drained"))
+            SHARD_DEGRADATIONS.inc(**{
+                "shard": str(shard), "from": self._ladder[rung],
+                "to": "drained"})
 
     def shard_report(self) -> dict:
         """Per-shard snapshot: device, dispatches, the microbatches they
@@ -1832,6 +2069,9 @@ class SearchService(CoalesceBackend):
                     else:
                         handle, acct = self._dispatch_eval(g, n, rows.value)
                         self._apply_acct(t, acct)
+                        COALESCE_WIDTH.observe(1)
+                        if acct[0] > n:
+                            PAD_ROWS.inc(acct[0] - n, path="service")
                         inflight[g] = (n, handle, hashes, hmask)
 
             # Harvest this thread's finished searches.
@@ -1947,6 +2187,7 @@ class SearchService(CoalesceBackend):
             except Exception:  # noqa: BLE001 - never fail a search result
                 with self._lock:
                     self._bounds_harvest_errors += 1
+                _HARVEST_ERRORS.inc()
         result = SearchResultData(
             lines=lines,
             best_move=bm.value.decode() or None,

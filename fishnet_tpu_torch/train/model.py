@@ -40,7 +40,7 @@ the same float arrays give the same ``NnueWeights`` bytes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,8 +52,9 @@ from fishnet_tpu_torch.nnue.weights import NnueWeights
 
 __all__ = [
     "HIDDEN_WEIGHT_CLIP", "NNUE2SCORE", "OUT_WEIGHT_CLIP", "NetConfig",
-    "NnueNet", "clip_params", "forward", "init_params", "params_from_jax",
-    "params_to_jax", "quantize",
+    "NnueNet", "clip_params", "feature_mask", "forward", "head",
+    "init_params", "pair_product", "params_from_jax", "params_to_jax",
+    "quantize",
 ]
 
 NNUE2SCORE = 600.0
@@ -193,18 +194,39 @@ def forward(params: Mapping[str, torch.Tensor], indices: torch.Tensor,
     padded with any value >= cfg.num_features; ``buckets`` int [B].
     Returns float32 [B] in network-output units (multiply by NNUE2SCORE
     for centipawns)."""
-    indices = indices.to(torch.int64)
-    mask = (indices < cfg.num_features).to(torch.float32)
-    safe = torch.clamp(indices, max=cfg.num_features - 1)
+    safe, mask = feature_mask(indices, cfg)
 
     acc = params["ft_b"] + _bag_sum(params["ft_w"], safe, mask)  # [B, 2, L1]
     psqt = _bag_sum(params["ft_psqt"], safe, mask)  # [B, 2, buckets]
-
-    c = torch.clamp(acc, 0.0, 1.0)
-    pair = c[..., : cfg.l1_half] * c[..., cfg.l1_half:] * (127.0 / 128.0)
-    x = pair.reshape(pair.shape[0], cfg.l1)  # [B, L1], stm half first
+    x = pair_product(acc)  # [B, L1], stm half first
 
     y_all = _einsum_bko(x, params["l1_w"]) + params["l1_b"][None]
+    return head(params, y_all, psqt, buckets, cfg)
+
+
+def feature_mask(indices: torch.Tensor, cfg: NetConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(safe indices, float mask) of padded feature indices [B, 2, A]."""
+    indices = indices.to(torch.int64)
+    mask = (indices < cfg.num_features).to(torch.float32)
+    safe = torch.clamp(indices, max=cfg.num_features - 1)
+    return safe, mask
+
+
+def pair_product(acc: torch.Tensor) -> torch.Tensor:
+    """The FT accumulators [B, 2, 2n] clipped and multiplied pairwise
+    (column j by column n + j) x 127/128: [B, 2n], stm pairs first."""
+    half = acc.shape[-1] // 2
+    c = torch.clamp(acc, 0.0, 1.0)
+    pair = c[..., :half] * c[..., half:] * (127.0 / 128.0)
+    return pair.reshape(pair.shape[0], 2 * half)
+
+
+def head(params: Mapping[str, torch.Tensor], y_all: torch.Tensor,
+         psqt: torch.Tensor, buckets: torch.Tensor,
+         cfg: NetConfig) -> torch.Tensor:
+    """Everything after the L1 product: ``y_all`` [B, buckets, L2+1]
+    (bias included) and the PSQT sums [B, 2, buckets] -> [B]."""
     y = _bucket_rows(y_all, buckets)  # [B, L2+1]
 
     skip = y[:, cfg.l2]

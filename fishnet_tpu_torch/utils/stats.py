@@ -6,8 +6,8 @@ batch/position/node counters JSON-persisted to disk (default
 feeds the acquire-pacing policy (``min_user_backlog``,
 src/stats.rs:135-148).
 
-The port's copy of ``fishnet_tpu/utils/stats.py``, without its metrics
-collector. Persistence is debounced: the file is rewritten at most
+The port's copy of ``fishnet_tpu/utils/stats.py``, with its metrics
+collector (``register_stats_collector``). Persistence is debounced: the file is rewritten at most
 every ``FLUSH_INTERVAL_SECONDS`` (first batch writes immediately so
 short runs still persist), with a ``flush()`` for shutdown.
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import weakref
 from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Optional
@@ -138,3 +139,47 @@ class StatsRecorder:
         best_batch_seconds = 35
         estimated_batch_seconds = min(6 * 60, 60 * 2_000_000 // max(1, self.nnue_nps.nps))
         return float(max(0, estimated_batch_seconds - best_batch_seconds))
+
+
+def register_stats_collector(recorder: StatsRecorder) -> int:
+    """Expose the recorder's cumulative totals + EWMA NPS through the
+    telemetry registry (doc/observability.md: ``fishnet_stats_*``,
+    ``fishnet_nnue_nps``). Pull-style via weakref: recording a batch
+    stays exactly as cheap as before."""
+    from fishnet_tpu_torch import telemetry
+
+    ref = weakref.ref(recorder)
+
+    def collect():
+        rec = ref()
+        if rec is None:
+            return None
+        return [
+            telemetry.counter_family(
+                "fishnet_stats_batches_total",
+                "Analysis batches completed (persistent total).",
+                rec.stats.total_batches,
+            ),
+            telemetry.counter_family(
+                "fishnet_stats_positions_total",
+                "Positions analysed (persistent total).",
+                rec.stats.total_positions,
+            ),
+            telemetry.counter_family(
+                "fishnet_stats_nodes_total",
+                "Search nodes across all batches (persistent total).",
+                rec.stats.total_nodes,
+            ),
+            telemetry.gauge_family(
+                "fishnet_nnue_nps",
+                "EWMA nodes-per-second estimate (NNUE batches).",
+                rec.nnue_nps.nps,
+            ),
+            telemetry.gauge_family(
+                "fishnet_nnue_nps_uncertainty",
+                "Decaying uncertainty of the NPS estimate (1 = no data).",
+                rec.nnue_nps.uncertainty,
+            ),
+        ]
+
+    return telemetry.REGISTRY.register_collector(collect, name="stats")

@@ -41,7 +41,8 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "search.mcts", "search.az_plane", "engine.az_engine", "train",
              "train.model", "train.trainer", "train.az_trainer",
              "train.checkpoint", "train.data", "train.selfplay",
-             "parallel", "parallel.mesh"):
+             "parallel", "parallel.mesh", "train.sharding", "telemetry",
+             "telemetry.registry", "telemetry.exporter"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
