@@ -20,7 +20,7 @@ fake lichess server built on the standard library, and checks the
 position-keyed eval cache and the bounds tier: the kernel's copy-source
 mode against its plain version, the service with the cache off, cold
 and warm, position dedup, a snapshot restart and the bounds tier, then
-the burst and the ``run`` workload with the cache off and on; runs
+the burst and the ``run`` workload with the cache off, then on; runs
 the split evaluator plane: an evaluator host process on the GPU serving
 search frontend processes over shared-memory rings; runs the AZ/MCTS
 family: the policy+value tower on the card, batched PUCT MCTS over the
@@ -30,7 +30,11 @@ over the shared AZ plane and over an evaluator host, checkpoints; and
 runs the serving mesh: the kernel's partials mode, two launching
 threads on one card, the service and the AZ plane on two logical shards
 of the card, the per-shard ladder and drain, the legacy sharded
-evaluator.
+evaluator; and drives the fault plane: the supervisor's ladder forced by
+injected device-step crashes, the client under a fault plan with the
+exactly-once batch ledger on, a shard-local device fault on the mesh, a
+``run`` process drained by SIGTERM, and ``rpc.detach`` on the split
+plane.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
@@ -40,15 +44,15 @@ the client runs' throughput and latencies, the cache phase's checks and
 numbers, the split phase's checks and numbers, the az phase's checks
 and numbers (and one JSON object ``{"az": {...}}``), the train phase's
 (and ``{"train": {...}}``), the mesh phase's (and ``{"mesh": {...}}``),
-the trainshard and metrics phases' (and their objects), then on the last
-three lines the card again, one JSON object ``{"kernels": [...]}``
-and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
+the trainshard, metrics and faults phases' (and their objects), then
+on the last three lines the card again, one JSON object
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split, az, train, mesh, trainshard, metrics; default all
-fourteen) limits a run to some phases
+run, cli, cache, split, az, train, mesh, trainshard, metrics, faults;
+default all fifteen) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -57,7 +61,7 @@ its link directory; frontend analyses == the monolith's, one dense
 launch per host dispatch, no CUDA context in a frontend, the kernel ==
 its plain version on the largest fused host batches (timed); then the
 burst on the monolith with the cache on and off and on the split plane
-with 2 and 3 frontends, in the order A, B, C, C, B, A.
+with 3 frontends, in the order A, B, C.
 ``az`` runs the AZ family at full width (the default AzConfig, 64 x 6,
 value hidden 128) and the CLI's microbatch of 1024: the forward on the
 card against the port's CPU forward; each bucket of the plane's ladder
@@ -68,8 +72,8 @@ searches x 200 visits with the plane == the private evaluator on the
 default and each forced rung, a warm replay == cold with pre-wire hits,
 speculation off == on, and the same roots split between two pools on
 one plane, fusing their lanes, == the private evaluator on each forced
-rung; a 256-search x 200-visit burst with the cache off and on (A, B,
-B, A, all the same trees); and the ``run`` path with ``--engine az-mcts`` (4 games, a move
+rung; a 256-search x 100-visit burst with the cache off, then on (A, B,
+the same trees); and the ``run`` path with ``--engine az-mcts`` (4 games, a move
 job, a variant game on the scalar tier). The AZ path reaches no
 hand kernel: the tower is PyTorch's convolutions and matmuls, as the
 JAX package leaves it to XLA.
@@ -87,11 +91,11 @@ bit for bit against its plain version (timed, with its bound and
 plane; two frontend processes self-playing over ``RemoteAzPlane``s
 served by one host process (``--az-seed``) == the in-process plane,
 fused on the host, no frontend CUDA context; checkpoint round trips and
-resume at 5 == uninterrupted at 10, on the CPU and on the card.
+resume at 2 == uninterrupted at 4, on the CPU and on the card.
 ``mesh`` runs the serving mesh at full width (last), on this host's
 one card as two logical shards: the kernel's partials mode (``sparse=``)
 == its plain version (timed, with its bound and embedding_bag), two
-threads launching 200 times on one card == plain; 20 gated positions at
+threads launching 200 times on one card == plain; 12 gated positions at
 3000 nodes (one driver thread, 32 slots, microbatch 1024: all at once)
 through ``mesh_devices="auto"`` and
 FISHNET_NO_MESH=1 over [cuda:0, cuda:0] (one shard each on one card)
@@ -103,7 +107,7 @@ on CPU copies, analyses unchanged); 2 driver threads x pipeline 2 on two
 shards (checks that do not depend on timing); the legacy
 ``ShardedEvaluator`` over two shards == single-device evaluate_packed;
 the AZ plane over two shards == one shard; and the burst, one shard
-(A) and two (B), A, B, B, A at 600 nodes (numbers only). Launches on
+(A) and two (B), A, B at 150 nodes (numbers only). Launches on
 ``cuda:N`` with N > 0 need a host with more cards.
 ``trainshard`` runs the sharded trainers on logical shards of the card
 (after ``train``, whose labelled positions it serves the export on; alone,
@@ -117,11 +121,30 @@ packed kernel == plain; AZ at the default AzConfig, 1024 rows, one step on
 in a 1x2 trainer bit for bit and in a single-device one within the gate.
 ``metrics`` runs the coalesce phase's service under the ``/metrics``
 exporter: the burst without an exporter (A) and scraped every second
-(B), A, B, B, A (numbers only; each leg a fresh service and cache), the
-first B's scrapes all valid exposition 0.0.4 and, after it, the
+(B), A, B (numbers only; each leg a fresh service and cache), B's
+scrapes all valid exposition 0.0.4 and, after it, the
 service's families == ``counters()`` == the packed launches; after
 ``close()`` the scrape answers without the service's families; a
 two-logical-shard service's ``fishnet_shard_*`` == ``shard_report()``.
+``faults`` (last) drives every fault site of the port's path on the
+card: 8 gated positions at 1000 nodes through the supervised factory,
+crashed twice by ``service.device_step:nth=1:crash`` (the CLI's
+``degrade_after``), retried one rung down (fused -> host-material) ==
+the unfaulted searches, one packed launch per dispatch on every rung,
+the error word unmoved; the ``run`` client (4 games at RUN_NODES, 2
+move jobs) under a plan hitting ``net.acquire``, ``net.submit``,
+``engine.spawn`` and ``queue.schedule`` with the batch ledger on: the
+ledger clean, each batch submitted once on the server or (the one whose
+schedule failed) invalid, ``fishnet_faults_injected_total`` on
+``/metrics`` == what the plan's rules and call counts say; two logical
+shards under ``service.device_step:nth=2:error``: one shard steps down,
+the analyses == the unfaulted mesh run's, the ledger clean; ``python -m
+fishnet_tpu_torch run --drain-deadline 10s`` SIGTERM'd mid-run:
+readiness 503 with ``draining: true``, liveness 200,
+``fishnet_drain_state`` 1, exit 0, no job held or submitted twice on the
+server; an evaluator host under ``rpc.detach:every=40:error`` and one
+frontend: resubmits, analyses == the monolith's. Its drain and host
+logs land in ``chiprun_out/faults/`` and ``chiprun_out/split/``.
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -141,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import concurrent.futures
 import contextlib
 import ctypes
 import faulthandler
@@ -160,7 +184,8 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
-          "cache", "split", "az", "train", "mesh", "trainshard", "metrics")
+          "cache", "split", "az", "train", "mesh", "trainshard", "metrics",
+          "faults")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -221,8 +246,14 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+#: The run's start, for the seconds each logged line carries.
+T_START = time.perf_counter()
+
+
 def log(line: str) -> None:
-    print(line, flush=True)
+    """Print ``line`` with the seconds since the run began before it, so
+    a run's output shows where its time went inside each phase."""
+    print(f"[{time.perf_counter() - T_START:7.1f}] {line}", flush=True)
 
 
 def card_line() -> str:
@@ -370,7 +401,9 @@ class FakeLichess:
     back in the queue; the key is checked against ``VALID_KEY``. Every
     handler runs under one lock; timestamps are ``time.monotonic()``.
     ``acquire_delay`` holds each acquire for that many seconds before it
-    is answered (a long poll), outside the lock."""
+    is answered (a long poll), outside the lock. ``submissions`` counts
+    the completing submissions of each job (a final analysis or a move),
+    the server's half of the exactly-once check (``audit``)."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
@@ -387,6 +420,7 @@ class FakeLichess:
         self.completed_at = {}
         self.move_done_at = {}
         self.bodies = {}  # work id -> the job as added, kept after it is done
+        self.submissions = {}  # work id -> completing submissions
         self._ids = itertools.count()
 
     def add_analysis_job(self, moves: str = "e2e4 e7e5", position: str = STARTPOS,
@@ -475,11 +509,13 @@ class FakeLichess:
                     self.progress_reports.setdefault(arg, []).append(body)
                 else:
                     self.analyses[arg] = body
+                    self.submissions[arg] = self.submissions.get(arg, 0) + 1
                     self.completed_at.setdefault(arg, time.monotonic())
                     self._done(arg)
                 return 204, None
             if route == "move":
                 self.moves[arg] = body
+                self.submissions[arg] = self.submissions.get(arg, 0) + 1
                 self.move_done_at.setdefault(arg, time.monotonic())
                 self._done(arg)
                 return self._hand_out(kind="move")
@@ -490,6 +526,23 @@ class FakeLichess:
                         job["acquired"] = False
                 return 204, None
         return 404, None
+
+    def audit(self) -> dict:
+        """The server's exactly-once view of every job it handed out:
+        completed (by a final analysis or a move), returned by an abort,
+        or still held — taken and never given back, which once the
+        client is gone means lost. ``duplicated`` lists the jobs
+        completed more than once."""
+        with self.lock:
+            held = sorted(j["body"]["work"]["id"] for j in self.jobs
+                          if j["acquired"])
+            handed = sorted(self.handed_at)
+            return {"handed": len(handed),
+                    "completed": sum(1 for i in handed if i in self.submissions),
+                    "aborted": len(set(self.aborted)),
+                    "held": held,
+                    "duplicated": sorted(i for i, n in self.submissions.items()
+                                         if n > 1)}
 
 
 class FakeServer:
@@ -1104,8 +1157,9 @@ def phase_profile(torch, weights, dev, threads: int = 1) -> None:
         log(f"    {us / 1e3:10.3f} ms  {count:7d}x  {key[:90]}")
 
 
-def phase_parity(weights, dev, **gpu_kw) -> dict:
-    """20 positions, one at a time at fixed depth with the prefetch
+def phase_parity(weights, dev, positions: int = 20, **gpu_kw) -> dict:
+    """``positions`` seeded positions (the first of the same 20), one at
+    a time at fixed depth with the prefetch
     budget pinned: the GPU service (pipeline 1 and one driver thread
     unless ``gpu_kw`` says otherwise) and the native scalar evaluator
     must agree on (value, is_mate, move). The GPU service runs with the
@@ -1114,7 +1168,7 @@ def phase_parity(weights, dev, **gpu_kw) -> dict:
     what a search finds. Returns the GPU service's counters."""
     from fishnet_tpu_torch.search.service import SearchService
 
-    walks = random_lines(20, seed=99)
+    walks = random_lines(20, seed=99)[:positions]
     counters = {}
 
     async def run(backend, **kw):
@@ -1756,7 +1810,8 @@ def time_fused(torch, params, harness, k_segs: int) -> dict:
 
 def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
               hook=None, mesh_devices=None, pool_slots: int = 8,
-              batch_capacity: int = 256, **env):
+              batch_capacity: int = 256, plan: Optional[str] = None,
+              ledger=None, **env):
     """``walks`` (move lists from the start position) searched at
     ``nodes`` nodes on one service (``pool_slots`` slots, 8 by default,
     in 4 groups, one driver thread, ``batch_capacity`` entries, prefetch
@@ -1765,11 +1820,13 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
     submission sequence. ``env`` is set while the service is built (the
     hatches are read there), ``fresh`` starts from a cold eval cache,
     ``hook(service)`` runs before the searches, ``mesh_devices`` is the
-    service's serving mesh. On the card the packed kernel must launch
-    once per device dispatch and the dense mode never, and the kernel's
-    error word must not move. Returns the analyses and the counters,
-    with the copy-source launches (and with a mesh the shard report,
-    under "shards")."""
+    service's serving mesh, ``plan`` a fault plan installed from the
+    gate's opening to the last answer, and ``ledger`` a batch ledger
+    each search is acquired in and submitted to. On the card the packed
+    kernel must launch once per device dispatch and the dense mode
+    never, and the kernel's error word must not move. Returns the
+    analyses and the counters, with the copy-source launches (and with a
+    mesh the shard report, under "shards")."""
     from fishnet_tpu_torch.ops import ft_gather
     from fishnet_tpu_torch.search.service import SearchService
 
@@ -1800,15 +1857,8 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
         before = (launches.launches, launches.copy_launches,
                   ft_gather.ft_accumulate_cuda.launches)
 
-        async def go():
-            tasks = [asyncio.ensure_future(svc.search(STARTPOS, m,
-                                                      nodes=nodes))
-                     for m in walks]
-            await asyncio.sleep(0.5)
-            svc.gate.set()
-            return await asyncio.gather(*tasks)
-
-        results = asyncio.run(go())
+        results = asyncio.run(open_gate(svc, walks, nodes, plan=plan,
+                                        ledger=ledger))
         counters = svc.counters()
         if mesh_devices is not None:
             counters["shards"] = svc.shard_report()
@@ -1831,6 +1881,37 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
                  [(l.multipv, l.depth, l.is_mate, l.value, l.pv)
                   for l in r.lines]) for r in results]
     return analyses, counters
+
+
+async def open_gate(svc, walks, nodes: int, plan: Optional[str] = None,
+                    ledger=None, return_exceptions: bool = False) -> list:
+    """The gated loop: ``walks`` submitted to ``svc`` (parked on
+    ``svc.gate``), then ``plan`` installed, the gate opened and the
+    answers gathered (with ``return_exceptions``, failed searches as
+    their exceptions); the plan is cleared after the last answer. With a
+    ``ledger``, each search is acquired in it before it is submitted and
+    recorded submitted after its answer: the harness's own bookkeeping,
+    no ledger call of the port lies on this path."""
+    from fishnet_tpu_torch.resilience import faults
+
+    async def one(i, m):
+        if ledger is not None:
+            ledger.record_acquired(f"gated-{i}")
+        r = await svc.search(STARTPOS, m, nodes=nodes)
+        if ledger is not None:
+            ledger.record_submitted(f"gated-{i}")
+        return r
+
+    tasks = [asyncio.ensure_future(one(i, m)) for i, m in enumerate(walks)]
+    await asyncio.sleep(0.5)
+    if plan is not None:
+        faults.install(plan)
+    svc.gate.set()
+    try:
+        return await asyncio.gather(*tasks,
+                                    return_exceptions=return_exceptions)
+    finally:
+        faults.clear()
 
 
 def gated_searches(weights, dev, coalesce: bool):
@@ -1886,6 +1967,17 @@ def gated_labels(service, positions, nodes: int) -> dict:
         service.gate.set()
 
 
+#: The coalesce phase's burst at the defaults: 1500 nodes a search, cut
+#: from 3000 so the default run keeps its time on a slow host.
+COALESCE_BURST_NODES = 1500
+#: The coalesce phase's scalar parity at the defaults: the first 8 of the
+#: parity phase's 20 positions. One search at a time on 7 driver threads
+#: dispatches at ~5 ms a step on the card's host (120 s for 20); the
+#: ``run`` phase's client parity holds the same service to the scalar
+#: search too.
+COALESCE_PARITY_POSITIONS = 8
+
+
 def phase_coalesce(torch, weights, params, dev) -> dict:
     """The dispatch coalescer on the card, bit for bit.
 
@@ -1904,8 +1996,8 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
     pipeline 2, coalescer and async pipeline on): a load burst must
     fuse dispatches, launch the packed kernel once per device dispatch
     and the dense mode never, and leave the kernel's error word as it
-    was; 20 positions at depth 4 one at a time must equal the native
-    scalar search; and eight gated concurrent searches must give the
+    was; COALESCE_PARITY_POSITIONS positions at depth 4 one at a time
+    must equal the native scalar search; and eight gated concurrent searches must give the
     same analyses coalesced (width 4, fused dispatches) as per group."""
     import numpy as np
 
@@ -2007,7 +2099,7 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
         ft_gather.ft_accumulate_packed_cuda.launches = 0
         ft_gather.ft_accumulate_cuda.launches = 0
         c0 = service.counters()
-        nps = load_burst(service)
+        nps = load_burst(service, nodes=COALESCE_BURST_NODES)
         packed = ft_gather.ft_accumulate_packed_cuda.launches
         dense = ft_gather.ft_accumulate_cuda.launches
         c = {k: v - c0[k] for k, v in service.counters().items()}
@@ -2028,7 +2120,8 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
     check(dense == 0, "the default service launched the dense mode")
     check(errors == errors0, f"the kernel's error word moved: {errors0} -> "
                              f"{errors}")
-    parity = phase_parity(weights, dev, driver_threads=threads,
+    parity = phase_parity(weights, dev, COALESCE_PARITY_POSITIONS,
+                          driver_threads=threads,
                           pipeline_depth=2)
     check(parity["coalescer"], "the parity service built no coalescer")
     fused_runs = [gated_searches(weights, dev, coalesce=True)
@@ -2299,18 +2392,19 @@ def host_timers(service) -> dict:
     return totals
 
 
-#: The cache phase's bursts (cut from 3000 nodes a search, so the
-#: default run keeps its time with the az phase).
-CACHE_BURST_NODES = 1000
+#: The cache phase's bursts (cut from 3000 nodes a search, then 1000, so
+#: the default run keeps its time on a slow host).
+CACHE_BURST_NODES = 500
 
 
 def cache_numbers(weights, dev) -> dict:
     """The burst (at ``CACHE_BURST_NODES`` a search, so the default run
     keeps its time with the az phase) and the ``run`` workload (at the
-    ``cli`` phase's size, 8 games and 2 move jobs) with the cache off and
-    on, in the order off, on, on, off (each run from a cold cache, on a
-    fresh service): nodes/s and positions/s, the pre-wire hit share
-    (entries answered before the wire over entries probed), skipped
+    ``cli`` phase's nodes, 4 games at RUN_NODES and 2 move jobs) with the
+    cache off, then on (each run from a cold cache, on a fresh service;
+    cut from off, on, on, off so the default run keeps its time):
+    nodes/s and positions/s, the pre-wire hit share (entries answered
+    before the wire over entries probed), skipped
     dispatches, position dedup, the bounds tier's seeds and harvests,
     the cache's size and evictions, and the host's ms per call
     (``host_timers``; the pack worker's per dispatch)."""
@@ -2337,7 +2431,7 @@ def cache_numbers(weights, dev) -> dict:
             row[key] = c[key]
         return row
 
-    for label in ("off", "on", "on", "off"):
+    for label in ("off", "on"):
         hatch = dict(FISHNET_NO_EVAL_CACHE="1" if label == "off" else None)
         fresh_cache()
         with env_vars(**hatch):
@@ -2360,10 +2454,10 @@ def cache_numbers(weights, dev) -> dict:
                       burst["searches"] / burst["seconds"])
         out["burst"].append(row)
         log(f"  burst, cache {label}: {row}")
-    for label in ("off", "on", "on", "off"):
+    for label in ("off", "on"):
         hatch = dict(FISHNET_NO_EVAL_CACHE="1" if label == "off" else None)
-        report = run_workload(f"run, cache {label}", hatch, games=8,
-                              moves=2)
+        report = run_workload(f"run, cache {label}", hatch, games=4,
+                              moves=2, nodes=RUN_NODES)
         row = summary(label, report["counters"], report["probes"],
                       report["timers"], report["nodes_per_s"],
                       report["positions_per_s"])
@@ -2372,7 +2466,8 @@ def cache_numbers(weights, dev) -> dict:
     return out
 
 
-def phase_cache(torch, weights, params, dev, steps=None) -> dict:
+def phase_cache(torch, weights, params, dev, steps=None,
+                beside: Optional["SplitParity"] = None) -> dict:
     """The position-keyed eval cache and the bounds tier on the card.
 
     Kernel level (``copy_source_kernel``): the copy-source mode of the
@@ -2393,7 +2488,9 @@ def phase_cache(torch, weights, params, dev, steps=None) -> dict:
     such sequences. The comparisons run without the bounds tier
     (FISHNET_NO_BOUNDS=1), which changes what a search finds by design.
 
-    Then ``cache_numbers``."""
+    Then ``cache_numbers``. ``beside`` (the split phase's parity run)
+    starts after the kernel's timings and has ended before the numbers:
+    it runs beside the service-level checks alone."""
     import tempfile
 
     import numpy as np
@@ -2404,6 +2501,8 @@ def phase_cache(torch, weights, params, dev, steps=None) -> dict:
     if steps is None:
         steps, _ = capture_group_steps(weights, dev)
     timed = copy_source_kernel(torch, weights, params, dev, steps)
+    if beside is not None:
+        beside.start()
 
     quiet = dict(FISHNET_NO_BOUNDS="1", FISHNET_COALESCE_WIDTH="4",
                  FISHNET_NO_COALESCE=None)
@@ -2505,6 +2604,8 @@ def phase_cache(torch, weights, params, dev, steps=None) -> dict:
         f"{sum(a[2] for a in sequences[0][0][0])} -> "
         f"{sum(a[2] for a in sequences[0][1][0])}); two sequences gave "
         "the same analyses")
+    if beside is not None:
+        beside.wait()
     fresh_cache()
     numbers = cache_numbers(weights, dev)
     fresh_cache()
@@ -2550,16 +2651,17 @@ def phase_sweep(weights, dev) -> None:
 # -- the split evaluator plane ------------------------------------------------
 
 #: The split phase's burst layouts, (frontends, driver threads each): at
-#: most the monolith's 7 driver threads in all.
-SPLIT_LAYOUTS = ((2, 3), (3, 2))
+#: most the monolith's 7 driver threads in all. One layout: a run costs
+#: ~35 s of process start-up and hand-over for ~10 s of burst.
+SPLIT_LAYOUTS = ((3, 2),)
 #: The largest fused host batches a host run keeps for the kernel check.
 SPLIT_CAPTURES = 4
 #: The parity run: seeded walks searched one at a time at these nodes.
 SPLIT_PARITY_WALKS = 6
-#: The split phase's bursts (A, B, C, C', B, A: eight in all) at 1000
-#: nodes a search, cut from 3000 so the default run keeps its time with
-#: the az phase.
-SPLIT_BURST_NODES = 1000
+#: The split phase's bursts (A, B, C: four in all, cut from A, B, C, C',
+#: B, A) at 500 nodes a search, cut from 3000 (then 1000) so the default
+#: run keeps its time on a slow host.
+SPLIT_BURST_NODES = 500
 SPLIT_PARITY_NODES = 1000
 #: The host's and the frontends' per-process settings (the CLI's
 #: microbatch 1024, pipeline 2).
@@ -2772,13 +2874,14 @@ def split_frontend_child(argv) -> int:
     searches the walks from the start position (parity: one at a time,
     prefetch pinned to 0; else all at once) and prints one JSON line: the
     wall-clock start and end, nodes, counter deltas, whether this process
-    holds a CUDA context or loaded the kernel, and (parity) the
-    analyses."""
+    holds a CUDA context or loaded the kernel, its ring counters
+    (``resubmits`` among them), and (parity) the analyses."""
     spec = json.loads(argv[0])
     import torch
 
     from fishnet_tpu_torch.nnue.weights import NnueWeights
     from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.rpc import rings
     from fishnet_tpu_torch.rpc.client import RemoteBackend
 
     svc = RemoteBackend(
@@ -2829,7 +2932,7 @@ def split_frontend_child(argv) -> int:
             "nodes": sum(r.nodes for r in results), "counters": c,
             "cuda_context": torch.cuda.is_initialized(),
             "kernel_loaded": ft_gather._lib is not None,
-            "timers": timers,
+            "timers": timers, "rings": rings.stats(),
             "analyses": [analysis_of(r) for r in results]
             if spec["parity"] else None}), flush=True)
     finally:
@@ -2846,7 +2949,8 @@ def analysis_of(r) -> list:
 
 def split_run(net: str, rpc_dir: str, frontends: int, threads: int,
               walks, nodes: int, tag: str, parity: bool = False,
-              uci: bool = False) -> dict:
+              uci: bool = False, env: Optional[dict] = None,
+              base_env: Optional[dict] = None, say=None) -> dict:
     """One run of the split plane on the card: the evaluator host
     (``split_host_child``, ``--device cuda``) and ``frontends`` frontend
     processes of ``threads`` driver threads each, the walks dealt out in
@@ -2855,15 +2959,21 @@ def split_run(net: str, rpc_dir: str, frontends: int, threads: int,
     kernel; the host must make one dense launch per dispatch, no packed
     launch, call no plain version, refuse nothing and fail no dispatch.
     ``uci``: then also one ``FISHNET_RPC=1 python -m fishnet_tpu_torch
-    uci`` session (mate in one at depth 4). Returns the frontends'
+    uci`` session (mate in one at depth 4). ``env``: variables added to
+    the processes' environment, which is ``base_env`` (``os.environ`` by
+    default: a run on a thread of its own passes a copy, since the main
+    thread sets variables for its services meanwhile). ``say`` takes
+    the run's log lines (``log`` by default). Returns the frontends'
     reports, the host's stats and captures, and the run's numbers."""
     import numpy as np
 
+    say = say or log
     out_dir = ROOT / "chiprun_out" / "split"
     out_dir.mkdir(parents=True, exist_ok=True)
     stats_path = os.path.join(rpc_dir, f"host-{tag}.json")
     caps_path = os.path.join(rpc_dir, f"caps-{tag}.npz")
-    env = dict(os.environ, FISHNET_RPC_DIR=rpc_dir)
+    env = dict(os.environ if base_env is None else base_env,
+               FISHNET_RPC_DIR=rpc_dir, **(env or {}))
     host_log = open(out_dir / f"host-{tag}.log", "w", encoding="utf-8")
     fe_log = open(out_dir / f"frontends-{tag}.log", "w", encoding="utf-8")
     host = subprocess.Popen(
@@ -2933,7 +3043,7 @@ def split_run(net: str, rpc_dir: str, frontends: int, threads: int,
               and any("score mate 1" in line for line in uci_out),
               f"split {tag}: the FISHNET_RPC=1 uci frontend answered "
               f"{uci_out[-4:]}")
-        log(f"  {tag}: FISHNET_RPC=1 uci frontend: {uci_out[-1]}")
+        say(f"  {tag}: FISHNET_RPC=1 uci frontend: {uci_out[-1]}")
     for r in reports:
         check(r["failed"] == 0, f"split {tag}: a search failed")
         check(not r["cuda_context"] and not r["kernel_loaded"],
@@ -2977,7 +3087,7 @@ def split_run(net: str, rpc_dir: str, frontends: int, threads: int,
         "frontend_step_ms": wall * 1e3 * frontends * threads
         * SPLIT_SERVICE["pipeline_depth"] / max(1, fc["eval_steps"]),
     }
-    log(f"  {tag}: {row}")
+    say(f"  {tag}: {row}")
     return {"row": row, "reports": reports, "stats": stats,
             "captures": captures}
 
@@ -3086,7 +3196,65 @@ def split_kernel(torch, params, dev, captures) -> dict:
     return out
 
 
-def phase_split(torch, weights, params, dev) -> dict:
+class SplitParity:
+    """The split phase's parity run (``split_run``: two frontends of one
+    driver thread searching SPLIT_PARITY_WALKS walks one at a time, and
+    the ``uci`` frontend) in a link directory of its own that passed the
+    ring ping, on a thread of its own. It is a check, not a number, and
+    its work is in other processes, so it runs beside the checks of the
+    main thread (the cache phase's gated runs; the split phase's
+    monolith) instead of after them. Its processes get a copy of the
+    environment taken at ``start`` (the main thread sets variables for
+    its services meanwhile), with the eval cache and the bounds tier
+    off; its log lines wait for ``result``."""
+
+    def __init__(self, weights):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="fishnet-split-")
+        self.net = os.path.join(self.dir, "net.nnue")
+        weights.save(self.net)
+        self.walks = random_lines(SPLIT_PARITY_WALKS, seed=5)
+        self.ping = None
+        self.lines = []
+        self._pool = ThreadPoolExecutor(1)
+        self._future = None
+
+    def start(self) -> None:
+        """The ring ping on this thread (its round trips are numbers:
+        nothing else runs beside it), then the parity run on its own."""
+        self.ping = split_ping(self.dir)
+        self._future = self._pool.submit(
+            split_run, self.net, self.dir, 2, 1, self.walks,
+            SPLIT_PARITY_NODES, "parity", parity=True, uci=True,
+            env={"FISHNET_NO_EVAL_CACHE": "1", "FISHNET_NO_BOUNDS": "1"},
+            base_env=dict(os.environ), say=self.lines.append)
+
+    def wait(self) -> None:
+        """Until the parity run has ended, whatever its outcome (the
+        split phase reads it), so that the numbers taken next run alone."""
+        if self._future is not None:
+            concurrent.futures.wait([self._future])
+
+    def result(self) -> dict:
+        """The parity run's result (its failure raised here), after its
+        log lines."""
+        try:
+            return self._future.result()
+        finally:
+            for line in self.lines:
+                log(line)
+            self.lines.clear()
+
+    def close(self) -> None:
+        import shutil
+
+        self._pool.shutdown(wait=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def phase_split(torch, weights, params, dev,
+                parity_run: Optional[SplitParity] = None) -> dict:
     """The split evaluator plane on the card: one host process
     (``python -m fishnet_tpu_torch.rpc.host``'s main, ``--device cuda``)
     serving frontend processes (``RemoteBackend``) through a link
@@ -3103,25 +3271,24 @@ def phase_split(torch, weights, params, dev) -> dict:
     its plain version on the largest fused host batches, which are then
     timed.
 
-    Throughput, in one call, in the order A, B, C, C, B, A: the 256-search
-    burst (``go nodes 3000``) on the monolith at its defaults (A: cache
-    on), with ``FISHNET_NO_EVAL_CACHE=1`` (B), and on the split plane
-    with 2 frontends x 3 threads and 3 x 2 (C; the second C in the
-    opposite order)."""
-    import shutil
-    import tempfile
+    Throughput, in one call, in the order A, B, C: the 256-search burst
+    (at SPLIT_BURST_NODES) on the monolith at its defaults (A: cache on),
+    with ``FISHNET_NO_EVAL_CACHE=1`` (B), and on the split plane with 3
+    frontends x 2 threads (C).
 
+    ``parity_run``: the parity run (``SplitParity``), started beside the
+    cache phase's checks; else it starts here, beside the monolith's
+    searches."""
     from fishnet_tpu_torch.configure import parse_and_configure
     from fishnet_tpu_torch.search.service import SearchService
 
-    rpc_dir = tempfile.mkdtemp(prefix="fishnet-split-")
+    if parity_run is None:
+        parity_run = SplitParity(weights)
+        parity_run.start()
+    rpc_dir, net, walks = parity_run.dir, parity_run.net, parity_run.walks
     try:
-        ping = split_ping(rpc_dir)
+        ping = parity_run.ping
         log(f"  ring ping, two processes, {rpc_dir}: {ping}")
-        net = os.path.join(rpc_dir, "net.nnue")
-        weights.save(net)
-
-        walks = random_lines(SPLIT_PARITY_WALKS, seed=5)
         with env_vars(FISHNET_NO_EVAL_CACHE="1", FISHNET_NO_BOUNDS="1"):
             fresh_cache()
             mono = SearchService(weights=weights, device=dev,
@@ -3138,9 +3305,7 @@ def phase_split(torch, weights, params, dev) -> dict:
                 want = asyncio.run(sequential())
             finally:
                 mono.close()
-            parity = split_run(net, rpc_dir, 2, 1, walks,
-                               SPLIT_PARITY_NODES, "parity", parity=True,
-                               uci=True)
+        parity = parity_run.result()
         for r in parity["reports"]:
             check(r["analyses"] == want,
                   "split: a frontend's analyses differ from the monolith's")
@@ -3154,16 +3319,14 @@ def phase_split(torch, weights, params, dev) -> dict:
         burst_walks = random_lines(256, seed=11)  # load_burst's
         runs, captures = [], list(parity["captures"])
         layouts = list(SPLIT_LAYOUTS)
-        for leg in ("A", "B", "C", "C'", "B", "A"):
+        for leg in ("A", "B", "C"):
             if leg in ("A", "B"):
                 runs.append(split_monolith(weights, dev, leg == "A",
                                            threads))
                 continue
-            for frontends, per in (layouts if leg == "C"
-                                   else layouts[::-1]):
+            for frontends, per in layouts:
                 got = split_run(net, rpc_dir, frontends, per, burst_walks,
-                                SPLIT_BURST_NODES,
-                                f"{frontends}x{per}{leg[1:] and 'b'}")
+                                SPLIT_BURST_NODES, f"{frontends}x{per}")
                 runs.append(got["row"])
                 captures += got["captures"]
         captures.sort(key=lambda c: -c[0])
@@ -3172,7 +3335,7 @@ def phase_split(torch, weights, params, dev) -> dict:
         kernel = split_kernel(torch, params, dev,
                               captures[:SPLIT_CAPTURES])
     finally:
-        shutil.rmtree(rpc_dir, ignore_errors=True)
+        parity_run.close()
     return {"ping": ping, "runs": runs, "kernel": kernel,
             "launches": parity["stats"]["launches"]["dense"],
             "parity_dispatches": parity["stats"]["dispatches"]}
@@ -3184,10 +3347,10 @@ def phase_split(torch, weights, params, dev) -> dict:
 #: at the CLI's microbatch, the parity runs and the burst.
 AZ_CAP = 1024
 AZ_PARITY = (32, 200)  # searches, visits
-#: 200 visits a search (800, then 400 before), so the default run keeps
-#: under its time limit on a slow host: the burst is host-bound Python
-#: at ~4500 visits/s (PERF.md).
-AZ_BURST = (256, 200)
+#: 100 visits a search (800, 400, then 200 before), so the default run
+#: keeps under its time limit on a slow host: the burst is host-bound
+#: Python at ~4500 visits/s (PERF.md).
+AZ_BURST = (256, 100)
 #: The forward on the card against the port's CPU forward: both bf16,
 #: cuDNN and the CPU sum a conv's products in other orders, so a result
 #: may move by a few bf16 steps: at most AZ_STEPS steps of the largest
@@ -3569,12 +3732,13 @@ def az_two_lanes(params, dev) -> dict:
 
 
 def az_burst(params, dev) -> list:
-    """Check and numbers 4: the burst with the cache off (A) and on (B),
-    in the order A, B, B, A; all four give the same trees (the cache is
-    exact) and one forward per dispatch on the fused rung."""
+    """Check and numbers 4: the burst with the cache off (A), then on
+    (B; cut from A, B, B, A so the default run keeps its time); both give
+    the same trees (the cache is exact) and one forward per dispatch on
+    the fused rung."""
     searches, visits = AZ_BURST
     runs, first = [], None
-    for label in ("A", "B", "B", "A"):
+    for label in ("A", "B"):
         env = {"FISHNET_NO_EVAL_CACHE": "1" if label == "A" else None}
         run = az_pool_run(params, dev, searches, visits, seed=41, env=env)
         c, d = run["counters"], run["counters"]["dispatch"]
@@ -3717,7 +3881,7 @@ TRAIN_AZ_ROWS = 1024
 TRAIN_SELFPLAY = (16, 64, 40)  # games, visits, max plies
 TRAIN_SPLIT_SELFPLAY = (4, 32, 20)
 TRAIN_SPLIT_SEED = 5  # the host's --az-seed
-TRAIN_RESUME = (5, 10)  # checkpoint at step 5, compare at step 10
+TRAIN_RESUME = (2, 4)  # checkpoint at step 2, compare at step 4
 #: The CPU's intra-op threads for the phase's CPU references.
 TRAIN_CPU_THREADS = 4
 #: Step 1 on the card against the CPU, from the same params and batch:
@@ -3880,8 +4044,9 @@ def step_vs_cpu(torch, trainer_cls, cfg, params, batch, dev, loss_tol,
 def resume_checks(torch, make_trainer, params, batch, dev, tmp: str,
                   what: str) -> dict:
     """Checkpoints: save -> restore reproduces every tensor bit for bit
-    (on the card); resuming at step 5 and running to 10 equals the
-    uninterrupted run to 10 on the CPU bit for bit, and on the card bit
+    (on the card); resuming at TRAIN_RESUME's first step and running to
+    its second equals the uninterrupted run on the CPU bit for bit, and
+    on the card bit
     for bit or within the spread of two uninterrupted runs from the same
     state (at most twice it)."""
     from fishnet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -4496,17 +4661,18 @@ def train_steps(torch, dev, tmp: str, cpu_child, cpu_path: str) -> dict:
 
 
 #: The mesh phase's sizes: gated positions at one driver thread (the
-#: coalesce phase's search depth) on a service whose slots hold them
-#: all at once, at the CLI's microbatch; the concurrent 2 x 2 run's
-#: searches; the A/B burst's nodes (the coalesce phase's burst, cut
-#: from 3000 nodes a search, as the cache phase's, so the phase keeps
-#: near its time); and shard 1's dispatches at which the drain check
-#: steps it down a rung and then drains it.
-MESH_POSITIONS = 20
+#: coalesce phase's 3000 nodes) on a service whose
+#: slots hold them all at once, at the CLI's microbatch; the concurrent
+#: 2 x 2 run's searches; the A/B burst's nodes (the coalesce phase's
+#: burst, cut from 3000 nodes a search, then 600 and 300, so the default
+#: run keeps its time on a slow host; the gated positions from 20 for the
+#: same reason, each still at 3000 nodes); and shard 1's dispatches at
+#: which the drain check steps it down a rung and then drains it.
+MESH_POSITIONS = 12
 MESH_NODES = 3000
 MESH_GATED = dict(pool_slots=32, batch_capacity=1024)
 MESH_CONCURRENT = 32
-MESH_BURST_NODES = 600
+MESH_BURST_NODES = 150
 MESH_DRAIN_AT = (6, 12)
 
 
@@ -4926,7 +5092,8 @@ def mesh_az(dev) -> dict:
 def mesh_burst(weights, dev) -> list:
     """Numbers 7, not gates: the coalesce phase's burst (the default
     service) at MESH_BURST_NODES a search, one shard (A) and two logical
-    shards (B) on the card, in the order A, B, B, A: nodes/s, dispatches
+    shards (B) on the card, in the order A, B (cut from A, B, B, A so the
+    default run keeps its time): nodes/s, dispatches
     and mean width per shard, and each pack worker's ms per dispatch
     (its ``_execute`` calls). One packed launch per dispatch."""
     from fishnet_tpu_torch.configure import parse_and_configure
@@ -4935,7 +5102,7 @@ def mesh_burst(weights, dev) -> list:
 
     threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
     rows = []
-    for label in ("A", "B", "B", "A"):
+    for label in ("A", "B"):
         fresh_cache()
         svc = SearchService(weights=weights, batch_capacity=1024,
                             pipeline_depth=2, driver_threads=threads,
@@ -4996,7 +5163,7 @@ def phase_mesh(torch, weights, params, dev) -> dict:
     shards dispatching; the ladder step and the drain with migrated
     table blocks; 2 driver threads x pipeline 2 on two shards. Then the
     legacy ShardedEvaluator, the AZ plane on two shards, and the burst
-    A, B, B, A (numbers only)."""
+    A, B (numbers only)."""
     from fishnet_tpu_torch.ops import ft_gather
 
     t_phase = time.perf_counter()
@@ -5409,10 +5576,10 @@ def phase_trainshard(torch, dev, export_batch=None) -> dict:
     return out
 
 
-#: The metrics phase's bursts (the cache phase's size: 256 searches of
-#: 1000 nodes, cut from the coalesce phase's 3000 so its four bursts fit
-#: the phase's time) and the scraper's period.
-METRICS_BURST_NODES = 1000
+#: The metrics phase's bursts (256 searches of 500 nodes, cut from the
+#: coalesce phase's 3000, then 1000, so its four bursts fit the default
+#: run's time on a slow host) and the scraper's period.
+METRICS_BURST_NODES = 500
 METRICS_SCRAPE_S = 1.0
 
 
@@ -5603,7 +5770,8 @@ def phase_metrics(torch, weights, dev) -> dict:
     """The metrics plane over the coalesce phase's service (one driver
     thread per core, pipeline 2, microbatch 1024, the cache on): the
     burst without an exporter (A) and with one on an ephemeral port
-    scraped every second (B), A, B, B, A, numbers only; on the first B
+    scraped every second (B), A, B (cut from A, B, B, A so the default
+    run keeps its time), numbers only; on B
     every scrape valid exposition 0.0.4, and after it the service's
     families == ``counters()`` and the packed launches. After close() a
     scrape still answers, without the service's families; two shards on
@@ -5612,9 +5780,8 @@ def phase_metrics(torch, weights, dev) -> dict:
     from fishnet_tpu_torch.search.service import SearchService
 
     legs = [metrics_leg(weights, dev, scraped, gate)
-            for scraped, gate in ((False, False), (True, True),
-                                  (True, False), (False, False))]
-    log("  A, B, B, A (A without an exporter, B scraped every "
+            for scraped, gate in ((False, False), (True, True))]
+    log("  A, B (A without an exporter, B scraped every "
         f"{METRICS_SCRAPE_S:.0f} s): nodes/s "
         f"{[round(leg['nps']) for leg in legs]}, dispatches "
         f"{[leg['dispatches'] for leg in legs]}, pack ms a dispatch "
@@ -5653,6 +5820,558 @@ def phase_metrics(torch, weights, dev) -> dict:
     return {"launches": gated["launches"], "families": gated["families"],
             "legs": [{k: v for k, v in leg.items() if k != "gate"}
                      for leg in legs], "shard_dispatches": shards}
+
+
+# -- fault injection, exactly-once accounting, graceful drain -------------------
+
+#: The faults phase's sizes: the gated positions of the ladder and mesh
+#: legs and their nodes; the client leg's games (40 plies at RUN_NODES)
+#: and move jobs; the drain leg's; the split leg's walks.
+FAULTS_WALKS = 8
+FAULTS_NODES = 1000
+FAULTS_CLIENT = (4, 2)
+FAULTS_DRAIN = (6, 2)
+FAULTS_DRAIN_DEADLINE = 10
+FAULTS_RPC_WALKS = 3
+FAULTS_RPC_NODES = 500
+#: Every fault site of the client's path at once, all ``nth``: two
+#: acquires, the first submission, the first engine start, the second
+#: batch's schedule.
+FAULTS_CLIENT_PLAN = ("seed=7;net.acquire:nth=2..3:error;net.submit:nth=1:error;"
+                      "engine.spawn:nth=1:error;queue.schedule:nth=2:error")
+#: The split host drops its link every 40th sweep with one attached: the
+#: sweeps before the frontend's first record count too, so an early
+#: single ``nth`` would land before anything is in flight.
+FAULTS_DETACH_PLAN = "rpc.detach:every=40:error"
+
+
+def expected_injections(plan) -> dict:
+    """(site, action) -> the faults an all-``nth`` plan injected, from
+    its per-site call counts."""
+    counts = plan.counts()
+    out = {}
+    for site, rules in plan.rules.items():
+        for rule in rules:
+            check(rule.trigger == "nth", f"faults: {site} is not an nth rule")
+            fired = max(0, min(rule.hi, counts[site]) - rule.lo + 1)
+            out[(site, rule.action)] = out.get((site, rule.action), 0) + fired
+    return out
+
+
+def injected(text: str, key) -> float:
+    """``fishnet_faults_injected_total`` of one (site, action) in an
+    exposition; 0 before the first injection there."""
+    site, action = key
+    try:
+        return metric_value(text, "fishnet_faults_injected_total", site=site,
+                            action=action)
+    except SmokeFailure:
+        return 0.0
+
+
+def faults_ladder(weights, dev, walks) -> tuple:
+    """The supervisor's ladder forced on the card: ``walks`` (gated
+    positions) searched unfaulted on the top rung (``gated_run``), then
+    through the supervised ``tpu-nnue`` factory (the CLI's
+    ``degrade_after``) under ``service.device_step:nth=1:crash`` twice —
+    each crash takes the driver down before its first dispatch and fails
+    every search — and a third time without a plan, one rung down. The
+    retried searches equal the unfaulted ones bit for bit; every rung
+    launches the packed kernel once per dispatch (each round's counts
+    zeroed after its service's warm-up) and the error word never moves.
+    Returns the leg's report and the unfaulted analyses."""
+    import torch
+
+    from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.resilience.supervisor import (
+        ServiceSupervisor,
+        ladder_for,
+    )
+    from fishnet_tpu_torch.search.service import SearchService
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    device = torch.device(dev)
+    gpu = device.type == "cuda"
+    ladder = ladder_for(device.type)
+    want, ref = gated_run(weights, dev, walks, nodes=FAULTS_NODES)
+
+    def builder(rung):
+        fresh_cache()
+        svc = gated_service(weights, dev, pool_slots=8, batch_capacity=256,
+                            tt_bytes=8 << 20, pipeline_depth=4,
+                            psqt_path=rung)
+        SearchService.warmup(svc)  # the warm-up's launch, before the count
+        return svc
+
+    sup = ServiceSupervisor(builder, rungs=ladder, logger=Logger(verbose=0))
+    factory = TpuNnueEngineFactory(service_builder=sup.build)
+    packed = ft_gather.ft_accumulate_packed_cuda
+    rounds = []
+
+    async def one_round(crash: bool):
+        engine = await factory.create(EngineFlavor.OFFICIAL)
+        svc = engine.service
+        errors0 = ft_gather.kernel_errors(dev) if gpu else 0
+        d0 = svc.counters()["dispatches"]
+        packed.launches = packed.copy_launches = 0  # after the warm-up
+        ft_gather.ft_accumulate_cuda.launches = 0
+        results = await open_gate(
+            svc, walks, FAULTS_NODES, return_exceptions=True,
+            plan="service.device_step:nth=1:crash" if crash else None)
+        row = {"rung": svc.psqt_path, "supervisor": sup.rung,
+               "failed": sum(isinstance(r, BaseException) for r in results),
+               "alive": svc.is_alive(),
+               "dispatches": svc.counters()["dispatches"] - d0,
+               "launches": packed.launches,
+               "dense": ft_gather.ft_accumulate_cuda.launches}
+        if gpu:
+            errors = ft_gather.kernel_errors(dev)
+            check(errors == errors0, f"faults ladder: the error word moved "
+                                     f"{errors0} -> {errors}")
+            check(row["launches"] == row["dispatches"] and row["dense"] == 0,
+                  f"faults ladder: launches {row}")
+        rounds.append(row)
+        return [(r.best_move, r.depth, r.nodes,
+                 [(ln.multipv, ln.depth, ln.is_mate, ln.value, ln.pv)
+                  for ln in r.lines])
+                for r in results if not isinstance(r, BaseException)]
+
+    async def walk():
+        return [await one_round(crash) for crash in (True, True, False)]
+
+    try:
+        t0 = time.perf_counter()
+        _, _, retried = asyncio.run(walk())
+        seconds = time.perf_counter() - t0
+    finally:
+        factory.close()
+    log(f"  ladder: {len(walks)} gated positions at {FAULTS_NODES} nodes, "
+        f"unfaulted on {ladder[0]} ({ref['dispatches']} dispatches); then "
+        f"crash, crash, retry: {rounds}; respawns {sup.respawns}; "
+        f"{seconds:.3f} s")
+    check([r["rung"] for r in rounds] == [ladder[0], ladder[0], ladder[1]],
+          f"faults ladder: rungs {rounds}")
+    check([r["failed"] for r in rounds] == [len(walks), len(walks), 0]
+          and [r["alive"] for r in rounds[:2]] == [False, False],
+          f"faults ladder: the crashes did not take the driver down {rounds}")
+    check(rounds[2]["dispatches"] > 0 and sup.respawns == 2,
+          f"faults ladder: the retry {rounds[2]}, respawns {sup.respawns}")
+    check(retried == want, "faults ladder: the retried searches on "
+                           f"{ladder[1]} differ from the unfaulted ones")
+    log(f"  ladder: the retried searches on {ladder[1]} == the unfaulted "
+        f"ones on {ladder[0]}, bit for bit")
+    return {"rounds": rounds, "unfaulted_dispatches": ref["dispatches"],
+            "respawns": sup.respawns, "seconds": seconds,
+            "launches": sum(r["launches"] for r in rounds)}, want
+
+
+def faults_client(dev, url: str) -> dict:
+    """The client under FAULTS_CLIENT_PLAN with the batch ledger on:
+    ``Client`` over the factory ``run`` builds, against the stdlib fake
+    lichess (FAULTS_CLIENT games at RUN_NODES, move jobs). Every batch
+    ends submitted (once, on the server too) or, the one whose schedule
+    failed, invalid; the ledger is clean; each site fired as its rules
+    say, and ``fishnet_faults_injected_total`` on ``url``'s /metrics
+    moved by just that; the service stayed on its top rung with one
+    packed launch per dispatch."""
+    import torch
+
+    from fishnet_tpu_torch.__main__ import build_engine_factory
+    from fishnet_tpu_torch.client import Client
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.resilience import accounting, faults
+    from fishnet_tpu_torch.resilience.supervisor import ladder_for
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    fresh_cache()
+    logger = Logger(verbose=0)
+    device = torch.device(dev)
+    opt = parse_and_configure(
+        ["run", "--no-conf", "--no-stats-file", "--microbatch", "1024",
+         "--pipeline", "2", "--device", device.type])
+    before = http_get(f"{url}/metrics")
+    plan = faults.install(FAULTS_CLIENT_PLAN)
+    led = accounting.install()
+    factory = build_engine_factory(opt, logger)
+    packed = ft_gather.ft_accumulate_packed_cuda
+    try:
+        with FakeServer() as server:
+            lichess = server.lichess
+            games, moves = FAULTS_CLIENT
+            ids, move_ids = add_run_jobs(lichess, games, moves, seed=43,
+                                         nodes=RUN_NODES)
+            jobs = ids + move_ids
+            client = Client(endpoint=server.endpoint, key=VALID_KEY,
+                            cores=opt.resolved_cores(), engine_factory=factory,
+                            logger=logger, max_backoff=1.0,
+                            workers=opt.resolved_workers())
+
+            async def run():
+                await factory.create(EngineFlavor.OFFICIAL)
+                d0 = factory.service.counters()["dispatches"]
+                packed.launches = packed.copy_launches = 0  # after warm-up
+                ft_gather.ft_accumulate_cuda.launches = 0
+                t0 = time.perf_counter()
+                await client.start()
+                try:
+                    deadline = time.monotonic() + 600
+                    while not all(led.record(i) is not None
+                                  and led.record(i).terminal is not None
+                                  for i in jobs):
+                        check(time.monotonic() < deadline,
+                              f"faults client: not done {led.report()}")
+                        await asyncio.sleep(0.05)
+                finally:
+                    await client.stop()
+                return (time.perf_counter() - t0,
+                        factory.service.counters()["dispatches"] - d0,
+                        packed.launches,
+                        ft_gather.ft_accumulate_cuda.launches)
+
+            seconds, dispatches, launches, dense = asyncio.run(run())
+            audit = lichess.audit()
+            subs = dict(lichess.submissions)
+            rung = (factory.supervisor.rung, factory.service.psqt_path,
+                    factory.supervisor.respawns, factory.service.is_alive())
+            analyses = {i: lichess.analyses[i]["analysis"] for i in ids
+                        if i in lichess.analyses}
+    finally:
+        factory.close()
+        faults.clear()
+        accounting.clear()
+    after = http_get(f"{url}/metrics")
+    report = led.assert_clean()
+    records = {i: led.record(i) for i in jobs}
+    want = {k: float(v) for k, v in expected_injections(plan).items()}
+    fired = {k: injected(after, k) - injected(before, k) for k in want}
+    terminals = sorted(r.terminal for r in records.values())
+    log(f"  client: {games} games at {RUN_NODES} nodes and {moves} move jobs "
+        f"under {FAULTS_CLIENT_PLAN!r}: ledger {report}; site calls "
+        f"{plan.counts()}; /metrics injected {sorted(fired.items())}; "
+        f"{dispatches} dispatches, {launches} packed launches, rung {rung}; "
+        f"{seconds:.3f} s")
+    check(terminals == ["invalid"] + ["submitted"] * (len(jobs) - 1),
+          f"faults client: terminal states {terminals}")
+    for i, rec in records.items():
+        if rec.terminal == "submitted":
+            check(subs.get(i) == 1, f"faults client: {i} submitted "
+                                    f"{subs.get(i)} times on the server")
+        else:
+            check(i not in subs, f"faults client: invalid {i} submitted")
+    check(not audit["duplicated"], f"faults client: {audit}")
+    check(fired == want and want[("queue.schedule", "error")] == 1
+          and want[("engine.spawn", "error")] == 1
+          and want[("net.submit", "error")] == 1
+          and want[("net.acquire", "error")] == 2,
+          f"faults client: /metrics injected {fired}, the plan's rules and "
+          f"counts say {want}")
+    check(rung == (ladder_for(device.type)[0],) * 2 + (0, True),
+          f"faults client: the service left its top rung or died {rung}")
+    check(launches > 0 and dense == 0
+          and (launches == dispatches or device.type != "cuda"),
+          f"faults client: {launches} packed launches ({dense} dense) for "
+          f"{dispatches} dispatches")
+    for work_id, parts in analyses.items():
+        check(len(parts) == 41 and sum(p == {"skipped": True}
+                                       for p in parts) == 1
+              and all("score" in p for p in parts if p != {"skipped": True}),
+              f"faults client: {work_id} analysis malformed")
+    return {"ledger": report, "calls": plan.counts(),
+            "injected": {f"{s}:{a}": v for (s, a), v in sorted(fired.items())},
+            "dispatches": dispatches, "launches": launches,
+            "seconds": seconds}
+
+
+def faults_mesh(weights, dev, walks, want) -> dict:
+    """Two logical shards of the card under ``service.device_step:nth=2:
+    error``: the faulted group's shard steps one rung down, its sibling
+    never moves, the step is dispatched on the degraded path, and the
+    analyses equal ``want``, the ladder leg's unfaulted ``walks`` on one
+    device (the mesh phase holds the mesh to no mesh). The launch counts
+    are zeroed after the warm-up (``gated_run`` holds the packed
+    launches to the dispatches). The ledger is the harness's own bookkeeping around
+    ``svc.search`` (``open_gate``), as in the JAX package's test: no
+    ledger call of the port lies on this path."""
+    import torch
+
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.resilience import accounting
+    from fishnet_tpu_torch.resilience.supervisor import ladder_for
+
+    ladder = ladder_for(torch.device(dev).type)
+    packed = ft_gather.ft_accumulate_packed_cuda
+
+    def zero(_svc):
+        packed.launches = packed.copy_launches = 0
+        ft_gather.ft_accumulate_cuda.launches = 0
+
+    led = accounting.install()
+    try:
+        t0 = time.perf_counter()
+        got, c = gated_run(weights, dev, walks, nodes=FAULTS_NODES,
+                           mesh_devices=[dev, dev], hook=zero,
+                           plan="service.device_step:nth=2:error", ledger=led,
+                           FISHNET_SHARD_PLACEMENT="rr")
+        seconds = time.perf_counter() - t0
+    finally:
+        accounting.clear()
+    rep = c["shards"]
+    report = led.assert_clean()
+    launches = packed.launches
+    log(f"  mesh: two logical shards, {len(walks)} gated positions: "
+        f"rungs {rep['rungs']}, degradations {rep['degradations']}, "
+        f"dispatches {rep['dispatches']}, {launches} packed launches, "
+        f"ledger {report}; {seconds:.3f} s")
+    check(len(rep["degradations"]) == 1, f"faults mesh: {rep}")
+    shard, frm, to = rep["degradations"][0]
+    check((frm, to) == ladder[:2] and rep["rungs"][shard] == ladder[1]
+          and rep["rungs"][1 - shard] == ladder[0] and all(rep["alive"]),
+          f"faults mesh: not one shard-local step {rep}")
+    check(got == want, "faults mesh: the analyses differ from the "
+                       "unfaulted run's")
+    check(report["submitted"] == len(walks), f"faults mesh: {report}")
+    log("  mesh: one shard stepped down, its sibling unmoved; the analyses "
+        "== the unfaulted run's, bit for bit")
+    return {"rungs": rep["rungs"], "degradations": rep["degradations"],
+            "dispatches": rep["dispatches"], "launches": launches,
+            "ledger": report, "seconds": seconds}
+
+
+class DrainLeg:
+    """``python -m fishnet_tpu_torch run`` as a subprocess with
+    ``--drain-deadline`` and a submit latency fault widening the flush,
+    against the stdlib fake lichess. ``start`` launches it with no job
+    queued (it starts up and polls while the phase's other legs run);
+    ``finish`` queues FAULTS_DRAIN games and move jobs and SIGTERMs it
+    once the move jobs are in, the games' searches in flight. While it
+    drains, ``/healthz/ready`` answers 503 with ``draining: true``,
+    ``/healthz/live`` 200 and ``fishnet_drain_state`` is 1; it exits 0,
+    and on the server every job it took was submitted once or aborted
+    back, none held. Its teardown log counts one packed launch per
+    dispatch since its warm-up. SIGTERM waits for the move jobs because
+    of ROADMAP C16: a move job whose search ends during a drain is
+    neither submitted nor aborted (the queue stops chasing move
+    submissions once ``shutdown_soon`` runs, as in the JAX package), so
+    it would stay held until the server's timeout;
+    tests/test_torch_resilience.py pins that gap on the CPU."""
+
+    def __init__(self, dev) -> None:
+        import tempfile
+
+        import torch
+
+        self.device = torch.device(dev).type
+        out_dir = ROOT / "chiprun_out" / "faults"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        self.log_path = out_dir / "drain.log"
+        self.port_file = os.path.join(
+            tempfile.mkdtemp(prefix="fishnet-drain-"), "metrics.port")
+        self.server = FakeServer()
+        self.proc = None
+
+    def start(self) -> None:
+        self.server.__enter__()
+        cmd = [sys.executable, "-m", "fishnet_tpu_torch", "run", "--no-conf",
+               "--no-stats-file", "--endpoint", self.server.endpoint, "--key",
+               VALID_KEY, "--max-backoff", "1", "--drain-deadline",
+               f"{FAULTS_DRAIN_DEADLINE}s", "--metrics-port", "0",
+               "--metrics-port-file", self.port_file, "--fault-plan",
+               "net.submit:every=1:latency=0.5", "--device", self.device,
+               "-v"]
+        env = dict(os.environ)
+        env.pop("FISHNET_FAULT_PLAN", None)
+        with open(self.log_path, "w", encoding="utf-8") as logf:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                         stderr=subprocess.STDOUT)
+
+    def close(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.server.__exit__(None, None, None)
+
+    def finish(self) -> dict:
+        import json as json_mod
+        import urllib.error
+        import urllib.request
+
+        def get(url):
+            try:
+                with urllib.request.urlopen(url, timeout=5) as res:
+                    return res.status, res.read()
+            except urllib.error.HTTPError as err:
+                return err.code, err.read()
+
+        proc, lichess = self.proc, self.server.lichess
+        deadline = time.monotonic() + 300
+        while not os.path.exists(self.port_file):
+            check(proc.poll() is None,
+                  f"faults drain: the CLI exited early ({proc.returncode})")
+            check(time.monotonic() < deadline, "faults drain: no exporter")
+            time.sleep(0.05)
+        with open(self.port_file, encoding="utf-8") as fp:
+            base = f"http://127.0.0.1:{int(fp.read())}"
+        games, moves = FAULTS_DRAIN
+        ids, move_ids = add_run_jobs(lichess, games, moves, seed=47,
+                                     nodes=RUN_NODES)
+        while not all(i in lichess.moves for i in move_ids):
+            check(proc.poll() is None,
+                  f"faults drain: the CLI exited early ({proc.returncode})")
+            check(time.monotonic() < deadline,
+                  "faults drain: the move jobs did not finish")
+            time.sleep(0.02)
+        done_before = sum(i in lichess.analyses for i in ids)
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        ready = live = state = seen_at = None
+        while ready is None and time.monotonic() < t0 + 10:
+            try:
+                status, body = get(f"{base}/healthz/ready")
+                if status == 503 and b"draining" in body:
+                    seen_at = time.monotonic() - t0
+                    ready = json_mod.loads(body)["providers"]["drain"]
+                    live = get(f"{base}/healthz/live")
+                    state = metric_value(get(f"{base}/metrics")[1].decode(),
+                                         "fishnet_drain_state")
+            except OSError:
+                pass  # the exporter may be gone already: checked below
+            time.sleep(0.02)
+        rc = proc.wait(timeout=FAULTS_DRAIN_DEADLINE + 110)
+        took = time.monotonic() - t0
+        audit = lichess.audit()
+        done_after = sum(i in lichess.analyses for i in ids)
+        text = self.log_path.read_text()
+        for line in text.splitlines()[-4:]:
+            log(f"  | {line[:300]}")
+        log(f"  drain: SIGTERM after {done_before} of {games} games; "
+            f"readiness 503 after {seen_at} s: {ready}; liveness {live}; "
+            f"fishnet_drain_state {state}; exit {rc} after {took:.3f} s; "
+            f"{done_after} games submitted; server audit {audit}")
+        check(rc == 0, f"faults drain: the CLI exited {rc}")
+        check(ready is not None and ready["reason"] == "sigterm"
+              and ready["deadline_s"] == float(FAULTS_DRAIN_DEADLINE)
+              and "pending" in ready,
+              f"faults drain: readiness never answered 503 draining: {ready}")
+        check(live == (200, b"ok\n"), f"faults drain: liveness {live}")
+        check(state == 1.0, f"faults drain: fishnet_drain_state {state}")
+        check(not audit["held"] and not audit["duplicated"],
+              f"faults drain: jobs held or submitted twice: {audit}")
+        check(took < FAULTS_DRAIN_DEADLINE + 30,
+              f"faults drain: {took:.1f} s from SIGTERM to exit")
+        steps, dispatches, packed, dense, rung = teardown_counts(text)
+        check(packed > 0 and dense == 0
+              and (packed == dispatches or self.device != "cuda"),
+              f"faults drain: {packed} packed launches ({dense} dense) for "
+              f"{dispatches} dispatches")
+        return {"sigterm_to_exit_s": took, "ready_503_after_s": seen_at,
+                "pending_at_sigterm": ready["pending"],
+                "games_before": done_before, "games_after": done_after,
+                "audit": audit, "launches": packed, "dispatches": dispatches,
+                "rung": rung}
+
+
+def faults_rpc_monolith(weights, dev, walks) -> list:
+    """The split leg's reference: the walks searched one at a time on the
+    monolith on the card under the split phase's parity settings."""
+    from fishnet_tpu_torch.search.service import SearchService
+
+    with env_vars(FISHNET_NO_EVAL_CACHE="1", FISHNET_NO_BOUNDS="1"):
+        fresh_cache()
+        mono = SearchService(weights=weights, device=dev,
+                             psqt_path="host-material", driver_threads=1,
+                             **SPLIT_SERVICE)
+    try:
+        mono.set_prefetch(0, adaptive=False)
+
+        async def sequential():
+            return [analysis_of(await mono.search(STARTPOS, m,
+                                                  nodes=FAULTS_RPC_NODES))
+                    for m in walks]
+
+        return asyncio.run(sequential())
+    finally:
+        mono.close()
+
+
+def faults_rpc(net: str, rpc_dir: str, walks, want) -> dict:
+    """``rpc.detach`` on the split plane: an evaluator host process under
+    FAULTS_DETACH_PLAN (from FISHNET_FAULT_PLAN) and one frontend
+    process searching ``walks`` one at a time. The host detaches the
+    link while microbatches are in flight, the frontend resubmits after
+    the epoch bump, and its analyses equal ``want``, the monolith's
+    (``faults_rpc_monolith``), bit for bit."""
+    t0 = time.perf_counter()
+    run = split_run(net, rpc_dir, 1, 1, walks, FAULTS_RPC_NODES, "detach",
+                    parity=True, env={"FISHNET_FAULT_PLAN": FAULTS_DETACH_PLAN})
+    seconds = time.perf_counter() - t0
+    front = run["reports"][0]
+    detaches = run["stats"]["rings"].get("detach.fault", 0)
+    resubmits = front["rings"].get("resubmits", 0)
+    log(f"  rpc.detach: {detaches} detaches on the host, {resubmits} "
+        f"resubmits by the frontend, {run['stats']['dispatches']} host "
+        f"dispatches; {seconds:.3f} s")
+    check(detaches >= 1 and resubmits >= 1,
+          f"faults rpc: {detaches} detaches, {resubmits} resubmits")
+    check(front["analyses"] == want,
+          "faults rpc: the frontend's analyses differ from the monolith's")
+    log(f"  rpc.detach: {len(walks)} searches at {FAULTS_RPC_NODES} nodes "
+        "through the detaching host == the monolith's, bit for bit")
+    return {"detaches": detaches, "resubmits": resubmits,
+            "host_dispatches": run["stats"]["dispatches"],
+            "host_launches": run["stats"]["launches"]["dense"],
+            "seconds": seconds}
+
+
+def phase_faults(torch, weights, dev) -> dict:
+    """Fault injection, exactly-once accounting and graceful drain on
+    the card (``faults_ladder``, ``faults_client``, ``faults_mesh``,
+    ``DrainLeg``, ``faults_rpc``). The drain leg's process starts first
+    and idles while the in-process legs run; then it drains while the
+    split leg's processes run beside it. Each in-process leg zeroes the
+    kernel's launch counts just before its faulted run and reads them
+    just after; "launches" holds those three counts (the drain's and the
+    split host's launches are their processes' own)."""
+    import shutil
+    import tempfile
+
+    from fishnet_tpu_torch import telemetry
+
+    t0 = time.perf_counter()
+    drain = DrainLeg(dev)
+    rpc_dir = tempfile.mkdtemp(prefix="fishnet-faults-")
+    try:
+        drain.start()
+        walks = random_lines(FAULTS_WALKS, seed=13)
+        out = {}
+        out["ladder"], want = faults_ladder(weights, dev, walks)
+        exporter = telemetry.start_exporter(0)
+        try:
+            out["client"] = faults_client(dev, exporter.url)
+        finally:
+            exporter.close()
+            telemetry.disable()
+        out["mesh"] = faults_mesh(weights, dev, walks, want)
+        out["launches"] = {leg: out[leg]["launches"]
+                           for leg in ("ladder", "client", "mesh")}
+        walks = random_lines(FAULTS_RPC_WALKS, seed=19)
+        want = faults_rpc_monolith(weights, dev, walks)
+        net = os.path.join(rpc_dir, "net.nnue")
+        weights.save(net)
+        with ThreadPoolExecutor(2) as pool:
+            rpc = pool.submit(faults_rpc, net, rpc_dir, walks, want)
+            out["drain"] = drain.finish()
+            out["rpc"] = rpc.result()
+    finally:
+        drain.close()
+        shutil.rmtree(rpc_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  faults: {out['seconds']:.3f} s, packed launches of the faulted "
+        f"runs {out['launches']}")
+    return out
 
 
 def phase_fen() -> None:
@@ -5976,7 +6695,7 @@ def run_workload(what: str, env: Optional[dict] = None, games: int = 16,
 def phase_run(weights, dev):
     """The main path through the entry points a user calls
     (``run_workload``, the eval cache and bounds tier at their
-    defaults). Then the parity sub-run (``client_parity``): 3 games at
+    defaults). Then the parity sub-run (``client_parity``): 2 games at
     depth 4 on a GPU service (as many driver threads) and on the native
     scalar service must submit the same score, best move and depth per
     ply."""
@@ -5984,7 +6703,7 @@ def phase_run(weights, dev):
 
     report = run_workload("run", nodes=RUN_NODES)
     threads = parse_and_configure(["run", "--no-conf"]).resolved_search_threads()
-    client_parity(weights, dev, games=3, plies=10, depth=4, threads=threads)
+    client_parity(weights, dev, games=2, plies=10, depth=4, threads=threads)
     return report
 
 
@@ -6004,7 +6723,8 @@ def teardown_counts(out: str):
 
 def phase_cli() -> dict:
     """``python -m fishnet_tpu_torch run`` as a user starts it, as a
-    subprocess against the stdlib fake lichess (8 games, 2 move jobs):
+    subprocess against the stdlib fake lichess (8 games at RUN_NODES, 2
+    move jobs):
     once every job is submitted, SIGINT drains it; it must exit 0, and
     its teardown log (-v) must show, counted from after the service's
     warm-up, one packed kernel launch per device dispatch, at least
@@ -6013,7 +6733,8 @@ def phase_cli() -> dict:
 
     with FakeServer() as server:
         lichess = server.lichess
-        analysis_ids, move_ids = add_run_jobs(lichess, 8, 2, seed=31)
+        analysis_ids, move_ids = add_run_jobs(lichess, 8, 2, seed=31,
+                                              nodes=RUN_NODES)
         cmd = [sys.executable, "-m", "fishnet_tpu_torch", "run", "--no-conf",
                "--no-stats-file", "--endpoint", server.endpoint, "--key",
                VALID_KEY, "--max-backoff", "1", "-v"]
@@ -6181,25 +6902,38 @@ def main() -> int:
     log("[fen] the native core's FEN formatter next to torch (ROADMAP C7)")
     phase_fen()
 
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Log the seconds the phase that just ended took."""
+        now = time.perf_counter()
+        log(f"  ({name}: {now - clock[0]:.1f} s)")
+        clock[0] = now
+
     worst = None
     train_batch = None
+    split_parity = None
     if "kernel" in phases:
         log("[kernel] hand kernel vs plain version, every entry kind")
         worst = phase_kernel(torch, params, dev)
+        lap("kernel")
     serve = None
     if "serve" in phases:
         log("[serve] UCI over SearchService(device='cuda'), microbatch 1024")
         serve = phase_serve(torch, weights, dev)
         check(serve["launches"] > 0, "the main path never launched the kernel")
+        lap("serve")
     if "parity" in phases:
         log("[parity] GPU service vs native scalar evaluator")
         phase_parity(weights, dev)
+        lap("parity")
     entries = []
     if "timing" in phases and serve is not None:
         log("[timing] ft_gather at the serving shape (B = 512)")
         entries.append(phase_timing(torch, params, dev, serve, worst))
         entries[0]["fused_launches"] = serve["fused_dispatches"]
         entries[0]["step_fused"] = serve["step"]["fused"]
+        lap("timing")
     fused = None
     if "coalesce" in phases:
         log("[coalesce] fused segmented dispatches: kernel level, then the "
@@ -6209,6 +6943,7 @@ def main() -> int:
             entry["fused"] = fused["timings"]
             entry["max_abs_err"] = max(entry["max_abs_err"], fused["worst"])
             entry["fused_launches_defaults"] = fused["fused_dispatches"]
+        lap("coalesce")
     if "run" in phases:
         log("[run] the fishnet client over the tpu-nnue engine on the GPU, "
             "against a stdlib fake lichess")
@@ -6216,25 +6951,31 @@ def main() -> int:
         for entry in entries:
             entry["launches_run"] = run["launches"]
             entry["copy_launches_run"] = run["copy_launches"]
+        lap("run")
     if "cli" in phases:
         log("[cli] python -m fishnet_tpu_torch run, drained by SIGINT")
         cli = phase_cli()
         for entry in entries:
             entry["launches_cli"] = cli["launches"]
+        lap("cli")
     if "cache" in phases:
         log("[cache] the eval cache and the bounds tier: the kernel's "
             "copy-source mode, the service, then cache off / on numbers")
+        if "split" in phases:  # its parity run goes beside the checks
+            split_parity = SplitParity(weights)
         cache = phase_cache(torch, weights, params, dev,
-                            None if fused is None else fused["steps"])
+                            None if fused is None else fused["steps"],
+                            split_parity)
         for entry in entries:
             entry["copy_src"] = cache["copy_src"]
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        cache["copy_src"]["worst"])
             entry["cache_numbers"] = cache["numbers"]
+        lap("cache")
     if "split" in phases:
         log("[split] the split evaluator plane: a host process on the card "
             "serving frontend processes over shared-memory rings")
-        split = phase_split(torch, weights, params, dev)
+        split = phase_split(torch, weights, params, dev, split_parity)
         kern = split["kernel"]
         top = kern[0]  # the largest fused host batch
         facts = {"launches": split["launches"],
@@ -6258,11 +6999,13 @@ def main() -> int:
                 "library_ms": top["library_ms"],
                 "mode": "dense, in-batch parents (the split host's)",
                 "split": facts})
+        lap("split")
     if "az" in phases:
         log("[az] the AZ/MCTS family: the policy+value tower on the card, "
             "batched PUCT MCTS over the shared AZ dispatch plane, the AZ "
             "eval cache and run --engine az-mcts")
         print(json.dumps({"az": phase_az(torch, dev)}), flush=True)
+        lap("az")
     if "train" in phases:
         log("[train] training on the card: teacher labels through the "
             "kernel, the NNUE and AZ trainers at full width, self-play over "
@@ -6292,6 +7035,7 @@ def main() -> int:
                         "the exported net",
                 "train": facts})
         print(json.dumps({"train": train}), flush=True)
+        lap("train")
     if "mesh" in phases:
         log("[mesh] the serving mesh: the kernel's partials mode and two "
             "launching threads, the service and the AZ plane on two logical "
@@ -6320,6 +7064,7 @@ def main() -> int:
                         "(sparse=), timed",
                 "mesh": facts})
         print(json.dumps({"mesh": mesh}), flush=True)
+        lap("mesh")
     if "trainshard" in phases:
         log("[trainshard] the sharded trainers on logical shards of the card: "
             "NNUE 2x1, 1x2, 2x2 and AZ 1x2, 2x1 against one device, the "
@@ -6329,14 +7074,26 @@ def main() -> int:
             entry["launches_trainshard"] = trainshard["launches"]
             entry["trainshard_export"] = trainshard["nnue"]["export"]
         print(json.dumps({"trainshard": trainshard}), flush=True)
+        lap("trainshard")
     if "metrics" in phases:
         log("[metrics] the /metrics exporter over the service: scrapes "
             "during a burst, families == counters(), close(), two shards; "
-            "the burst without and with scrapes, A, B, B, A")
+            "the burst without and with scrapes, A, B")
         metrics = phase_metrics(torch, weights, dev)
         for entry in entries:
             entry["launches_metrics"] = metrics["launches"]
         print(json.dumps({"metrics": metrics}), flush=True)
+        lap("metrics")
+    if "faults" in phases:
+        log("[faults] fault injection, exactly-once accounting and graceful "
+            "drain: the ladder forced by device-step crashes, the client "
+            "under a plan with the ledger on, a shard-local fault on the "
+            "mesh, a SIGTERM'd run process, rpc.detach on the split plane")
+        faults = phase_faults(torch, weights, dev)
+        for entry in entries:
+            entry["launches_faults"] = faults["launches"]
+        print(json.dumps({"faults": faults}), flush=True)
+        lap("faults")
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")
@@ -6345,15 +7102,19 @@ def main() -> int:
         for threads in sorted({1, parse_and_configure(
                 ["run", "--no-conf"]).resolved_search_threads()}):
             phase_profile(torch, weights, dev, threads)
+        lap("profile")
     if "anatomy" in phases and serve is not None:
         log("[anatomy] the kernel with one part of its work removed at a time")
         phase_anatomy(torch, params, dev, serve)
+        lap("anatomy")
     if "ladder" in phases:
         log("[ladder] entry buckets from 64 vs from 8, one call")
         phase_ladder(weights, dev)
+        lap("ladder")
     if "sweep" in phases:
         log("[sweep] the burst by driver threads, coalescer on and off")
         phase_sweep(weights, dev)
+        lap("sweep")
     log(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,14 @@ The port of the JAX package's ``run`` and ``uci`` commands
   engine, whose one shared SearchService evaluates on the GPU (or, with
   ``--device cpu``, on the CPU), or over ``--engine az-mcts``: batched
   PUCT MCTS whose policy+value net runs on the same device. First
-  SIGINT drains, a second aborts; SIGTERM drains with a deadline.
+  SIGINT drains, a second aborts; SIGTERM drains with a deadline
+  (``--drain-deadline``, 25 s by default), during which the exporter's
+  readiness probes (``/healthz``, ``/healthz/ready``) answer 503 with
+  ``draining: true`` while ``/healthz/live`` stays 200, and
+  ``fishnet_drain_state`` reads 1 (resilience/drain.py).
+  ``--fault-plan`` (or ``FISHNET_FAULT_PLAN``) installs a deterministic
+  fault plan before the service is built (resilience/faults.py): a
+  testing aid, logged at error level.
 * ``uci`` serves the batched NNUE search over UCI on stdin/stdout
   (logging goes to stderr: stdout belongs to the protocol).
 
@@ -41,11 +48,6 @@ from fishnet_tpu_torch.sched.queue import BacklogOpt
 from fishnet_tpu_torch.utils.logger import Logger
 from fishnet_tpu_torch.utils.stats import StatsRecorder
 from fishnet_tpu_torch.version import __version__
-
-#: Seconds a SIGTERM drain may flush in-flight batches before the rest
-#: are aborted upstream (the JAX package's default drain deadline).
-DRAIN_DEADLINE_SECONDS = 25.0
-
 
 def _visible_devices(opt: Opt) -> int:
     """The devices a mesh could span: the visible GPUs, or 1 with
@@ -333,6 +335,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
     """The supervisor loop (main.rs:76-260)."""
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.resilience import drain
     from fishnet_tpu_torch.search import eval_cache
 
     stats = StatsRecorder(
@@ -341,6 +344,18 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         no_stats_file=opt.no_stats_file,
     )
     exporter = start_metrics(opt, stats, logger)
+    # Deterministic fault injection (--fault-plan / FISHNET_FAULT_PLAN):
+    # a testing aid — loudly flagged, never silently active. Installed
+    # before the service is built, so its warm-up is under the plan too.
+    plan_spec = opt.resolved_fault_plan()
+    if plan_spec:
+        from fishnet_tpu_torch.resilience import faults
+
+        faults.install(plan_spec)
+        logger.error(
+            f"FAULT INJECTION ACTIVE ({plan_spec!r}). "
+            "Never run this against production traffic."
+        )
     # Warm-restart snapshot (FISHNET_EVAL_CACHE_SNAPSHOT): reload the
     # previous process's eval caches, keyed by the net file's
     # fingerprint (0 for dev-mode random weights) and the AZ net's, so
@@ -393,6 +408,7 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         sigints += 1
         if sigints == 1:
             logger.fishnet_info("Stopping soon. Press ^C again to abort pending batches ...")
+            drain.begin("sigint", depth_fn=client.queue_depth)
             client.shutdown_soon()
         else:
             logger.fishnet_info("Stopping now.")
@@ -400,22 +416,27 @@ async def run_client(opt: Opt, logger: Logger) -> None:
 
     def on_sigterm() -> None:
         # Graceful drain: stop acquiring, flush in-flight batches until
-        # the deadline, then abort the rest upstream and exit 0.
+        # the deadline, then abort the rest upstream (accounted — the
+        # server reassigns) and exit 0. Readiness (/healthz,
+        # /healthz/ready) flips to 503 so an orchestrator stops routing
+        # at this process; liveness (/healthz/live) stays 200 —
+        # draining is not wedged.
         nonlocal sigterms, drain_guard
         sigterms += 1
         if sigterms > 1:
             logger.fishnet_info("Stopping now.")
             stop.set()
             return
+        deadline = opt.resolved_drain_deadline()
         logger.fishnet_info(
             f"SIGTERM: draining (flushing in-flight batches, deadline "
-            f"{DRAIN_DEADLINE_SECONDS:.0f}s; send SIGTERM again to abort "
-            "now) ..."
+            f"{deadline:.0f}s; send SIGTERM again to abort now) ..."
         )
+        drain.begin("sigterm", deadline=deadline, depth_fn=client.queue_depth)
         client.shutdown_soon()
 
         async def deadline_guard() -> None:
-            await asyncio.sleep(DRAIN_DEADLINE_SECONDS)
+            await asyncio.sleep(deadline)
             logger.fishnet_info(
                 "Drain deadline reached; aborting remaining batches upstream."
             )

@@ -12,7 +12,11 @@ run()/worker() (src/main.rs:76-403):
   a hung engine is killed and the position reported failed
   (main.rs:272-273, 316, 343-358);
 * workers request work via the Pull handshake and exit when the queue
-  cancels their callback (drain);
+  cancels their callback (drain); ``queue_depth`` reports what is left
+  to the drain's readiness body;
+* an engine start is the ``engine.spawn`` fault site: an injected fault
+  there fails the position like an ``EngineError`` (requeued at the
+  front of its lane);
 * two-phase shutdown: ``shutdown_soon`` stops acquiring and drains
   pending batches, ``shutdown`` additionally aborts them upstream
   (main.rs:217-259).
@@ -31,6 +35,7 @@ from fishnet_tpu_torch.engine.base import Engine, EngineError, EngineFactory
 from fishnet_tpu_torch.ipc import Position, PositionFailed
 from fishnet_tpu_torch.net import api as api_mod
 from fishnet_tpu_torch.protocol.types import EngineFlavor
+from fishnet_tpu_torch.resilience import faults as _faults
 from fishnet_tpu_torch.sched import queue as queue_mod
 from fishnet_tpu_torch.sched.queue import BacklogOpt, Pull
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
@@ -76,8 +81,14 @@ async def worker(
                     budget = DEFAULT_BUDGET_SECONDS
                     note("starting_engine")
                     try:
+                        # "engine.spawn" fault site: models a failed
+                        # engine start (a service rebuild failure) at
+                        # the one chokepoint every engine backend
+                        # passes through.
+                        if _faults.enabled():
+                            await _faults.fire_async("engine.spawn")
                         engine = await factory.create(flavor)
-                    except EngineError as err:
+                    except (EngineError, _faults.FaultInjected) as err:
                         logger.error(f"Worker {i} failed to start engine: {err}")
                         response = PositionFailed(
                             batch_id=job.work.id, position_id=job.position_id
@@ -256,6 +267,13 @@ class Client:
         """First Ctrl-C: stop acquiring, finish pending batches."""
         if self._queue_stub is not None:
             self._queue_stub.shutdown_soon()
+
+    def queue_depth(self) -> Optional[Dict[str, int]]:
+        """Remaining-work snapshot (pending batches/positions/queued) —
+        the drain readiness body's progress report."""
+        if self._queue_stub is None:
+            return None
+        return self._queue_stub.depth()
 
     async def wait_drained(self) -> None:
         """Resolve when workers and queue have exited (i.e. a

@@ -2,12 +2,14 @@
 
 The port's copy of the ``run`` and ``uci`` parts of
 ``fishnet_tpu/configure.py``: the same flags under the same names and
-defaults (``--mesh`` and ``--metrics-port`` / ``--metrics-port-file``
-among them), with the same precedence CLI > ``fishnet.ini`` (section
-``[Fishnet]``), plus the port's ``--device cuda|cpu``. The interactive
-first-run dialog, systemd, update and span flags (``--spans-dir``,
-``--spans-journal``) are not ported: a missing ini file is simply not
-read.
+defaults (``--mesh``, ``--metrics-port`` / ``--metrics-port-file``,
+``--fault-plan`` and ``--drain-deadline`` among them, with their ini
+keys and errors), with the same precedence CLI > ``fishnet.ini``
+(section ``[Fishnet]``), plus the port's ``--device cuda|cpu``. The
+interactive first-run dialog, systemd, update, span flags
+(``--spans-dir``, ``--spans-journal``) and the multi-tenant front end's
+flags (``--tenants``, ``--lane-depth-limit``) are not ported: a missing
+ini file is simply not read.
 
 Durations parse like the reference (configure.rs:323-342): ``90s``,
 ``2h``, ``1d``, ``500ms``, bare seconds.
@@ -202,6 +204,15 @@ class Opt:
     #: File to write the exporter's BOUND port to once it is listening
     #: (one decimal integer), for ``--metrics-port 0``. None = none.
     metrics_port_file: Optional[str] = None
+    #: Deterministic fault plan (resilience/faults.py grammar). None =
+    #: fault injection off (the default; sites pay one flag check).
+    fault_plan: Optional[str] = None
+    #: Graceful-drain deadline in seconds: on SIGTERM the client stops
+    #: acquiring and flushes in-flight batches for at most this long
+    #: before aborting the rest upstream and exiting 0. None = the 25 s
+    #: default (chosen to fit under Kubernetes' 30 s
+    #: terminationGracePeriodSeconds).
+    drain_deadline: Optional[float] = None
 
     def conf_path(self) -> Path:
         return Path(self.conf) if self.conf else Path("fishnet.ini")
@@ -247,6 +258,12 @@ class Opt:
 
     def resolved_command(self) -> str:
         return self.command or "run"
+
+    def resolved_fault_plan(self) -> Optional[str]:
+        return self.fault_plan or os.environ.get("FISHNET_FAULT_PLAN") or None
+
+    def resolved_drain_deadline(self) -> float:
+        return self.drain_deadline if self.drain_deadline is not None else 25.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -307,6 +324,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-port-file", default=None,
                    help="Write the bound metrics port to this file once "
                         "listening (pairs with --metrics-port 0).")
+    p.add_argument("--fault-plan", default=None,
+                   help="Deterministic fault plan (resilience/faults.py "
+                        "grammar), e.g. 'seed=7;net.acquire:nth=2:error'. "
+                        "Testing aid — never set in production. "
+                        "Default: fault injection off "
+                        "(FISHNET_FAULT_PLAN is the env fallback).")
+    p.add_argument("--drain-deadline", default=None,
+                   help="Graceful-drain deadline (duration, e.g. 25s): on "
+                        "SIGTERM, flush in-flight batches for at most this "
+                        "long before aborting the rest upstream (accounted; "
+                        "the server reassigns) and exiting 0. Default: 25s.")
     return p
 
 
@@ -349,7 +377,25 @@ def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
         opt.metrics_port = _parse_port(str(ns.metrics_port))
     if ns.metrics_port_file is not None:
         opt.metrics_port_file = ns.metrics_port_file
+    if ns.fault_plan is not None:
+        opt.fault_plan = _parse_fault_plan(ns.fault_plan)
+    if ns.drain_deadline is not None:
+        opt.drain_deadline = parse_duration(ns.drain_deadline)
+        if opt.drain_deadline <= 0:
+            raise ConfigError("--drain-deadline must be positive")
     return opt
+
+
+def _parse_fault_plan(value: str) -> str:
+    """Validate a fault-plan spec at config time so a typo fails with a
+    ConfigError instead of a traceback at first injection."""
+    from fishnet_tpu_torch.resilience.faults import FaultPlan, FaultPlanError
+
+    try:
+        FaultPlan.parse(value)
+    except FaultPlanError as err:
+        raise ConfigError(f"invalid --fault-plan: {err}") from err
+    return value
 
 
 def _parse_port(value: str) -> int:
@@ -385,6 +431,8 @@ _INI_FIELDS = (
     ("Device", "device", lambda v: _choice(v, "device", DEVICES)),
     ("MetricsPort", "metrics_port", lambda v: _parse_port(v)),
     ("MetricsPortFile", "metrics_port_file", str),
+    ("FaultPlan", "fault_plan", _parse_fault_plan),
+    ("DrainDeadline", "drain_deadline", parse_duration),
 )
 
 

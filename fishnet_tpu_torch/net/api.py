@@ -19,6 +19,17 @@ a task of its own on a connection of its own, and submissions are not
 queued behind it; every other request is handled in turn. The
 future-based message passing mirrors the reference's mpsc/oneshot
 channels.
+
+Fault sites and accounting (resilience/): with a fault plan installed,
+every acquire passes the ``net.acquire`` site and every analysis or
+move submission the ``net.submit`` site before its request, and an
+injected fault takes the same error path, backoff and retries as a
+transport failure. With a batch ledger installed, the actor records a
+batch as acquired when the server hands it out, as submitted only on
+the server's 2xx to its final analysis or its move, and as abandoned on
+a dropped acquire callback, a fenced 404, a rejected move, spent submit
+retries and a submission still parked behind an open breaker at
+shutdown.
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from fishnet_tpu_torch.protocol.types import (
     move_request_body,
     void_request_body,
 )
+from fishnet_tpu_torch.resilience import accounting as _accounting
+from fishnet_tpu_torch.resilience import faults as _faults
 from fishnet_tpu_torch.resilience.supervisor import CircuitBreaker
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger
@@ -484,6 +497,12 @@ class ApiActor:
                 # shutdown: abandoned (the server reassigns by timeout)
                 # rather than risking a hung exit on a dead endpoint.
                 _SUBMIT_DROPPED.inc(len(self._parked))
+                led = _accounting.get()
+                if led is not None:
+                    for parked in self._parked:
+                        if parked.final and parked.batch_id:
+                            led.record_abandoned(parked.batch_id,
+                                                 "breaker_open")
                 self.logger.error(
                     f"Dropped {len(self._parked)} parked submission(s) at "
                     "shutdown (circuit breaker open)."
@@ -548,6 +567,9 @@ class ApiActor:
             self.queue.put_nowait(msg)
             return True
         _SUBMIT_DROPPED.inc()
+        led = _accounting.get()
+        if led is not None and msg.batch_id:
+            led.record_abandoned(msg.batch_id, "submit_failed")
         self.logger.error(
             f"Dropping {msg.kind} for {msg.batch_id} after "
             f"{MAX_SUBMIT_ATTEMPTS} attempts ({err!r})."
@@ -641,10 +663,15 @@ class ApiActor:
                 self.logger.error(f"Invalid acquire response: {err}")
                 self._fulfil(msg, Acquired.no_content())
                 return
+            led = _accounting.get()
+            if led is not None:
+                led.record_acquired(body.work.id)
             if not self._fulfil(msg, Acquired.accepted(body)):
                 # Nobody is waiting for this job anymore: abort so the
                 # server can reassign immediately (api.rs:678-684).
                 self.logger.error("Acquired a batch, but callback dropped. Aborting.")
+                if led is not None:
+                    led.record_abandoned(body.work.id, "callback_dropped")
                 await self._abort(body.work.id)
         else:
             self.logger.warn(f"Unexpected status for acquire: {res.status}")
@@ -658,6 +685,14 @@ class ApiActor:
 
     async def _handle_inner(self, msg: _Message) -> None:
         assert self._session is not None
+        if _faults.enabled():
+            # Named injection sites: faults raised here flow through
+            # _handle's real error/backoff machinery, exactly like a
+            # transport failure would.
+            if msg.kind == "acquire":
+                await _faults.fire_async("net.acquire")
+            elif msg.kind in ("submit_analysis", "submit_move"):
+                await _faults.fire_async("net.submit")
         if msg.kind == "check_key":
             res = await self._session.get(f"{self.endpoint}/key")
             if res.status in (200, 204):
@@ -714,12 +749,20 @@ class ApiActor:
                     f"Work {msg.batch_id} no longer ours (404); "
                     "dropping submission."
                 )
+                if msg.final:
+                    led = _accounting.get()
+                    if led is not None:
+                        led.record_abandoned(msg.batch_id, "fenced")
                 return
             res.raise_for_status()
             if res.status != 204:
                 self.logger.warn(
                     f"Unexpected status for submitting analysis: {res.status}"
                 )
+            if msg.final:
+                led = _accounting.get()
+                if led is not None:
+                    led.record_submitted(msg.batch_id)
         elif msg.kind == "submit_move":
             res = await self._session.post(
                 f"{self.endpoint}/move/{msg.batch_id}",
@@ -736,9 +779,19 @@ class ApiActor:
                 self.logger.warn(
                     f"Work {msg.batch_id} no longer ours (404); dropping move."
                 )
+                led = _accounting.get()
+                if led is not None:
+                    led.record_abandoned(msg.batch_id, "fenced")
                 self._fulfil(msg, Acquired.no_content())
                 return
+            rejected = res.status in (400, 401, 403, 406)
             await self._parse_acquired(res, msg)
+            led = _accounting.get()
+            if led is not None:
+                if rejected:
+                    led.record_abandoned(msg.batch_id, "rejected")
+                else:
+                    led.record_submitted(msg.batch_id)
         else:
             raise AssertionError(f"unknown message kind {msg.kind}")
 

@@ -1,0 +1,36 @@
+"""Resilience subsystem of the port: the deterministic fault plane, the
+degradation ladder and circuit breaker, exactly-once batch accounting
+and the graceful-drain state — the port of ``fishnet_tpu/resilience/``
+without its load shedding (the multi-tenant front end's) and its soak
+harness.
+
+* :mod:`fishnet_tpu_torch.resilience.faults` — a seedable, deterministic
+  fault plane with named injection sites at the serving chokepoints
+  (``net.acquire``, ``net.submit``, ``engine.spawn``,
+  ``service.device_step``, ``queue.schedule``, ``rpc.detach``). Plans
+  come from ``FISHNET_FAULT_PLAN`` / ``--fault-plan``; when no plan is
+  installed every site costs one module-attribute read.
+* :mod:`fishnet_tpu_torch.resilience.supervisor` — the degradation
+  ladder (on CUDA fused -> host-material, both on the hand kernel),
+  bounded pool respawns, and the submit-endpoint circuit breaker.
+* :mod:`fishnet_tpu_torch.resilience.accounting` — the batch ledger
+  (acquired -> scheduled -> stepped -> submitted, with requeue
+  generations) asserting no batch is lost or double-submitted.
+* :mod:`fishnet_tpu_torch.resilience.drain` — the draining flag, its
+  ``fishnet_drain_state`` gauge and the ``/healthz`` readiness provider.
+
+Everything is **off by default**: with no fault plan installed, no
+ledger installed, and no supervisor wrapped around the service builder,
+the serving hot paths are unchanged.
+"""
+
+from __future__ import annotations
+
+from fishnet_tpu_torch.resilience import accounting, faults  # noqa: F401
+from fishnet_tpu_torch.resilience.faults import (  # noqa: F401 - public API
+    SITES,
+    FaultCrash,
+    FaultInjected,
+    FaultPlan,
+    FaultPlanError,
+)

@@ -43,7 +43,12 @@ link's current frontend epoch are refused (a restarted frontend's
 predecessor is never double-served); a frontend past the lease without
 a heartbeat has its link detached and unlinked, staged work dropped;
 every (re)attach bumps the host epoch, so frontends resubmit what a
-dead host consumed without answering.
+dead host consumed without answering. An injected ``rpc.detach`` fault
+(resilience/faults.py grammar; the plan comes from
+``FISHNET_FAULT_PLAN``) is polled once per sweep while at least one
+link is attached and drops the first link mid-flight without unlinking
+it: the next sweep re-attaches it, and the epoch bump makes its
+frontend resubmit.
 
 Run it: ``python -m fishnet_tpu_torch.rpc.host --nnue-file w.nnue
 --az-seed 0`` (``--device cuda`` by default; without a GPU that
@@ -51,8 +56,7 @@ raises). ``--az-seed`` draws the port's own numpy parameters
 (``models/az.py:init_az_params``), not the JAX package's
 ``jax.random`` ones. Left out against the JAX package: the host's
 ``--metrics-port`` (its ``fishnet_rpc_*`` families are in the process's
-registry, but this entry point starts no exporter), spans, and the
-fault-injection poll (``rpc.detach``).
+registry, but this entry point starts no exporter) and spans.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ import torch
 from fishnet_tpu_torch.chess.core import NativeCoreError
 from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
+from fishnet_tpu_torch.resilience import faults
 from fishnet_tpu_torch.rpc import rings
 from fishnet_tpu_torch.search.coalesce import (
     CoalesceBackend,
@@ -594,9 +599,17 @@ class EvaluatorHost:
             rings.note("result_drops")
 
     def sweep(self) -> int:
-        """One full service round: scan, lease reap, drain, fuse-dispatch,
-        fan results back. Returns records served."""
+        """One full service round: scan, fault poll, lease reap, drain,
+        fuse-dispatch, fan results back. Returns records served."""
         self._scan()
+        plan = faults.current()
+        if plan is not None and self._links:
+            rule = plan.poll("rpc.detach")
+            if rule is not None:
+                # Drop one live link mid-flight: records its attachment
+                # consumed are gone; the re-attach epoch bump makes the
+                # frontend re-pay them.
+                self._detach(sorted(self._links)[0], "fault", unlink=False)
         work = self._drain()
         if not work:
             return 0
@@ -732,6 +745,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     if not args.nnue_file and args.az_seed is None:
         parser.error("nothing to serve: pass --nnue-file and/or --az-seed")
+    try:
+        faults.install_from_env()
+    except faults.FaultPlanError as err:
+        sys.stderr.write(f"E: invalid {faults.PLAN_ENV}: {err}\n")
+        return 2
 
     from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
     from fishnet_tpu_torch.nnue.weights import NnueWeights

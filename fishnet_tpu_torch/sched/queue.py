@@ -5,8 +5,11 @@ submits completed batches.
 The port's copy of ``fishnet_tpu/sched/queue.py`` for the single-stream
 client, with its metrics (``fishnet_batches_*``,
 ``fishnet_queue_exceptions_total`` and the ``fishnet_queue_*`` gauges),
-without its spans, fault sites, accounting ledger and eval-cache
-generation tick. Queued positions go through a
+its ``queue.schedule`` fault site (a fault there drops the batch like an
+invalid one) and its exactly-once ledger calls (resilience/accounting.py:
+scheduled, stepped, requeued, flushed, invalid, abandoned), without its
+spans. ``QueueStub.depth`` is the drain's progress report. Queued
+positions go through a
 ``LaneScheduler`` of one tenant: best-move jobs ride the latency lane
 ahead of analysis positions, which keep their FIFO order. Behavioral
 equivalent of the reference's queue layer (src/queue.rs):
@@ -53,6 +56,8 @@ from fishnet_tpu_torch.protocol.types import (
     Variant,
     Work,
 )
+from fishnet_tpu_torch.resilience import accounting as _accounting
+from fishnet_tpu_torch.resilience import faults as _faults
 from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger, ProgressAt, QueueStatusBar
@@ -461,8 +466,11 @@ class QueueState:
                 continue
             del self.pending[batch_id]
             self.scheduler.drop_batch(batch_id)
+            led = _accounting.get()
             if batch.work.is_analysis:
                 _FLUSHED.inc()
+                if led is not None:
+                    led.record_flushed(batch_id)
                 completed = batch.into_partial_completed(now)
                 done = sum(
                     1 for p in completed.positions
@@ -481,6 +489,8 @@ class QueueState:
                 )
             else:
                 _ABANDONED.inc(reason="deadline")
+                if led is not None:
+                    led.record_abandoned(batch_id, "deadline")
                 self.logger.error(
                     f"Move job {batch_id} exceeded its deadline; aborting."
                 )
@@ -531,6 +541,9 @@ class QueueState:
             sources=list(batch.positions),
             lane=lane,
         )
+        led = _accounting.get()
+        if led is not None:
+            led.record_scheduled(batch_id)
         self.logger.progress(
             self.status_bar(), ProgressAt(batch_id=batch_id, batch_url=batch.url)
         )
@@ -592,6 +605,9 @@ class QueueStub:
         batch = state.pending.get(res.work.id)
         if batch is not None and 0 <= res.position_id < len(batch.positions):
             batch.positions[res.position_id] = res
+            led = _accounting.get()
+            if led is not None:
+                led.record_stepped(res.work.id)
         state.logger.progress(
             state.status_bar(),
             ProgressAt(
@@ -620,6 +636,7 @@ class QueueStub:
             0 <= res.position_id < len(batch.sources)
         ):
             src = batch.sources[res.position_id]
+        led = _accounting.get()
         if (
             src is None
             or src is SKIP
@@ -632,6 +649,8 @@ class QueueStub:
             state.pending.pop(res.batch_id, None)
             state.scheduler.drop_batch(res.batch_id)
             _ABANDONED.inc(reason=reason)
+            if led is not None:
+                led.record_abandoned(res.batch_id, reason)
             state.logger.warn(
                 f"Abandoning batch {batch.url or res.batch_id} ({reason}); "
                 "the server will reassign it."
@@ -639,6 +658,8 @@ class QueueStub:
             return
         batch.generation += 1
         _REQUEUED.inc()
+        if led is not None:
+            led.record_requeued(res.batch_id, batch.generation)
         state.incoming_push(src, lane=batch.lane, front=True)
         state.logger.debug(
             f"Requeued position {res.position_id} of {res.batch_id} "
@@ -715,12 +736,26 @@ class QueueStub:
 
     def shutdown(self) -> None:
         self.shutdown_soon()
+        led = _accounting.get()
         for batch_id in list(self._state.pending):
             self._state.pending.pop(batch_id)
+            if led is not None:
+                led.record_abandoned(batch_id, "shutdown_abort")
             self._api.abort(batch_id)
         # The queued positions belonged to the batches just aborted;
         # drop them too so the drain check sees an empty queue.
         self._state.scheduler.clear()
+
+    def depth(self) -> Dict[str, int]:
+        """Remaining-work snapshot (graceful drain's readiness body,
+        resilience/drain.py): batches still pending, their unanalysed
+        positions, and positions queued for worker pull."""
+        state = self._state
+        return {
+            "batches": len(state.pending),
+            "positions": sum(b.pending() for b in state.pending.values()),
+            "queued": state.incoming_len(),
+        }
 
     def stats(self) -> Tuple[Stats, NpsRecorder]:
         return (
@@ -784,10 +819,18 @@ class QueueActor:
     async def handle_acquired(self, body: AcquireResponseBody) -> None:
         context = body.work.id
         try:
+            # "queue.schedule" fault site: a failure here is a
+            # trust-boundary failure — the batch is dropped like an
+            # invalid one and the server reassigns by timeout.
+            if _faults.enabled():
+                await _faults.fire_async("queue.schedule")
             incoming = IncomingBatch.from_acquired(self.api.endpoint, body)
         except AllSkipped as all_skipped:
             self.logger.warn(f"Completed empty batch {context}.")
             completed = all_skipped.completed
+            led = _accounting.get()
+            if led is not None:
+                led.record_scheduled(completed.work.id)
             self.api.submit_analysis(
                 completed.work.id,
                 completed.flavor.eval_flavor(),
@@ -795,14 +838,21 @@ class QueueActor:
                 final=True,
             )
             return
-        except IncomingError as err:
+        except (IncomingError, _faults.FaultInjected) as err:
             self.logger.warn(f"Ignoring invalid batch {context}: {err}")
+            led = _accounting.get()
+            if led is not None:
+                led.record_invalid(context, str(err))
             return
         if self.state.shutdown_soon:
             # Accepted while shutting down (an in-flight acquire
-            # resolving after shutdown()): nobody will run it. Hand it
-            # back to the server instead of dropping it on the floor.
+            # resolving after shutdown()): nobody will run it. Abandon
+            # it through the ledger and hand it back to the server
+            # instead of dropping it on the floor.
             _ABANDONED.inc(reason="shutdown_incoming")
+            led = _accounting.get()
+            if led is not None:
+                led.record_abandoned(context, "shutdown_incoming")
             self.api.abort(context)
             return
         self.state.add_incoming_batch(incoming)

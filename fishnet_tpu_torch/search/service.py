@@ -74,6 +74,13 @@ host-material rung too, its head reading the wire's material), so a
 group that moves between rungs finds exact tables. Without a mesh
 nothing of this runs.
 
+Fault site (resilience/faults.py): with a plan installed, every stepped
+group passes ``service.device_step`` before its dispatch. An injected
+fault takes the driver down (the supervisor respawns one rung down);
+on the mesh a plain error steps the group's shard down instead and the
+step goes out on the degraded path. With no plan the site is one
+attribute read.
+
 External evaluator (``evaluator=``, the split plane's frontend,
 rpc/client.py, or ``parallel.mesh.ShardedEvaluator``): the service
 holds no device. Each group's step goes out
@@ -136,6 +143,7 @@ from fishnet_tpu_torch.ops.ft_gather import (
     recode_segment_parents_np,
 )
 from fishnet_tpu_torch.protocol.types import Variant
+from fishnet_tpu_torch.resilience import faults as _faults
 from fishnet_tpu_torch.resilience.supervisor import RUNGS, ladder_for
 from fishnet_tpu_torch.search import eval_cache as _eval_cache_mod
 from fishnet_tpu_torch.search.coalesce import (
@@ -2044,6 +2052,25 @@ class SearchService(CoalesceBackend):
                 if n > 0:
                     if self._params is None and self._evaluator is None:
                         raise NativeCoreError("no evaluator")  # pragma: no cover
+                    # "service.device_step" fault site: an injected
+                    # error/crash takes this driver down exactly like a
+                    # real dispatch failure would — the supervisor's
+                    # respawn and degradation ladder is the recovery.
+                    # On the mesh a plain injected error degrades the
+                    # group's SHARD instead (its ladder, then a drain)
+                    # and the step is dispatched normally on the
+                    # degraded path; siblings never notice. A FaultCrash
+                    # still takes the driver down on the mesh.
+                    if _faults.enabled():
+                        if self._router is None:
+                            _faults.fire("service.device_step")
+                        else:
+                            try:
+                                _faults.fire("service.device_step")
+                            except _faults.FaultCrash:
+                                raise
+                            except _faults.FaultInjected as err:
+                                self._degrade_shard_for(g, err)
                     hashes = hmask = hvals = None
                     if cache is not None:
                         hashes, hvals, hmask = self._probe_batch(

@@ -42,7 +42,9 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "train.model", "train.trainer", "train.az_trainer",
              "train.checkpoint", "train.data", "train.selfplay",
              "parallel", "parallel.mesh", "train.sharding", "telemetry",
-             "telemetry.registry", "telemetry.exporter"):
+             "telemetry.registry", "telemetry.exporter", "resilience",
+             "resilience.faults", "resilience.accounting",
+             "resilience.drain"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

@@ -48,8 +48,6 @@ STARTPOS = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 NOT_PORTED = {
     "fishnet_admission_total": "resilience/shedding.py",
     "fishnet_shed_active": "resilience/shedding.py",
-    "fishnet_drain_state": "resilience/drain.py",
-    "fishnet_faults_injected_total": "resilience/faults.py",
     "fishnet_tenant_batches_acquired_total": "sched/frontend.py",
     "fishnet_tenant_batches_shed_total": "sched/frontend.py",
 }
