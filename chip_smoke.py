@@ -34,7 +34,9 @@ evaluator; and drives the fault plane: the supervisor's ladder forced by
 injected device-step crashes, the client under a fault plan with the
 exactly-once batch ledger on, a shard-local device fault on the mesh, a
 ``run`` process drained by SIGTERM, and ``rpc.detach`` on the split
-plane.
+plane; and runs the multi-tenant front end: two tenants against the
+scalar search, the soak harness, four tenants saturating the server
+under admission control.
 
 It prints, in order: the card (``nvidia-smi`` name and power limit,
 torch and CUDA versions), the builds, the FEN check, the parity checks,
@@ -44,15 +46,16 @@ the client runs' throughput and latencies, the cache phase's checks and
 numbers, the split phase's checks and numbers, the az phase's checks
 and numbers (and one JSON object ``{"az": {...}}``), the train phase's
 (and ``{"train": {...}}``), the mesh phase's (and ``{"mesh": {...}}``),
-the trainshard, metrics and faults phases' (and their objects), then
+the trainshard, metrics, faults and overload phases' (and their
+objects), then
 on the last three lines the card again, one JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split, az, train, mesh, trainshard, metrics, faults;
-default all fifteen) limits a run to some phases
+run, cli, cache, split, az, train, mesh, trainshard, metrics, faults,
+overload; default all sixteen) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -126,7 +129,7 @@ scrapes all valid exposition 0.0.4 and, after it, the
 service's families == ``counters()`` == the packed launches; after
 ``close()`` the scrape answers without the service's families; a
 two-logical-shard service's ``fishnet_shard_*`` == ``shard_report()``.
-``faults`` (last) drives every fault site of the port's path on the
+``faults`` drives every fault site of the port's path on the
 card: 8 gated positions at 1000 nodes through the supervised factory,
 crashed twice by ``service.device_step:nth=1:crash`` (the CLI's
 ``degrade_after``), retried one rung down (fused -> host-material) ==
@@ -145,6 +148,25 @@ readiness 503 with ``draining: true``, liveness 200,
 server; an evaluator host under ``rpc.detach:every=40:error`` and one
 frontend: resubmits, analyses == the monolith's. Its drain and host
 logs land in ``chiprun_out/faults/`` and ``chiprun_out/split/``.
+``overload`` (last) runs the multi-tenant front end at the CLI's
+defaults: ``client_parity`` at two tenants and one worker, 2 games x 20
+plies at 1500 nodes queued one at a time, == the native scalar search,
+with ``python -m fishnet_tpu_torch.resilience.soak`` on the card as a
+subprocess beside it (exit 0, phase B one rung down the card's ladder,
+the ledger clean before and after phase C, the four families scraped;
+its output in ``chiprun_out/overload/``); then 4 tenants for 30 s
+against the fake lichess kept at 32 unacquired jobs (every 4th a move
+job, the rest 40-ply games at 1500 nodes) under
+``ShedPolicy(high_watermark=256)`` with the ledger and an exporter on,
+then a hard stop (``saturate``, ``overload_gates``): something shed and
+admitted, the throughput lane within 256 + 4 x 41, the ledger clean, no
+job held or submitted twice, every move job answered unless the stop
+cut it, ``/healthz`` 503 with ``shedding: true`` while shedding, one
+packed launch per dispatch and the error word unmoved; it prints the
+served counts' max/min ratio (not gated at this traffic: the JAX front
+end's own spreads past 2.0 over 30 s), the move and first-report
+latencies, the sheds, activations and nodes/s (``launches_overload`` in
+the kernels line).
 ``coalesce`` holds the fused segmented dispatch of K in {2, 4, 8} real
 group steps against K solo dispatches and the plain segmented version,
 times the fused launch, and runs the service with the new defaults (one
@@ -185,7 +207,7 @@ from typing import Optional
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
           "cache", "split", "az", "train", "mesh", "trainshard", "metrics",
-          "faults")
+          "faults", "overload")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -403,7 +425,17 @@ class FakeLichess:
     ``acquire_delay`` holds each acquire for that many seconds before it
     is answered (a long poll), outside the lock. ``submissions`` counts
     the completing submissions of each job (a final analysis or a move),
-    the server's half of the exactly-once check (``audit``)."""
+    the server's half of the exactly-once check (``audit``).
+
+    The saturation generator of ``tests/fake_server.py``: with
+    ``auto_refill`` > 0 every acquire first tops the queue back up to
+    that many unacquired jobs (every ``refill_move_every``-th job
+    synthesized a best-move job, the rest analysis jobs, at most
+    ``refill_limit`` in all); ``refill_analysis(n)``, when set, gives
+    the ``add_analysis_job`` arguments of the n-th synthesized job (the
+    defaults otherwise). Work ids are ``work_id_prefix`` and a counter;
+    ``first_report_at`` holds when each job's first analysis report
+    (progress or final) arrived."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
@@ -419,42 +451,88 @@ class FakeLichess:
         self.handed_at = {}
         self.completed_at = {}
         self.move_done_at = {}
+        self.first_report_at = {}
         self.bodies = {}  # work id -> the job as added, kept after it is done
         self.submissions = {}  # work id -> completing submissions
+        self.auto_refill = 0
+        self.refill_move_every = 0
+        self.refill_limit = None
+        self.refill_count = 0
+        self.refill_analysis = None
+        self.work_id_prefix = "wk"
         self._ids = itertools.count()
 
     def add_analysis_job(self, moves: str = "e2e4 e7e5", position: str = STARTPOS,
                          variant: str = "standard", skip_positions=None,
                          nodes: int = 5000, multipv=None, depth=None,
                          game_id: str = "", user_queue: bool = False) -> str:
-        work_id = f"wk{next(self._ids):06d}"
-        work = {"type": "analysis", "id": work_id,
+        body = self._analysis_body(moves, position, variant, skip_positions,
+                                   nodes, multipv, depth, game_id)
+        self._add(body, user_queue)
+        return body["work"]["id"]
+
+    def _analysis_body(self, moves: str = "e2e4 e7e5", position: str = STARTPOS,
+                       variant: str = "standard", skip_positions=None,
+                       nodes: int = 5000, multipv=None, depth=None,
+                       game_id: str = "") -> dict:
+        work = {"type": "analysis", "id": self._next_id(),
                 "nodes": {"sf15": nodes, "sf14": nodes, "classical": nodes * 2},
                 "timeout": 7000}
         if multipv is not None:
             work["multipv"] = multipv
         if depth is not None:
             work["depth"] = depth
-        self._add({"work": work, "game_id": game_id, "position": position,
-                   "variant": variant, "moves": moves,
-                   "skipPositions": skip_positions or []}, user_queue)
-        return work_id
+        return {"work": work, "game_id": game_id, "position": position,
+                "variant": variant, "moves": moves,
+                "skipPositions": skip_positions or []}
 
     def add_move_job(self, moves: str = "", position: str = STARTPOS,
                      level: int = 5, clock=None, variant: str = "standard") -> str:
-        work_id = f"wk{next(self._ids):06d}"
-        work = {"type": "move", "id": work_id, "level": level}
+        body = self._move_body(moves, position, level, clock, variant)
+        self._add(body, False)
+        return body["work"]["id"]
+
+    def _move_body(self, moves: str = "", position: str = STARTPOS,
+                   level: int = 5, clock=None, variant: str = "standard") -> dict:
+        work = {"type": "move", "id": self._next_id(), "level": level}
         if clock:
             work["clock"] = clock
-        self._add({"work": work, "game_id": "", "position": position,
-                   "variant": variant, "moves": moves}, False)
-        return work_id
+        return {"work": work, "game_id": "", "position": position,
+                "variant": variant, "moves": moves}
+
+    def _next_id(self) -> str:
+        return f"{self.work_id_prefix}{next(self._ids):06d}"
 
     def _add(self, body, user_queue: bool) -> None:
         with self.lock:
-            self.bodies[body["work"]["id"]] = body
-            self.jobs.append({"body": body, "user_queue": user_queue,
-                              "acquired": False})
+            self._append(body, user_queue)
+
+    def _append(self, body, user_queue: bool) -> None:
+        """Queue a job (the caller holds the lock)."""
+        self.bodies[body["work"]["id"]] = body
+        self.jobs.append({"body": body, "user_queue": user_queue,
+                          "acquired": False})
+
+    def _refill(self) -> None:
+        """Top the queue back up to ``auto_refill`` unacquired jobs (the
+        caller holds the lock)."""
+        if self.auto_refill <= 0:
+            return
+        pending = sum(1 for j in self.jobs if not j["acquired"])
+        while pending < self.auto_refill:
+            if (self.refill_limit is not None
+                    and self.refill_count >= self.refill_limit):
+                return
+            self.refill_count += 1
+            if (self.refill_move_every > 0
+                    and self.refill_count % self.refill_move_every == 0):
+                body = self._move_body()
+            else:
+                kw = (self.refill_analysis(self.refill_count)
+                      if self.refill_analysis is not None else {})
+                body = self._analysis_body(**kw)
+            self._append(body, False)
+            pending += 1
 
     def _hand_out(self, kind=None, slow: bool = False):
         for job in self.jobs:
@@ -500,10 +578,12 @@ class FakeLichess:
                     return self.reject_with, None
                 if not authed:
                     return 401, None
+                self._refill()
                 return self._hand_out(slow=query.get("slow") == ["true"])
             if not authed:
                 return 401, None
             if route == "analysis":
+                self.first_report_at.setdefault(arg, time.monotonic())
                 analysis = (body or {}).get("analysis") or []
                 if analysis and analysis[0] is None:
                     self.progress_reports.setdefault(arg, []).append(body)
@@ -6374,6 +6454,376 @@ def phase_faults(torch, weights, dev) -> dict:
     return out
 
 
+#: The overload phase's sizes: the parity leg's games, plies a game and
+#: nodes a position (two tenants, one worker, one job at a time); the
+#: saturation leg's tenants, the unacquired jobs the server keeps
+#: queued, the period of its move jobs, plies a synthesized game, the
+#: shed policy's high watermark (the JAX default) and the seconds.
+OVERLOAD_PARITY = (2, 20, 1500)
+OVERLOAD_TENANTS = 4
+OVERLOAD_REFILL = 32
+OVERLOAD_MOVE_EVERY = 4
+OVERLOAD_PLIES = 40
+OVERLOAD_HIGH = 256
+OVERLOAD_SECONDS = 30.0
+
+
+async def saturate(client, lichess, seconds: float, overshoot: int,
+                   health_url: Optional[str] = None) -> dict:
+    """Drive a started multi-tenant ``client`` (its server saturated by
+    ``lichess.auto_refill``) for ``seconds``, sampling the lane depths
+    and the shed flag every 20 ms, then ``stop(abort_pending=True)``.
+    With ``health_url``, ``/healthz`` there is scraped once while the
+    policy sheds. Returns the summary of the JAX package's
+    ``bench.py --overload``: latencies on the server's clock (handed out
+    -> move done, handed out -> first analysis report), shedding,
+    fairness (the DRR scheduler's served counts), the sampled lane
+    maxima against ``depth_bound`` (the high watermark plus
+    ``overshoot`` positions a tenant: admission is checked per batch
+    before its positions are pushed), the server's counts, and the
+    ledger's report when one is installed."""
+    import urllib.error
+    import urllib.request
+
+    from fishnet_tpu_torch.resilience import accounting
+    from fishnet_tpu_torch.resilience.shedding import (
+        LANE_LATENCY,
+        LANE_THROUGHPUT,
+    )
+    from fishnet_tpu_torch.telemetry.registry import percentile
+
+    def healthz():
+        try:
+            with urllib.request.urlopen(health_url, timeout=5) as res:
+                return res.status, json.loads(res.read() or b"null")
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read() or b"null")
+
+    frontend = client._frontend
+    check(frontend is not None, "saturate: the client has no front end")
+    sched, policy = frontend.state.scheduler, frontend.shed_policy
+    max_depth = {LANE_LATENCY: 0, LANE_THROUGHPUT: 0}
+    samples = activations = 0
+    was_shedding = False
+    health = None
+    loop = asyncio.get_running_loop()
+    t_end = loop.time() + seconds
+    while loop.time() < t_end:
+        for lane, depth in sched.depths().items():
+            max_depth[lane] = max(max_depth[lane], depth)
+        shedding = policy.shed_active
+        activations += shedding and not was_shedding
+        was_shedding = shedding
+        samples += 1
+        if shedding and health is None and health_url is not None:
+            health = await asyncio.to_thread(healthz)
+        await asyncio.sleep(0.02)
+    await client.stop(abort_pending=True)
+
+    with lichess.lock:
+        move_ms = [(lichess.move_done_at[k] - lichess.handed_at[k]) * 1e3
+                   for k in lichess.move_done_at if k in lichess.handed_at]
+        first_ms = [(lichess.first_report_at[k] - lichess.handed_at[k]) * 1e3
+                    for k in lichess.first_report_at
+                    if k in lichess.handed_at]
+        server = {"acquires": lichess.acquire_count,
+                  "analyses_completed": len(lichess.analyses),
+                  "moves_completed": len(lichess.moves),
+                  "aborted": len(lichess.aborted),
+                  "jobs_synthesized": lichess.refill_count}
+    served = dict(sched.served)
+    positive = [v for v in served.values() if v > 0]
+    tenants = len(frontend.tenants)
+    depth_bound = policy.high_watermark + tenants * overshoot
+    led = accounting.get()
+    return {
+        "tenants": tenants, "seconds": seconds,
+        "latency": {
+            "move_p50_ms": percentile(move_ms, 50),
+            "move_p99_ms": percentile(move_ms, 99), "move_n": len(move_ms),
+            "analysis_first_p50_ms": percentile(first_ms, 50),
+            "analysis_first_p99_ms": percentile(first_ms, 99),
+            "analysis_n": len(first_ms),
+        },
+        "shedding": {
+            "shed_total": sum(ts.shed for ts in frontend.tenants.values()),
+            "admitted_total": sum(ts.acquired
+                                  for ts in frontend.tenants.values()),
+            "shed_by_tenant": {ts.name: ts.shed
+                               for ts in frontend.tenants.values()},
+            "admitted_by_tenant": {ts.name: ts.acquired
+                                   for ts in frontend.tenants.values()},
+            "activations": activations, "policy": policy.snapshot(),
+        },
+        "fairness": {
+            "served_by_tenant": served,
+            "ratio": (max(positive) / min(positive)
+                      if len(positive) >= 2 else None),
+        },
+        "queue": {
+            "max_latency_depth": max_depth[LANE_LATENCY],
+            "max_throughput_depth": max_depth[LANE_THROUGHPUT],
+            "depth_bound": depth_bound,
+            "bounded": max_depth[LANE_THROUGHPUT] <= depth_bound,
+            "samples": samples,
+        },
+        "health_while_shedding": health,
+        "ledger": None if led is None else led.report(),
+        "server": server,
+    }
+
+
+def overload_gates(summary: dict, lichess, what: str) -> None:
+    """The saturation gates of the JAX package's overload smoke, plus the
+    server's side: something shed and something admitted; the
+    throughput lane's sampled maximum within its bound; the ledger clean;
+    every job handed out submitted once or aborted back, none held; every
+    move job handed out answered, unless the stop aborted it in flight
+    or dropped the acquire that took it (none shed or lost); ``/healthz``
+    503 with ``shedding: true`` while shedding, when it was scraped. Adds
+    the move jobs' counts and the ledger's report to ``summary``. The
+    served counts' max/min ratio, which the JAX smoke gates at 2.0, is
+    left to the caller: admission is first come, first served, a batch
+    at a time, and the JAX front end's own ratio passes 2.0 in some runs
+    at both the smoke's traffic and the card's
+    (``python -m tests.test_torch_overload``)."""
+    from fishnet_tpu_torch.resilience import accounting
+
+    shed, queue = summary["shedding"], summary["queue"]
+    check(shed["shed_total"] >= 1 and shed["admitted_total"] >= 1,
+          f"{what}: shed {shed['shed_total']}, admitted "
+          f"{shed['admitted_total']}")
+    check(queue["bounded"], f"{what}: the throughput lane reached "
+                            f"{queue['max_throughput_depth']} > "
+                            f"{queue['depth_bound']}")
+    led = accounting.get()
+    check(led is not None, f"{what}: no ledger installed")
+    report = led.assert_clean()
+    audit = lichess.audit()
+    check(not audit["held"] and not audit["duplicated"],
+          f"{what}: jobs held or submitted twice on the server: {audit}")
+    with lichess.lock:
+        handed_moves = [i for i in lichess.handed_at
+                        if lichess.bodies[i]["work"]["type"] == "move"]
+        answered = [i for i in handed_moves if i in lichess.moves]
+    cut = [i for i in handed_moves if i not in answered]
+    records = [led.record(i) for i in cut]
+    reasons = sorted({r.reason for r in records if r is not None})
+    check(answered and None not in records
+          and all(r.startswith("shutdown") or r == "callback_dropped"
+                  for r in reasons),
+          f"{what}: {len(answered)} of {len(handed_moves)} move jobs "
+          f"answered, the rest {reasons}")
+    health = summary["health_while_shedding"]
+    if health is not None:
+        code, body = health
+        check(code == 503 and body["providers"]["serving"]["shedding"] is True,
+              f"{what}: /healthz while shedding: {code} {body}")
+    summary["moves"] = {"handed": len(handed_moves), "answered": len(answered),
+                        "cut_by_stop": len(cut)}
+    summary["ledger"] = report
+
+
+def overload_saturation(dev, url: str) -> dict:
+    """The saturation leg: ``run``'s engine factory at the CLI's defaults
+    (the full-width net, 224 workers on 7 cores) behind OVERLOAD_TENANTS
+    tenants against the stdlib fake lichess, which keeps OVERLOAD_REFILL
+    unacquired jobs queued (every OVERLOAD_MOVE_EVERY-th a move job, the
+    rest games of OVERLOAD_PLIES plies at RUN_NODES), under
+    ``ShedPolicy(high_watermark=OVERLOAD_HIGH)`` with the batch ledger and
+    an exporter (``url``) on, for OVERLOAD_SECONDS (``saturate``), then
+    ``overload_gates`` with a bound of one game a tenant over the
+    watermark. The packed kernel's launch counts are zeroed after the
+    service's warm-up and read after the stop: one launch per device
+    dispatch, no dense launch, the error word unmoved."""
+    import torch
+
+    from fishnet_tpu_torch.__main__ import build_engine_factory
+    from fishnet_tpu_torch.client import Client
+    from fishnet_tpu_torch.configure import parse_and_configure
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.protocol.types import EngineFlavor
+    from fishnet_tpu_torch.resilience import accounting
+    from fishnet_tpu_torch.resilience.shedding import ShedPolicy
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    fresh_cache()
+    device = torch.device(dev)
+    gpu = device.type == "cuda"
+    logger = Logger(verbose=0)
+    opt = parse_and_configure(
+        ["run", "--no-conf", "--no-stats-file", "--microbatch", "1024",
+         "--pipeline", "2", "--device", device.type])
+    factory = build_engine_factory(opt, logger)
+    games = random_games(64, OVERLOAD_PLIES, seed=53)
+    packed = ft_gather.ft_accumulate_packed_cuda
+    accounting.install()
+    try:
+        with FakeServer() as server:
+            lichess = server.lichess
+            lichess.auto_refill = OVERLOAD_REFILL
+            lichess.refill_move_every = OVERLOAD_MOVE_EVERY
+            lichess.refill_analysis = lambda n: dict(
+                moves=" ".join(games[n % len(games)]), nodes=RUN_NODES)
+            client = Client(endpoint=server.endpoint, key=VALID_KEY,
+                            cores=opt.resolved_cores(), engine_factory=factory,
+                            logger=logger, max_backoff=1.0,
+                            workers=opt.resolved_workers(),
+                            tenants=OVERLOAD_TENANTS,
+                            shed_policy=ShedPolicy(high_watermark=OVERLOAD_HIGH),
+                            supervisor=factory.supervisor)
+
+            async def run():
+                await factory.create(EngineFlavor.OFFICIAL)
+                svc = factory.service
+                c0 = svc.counters()
+                errors0 = ft_gather.kernel_errors(dev) if gpu else 0
+                packed.launches = packed.copy_launches = 0  # after warm-up
+                ft_gather.ft_accumulate_cuda.launches = 0
+                await client.start()
+                summary = await saturate(client, lichess, OVERLOAD_SECONDS,
+                                         overshoot=OVERLOAD_PLIES + 1,
+                                         health_url=f"{url}/healthz")
+                # The stop cancels searches mid-step: read the counts
+                # once no dispatch is in flight and they stopped moving.
+                last, deadline = None, time.monotonic() + 30
+                while True:
+                    c1 = svc.counters()
+                    now = (c1["dispatches"], packed.launches,
+                           c1["inflight_dispatches"])
+                    if now == last and now[2] == 0:
+                        break
+                    check(time.monotonic() < deadline,
+                          f"overload: the service never went quiet {now}")
+                    last = now
+                    await asyncio.sleep(0.1)
+                summary["kernel"] = {
+                    "dispatches": c1["dispatches"] - c0["dispatches"],
+                    "launches": packed.launches,
+                    "dense": ft_gather.ft_accumulate_cuda.launches,
+                    "errors_moved": (ft_gather.kernel_errors(dev) - errors0
+                                     if gpu else 0)}
+                summary["nodes_per_s"] = (c1["nodes"] - c0["nodes"]) / \
+                    OVERLOAD_SECONDS
+                return summary
+
+            summary = asyncio.run(run())
+            try:
+                overload_gates(summary, lichess, "overload")
+            finally:
+                log_saturation(summary)
+    finally:
+        factory.close()
+        accounting.clear()
+    kern = summary["kernel"]
+    check(summary["health_while_shedding"] is not None,
+          "overload: /healthz was never scraped while shedding")
+    check(kern["launches"] > 0 and kern["dense"] == 0
+          and (kern["launches"] == kern["dispatches"] or not gpu),
+          f"overload: {kern}")
+    check(kern["errors_moved"] == 0, f"overload: the error word moved {kern}")
+    return summary
+
+
+def log_saturation(summary: dict) -> None:
+    """The saturation leg's numbers (``overload_saturation``), logged
+    before or after its gates."""
+    kern, lat, shed = summary["kernel"], summary["latency"], summary["shedding"]
+    health = summary["health_while_shedding"]
+    log(f"  saturation: {OVERLOAD_TENANTS} tenants, {OVERLOAD_SECONDS:.0f} s "
+        f"at high watermark {OVERLOAD_HIGH}: shed {shed['shed_total']} "
+        f"(by tenant {shed['shed_by_tenant']}), admitted "
+        f"{shed['admitted_total']}, {shed['activations']} activations; "
+        f"throughput lane max {summary['queue']['max_throughput_depth']} "
+        f"(bound {summary['queue']['depth_bound']}), latency lane max "
+        f"{summary['queue']['max_latency_depth']}; served "
+        f"{summary['fairness']['served_by_tenant']} (ratio "
+        f"{summary['fairness']['ratio']}); ledger {summary['ledger']}; "
+        f"server {summary['server']}; move jobs {summary.get('moves')}")
+    log(f"  saturation: move (handed out -> move done) p50 "
+        f"{lat['move_p50_ms']} ms, p99 {lat['move_p99_ms']} ms over "
+        f"{lat['move_n']}; analysis first report p50 "
+        f"{lat['analysis_first_p50_ms']} ms, p99 "
+        f"{lat['analysis_first_p99_ms']} ms over {lat['analysis_n']}; "
+        f"{summary['nodes_per_s']:.0f} nodes/s; /healthz while shedding "
+        f"{None if health is None else health[0]}; {kern['launches']} "
+        f"packed launches ({kern['dense']} dense) for {kern['dispatches']} "
+        "dispatches")
+
+
+def overload_soak(dev) -> dict:
+    """``python -m fishnet_tpu_torch.resilience.soak --device <dev>`` as
+    a subprocess: exit 0, its report ``ok`` with phase B on the ladder's
+    second rung, the ledger clean before and after phase C and the four
+    families scraped. Its output lands in ``chiprun_out/overload/``."""
+    import torch
+
+    from fishnet_tpu_torch.resilience.soak import REQUIRED_FAMILIES
+    from fishnet_tpu_torch.resilience.supervisor import ladder_for
+
+    device = torch.device(dev).type
+    out_dir = ROOT / "chiprun_out" / "overload"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fishnet_tpu_torch.resilience.soak",
+         "--device", device], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    seconds = time.perf_counter() - t0
+    (out_dir / "soak.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0,
+          f"soak: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    ladder = ladder_for(device)
+    clean = all(not report[k]["lost"] and not report[k]["duplicated"]
+                for k in ("ledger", "ledger_final"))
+    log(f"  soak: exit 0 in {seconds:.3f} s; phase B {report['phase_b']}; "
+        f"phase C shed {report['phase_c']['shed']}, admitted "
+        f"{report['phase_c']['admitted']}, max depth "
+        f"{report['phase_c']['max_throughput_depth']} (bound "
+        f"{report['phase_c']['depth_bound']}); degradation "
+        f"{report['counters']['degradation']}; ledger before C "
+        f"{report['ledger']}, after {report['ledger_final']}")
+    check(report["ok"] and report["phase_b"]["rung"] == ladder[1]
+          and report["counters"]["degradation"]["from"] == ladder[0]
+          and clean
+          and sorted(report["metric_families"]) == sorted(REQUIRED_FAMILIES),
+          f"soak: {report}")
+    return {"phase_b": report["phase_b"], "phase_c": report["phase_c"],
+            "counters": report["counters"], "seconds": seconds}
+
+
+def phase_overload(weights, dev) -> dict:
+    """The multi-tenant front end on the card: the parity leg
+    (``client_parity`` at two tenants, one worker, OVERLOAD_PARITY games
+    queued one at a time, against the native scalar service) with the
+    soak subprocess (``overload_soak``) beside it, then the saturation
+    leg (``overload_saturation``) under an exporter. "launches" is the
+    saturation leg's packed launches."""
+    from fishnet_tpu_torch import telemetry
+
+    t0 = time.perf_counter()
+    games, plies, nodes = OVERLOAD_PARITY
+    with ThreadPoolExecutor(1) as pool:
+        soak = pool.submit(overload_soak, dev)
+        tp = time.perf_counter()
+        client_parity(weights, dev, games=games, plies=plies, nodes=nodes,
+                      tenants=2)
+        parity_s = time.perf_counter() - tp
+        out = {"soak": soak.result(), "parity_s": parity_s}
+    exporter = telemetry.start_exporter(0)
+    try:
+        out["saturation"] = overload_saturation(dev, exporter.url)
+    finally:
+        exporter.close()
+        telemetry.disable()
+    out["launches"] = out["saturation"]["kernel"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  overload: {out['seconds']:.3f} s (parity {parity_s:.3f} s, soak "
+        f"{out['soak']['seconds']:.3f} s beside it)")
+    return out
+
+
 def phase_fen() -> None:
     """ROADMAP C7, in this process (torch imported, the core loaded):
     the port's Board gives back the expected FEN of every FEN_CHECKS
@@ -6517,18 +6967,43 @@ async def drive_client(client, lichess, ids, timeout: float) -> None:
         await client.stop()
 
 
-def client_parity(weights, dev, games: int, plies: int, depth: int,
-                  threads: int = 1) -> None:
+async def drive_one_at_a_time(client, lichess, adds, timeout: float) -> list:
+    """Run ``client`` over the jobs that ``adds`` queue on the server,
+    each called only once the job before it is submitted; returns the
+    work ids."""
+    await client.start()
+    ids = []
+    try:
+        deadline = time.monotonic() + timeout
+        for add in adds:
+            ids.append(add())
+            while ids[-1] not in lichess.analyses:
+                check(time.monotonic() < deadline, "the client did not finish "
+                                                   f"in {timeout:.0f} s")
+                await asyncio.sleep(0.02)
+    finally:
+        await client.stop()
+    return ids
+
+
+def client_parity(weights, dev, games: int, plies: int,
+                  depth: Optional[int] = None, threads: int = 1,
+                  nodes: Optional[int] = None, tenants: int = 1) -> None:
     """The ``run`` path's parity check: ``games`` seeded games of
-    ``plies`` plies, analysed at ``depth`` through the port's Client
-    (one worker, prefetch pinned) on a SearchService over ``dev`` (with
-    ``threads`` driver threads and two pipeline groups each: with more
-    than one group the coalescer's ticket path) and on the native scalar
-    service, must submit the same score, best move and depth per ply. The worker's engine budget is lifted for the
-    check, and it fails on any engine timeout, requeued or abandoned
-    position, or abort: a search run again over a TT it already filled
-    may differ without any fault of the evaluator. As in
-    ``phase_parity``, the GPU service runs without the bounds tier."""
+    ``plies`` plies, analysed at ``depth`` (or ``nodes`` a position)
+    through the port's Client (one worker, prefetch pinned) on a
+    SearchService over ``dev`` (with ``threads`` driver threads and two
+    pipeline groups each: with more than one group the coalescer's
+    ticket path) and on the native scalar service, must submit the same
+    score, best move and depth per ply. With ``tenants`` > 1 the client
+    runs the multi-tenant front end and each game is queued on the
+    server only once the one before it is submitted, so the job
+    sequence is fixed whichever tenant takes a game. The worker's engine
+    budget is lifted for the check, and it fails on any engine timeout,
+    requeued or abandoned position, or abort: a search run again over a
+    TT it already filled may differ without any fault of the evaluator.
+    As in ``phase_parity``, the GPU service runs without the bounds
+    tier."""
     from fishnet_tpu_torch import client as client_mod
     from fishnet_tpu_torch.client import Client
     from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
@@ -6567,15 +7042,26 @@ def client_parity(weights, dev, games: int, plies: int, depth: int,
             svc.set_prefetch(8, adaptive=False)
             logger = Recorder()
             with FakeServer() as server:
-                ids = [server.lichess.add_analysis_job(
-                    moves=" ".join(g), nodes=10_000_000, depth=depth)
-                    for g in lines]
+                lichess = server.lichess
+
+                def add(game):
+                    return lichess.add_analysis_job(
+                        moves=" ".join(game), depth=depth,
+                        nodes=10_000_000 if nodes is None else nodes)
+
                 client = Client(endpoint=server.endpoint, key=VALID_KEY,
                                 cores=1, workers=1,
                                 engine_factory=TpuNnueEngineFactory(svc),
-                                logger=logger, max_backoff=0.2)
+                                logger=logger, max_backoff=0.2,
+                                tenants=tenants)
                 try:
-                    asyncio.run(drive_client(client, server.lichess, ids, 600))
+                    if tenants == 1:
+                        ids = [add(g) for g in lines]
+                        asyncio.run(drive_client(client, lichess, ids, 600))
+                    else:
+                        ids = asyncio.run(drive_one_at_a_time(
+                            client, lichess, [lambda g=g: add(g)
+                                              for g in lines], 600))
                 finally:
                     svc.close()
             check(not logger.complaints and not server.lichess.aborted,
@@ -6591,9 +7077,11 @@ def client_parity(weights, dev, games: int, plies: int, depth: int,
     n = games * (plies + 1)
     check(len(ours) == len(scalar) == n and not bad,
           f"{dev} vs scalar: {len(bad)} of {len(ours)} plies differ: {bad[:3]}")
-    log(f"  parity: {games} games, {n} plies at depth {depth} through the "
-        f"client, no timeout, requeue or abort: the service on {dev} == the "
-        "native scalar service on (score, best move, depth) per ply")
+    budget = f"depth {depth}" if nodes is None else f"{nodes} nodes"
+    log(f"  parity: {games} games, {n} plies at {budget} through the client "
+        f"({tenants} tenant{'s' if tenants > 1 else ''}), no timeout, "
+        f"requeue or abort: the service on {dev} == the native scalar "
+        "service on (score, best move, depth) per ply")
 
 
 #: The ``run`` phase's nodes a position: at 3000, its 16 games (640
@@ -7094,6 +7582,15 @@ def main() -> int:
             entry["launches_faults"] = faults["launches"]
         print(json.dumps({"faults": faults}), flush=True)
         lap("faults")
+    if "overload" in phases:
+        log("[overload] the multi-tenant front end: two tenants against the "
+            "scalar search, the soak harness, then four tenants saturating "
+            "the server under admission control")
+        overload = phase_overload(weights, dev)
+        for entry in entries:
+            entry["launches_overload"] = overload["launches"]
+        print(json.dumps({"overload": overload}), flush=True)
+        lap("overload")
     if "profile" in phases:
         log("[profile] a loaded burst under torch.profiler, at one driver "
             "thread and at the default")

@@ -13,6 +13,12 @@ The port of the JAX package's ``run`` and ``uci`` commands
   readiness probes (``/healthz``, ``/healthz/ready``) answer 503 with
   ``draining: true`` while ``/healthz/live`` stays 200, and
   ``fishnet_drain_state`` reads 1 (resilience/drain.py).
+  ``--tenants N`` (N > 1) runs N acquire streams through the
+  multi-tenant front end (sched/frontend.py): two priority lanes, DRR
+  fairness across tenants and admission control that sheds analysis
+  batches past ``--lane-depth-limit`` queued positions (256 by
+  default), its capacity scaled down by the supervisor's rung and an
+  open submit breaker.
   ``--fault-plan`` (or ``FISHNET_FAULT_PLAN``) installs a deterministic
   fault plan before the service is built (resilience/faults.py): a
   testing aid, logged at error level.
@@ -377,6 +383,18 @@ async def run_client(opt: Opt, logger: Logger) -> None:
             logger.info(f"Restored {len(az_cache)} AZ eval-cache entries "
                         "from snapshot.")
     engine_factory = build_engine_factory(opt, logger, az_net)
+    supervisor = getattr(engine_factory, "supervisor", None)
+    shed_policy = None
+    if opt.lane_depth_limit is not None:
+        from fishnet_tpu_torch.resilience.shedding import ShedPolicy
+        from fishnet_tpu_torch.resilience.supervisor import any_breaker_open
+
+        shed_policy = ShedPolicy(
+            high_watermark=opt.lane_depth_limit,
+            breaker_open_fn=any_breaker_open,
+            rung_fn=(lambda: supervisor.rung) if supervisor is not None
+            else None,
+        )
     client = Client(
         endpoint=opt.resolved_endpoint(),
         key=opt.key,
@@ -388,6 +406,9 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         max_backoff=opt.resolved_max_backoff(),
         workers=opt.resolved_workers(),
         batch_deadline=opt.batch_deadline,
+        tenants=opt.resolved_tenants(),
+        shed_policy=shed_policy,
+        supervisor=supervisor,
     )
     if opt.resolved_workers() != opt.resolved_cores():
         shared = opt.resolved_engine() in ("tpu-nnue", "az-mcts")

@@ -1,9 +1,10 @@
 """Client supervisor: wires the API actor, queue actor, and worker pool.
 
-The port's copy of ``fishnet_tpu/client.py`` for the single-stream
-client (the JAX package's multi-tenant front end is not ported: more
-than one tenant is refused). Equivalent of the reference's
-run()/worker() (src/main.rs:76-403):
+The port's copy of ``fishnet_tpu/client.py``: with ``tenants`` > 1 the
+multi-tenant front end (sched/frontend.py) replaces the single api and
+queue actor pair (``FISHNET_NO_MULTITENANT=1`` keeps the single
+stream). Equivalent of the reference's run()/worker()
+(src/main.rs:76-403):
 
 * one worker task per configured core (or ``workers`` pull loops over a
   shared batched engine), each owning at most one engine per flavor,
@@ -16,7 +17,7 @@ run()/worker() (src/main.rs:76-403):
   to the drain's readiness body;
 * an engine start is the ``engine.spawn`` fault site: an injected fault
   there fails the position like an ``EngineError`` (requeued at the
-  front of its lane);
+  front of the queue, or of its tenant's lane);
 * two-phase shutdown: ``shutdown_soon`` stops acquiring and drains
   pending batches, ``shutdown`` additionally aborts them upstream
   (main.rs:217-259).
@@ -171,12 +172,21 @@ class Client:
     # None = no deadline (the reference model: the server's own timeout
     # reassigns).
     batch_deadline: Optional[float] = None
-    # Concurrent acquire streams: the port serves exactly one.
+    # Concurrent acquire streams (sched/frontend.py). 1 = the classic
+    # single-stream client; >1 wires the multi-tenant front end with
+    # priority lanes, DRR fairness, and admission control.
+    # FISHNET_NO_MULTITENANT=1 forces the single-stream path.
     tenants: int = 1
+    # Admission/shedding policy override (tests, the smoke run); None
+    # builds the default watermark policy in the front end.
+    shed_policy: Optional[object] = None
+    # ServiceSupervisor whose ladder rung scales shed capacity.
+    supervisor: Optional[object] = None
 
     _tasks: List[asyncio.Task] = field(default_factory=list)
     _queue_stub: Optional[queue_mod.QueueStub] = None
     _api_actor: Optional[api_mod.ApiActor] = None
+    _frontend: Optional[object] = None
     _worker_states: Optional[List[str]] = None
     _collector_token: Optional[int] = None
 
@@ -210,31 +220,52 @@ class Client:
             collect, name="workers"
         )
 
-    def __post_init__(self) -> None:
-        if self.tenants != 1:
-            raise ValueError(
-                f"tenants={self.tenants}: the multi-tenant front end is not "
-                "ported; this client runs one acquire stream (tenants=1)"
-            )
-
     async def start(self) -> None:
-        api_stub, api_actor = api_mod.channel(
-            self.endpoint, self.key, self.logger
-        )
-        self._api_actor = api_actor
-        self._tasks.append(asyncio.create_task(api_actor.run(), name="api"))
+        from fishnet_tpu_torch.sched import frontend as frontend_mod
 
-        queue_stub, queue_actor = queue_mod.channel(
-            cores=self.cores,
-            api=api_stub,
-            logger=self.logger,
-            stats=self.stats,
-            backlog=self.backlog,
-            max_backoff=self.max_backoff,
-            batch_deadline=self.batch_deadline,
-        )
-        self._queue_stub = queue_stub
-        self._tasks.append(asyncio.create_task(queue_actor.run(), name="queue"))
+        if frontend_mod.multitenant_enabled(self.tenants):
+            frontend = frontend_mod.FrontEnd(
+                self.endpoint, self.key, self.logger,
+                cores=self.cores,
+                tenants=self.tenants,
+                stats=self.stats,
+                backlog=self.backlog,
+                max_backoff=self.max_backoff,
+                batch_deadline=self.batch_deadline,
+                shed_policy=self.shed_policy,
+                supervisor=self.supervisor,
+            )
+            self._frontend = frontend
+            queue_mod._register_queue_collector(frontend.state)
+            for name, actor in frontend.api_actors():
+                self._tasks.append(
+                    asyncio.create_task(actor.run(), name=name)
+                )
+            queue_stub = frontend.stub
+            self._queue_stub = queue_stub
+            self._tasks.append(
+                asyncio.create_task(frontend.run(), name="queue")
+            )
+        else:
+            api_stub, api_actor = api_mod.channel(
+                self.endpoint, self.key, self.logger
+            )
+            self._api_actor = api_actor
+            self._tasks.append(asyncio.create_task(api_actor.run(), name="api"))
+
+            queue_stub, queue_actor = queue_mod.channel(
+                cores=self.cores,
+                api=api_stub,
+                logger=self.logger,
+                stats=self.stats,
+                backlog=self.backlog,
+                max_backoff=self.max_backoff,
+                batch_deadline=self.batch_deadline,
+            )
+            self._queue_stub = queue_stub
+            self._tasks.append(
+                asyncio.create_task(queue_actor.run(), name="queue")
+            )
 
         n_workers = self.cores if self.workers is None else self.workers
         self._worker_states = ["idle"] * n_workers
@@ -279,7 +310,9 @@ class Client:
         """Resolve when workers and queue have exited (i.e. a
         ``shutdown_soon`` drain completed); the api actor stays up to
         deliver final submissions."""
-        tasks = [t for t in self._tasks if t.get_name() != "api"]
+        tasks = [
+            t for t in self._tasks if not t.get_name().startswith("api")
+        ]
         if tasks:
             await asyncio.wait(tasks)
 
@@ -300,7 +333,8 @@ class Client:
         # src/stockfish.rs:138); a graceful drain gets the full grace
         # period.
         worker_and_queue = [
-            t for t in self._tasks if t.get_name() != "api" and not t.done()
+            t for t in self._tasks
+            if not t.get_name().startswith("api") and not t.done()
         ]
         if worker_and_queue:
             await asyncio.wait(
@@ -312,8 +346,12 @@ class Client:
 
         if self._api_actor is not None:
             self._api_actor.stop()
+        if self._frontend is not None:
+            for ts in self._frontend.tenants.values():
+                ts.actor.stop()
         api_tasks = [
-            t for t in self._tasks if t.get_name() == "api" and not t.done()
+            t for t in self._tasks
+            if t.get_name().startswith("api") and not t.done()
         ]
         if api_tasks:
             await asyncio.wait(api_tasks, timeout=10.0)

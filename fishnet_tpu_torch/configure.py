@@ -3,13 +3,13 @@
 The port's copy of the ``run`` and ``uci`` parts of
 ``fishnet_tpu/configure.py``: the same flags under the same names and
 defaults (``--mesh``, ``--metrics-port`` / ``--metrics-port-file``,
-``--fault-plan`` and ``--drain-deadline`` among them, with their ini
-keys and errors), with the same precedence CLI > ``fishnet.ini``
-(section ``[Fishnet]``), plus the port's ``--device cuda|cpu``. The
-interactive first-run dialog, systemd, update, span flags
-(``--spans-dir``, ``--spans-journal``) and the multi-tenant front end's
-flags (``--tenants``, ``--lane-depth-limit``) are not ported: a missing
-ini file is simply not read.
+``--fault-plan``, ``--drain-deadline``, ``--tenants`` and
+``--lane-depth-limit`` among them, with their ini keys and errors), with
+the same precedence CLI > ``fishnet.ini`` (section ``[Fishnet]``), plus
+the port's ``--device cuda|cpu``. The interactive first-run dialog,
+systemd, update and the span flags (``--spans-dir``,
+``--spans-journal``) are not ported: a missing ini file is simply not
+read.
 
 Durations parse like the reference (configure.rs:323-342): ``90s``,
 ``2h``, ``1d``, ``500ms``, bare seconds.
@@ -213,6 +213,14 @@ class Opt:
     #: default (chosen to fit under Kubernetes' 30 s
     #: terminationGracePeriodSeconds).
     drain_deadline: Optional[float] = None
+    #: Concurrent acquire streams (sched/frontend.py). >1 wires the
+    #: multi-tenant front end: priority lanes, DRR fairness, admission
+    #: control + load shedding. None/1 = the classic single stream.
+    tenants: Optional[int] = None
+    #: Admission-control high watermark: queued throughput-lane
+    #: positions past which analysis batches are shed (accounted abort;
+    #: the server reassigns). None = the shed policy default.
+    lane_depth_limit: Optional[int] = None
 
     def conf_path(self) -> Path:
         return Path(self.conf) if self.conf else Path("fishnet.ini")
@@ -264,6 +272,9 @@ class Opt:
 
     def resolved_drain_deadline(self) -> float:
         return self.drain_deadline if self.drain_deadline is not None else 25.0
+
+    def resolved_tenants(self) -> int:
+        return self.tenants if self.tenants is not None else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -335,6 +346,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "SIGTERM, flush in-flight batches for at most this "
                         "long before aborting the rest upstream (accounted; "
                         "the server reassigns) and exiting 0. Default: 25s.")
+    p.add_argument("--tenants", type=int, default=None,
+                   help="Concurrent acquire streams (multi-tenant front "
+                        "end with priority lanes, per-tenant fairness, and "
+                        "admission control). Default: 1 (the classic "
+                        "single stream). FISHNET_NO_MULTITENANT=1 forces "
+                        "single-stream.")
+    p.add_argument("--lane-depth-limit", type=int, default=None,
+                   help="Admission-control high watermark: queued "
+                        "analysis-lane positions past which bulk batches "
+                        "are shed (accounted abort; the server reassigns). "
+                        "Default: the shed policy's built-in watermark.")
     return p
 
 
@@ -383,6 +405,14 @@ def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
         opt.drain_deadline = parse_duration(ns.drain_deadline)
         if opt.drain_deadline <= 0:
             raise ConfigError("--drain-deadline must be positive")
+    if ns.tenants is not None:
+        if ns.tenants < 1:
+            raise ConfigError("--tenants must be >= 1")
+        opt.tenants = ns.tenants
+    if ns.lane_depth_limit is not None:
+        if ns.lane_depth_limit < 1:
+            raise ConfigError("--lane-depth-limit must be >= 1")
+        opt.lane_depth_limit = ns.lane_depth_limit
     return opt
 
 
@@ -433,6 +463,9 @@ _INI_FIELDS = (
     ("MetricsPortFile", "metrics_port_file", str),
     ("FaultPlan", "fault_plan", _parse_fault_plan),
     ("DrainDeadline", "drain_deadline", parse_duration),
+    ("Tenants", "tenants", lambda v: _positive_int(v, "Tenants")),
+    ("LaneDepthLimit", "lane_depth_limit",
+     lambda v: _positive_int(v, "LaneDepthLimit")),
 )
 
 

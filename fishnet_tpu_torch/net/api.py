@@ -29,7 +29,13 @@ batch as acquired when the server hands it out, as submitted only on
 the server's 2xx to its final analysis or its move, and as abandoned on
 a dropped acquire callback, a fenced 404, a rejected move, spent submit
 retries and a submission still parked behind an open breaker at
-shutdown.
+shutdown; the stub aborts (and abandons) a job handed to a caller that
+was cancelled before it took it.
+
+Multi-tenant mode (sched/frontend.py): each tenant owns a stub/actor
+pair of its own (``channel(tenant=)``), its breaker named
+``submit:<tenant>``, and a ``ShedAwarePacer`` that slows its acquires
+while the front end sheds (``fishnet_acquire_paced_total{tenant}``).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from urllib.parse import urlencode, urlsplit
 from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.protocol.types import (
     Acquired,
+    AcquiredKind,
     AcquireResponseBody,
     AnalysisPartJson,
     AnalysisStatus,
@@ -125,8 +132,6 @@ _PARKED = _telemetry.REGISTRY.gauge(
     "fishnet_api_parked_submissions",
     "Analysis submissions parked behind an open circuit breaker.",
 )
-#: Shed-aware acquire pacing belongs to the multi-tenant front end
-#: (not ported): the family is exported, and stays empty.
 _ACQUIRE_PACED = _telemetry.REGISTRY.counter(
     "fishnet_acquire_paced_total",
     "Acquire attempts slowed by shed-aware pacing (the front end is "
@@ -143,6 +148,37 @@ _CONN_RESETS = _telemetry.REGISTRY.counter(
 #: The exceptions ``_CONN_RESETS`` counts: the stdlib transport's
 #: connection-level failures and the request timeout.
 _CONN_ERRORS = (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError)
+
+#: Acquire-stream pause per pacing round while the shed policy is
+#: active. Long enough to let the queue drain meaningfully, short
+#: enough that latency-lane (move) jobs are still picked up promptly.
+SHED_PACE_SECONDS = 0.25
+
+
+class ShedAwarePacer:
+    """Slows a tenant's acquire stream while load shedding is active.
+
+    ``shed_active_fn`` probes the shared ShedPolicy
+    (resilience/shedding.py); the pacer sleeps one quantum per call
+    while it reports True. It deliberately slows rather than stops the
+    stream: admission control still sheds bulk batches on arrival, but
+    move jobs must keep flowing into the latency lane."""
+
+    def __init__(
+        self, shed_active_fn, tenant: str = "",
+        pause_seconds: float = SHED_PACE_SECONDS,
+    ) -> None:
+        self._shed_active_fn = shed_active_fn
+        self._tenant = tenant
+        self._pause = pause_seconds
+
+    async def pace(self) -> bool:
+        """Sleep one quantum if shedding; True if a pause was taken."""
+        if not self._shed_active_fn():
+            return False
+        _ACQUIRE_PACED.inc(tenant=self._tenant)
+        await asyncio.sleep(self._pause)
+        return True
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +391,17 @@ class ApiStub:
 
     _queue: "asyncio.Queue[_Message]"
     endpoint: str
+    #: Tenant name in multi-tenant mode ("" = single-stream client).
+    tenant: str = ""
+    #: Optional ShedAwarePacer consulted by acquire loops before each
+    #: acquire (sched/frontend.py installs one per tenant).
+    pacer: Optional[ShedAwarePacer] = None
+
+    async def pace_acquire(self) -> bool:
+        """Shed-aware pacing hook; True if a pause was taken."""
+        if self.pacer is None:
+            return False
+        return await self.pacer.pace()
 
     async def check_key(self) -> Optional[Exception]:
         """None if the key is accepted; the error otherwise."""
@@ -383,9 +430,28 @@ class ApiStub:
         await self._queue.put(_Message("acquire", future=fut, slow=slow))
         try:
             return await fut
+        except asyncio.CancelledError:
+            self._give_back(fut)
+            raise
         except Exception:  # noqa: BLE001
             _STUB_ERRORS.inc(endpoint="acquire")
             return None
+
+    def _give_back(self, fut: asyncio.Future) -> None:
+        """The caller was cancelled after the actor had handed it a job
+        (its future holds the answer, so the actor aborted nothing): the
+        job goes back to the server, abandoned through the ledger, or
+        the server would hold it until its timeout. The JAX package's
+        stub drops it."""
+        if fut.cancelled() or not fut.done() or fut.exception() is not None:
+            return
+        acquired = fut.result()
+        if acquired is None or acquired.kind is not AcquiredKind.ACCEPTED:
+            return
+        led = _accounting.get()
+        if led is not None:
+            led.record_abandoned(acquired.body.work.id, "shutdown_cancelled")
+        self.abort(acquired.body.work.id)
 
     def submit_analysis(
         self,
@@ -412,6 +478,9 @@ class ApiStub:
         )
         try:
             return await fut
+        except asyncio.CancelledError:
+            self._give_back(fut)
+            raise
         except Exception:  # noqa: BLE001
             _STUB_ERRORS.inc(endpoint="submit_move")
             return None
@@ -424,11 +493,13 @@ class ApiActor:
         endpoint: str,
         key: Optional[str],
         logger: Logger,
+        tenant: str = "",
     ) -> None:
         self.queue = queue
         self.endpoint = endpoint.rstrip("/")
         self.key = key
         self.logger = logger
+        self.tenant = tenant
         self.error_backoff = RandomizedBackoff()
         self._session: Optional[HttpSession] = None
         self._stopped = False
@@ -445,7 +516,7 @@ class ApiActor:
         self.breaker = CircuitBreaker(
             failure_threshold=BREAKER_THRESHOLD,
             cooldown_seconds=BREAKER_COOLDOWN_SECONDS,
-            name="submit",
+            name=f"submit:{tenant}" if tenant else "submit",
         )
         self._parked: List[_Message] = []
         self._breaker_wake: Optional[asyncio.TimerHandle] = None
@@ -810,9 +881,14 @@ class ApiActor:
             res.raise_for_status()
 
 
-def channel(endpoint: str, key: Optional[str], logger: Logger) -> tuple:
-    """Create a connected (ApiStub, ApiActor) pair."""
+def channel(
+    endpoint: str, key: Optional[str], logger: Logger, tenant: str = ""
+) -> tuple:
+    """Create a connected (ApiStub, ApiActor) pair. ``tenant`` names
+    the owning acquire stream in multi-tenant mode (sched/frontend.py);
+    each tenant gets its own actor so error backoff, the submit
+    breaker, and 429 suspensions stay per-stream."""
     queue: "asyncio.Queue[_Message]" = asyncio.Queue()
-    stub = ApiStub(_queue=queue, endpoint=endpoint.rstrip("/"))
-    actor = ApiActor(queue, endpoint, key, logger)
+    stub = ApiStub(_queue=queue, endpoint=endpoint.rstrip("/"), tenant=tenant)
+    actor = ApiActor(queue, endpoint, key, logger, tenant=tenant)
     return stub, actor

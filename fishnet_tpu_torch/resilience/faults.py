@@ -33,14 +33,15 @@ Example: ``seed=7;net.acquire:nth=2..3:error;service.device_step:nth=1:crash``.
 Sites of the port: ``net.acquire`` and ``net.submit`` (the API actor,
 net/api.py), ``engine.spawn`` (a worker's engine start, client.py),
 ``queue.schedule`` (the trust boundary of an acquired batch,
-sched/queue.py), ``service.device_step`` (a driver thread right before
-its device dispatch, search/service.py) and ``rpc.detach`` (polled once
-per sweep of the split plane's evaluator host while at least one link
-is attached, rpc/host.py). ``queue.admit`` (the multi-tenant front end)
-and the fleet sites ``proxy.*`` and ``proc.*`` (the cluster chaos proxy
-and fleet supervisor) parse, so a plan written for the JAX package
-loads here, but nothing of the port polls them: their modules are not
-ported.
+sched/queue.py), ``queue.admit`` (the multi-tenant front end's
+admission of an acquired batch, sched/frontend.py: a fault there sheds
+the batch), ``service.device_step`` (a driver thread right before its
+device dispatch, search/service.py) and ``rpc.detach`` (polled once per
+sweep of the split plane's evaluator host while at least one link is
+attached, rpc/host.py). The fleet sites ``proxy.*`` and ``proc.*`` (the
+cluster chaos proxy and fleet supervisor) parse, so a plan written for
+the JAX package loads here, but nothing of the port polls them: their
+modules are not ported.
 
 Determinism: ``nth``/``every`` triggers depend only on the per-site
 call count; ``p`` triggers draw from the plan's own
@@ -68,8 +69,7 @@ from fishnet_tpu_torch import telemetry as _telemetry
 #: The injection-site registry, the JAX package's names. Plans naming an
 #: unknown site fail to parse. The ``proxy.*`` and ``proc.*`` sites are
 #: FLEET sites, polled by the JAX package's cluster chaos layer (not
-#: ported), and ``queue.admit`` belongs to its multi-tenant front end
-#: (not ported): they parse and never fire here.
+#: ported): they parse and never fire here.
 SITES = (
     "net.acquire",
     "net.submit",

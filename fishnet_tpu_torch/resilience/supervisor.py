@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 from fishnet_tpu_torch import telemetry as _telemetry
 
@@ -55,6 +56,23 @@ _BREAKER_STATE = _telemetry.REGISTRY.gauge(
     "Circuit-breaker state: 0 closed, 1 open, 2 half-open.",
     labelnames=("endpoint",),
 )
+
+#: Live breakers, by name, for the front end's shed policy and its
+#: /healthz serving-state view (sched/frontend.py). Weak references: a
+#: finished client's breakers vanish from the report without any
+#: unregistration dance.
+_BREAKERS: "weakref.WeakValueDictionary[str, CircuitBreaker]" = (
+    weakref.WeakValueDictionary()
+)
+
+
+def breaker_states() -> Dict[str, str]:
+    """Name -> state for every live CircuitBreaker in the process."""
+    return {name: br.state for name, br in sorted(_BREAKERS.items())}
+
+
+def any_breaker_open() -> bool:
+    return any(br.state == CircuitBreaker.OPEN for br in _BREAKERS.values())
 
 
 def ladder_for(device_type: str) -> Tuple[str, ...]:
@@ -101,6 +119,7 @@ class CircuitBreaker:
         self._failures = 0
         self._opened_at = 0.0
         self._export()
+        _BREAKERS[name] = self
 
     def _export(self) -> None:
         _BREAKER_STATE.set(

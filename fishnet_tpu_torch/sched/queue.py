@@ -2,16 +2,19 @@
 positions, schedules positions to workers, reassembles results, and
 submits completed batches.
 
-The port's copy of ``fishnet_tpu/sched/queue.py`` for the single-stream
-client, with its metrics (``fishnet_batches_*``,
-``fishnet_queue_exceptions_total`` and the ``fishnet_queue_*`` gauges),
-its ``queue.schedule`` fault site (a fault there drops the batch like an
+The port's copy of ``fishnet_tpu/sched/queue.py``, with its metrics
+(``fishnet_batches_*``, ``fishnet_queue_exceptions_total``, the
+``fishnet_queue_*`` gauges and, with a lane scheduler installed,
+``fishnet_lane_depth`` and ``fishnet_tenant_positions_served``), its
+``queue.schedule`` fault site (a fault there drops the batch like an
 invalid one) and its exactly-once ledger calls (resilience/accounting.py:
 scheduled, stepped, requeued, flushed, invalid, abandoned), without its
-spans. ``QueueStub.depth`` is the drain's progress report. Queued
-positions go through a
-``LaneScheduler`` of one tenant: best-move jobs ride the latency lane
-ahead of analysis positions, which keep their FIFO order. Behavioral
+spans. ``QueueStub.depth`` is the drain's progress report. The
+single-stream client queues positions in one FIFO deque, as the
+reference's ``VecDeque`` does: a move job waits behind the analysis
+positions queued before it. The multi-tenant front end
+(sched/frontend.py) installs a ``LaneScheduler`` instead: two priority
+lanes x N tenants with deficit round robin. Behavioral
 equivalent of the reference's queue layer (src/queue.rs):
 
 * acquired games are replayed move-by-move at the trust boundary before
@@ -33,6 +36,7 @@ equivalent of the reference's queue layer (src/queue.rs):
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import time
 import weakref
 from collections import deque
@@ -58,6 +62,11 @@ from fishnet_tpu_torch.protocol.types import (
 )
 from fishnet_tpu_torch.resilience import accounting as _accounting
 from fishnet_tpu_torch.resilience import faults as _faults
+from fishnet_tpu_torch.resilience.shedding import (
+    LANE_LATENCY,
+    LANE_THROUGHPUT,
+    LANES,
+)
 from fishnet_tpu_torch.search import eval_cache
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger, ProgressAt, QueueStatusBar
@@ -89,15 +98,16 @@ _QUEUE_ERRORS = _telemetry.REGISTRY.counter(
     "Unexpected exceptions caught (and survived) by the queue actor.",
 )
 
-#: Serving lanes (resilience/shedding.py in the JAX package).
-LANE_LATENCY = "latency"
-LANE_THROUGHPUT = "throughput"
-LANES = (LANE_LATENCY, LANE_THROUGHPUT)
+#: DRR quantum: positions a tenant may drain from the throughput lane
+#: per scheduling turn. Large enough to keep a whole small batch
+#: together (cache-friendly for the coalescer), small enough that no
+#: tenant monopolizes a turn.
+DRR_QUANTUM = 8
 
 
 def lane_of_work(work: Work) -> str:
     """Best-move jobs ride the latency lane; analysis the throughput
-    lane."""
+    lane (resilience/shedding.py)."""
     return LANE_LATENCY if work.is_move else LANE_THROUGHPUT
 
 
@@ -229,7 +239,10 @@ class PendingBatch:
     sources: List[object] = field(default_factory=list)
     #: Requeue generation (bounded by MAX_REQUEUE_GENERATIONS).
     generation: int = 0
-    #: Serving lane.
+    #: Owning tenant ("" in single-tenant mode) — routes submissions
+    #: back through the acquiring tenant's api actor.
+    tenant: str = ""
+    #: Serving lane (resilience/shedding.py).
     lane: str = LANE_THROUGHPUT
 
     def pending(self) -> int:
@@ -247,6 +260,7 @@ class PendingBatch:
             started_at=self.started_at,
             completed_at=now,
             url=self.url,
+            tenant=self.tenant,
         )
 
     def try_into_completed(self) -> Optional["CompletedBatch"]:
@@ -260,6 +274,7 @@ class PendingBatch:
             started_at=self.started_at,
             completed_at=time.monotonic(),
             url=self.url,
+            tenant=self.tenant,
         )
 
     def progress_report(self) -> List[Optional[AnalysisPartJson]]:
@@ -283,6 +298,7 @@ class CompletedBatch:
     started_at: float
     completed_at: float
     url: Optional[str] = None
+    tenant: str = ""
 
     def into_analysis(self) -> List[Optional[AnalysisPartJson]]:
         out: List[Optional[AnalysisPartJson]] = []
@@ -313,59 +329,147 @@ class CompletedBatch:
 
 
 # ---------------------------------------------------------------------------
-# Lane scheduler
+# Multi-tenant lane scheduler
 # ---------------------------------------------------------------------------
 
 
 class LaneScheduler:
-    """Two priority lanes of one tenant: the JAX package's
-    ``LaneScheduler`` reduced to the single-stream client (its
-    per-tenant deficit round robin has nothing to share out here).
+    """Two priority lanes x N tenants with deficit-round-robin fairness.
 
     Pop order is strict priority: the latency lane (best-move jobs)
-    always drains first — move jobs are rare and tiny, so strict
-    priority cannot starve the bulk lane in practice while it keeps a
-    move job from waiting behind a backlog of analysis positions. Each
-    lane is FIFO. Single-threaded by construction: only the queue
-    actor's event loop touches it.
+    always drains first, plain round-robin across tenants — move jobs
+    are rare and tiny, so strict priority cannot starve the bulk lane
+    in practice while it guarantees the interactive p99. The
+    throughput lane runs classic DRR with unit cost per position: each
+    turn a tenant gets ``quantum`` credits and serves until they run
+    out or its queue empties, then the turn rotates. Tenants with
+    nothing queued hold no turn, so fairness is over *active* tenants
+    (max/min served ratio bounded near 1 under sustained load).
+
+    Single-threaded by construction — only the queue's event loop
+    touches it; the metrics collector and the /healthz provider read
+    ``served``/depths as racy snapshots, which is fine for gauges.
     """
 
-    def __init__(self) -> None:
-        self._queues: Dict[str, Deque[Position]] = {
-            lane: deque() for lane in LANES
+    def __init__(self, quantum: int = DRR_QUANTUM) -> None:
+        self.quantum = max(1, int(quantum))
+        # lane -> tenant -> FIFO of Position
+        self._queues: Dict[str, Dict[str, Deque[Position]]] = {
+            lane: {} for lane in LANES
         }
+        self._rings: Dict[str, Deque[str]] = {lane: deque() for lane in LANES}
+        self._credit: Dict[str, int] = {}  # throughput-lane DRR deficits
+        # Control-plane admission weights: a tenant's DRR turn refills
+        # round(quantum * weight) credits (min 1). Missing = 1.0.
+        self._weights: Dict[str, float] = {}
+        #: Positions handed to workers, per tenant (fairness measure).
+        self.served: Dict[str, int] = {}
 
-    def push(self, position: Position, lane: str, front: bool = False) -> None:
+    def set_tenant_weights(self, weights: Optional[Dict[str, float]]) -> None:
+        """Control-plane actuation: REPLACE the admission-weight map
+        (None or {} restores unweighted DRR). Weights scale the credit
+        refill, so they reshape sustained throughput shares without
+        ever starving a tenant — every active tenant still gets a turn
+        with at least one credit."""
+        self._weights = dict(weights) if weights else {}
+
+    def tenant_weights(self) -> Dict[str, float]:
+        return dict(self._weights)
+
+    def push(
+        self, position: Position, tenant: str, lane: str,
+        front: bool = False,
+    ) -> None:
+        queues = self._queues[lane]
+        q = queues.get(tenant)
+        if q is None:
+            q = queues[tenant] = deque()
         if front:
-            self._queues[lane].appendleft(position)
+            q.appendleft(position)
         else:
-            self._queues[lane].append(position)
+            q.append(position)
+        ring = self._rings[lane]
+        if tenant not in ring:
+            ring.append(tenant)
+
+    def _pop_latency(self) -> Optional[Position]:
+        ring = self._rings[LANE_LATENCY]
+        queues = self._queues[LANE_LATENCY]
+        while ring:
+            q = queues.get(ring[0])
+            if not q:
+                ring.popleft()
+                continue
+            position = q.popleft()
+            ring.rotate(-1)
+            return position
+        return None
+
+    def _pop_throughput(self) -> Optional[Position]:
+        ring = self._rings[LANE_THROUGHPUT]
+        queues = self._queues[LANE_THROUGHPUT]
+        while ring:
+            tenant = ring[0]
+            q = queues.get(tenant)
+            if not q:
+                # Queue drained mid-turn: the tenant leaves the ring
+                # (and forfeits leftover credit) until new work arrives.
+                ring.popleft()
+                self._credit.pop(tenant, None)
+                continue
+            credit = self._credit.get(tenant)
+            if credit is None:
+                weight = self._weights.get(tenant, 1.0)
+                credit = self._credit[tenant] = max(
+                    1, int(round(self.quantum * weight))
+                )
+            if credit <= 0:
+                # Turn over: rotate to the back; credit refills on the
+                # next visit.
+                del self._credit[tenant]
+                ring.rotate(-1)
+                continue
+            self._credit[tenant] = credit - 1
+            return q.popleft()
+        return None
 
     def pop(self) -> Optional[Position]:
-        for lane in LANES:
-            if self._queues[lane]:
-                return self._queues[lane].popleft()
-        return None
+        position = self._pop_latency()
+        if position is None:
+            position = self._pop_throughput()
+        return position
+
+    def note_served(self, tenant: str) -> None:
+        self.served[tenant] = self.served.get(tenant, 0) + 1
 
     def drop_batch(self, batch_id: str) -> int:
         """Remove every queued position of ``batch_id``; returns the
         number removed."""
         dropped = 0
-        for lane, q in self._queues.items():
-            kept = deque(p for p in q if p.work.id != batch_id)
-            dropped += len(q) - len(kept)
-            self._queues[lane] = kept
+        for queues in self._queues.values():
+            for tenant, q in queues.items():
+                kept = deque(p for p in q if p.work.id != batch_id)
+                dropped += len(q) - len(kept)
+                queues[tenant] = kept
         return dropped
 
     def clear(self) -> int:
         """Drop everything (hard shutdown); returns the count dropped."""
         dropped = len(self)
-        for q in self._queues.values():
-            q.clear()
+        for lane in LANES:
+            self._queues[lane] = {}
+            self._rings[lane].clear()
+        self._credit.clear()
         return dropped
 
+    def depth(self, lane: str) -> int:
+        return sum(len(q) for q in self._queues[lane].values())
+
+    def depths(self) -> Dict[str, int]:
+        return {lane: self.depth(lane) for lane in LANES}
+
     def __len__(self) -> int:
-        return sum(len(q) for q in self._queues.values())
+        return sum(self.depth(lane) for lane in LANES)
 
 
 # ---------------------------------------------------------------------------
@@ -379,10 +483,10 @@ def _register_queue_collector(state: "QueueState") -> int:
     depth, backlog seconds (age of the oldest pending batch) and move
     submissions waiting. Holds only a weakref, so a finished client's
     state is collectable (the collector then unregisters itself); reads
-    are snapshot copies and never mutate. The JAX queue adds
-    ``fishnet_lane_depth`` and ``fishnet_tenant_positions_served`` when
-    the multi-tenant front end (``sched/frontend.py``, not ported)
-    gives it a scheduler of its own; the port has none."""
+    are snapshot copies and never mutate. With a lane scheduler
+    installed (the multi-tenant front end, sched/frontend.py) it adds
+    ``fishnet_lane_depth{lane}`` and
+    ``fishnet_tenant_positions_served{tenant}``."""
     ref = weakref.ref(state)
 
     def collect():
@@ -394,7 +498,7 @@ def _register_queue_collector(state: "QueueState") -> int:
         backlog = 0.0 if oldest is None else max(
             0.0, time.monotonic() - oldest
         )
-        return [
+        families = [
             _telemetry.gauge_family(
                 "fishnet_queue_pending_positions",
                 "Positions assigned to workers but not yet analysed.",
@@ -418,6 +522,30 @@ def _register_queue_collector(state: "QueueState") -> int:
                 len(st.move_submissions),
             ),
         ]
+        sched = st.scheduler
+        if sched is not None:
+            families.append(_telemetry.MetricFamily(
+                "fishnet_lane_depth", "gauge",
+                "Positions queued per serving lane.",
+                [
+                    _telemetry.Sample(
+                        "fishnet_lane_depth", float(depth), {"lane": lane}
+                    )
+                    for lane, depth in sched.depths().items()
+                ],
+            ))
+            families.append(_telemetry.MetricFamily(
+                "fishnet_tenant_positions_served", "gauge",
+                "Positions handed to workers, per tenant (fairness).",
+                [
+                    _telemetry.Sample(
+                        "fishnet_tenant_positions_served",
+                        float(count), {"tenant": tenant},
+                    )
+                    for tenant, count in sorted(sched.served.items())
+                ],
+            ))
+        return families
 
     return _telemetry.REGISTRY.register_collector(collect, name="queue")
 
@@ -429,25 +557,73 @@ class QueueState:
         stats: StatsRecorder,
         logger: Logger,
         batch_deadline: Optional[float] = None,
+        scheduler: Optional[LaneScheduler] = None,
+        api_router=None,
     ) -> None:
         self.shutdown_soon = False
         self.cores = cores
-        self.scheduler = LaneScheduler()
+        self.incoming: Deque[Position] = deque()
         self.pending: Dict[str, PendingBatch] = {}
         self.move_submissions: Deque[CompletedBatch] = deque()
         self.stats_recorder = stats
         self.logger = logger
         #: Per-batch deadline budget (seconds); None = no deadline.
         self.batch_deadline = batch_deadline
+        #: Multi-tenant mode: a LaneScheduler replaces the single
+        #: ``incoming`` deque (every access goes through the
+        #: ``incoming_*`` methods below, which keep the single-stream
+        #: FIFO path when no scheduler is installed).
+        self.scheduler = scheduler
+        #: Callable[[tenant], Optional[ApiStub]] — routes submissions
+        #: back through the acquiring tenant's api actor. None in
+        #: single-tenant mode (the stub/actor default applies).
+        self.api_router = api_router
+
+    # -- incoming-queue access (FIFO deque vs lane scheduler) -------------
 
     def incoming_len(self) -> int:
-        return len(self.scheduler)
+        if self.scheduler is not None:
+            return len(self.scheduler)
+        return len(self.incoming)
 
     def incoming_push(
-        self, position: Position, lane: str = LANE_THROUGHPUT,
-        front: bool = False,
+        self, position: Position, tenant: str = "",
+        lane: str = LANE_THROUGHPUT, front: bool = False,
     ) -> None:
-        self.scheduler.push(position, lane, front=front)
+        if self.scheduler is not None:
+            self.scheduler.push(position, tenant, lane, front=front)
+        elif front:
+            self.incoming.appendleft(position)
+        else:
+            self.incoming.append(position)
+
+    def incoming_pop(self) -> Optional[Position]:
+        if self.scheduler is not None:
+            return self.scheduler.pop()
+        return self.incoming.popleft() if self.incoming else None
+
+    def incoming_drop_batch(self, batch_id: str) -> None:
+        if self.scheduler is not None:
+            self.scheduler.drop_batch(batch_id)
+        else:
+            self.incoming = deque(
+                p for p in self.incoming if p.work.id != batch_id
+            )
+
+    def incoming_clear(self) -> None:
+        if self.scheduler is not None:
+            self.scheduler.clear()
+        else:
+            self.incoming.clear()
+
+    def api_for(self, batch, default: ApiStub) -> ApiStub:
+        """The api stub that owns ``batch`` (its tenant's actor in
+        multi-tenant mode, the shared default otherwise)."""
+        if self.api_router is not None and batch.tenant:
+            stub = self.api_router(batch.tenant)
+            if stub is not None:
+                return stub
+        return default
 
     def flush_expired(self, api: ApiStub) -> int:
         """Enforce the per-batch deadline budget: analysis batches older
@@ -465,7 +641,7 @@ class QueueState:
             if now - batch.started_at <= self.batch_deadline:
                 continue
             del self.pending[batch_id]
-            self.scheduler.drop_batch(batch_id)
+            self.incoming_drop_batch(batch_id)
             led = _accounting.get()
             if batch.work.is_analysis:
                 _FLUSHED.inc()
@@ -481,7 +657,7 @@ class QueueState:
                     f"{self.batch_deadline:.0f}s deadline; flushing "
                     f"{done}/{len(completed.positions)} analysed plies."
                 )
-                api.submit_analysis(
+                self.api_for(batch, api).submit_analysis(
                     completed.work.id,
                     completed.flavor.eval_flavor(),
                     completed.into_analysis(),
@@ -494,7 +670,7 @@ class QueueState:
                 self.logger.error(
                     f"Move job {batch_id} exceeded its deadline; aborting."
                 )
-                api.abort(batch_id)
+                self.api_for(batch, api).abort(batch_id)
             flushed += 1
         return flushed
 
@@ -505,32 +681,49 @@ class QueueState:
 
     def try_pull(self, callback: asyncio.Future) -> bool:
         """Serve a queued position to a worker callback; False if empty."""
-        position = self.scheduler.pop()
+        position = self.incoming_pop()
         if position is None:
             return False
+        batch = self.pending.get(position.work.id)
         if not callback.done():
             callback.set_result(position)
+            if self.scheduler is not None and batch is not None:
+                self.scheduler.note_served(batch.tenant)
             return True
         # Callback abandoned (worker gone): keep the position, front of
-        # its lane so ordering is preserved.
-        self.incoming_push(
-            position, lane=lane_of_work(position.work), front=True
-        )
+        # its own lane/tenant queue so ordering is preserved.
+        if batch is not None:
+            self.incoming_push(
+                position, tenant=batch.tenant, lane=batch.lane, front=True
+            )
+        else:
+            self.incoming_push(position, front=True)
         return True
 
-    def add_incoming_batch(self, batch: IncomingBatch) -> None:
+    def add_incoming_batch(
+        self, batch: IncomingBatch, tenant: str = ""
+    ) -> None:
         batch_id = batch.work.id
         if batch_id in self.pending:
             self.logger.error(f"Dropping duplicate incoming batch {batch_id}")
             return
         lane = lane_of_work(batch.work)
+        if tenant:
+            # Stamp the originating tenant onto every position BEFORE
+            # the push loop and the ``sources`` copy below, so both the
+            # first pass and any requeue carry it down to the engine
+            # tier. Position is frozen — replace, don't mutate.
+            batch.positions = [
+                p if p is SKIP else dataclasses.replace(p, tenant=tenant)
+                for p in batch.positions
+            ]
         placeholders: List[object] = []
         for pos in batch.positions:
             if pos is SKIP:
                 placeholders.append(SKIP)
             else:
                 placeholders.append(None)
-                self.incoming_push(pos, lane=lane)
+                self.incoming_push(pos, tenant=tenant, lane=lane)
         self.pending[batch_id] = PendingBatch(
             work=batch.work,
             flavor=batch.flavor,
@@ -539,6 +732,7 @@ class QueueState:
             started_at=time.monotonic(),
             url=batch.url,
             sources=list(batch.positions),
+            tenant=tenant,
             lane=lane,
         )
         led = _accounting.get()
@@ -647,7 +841,7 @@ class QueueStub:
                 else "position_failed"
             )
             state.pending.pop(res.batch_id, None)
-            state.scheduler.drop_batch(res.batch_id)
+            state.incoming_drop_batch(res.batch_id)
             _ABANDONED.inc(reason=reason)
             if led is not None:
                 led.record_abandoned(res.batch_id, reason)
@@ -660,7 +854,9 @@ class QueueStub:
         _REQUEUED.inc()
         if led is not None:
             led.record_requeued(res.batch_id, batch.generation)
-        state.incoming_push(src, lane=batch.lane, front=True)
+        state.incoming_push(
+            src, tenant=batch.tenant, lane=batch.lane, front=True
+        )
         state.logger.debug(
             f"Requeued position {res.position_id} of {res.batch_id} "
             f"(generation {batch.generation}/{MAX_REQUEUE_GENERATIONS})."
@@ -677,7 +873,7 @@ class QueueStub:
                 report = pending.progress_report()
                 done = sum(1 for p in report if p is not None)
                 if done and done % (state.cores * 2) == 0:
-                    self._api.submit_analysis(
+                    state.api_for(pending, self._api).submit_analysis(
                         pending.work.id, pending.flavor.eval_flavor(), report
                     )
             state.pending[batch_id] = pending
@@ -711,7 +907,7 @@ class QueueStub:
 
         if completed.work.is_analysis:
             state.logger.info(log)
-            self._api.submit_analysis(
+            state.api_for(completed, self._api).submit_analysis(
                 completed.work.id,
                 completed.flavor.eval_flavor(),
                 completed.into_analysis(),
@@ -738,13 +934,22 @@ class QueueStub:
         self.shutdown_soon()
         led = _accounting.get()
         for batch_id in list(self._state.pending):
-            self._state.pending.pop(batch_id)
+            batch = self._state.pending.pop(batch_id)
             if led is not None:
                 led.record_abandoned(batch_id, "shutdown_abort")
-            self._api.abort(batch_id)
+            self._state.api_for(batch, self._api).abort(batch_id)
+        # Finished move jobs not submitted yet (the queue stops chasing
+        # move submissions once shutdown_soon runs) go back too, or the
+        # server would hold them until its timeout. The JAX package's
+        # queue leaves them (ROADMAP C16 covers the drain's side).
+        while self._state.move_submissions:
+            completed = self._state.move_submissions.popleft()
+            if led is not None:
+                led.record_abandoned(completed.work.id, "shutdown_abort")
+            self._state.api_for(completed, self._api).abort(completed.work.id)
         # The queued positions belonged to the batches just aborted;
         # drop them too so the drain check sees an empty queue.
-        self._state.scheduler.clear()
+        self._state.incoming_clear()
 
     def depth(self) -> Dict[str, int]:
         """Remaining-work snapshot (graceful drain's readiness body,
@@ -855,7 +1060,7 @@ class QueueActor:
                 led.record_abandoned(context, "shutdown_incoming")
             self.api.abort(context)
             return
-        self.state.add_incoming_batch(incoming)
+        self.state.add_incoming_batch(incoming, tenant=self.api.tenant)
 
     async def handle_move_submissions(self) -> None:
         while True:

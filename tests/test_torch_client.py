@@ -215,11 +215,6 @@ async def test_workers_analyze_batch_concurrently():
     assert elapsed < 2.4, f"batch took {elapsed:.1f}s — workers serialized?"
 
 
-def test_more_than_one_tenant_is_refused():
-    with pytest.raises(ValueError, match="multi-tenant front end is not ported"):
-        make_client("http://127.0.0.1:1/fishnet", tenants=2)
-
-
 async def test_submission_is_not_held_behind_a_long_poll_acquire():
     """An acquire that the server holds (a long poll) does not hold back
     a final submission sent after it."""

@@ -44,7 +44,8 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "parallel", "parallel.mesh", "train.sharding", "telemetry",
              "telemetry.registry", "telemetry.exporter", "resilience",
              "resilience.faults", "resilience.accounting",
-             "resilience.drain"):
+             "resilience.drain", "resilience.shedding", "resilience.soak",
+             "sched.frontend"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

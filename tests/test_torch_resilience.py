@@ -480,7 +480,8 @@ async def test_shutdown_abandons_through_the_ledger_as_jax(after_shutdown):
 
 async def _move_during_drain_case(port: bool):
     """A move job taken before ``shutdown_soon`` (SIGTERM) whose search
-    ends after it, through the queue as the workers drive it."""
+    ends after it, through the queue as the workers drive it; the state
+    after the drain, then after a hard ``shutdown()``."""
     mod, amod, body_cls = ((queue, accounting, AcquireResponseBody) if port
                            else (jax_queue, jax_accounting, JaxBody))
     logger = (Logger if port else JaxLogger)(verbose=0)
@@ -505,11 +506,17 @@ async def _move_during_drain_case(port: bool):
         released = loop.create_future()
         await stub.pull(mod.Pull(response, released))
         await actor.handle_move_submissions()
+
+        def snapshot():
+            rec = asdict(led.record("work_id"))
+            rec.pop("acquired_at")
+            return (rec, led.report(), list(fake.aborted),
+                    list(fake.submitted), len(state.move_submissions),
+                    released.cancelled())
+
+        drained = snapshot()
         stub.shutdown()
-        rec = asdict(led.record("work_id"))
-        rec.pop("acquired_at")
-        return (rec, led.report(), fake.aborted, fake.submitted,
-                len(state.move_submissions), released.cancelled())
+        return drained, snapshot()
     finally:
         amod.clear()
         await engine.close()
@@ -518,18 +525,34 @@ async def _move_during_drain_case(port: bool):
 async def test_a_move_job_finished_during_a_drain_is_held_as_in_jax():
     """ROADMAP C16, the known gap: once ``shutdown_soon`` runs, the queue
     stops chasing move submissions, so a move job whose search ends
-    during the drain is neither submitted nor aborted; the ledger reads
-    it as lost and the server holds it until its timeout. Both packages
-    do the same. Fixing C16 flips this test: it must then be brought up
-    to the fix (submitted, or aborted), in both packages or with the
-    divergence stated."""
-    port = await _move_during_drain_case(True)
-    assert port == await _move_during_drain_case(False)
-    rec, report, aborted, submitted, held, released = port
+    during the drain is neither submitted nor aborted by the drain; the
+    ledger reads it as lost. Both packages do the same. Fixing C16 flips
+    this test: it must then be brought up to the fix (submitted, or
+    aborted), in both packages or with the divergence stated."""
+    port_drained, _ = await _move_during_drain_case(True)
+    ref_drained, _ = await _move_during_drain_case(False)
+    assert port_drained == ref_drained
+    rec, report, aborted, submitted, held, released = port_drained
     assert rec["terminal"] is None and rec["scheduled"] and rec["stepped"]
     assert report["lost"] == ["work_id"] and report["submitted"] == 0
     assert aborted == [] and submitted == []
     assert held == 1 and released
+
+
+async def test_a_hard_shutdown_after_a_drain_gives_back_the_finished_move():
+    """The hard ``shutdown()`` after the drain above, where the packages
+    differ (ROADMAP C19): the JAX package's queue leaves the finished
+    move held and lost until the server's timeout; the port aborts it
+    back to the server (abandoned, ``shutdown_abort``)."""
+    _, port_shut = await _move_during_drain_case(True)
+    _, ref_shut = await _move_during_drain_case(False)
+    rec, report, aborted, submitted, held, _ = ref_shut
+    assert rec["terminal"] is None and report["lost"] == ["work_id"]
+    assert aborted == [] and held == 1
+    rec, report, aborted, submitted, held, _ = port_shut
+    assert rec["terminal"] == "abandoned" and rec["reason"] == "shutdown_abort"
+    assert report["lost"] == [] and aborted == ["work_id"]
+    assert submitted == [] and held == 0
 
 
 # -- drain: readiness, not liveness --------------------------------------------

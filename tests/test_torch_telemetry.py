@@ -44,13 +44,9 @@ ROOT = Path(__file__).resolve().parent.parent
 STARTPOS = "rnbqkbnr/pppppppp/8/8/8/8/PPPPPPPP/RNBQKBNR w KQkq - 0 1"
 
 #: Families the JAX ``run`` exports whose module the port does not have
-#: yet (ROADMAP Queue A): family -> module.
-NOT_PORTED = {
-    "fishnet_admission_total": "resilience/shedding.py",
-    "fishnet_shed_active": "resilience/shedding.py",
-    "fishnet_tenant_batches_acquired_total": "sched/frontend.py",
-    "fishnet_tenant_batches_shed_total": "sched/frontend.py",
-}
+#: yet (ROADMAP Queue A): family -> module. Empty since the front end
+#: and the shed policy were ported.
+NOT_PORTED = {}
 
 
 @pytest.fixture(autouse=True)
