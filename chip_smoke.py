@@ -46,7 +46,7 @@ the client runs' throughput and latencies, the cache phase's checks and
 numbers, the split phase's checks and numbers, the az phase's checks
 and numbers (and one JSON object ``{"az": {...}}``), the train phase's
 (and ``{"train": {...}}``), the mesh phase's (and ``{"mesh": {...}}``),
-the trainshard, metrics, faults and overload phases' (and their
+the trainshard, metrics, spans, faults and overload phases' (and their
 objects), then
 on the last three lines the card again, one JSON object
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -54,8 +54,8 @@ without the last line. It refuses to run without a GPU, and outside a
 checkout (it needs the package beside it).
 
 ``--phases`` (comma-separated: kernel, serve, parity, timing, coalesce,
-run, cli, cache, split, az, train, mesh, trainshard, metrics, faults,
-overload; default all sixteen) limits a run to some phases
+run, cli, cache, split, az, train, mesh, trainshard, metrics, spans,
+faults, overload; default all seventeen) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
@@ -129,6 +129,19 @@ scrapes all valid exposition 0.0.4 and, after it, the
 service's families == ``counters()`` == the packed launches; after
 ``close()`` the scrape answers without the service's families; a
 two-logical-shard service's ``fishnet_shard_*`` == ``shard_report()``.
+``start_exporter`` turns span recording on, so B measures scrape plus
+spans, and its burst's ``/spans`` passes ``span_checks``; the flag goes
+off when each exporter closes. ``spans`` runs the faults ladder's 8
+gated positions at 1000 nodes (width pinned to 4) with spans off, then
+on: the analyses equal bit for bit, packed launches == dispatches, and
+the spans hold no orphan, one ``pack`` root a step trace, every
+``dispatch_issue`` paired with its ``dispatch_wait`` by ``seq``, one
+``dispatch_issue`` per packed launch and ``width - 1`` links on every
+``coalesce`` span; beside it ``python -m fishnet_tpu_torch run
+--metrics-port 0 --spans-dir D`` on 2 games x 20 plies at RUN_NODES and
+1 move job: each batch's complete tree on ``/spans``, a SIGUSR2 dump
+and, after SIGTERM, the ``drain`` span and the drain dump (its log in
+``chiprun_out/spans/``).
 ``faults`` drives every fault site of the port's path on the
 card: 8 gated positions at 1000 nodes through the supervised factory,
 crashed twice by ``service.device_step:nth=1:crash`` (the CLI's
@@ -207,7 +220,7 @@ from typing import Optional
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernel", "serve", "parity", "timing", "coalesce", "run", "cli",
           "cache", "split", "az", "train", "mesh", "trainshard", "metrics",
-          "faults", "overload")
+          "spans", "faults", "overload")
 #: H100 SXM HBM3 bandwidth and its peak for 32-bit integer/float
 #: arithmetic outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -1765,7 +1778,9 @@ class FusedHarness:
         launches = ft_gather.ft_accumulate_packed_cuda.launches
         probes = probes or {}
         tickets = [_CoalesceTicket(g, steps[g]["n"], steps[g]["rows"],
-                                   *probes.get(g, ()))
+                                   **dict(zip(("hashes", "cache_mask",
+                                               "cache_vals"),
+                                              probes.get(g, ()))))
                    for g in groups]
         svc._dispatch_segmented(tickets)
         whole = tickets[0].values.materialize()
@@ -2618,8 +2633,8 @@ def phase_cache(torch, weights, params, dev, steps=None,
         def watch(svc):
             probe = svc._probe_batch
 
-            def recorder(g, n, hash_ptr):
-                got = probe(g, n, hash_ptr)
+            def recorder(g, n, hash_ptr, dctx=None):
+                got = probe(g, n, hash_ptr, dctx)
                 first.append(bool(got[2].all()))
                 return got
             svc._probe_batch = recorder
@@ -5815,7 +5830,17 @@ def metrics_leg(weights, dev, scraped: bool, gate: bool = False) -> dict:
     cache and table each leg): with ``scraped`` an exporter on an
     ephemeral port and a Scraper polling it, else no exporter; with
     ``gate`` the launch counts set to 0 before the burst and
-    ``metrics_gates`` after it."""
+    ``metrics_gates`` after it. ``start_exporter`` turns span recording
+    on, as ``run --metrics-port`` does, so the scraped leg measures
+    scrape plus spans; with ``gate`` its burst's ``/spans`` then passes
+    ``span_checks`` (the leg's rings sized by ``whole_run_rings``). The
+    flag goes off again when the leg's exporter closes."""
+    rings = whole_run_rings() if gate else contextlib.nullcontext()
+    with rings:
+        return _metrics_leg(weights, dev, scraped, gate)
+
+
+def _metrics_leg(weights, dev, scraped: bool, gate: bool) -> dict:
     from fishnet_tpu_torch import telemetry
     from fishnet_tpu_torch.ops import ft_gather
 
@@ -5828,6 +5853,7 @@ def metrics_leg(weights, dev, scraped: bool, gate: bool = False) -> dict:
             scraper = Scraper(f"{exporter.url}/metrics")
         ft_gather.ft_accumulate_packed_cuda.launches = 0
         ft_gather.ft_accumulate_cuda.launches = 0
+        t_burst = time.monotonic()
         c0 = service.counters()
         try:
             nps = load_burst(service, out, nodes=METRICS_BURST_NODES)
@@ -5836,9 +5862,21 @@ def metrics_leg(weights, dev, scraped: bool, gate: bool = False) -> dict:
         if gate:
             gated = metrics_gates(service, f"{exporter.url}/metrics", c0,
                                   scrapes)
+            for _ in range(100):  # the last dispatch_wait may trail
+                spans = [sp for sp in json.loads(http_get(
+                    f"{exporter.url}/spans"))["spans"]
+                    if sp["t"] >= t_burst - 1e-4]
+                stages = [sp["stage"] for sp in spans]
+                if (stages.count("dispatch_wait")
+                        >= stages.count("dispatch_issue")):
+                    break
+                time.sleep(0.02)
+            gated["spans"] = span_checks(spans, "metrics B",
+                                         launches=gated["launches"])
     finally:
         if exporter is not None:
             exporter.close()
+            telemetry.disable()
         service.close()
     calls, seconds = timers.get("pack", [0, 0.0])
     return {"nps": nps, "dispatches": out["counters"]["dispatches"],
@@ -5862,8 +5900,10 @@ def phase_metrics(torch, weights, dev) -> dict:
     legs = [metrics_leg(weights, dev, scraped, gate)
             for scraped, gate in ((False, False), (True, True))]
     log("  A, B (A without an exporter, B scraped every "
-        f"{METRICS_SCRAPE_S:.0f} s): nodes/s "
-        f"{[round(leg['nps']) for leg in legs]}, dispatches "
+        f"{METRICS_SCRAPE_S:.0f} s and recording spans): nodes/s "
+        f"{[round(leg['nps']) for leg in legs]} (B/A "
+        f"{legs[1]['nps'] / max(legs[0]['nps'], 1e-9):.4f}, not gated), "
+        "dispatches "
         f"{[leg['dispatches'] for leg in legs]}, pack ms a dispatch "
         f"{[round(leg['pack_ms_per_dispatch'], 4) for leg in legs]}, "
         f"scrapes {[leg['scrapes'] for leg in legs]}")
@@ -5892,6 +5932,7 @@ def phase_metrics(torch, weights, dev) -> dict:
             mesh.close()
     finally:
         exporter.close()
+        telemetry.disable()
     log(f"  two logical shards: fishnet_shard_dispatches_total {shards}, "
         f"shard_report {rep['dispatches']}")
     check(shards == [float(d) for d in rep["dispatches"]] and min(shards) > 0,
@@ -5899,7 +5940,358 @@ def phase_metrics(torch, weights, dev) -> dict:
     gated = legs[1]["gate"]
     return {"launches": gated["launches"], "families": gated["families"],
             "legs": [{k: v for k, v in leg.items() if k != "gate"}
-                     for leg in legs], "shard_dispatches": shards}
+                     for leg in legs], "shard_dispatches": shards,
+            "b_spans": gated["spans"]}
+
+
+# -- spans and causal traces ----------------------------------------------------
+
+#: The spans phase's sizes: the gated check's positions and nodes (the
+#: faults ladder's), its pinned coalescer width (so fused dispatches
+#: and their ``coalesce`` spans occur), and the client leg's games,
+#: plies a game and move jobs (at RUN_NODES).
+SPANS_WALKS = 8
+SPANS_NODES = 1000
+SPANS_WIDTH = "4"
+SPANS_CLIENT = (2, 20, 1)
+
+
+#: Spans a thread's ring holds while ``span_checks`` reads a run
+#: (``whole_run_rings``): the recorder keeps its newest DEFAULT_CAPACITY
+#: (4096) a thread, and a driver thread of the gated leg records more.
+SPANS_RING = 1 << 17
+
+
+@contextlib.contextmanager
+def whole_run_rings():
+    """Size the flight recorder's rings to SPANS_RING for the threads
+    that record their first span inside this block (a thread's ring is
+    made at its first span), so ``span_checks`` sees every span of the
+    run; the default comes back after it."""
+    from fishnet_tpu_torch.telemetry.spans import RECORDER
+
+    capacity = RECORDER._capacity
+    RECORDER._capacity = SPANS_RING
+    try:
+        yield
+    finally:
+        RECORDER._capacity = capacity
+
+
+def span_checks(spans, what: str, launches: Optional[int] = None) -> dict:
+    """The card's checks of one run's spans (the JAX package's
+    ``critical_path`` does not run here, so they are written out): every
+    step trace (``group_traces``' rule: a span with ``links`` also
+    belongs to each linked trace, under the linked span) has one ``pack``
+    root and no orphan; every ``dispatch_issue`` pairs with one
+    ``dispatch_wait`` by ``seq``; every ``coalesce`` span carries
+    ``width - 1`` links; and with ``launches`` the ``dispatch_issue``
+    count equals the packed launches. The run's rings must hold all of
+    it (``whole_run_rings``): a full ring fails the check. Returns the
+    counts."""
+    from collections import Counter
+
+    per_thread = Counter(sp["thread"] for sp in spans)
+    full = sorted(th for th, n in per_thread.items() if n >= SPANS_RING)
+    traces = {}
+    for sp in spans:
+        if "trace_id" not in sp:
+            continue
+        traces.setdefault(sp["trace_id"], []).append(sp)
+        for ltid, lsid in sp.get("links") or ():
+            if ltid != sp["trace_id"]:
+                traces.setdefault(ltid, []).append(
+                    dict(sp, trace_id=ltid, parent_id=lsid))
+    orphans = roots_bad = 0
+    for tid, tree in traces.items():
+        ids = {sp["span_id"] for sp in tree}
+        roots = [sp for sp in tree if sp["stage"] == "pack"]
+        roots_bad += len(roots) != 1 or roots[0]["span_id"] != tid
+        orphans += sum(sp.get("parent_id") is not None
+                       and sp["parent_id"] not in ids for sp in tree)
+    issues = Counter(sp["seq"] for sp in spans
+                     if sp["stage"] == "dispatch_issue")
+    waits = Counter(sp["seq"] for sp in spans
+                    if sp["stage"] == "dispatch_wait")
+    coalesce = [sp for sp in spans if sp["stage"] == "coalesce"]
+    bad_links = sum(len(sp.get("links") or ()) != sp["width"] - 1
+                    for sp in coalesce)
+    out = {"spans": len(spans), "step_traces": len(traces),
+           "orphans": orphans, "dispatch_issue": sum(issues.values()),
+           "dispatch_wait": sum(waits.values()), "coalesce": len(coalesce),
+           "threads": len(per_thread),
+           "stages": sorted({sp["stage"] for sp in spans})}
+    log(f"  {what}: spans {out}")
+    check(not full, f"{what}: the rings of {full} are full: the check "
+                    "cannot see the whole run")
+    check(traces, f"{what}: no step trace among the spans")
+    check(orphans == 0 and roots_bad == 0,
+          f"{what}: {orphans} orphan spans, {roots_bad} traces without one "
+          "pack root")
+    check(issues == waits and set(issues.values()) <= {1},
+          f"{what}: dispatch_issue and dispatch_wait do not pair by seq")
+    check(bad_links == 0,
+          f"{what}: {bad_links} coalesce spans without width - 1 links")
+    if launches is not None:
+        check(out["dispatch_issue"] == launches,
+              f"{what}: {out['dispatch_issue']} dispatch_issue spans for "
+              f"{launches} packed launches")
+    return out
+
+
+def spans_gated(weights, dev) -> dict:
+    """The gated service (the faults ladder's positions and nodes, the
+    coalescer's width pinned to SPANS_WIDTH) with spans off, then on
+    (``telemetry.enable()``, as ``start_exporter`` does): the analyses
+    equal bit for bit, packed launches == dispatches in both
+    (``gated_run``), and the on run's spans pass ``span_checks`` with
+    one ``dispatch_issue`` per packed launch. The launch counts are set
+    to 0 after the on run's warm-up and read after its last answer."""
+    import tempfile
+
+    import torch
+
+    from fishnet_tpu_torch import telemetry
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.telemetry.spans import RECORDER
+
+    walks = random_lines(SPANS_WALKS, seed=13)
+    env = dict(FISHNET_COALESCE_WIDTH=SPANS_WIDTH, FISHNET_NO_COALESCE=None)
+    t_off = time.perf_counter()
+    off, c_off = gated_run(weights, dev, walks, nodes=SPANS_NODES, **env)
+    t_off = time.perf_counter() - t_off
+    mark = {}
+
+    def zero(svc):
+        packed = ft_gather.ft_accumulate_packed_cuda
+        packed.launches = packed.copy_launches = 0
+        ft_gather.ft_accumulate_cuda.launches = 0
+        mark["t0"] = time.monotonic()
+
+    telemetry.enable()
+    try:
+        with whole_run_rings():
+            t_on = time.perf_counter()
+            on, c_on = gated_run(weights, dev, walks, nodes=SPANS_NODES,
+                                 hook=zero, **env)
+            t_on = time.perf_counter() - t_on
+    finally:
+        telemetry.disable()
+    launches = ft_gather.ft_accumulate_packed_cuda.launches
+    held = RECORDER.spans()
+    spans = [sp for sp in held if sp["t"] >= mark["t0"] - 1e-4]
+    # The on leg's close() dumped every span the process holds (the
+    # service's clean-close dump): time the same dump once more.
+    with tempfile.TemporaryDirectory() as tmp:
+        t_dump = time.perf_counter()
+        RECORDER.dump(os.path.join(tmp, "spans.jsonl"), reason="timing")
+        t_dump = time.perf_counter() - t_dump
+    log(f"  gated: {len(walks)} positions at {SPANS_NODES} nodes, width "
+        f"{SPANS_WIDTH}: spans off {c_off['dispatches']} dispatches "
+        f"({c_off['fused_dispatches']} fused) in {t_off:.3f} s, on "
+        f"{c_on['dispatches']} ({c_on['fused_dispatches']} fused) in "
+        f"{t_on:.3f} s (build, warm-up, searches and close; on, close() "
+        f"dumps the {len(held)} spans the process holds: such a dump "
+        f"takes {t_dump:.3f} s); packed launches {launches}")
+    check(on == off, "spans gated: the analyses with spans on differ from "
+                     "those with spans off")
+    check(c_on["dispatches"] == c_off["dispatches"] == launches > 0
+          or torch.device(dev).type != "cuda",
+          f"spans gated: {launches} launches, dispatches off "
+          f"{c_off['dispatches']} on {c_on['dispatches']}")
+    check(c_on["fused_dispatches"] > 0, "spans gated: no fused dispatch")
+    report = span_checks(spans, "gated", launches=c_on["dispatches"])
+    log("  gated: the analyses with spans on == spans off, bit for bit")
+    return {"launches": launches, "dispatches": c_on["dispatches"],
+            "fused": c_on["fused_dispatches"], "seconds_off": t_off,
+            "seconds_on": t_on, "held": len(held), "dump_s": t_dump,
+            "spans": report}
+
+
+class SpansClientLeg:
+    """``python -m fishnet_tpu_torch run --metrics-port 0 --spans-dir D``
+    as a subprocess against the stdlib fake lichess, SPANS_CLIENT[0]
+    games of SPANS_CLIENT[1] plies at RUN_NODES and SPANS_CLIENT[2] move
+    jobs queued at ``start``, so it works while the phase's in-process
+    leg runs. ``finish`` waits for every submission, then: ``/spans``
+    holds each submitted batch's complete tree (an ``acquire`` root
+    whose span id is the trace id, its ``schedule`` child, one
+    ``queue_wait`` per position under it, and for an analysis one
+    ``submit`` under the root; no orphan); SIGUSR2 writes a
+    ``fishnet-spans/2`` dump into D; SIGTERM drains it, records the
+    ``drain`` span, and it dumps at the service's close and once more
+    (reason "drain") before it exits 0
+    with one packed launch per dispatch since its warm-up. Its log lands
+    in ``chiprun_out/spans/``."""
+
+    def __init__(self, dev) -> None:
+        import tempfile
+
+        import torch
+
+        self.device = torch.device(dev).type
+        out_dir = ROOT / "chiprun_out" / "spans"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        self.log_path = out_dir / "run.log"
+        self.tmp = tempfile.mkdtemp(prefix="fishnet-spans-")
+        self.port_file = os.path.join(self.tmp, "metrics.port")
+        self.spans_dir = os.path.join(self.tmp, "spans")
+        self.server = FakeServer()
+        self.proc = None
+        self.jobs = {}
+
+    def start(self) -> None:
+        self.server.__enter__()
+        games, plies, moves = SPANS_CLIENT
+        lines = random_games(games + moves, plies, seed=53)
+        for line in lines[:games]:
+            self.jobs[self.server.lichess.add_analysis_job(
+                moves=" ".join(line), nodes=RUN_NODES)] = plies + 1
+        for line in lines[games:]:
+            self.jobs[self.server.lichess.add_move_job(
+                moves=" ".join(line[:plies // 2]), level=1)] = 1
+        cmd = [sys.executable, "-m", "fishnet_tpu_torch", "run", "--no-conf",
+               "--no-stats-file", "--endpoint", self.server.endpoint, "--key",
+               VALID_KEY, "--max-backoff", "1", "--metrics-port", "0",
+               "--metrics-port-file", self.port_file, "--spans-dir",
+               self.spans_dir, "--device", self.device, "-v"]
+        env = dict(os.environ)
+        for var in ("FISHNET_SPANS_FILE", "FISHNET_SPANS_DIR",
+                    "FISHNET_FAULT_PLAN"):
+            env.pop(var, None)
+        with open(self.log_path, "w", encoding="utf-8") as logf:
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                         stderr=subprocess.STDOUT)
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.server.__exit__(None, None, None)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def _dump(self) -> tuple:
+        """(headers, spans by header index) of the process's dump file."""
+        path = os.path.join(self.spans_dir,
+                            f"fishnet-spans-{self.proc.pid}.jsonl")
+        headers, bodies = [], []
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as fp:
+                for line in fp:
+                    rec = json.loads(line)
+                    if "format" in rec:
+                        headers.append(rec)
+                        bodies.append([])
+                    elif bodies:
+                        bodies[-1].append(rec)
+        return headers, bodies
+
+    def finish(self) -> dict:
+        from fishnet_tpu_torch.telemetry.tracing import trace_id_for_batch
+
+        proc, lichess = self.proc, self.server.lichess
+        t0 = time.monotonic()
+        deadline = t0 + 300
+        while not all(i in lichess.analyses or i in lichess.moves
+                      for i in self.jobs):
+            check(proc.poll() is None,
+                  f"spans client: the CLI exited early ({proc.returncode})")
+            check(time.monotonic() < deadline,
+                  "spans client: the jobs did not finish")
+            time.sleep(0.05)
+        waited = time.monotonic() - t0
+        with open(self.port_file, encoding="utf-8") as fp:
+            base = f"http://127.0.0.1:{int(fp.read())}"
+        trees = {}
+        while True:
+            doc = json.loads(http_get(f"{base}/spans"))
+            check(set(doc) == {"pid", "monotonic_to_epoch", "spans"},
+                  f"spans client: /spans keys {sorted(doc)}")
+            for bid in self.jobs:
+                tid = trace_id_for_batch(bid)
+                trees[bid] = [sp for sp in doc["spans"]
+                              if sp.get("trace_id") == tid]
+            if all(any(sp["stage"] == "submit" for sp in trees[bid])
+                   for bid in self.jobs if bid in lichess.analyses):
+                break
+            check(time.monotonic() < deadline,
+                  "spans client: no submit span for a submitted analysis")
+            time.sleep(0.05)
+        shapes = {}
+        for bid, positions in self.jobs.items():
+            tid, tree = trace_id_for_batch(bid), trees[bid]
+            by_id = {sp["span_id"]: sp["stage"] for sp in tree}
+            shape = {}
+            for sp in tree:
+                key = f"{sp['stage']}<{by_id.get(sp.get('parent_id'), '-')}"
+                shape[key] = shape.get(key, 0) + 1
+            want = {"acquire<-": 1, "schedule<acquire": 1,
+                    "queue_wait<schedule": positions}
+            if bid in lichess.analyses:
+                want["submit<acquire"] = 1
+            roots = [sp for sp in tree if sp["stage"] == "acquire"]
+            check(shape == want and roots[0]["span_id"] == tid,
+                  f"spans client: batch {bid}'s tree {shape} != {want}")
+            shapes[bid] = shape
+        proc.send_signal(signal.SIGUSR2)
+        while not [h for h in self._dump()[0] if h["reason"] == "SIGUSR2"]:
+            check(time.monotonic() < deadline, "spans client: no SIGUSR2 dump")
+            time.sleep(0.05)
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        took = time.monotonic() - t_term
+        headers, bodies = self._dump()
+        text = self.log_path.read_text()
+        for line in text.splitlines()[-3:]:
+            log(f"  | {line[:300]}")
+        reasons = [h["reason"] for h in headers]
+        drains = [sp for body in bodies for sp in body
+                  if sp["stage"] == "drain"]
+        log(f"  client: {len(self.jobs)} batches submitted after "
+            f"{waited:.3f} s, each with its complete tree on /spans "
+            f"({len(doc['spans'])} spans); dumps {reasons} "
+            f"({[h['spans'] for h in headers]} spans), the drain span "
+            f"{[(sp['reason'], sp.get('deadline_s')) for sp in drains[-1:]]}; "
+            f"exit {rc} {took:.3f} s after SIGTERM")
+        check(rc == 0, f"spans client: the CLI exited {rc}")
+        # The service's close() dumps too (reason "close"), before the
+        # drained exit's own dump.
+        check(all(h["format"] == "fishnet-spans/2" for h in headers)
+              and reasons == ["SIGUSR2", "close", "drain"],
+              f"spans client: dumps {reasons}")
+        check([sp["reason"] for sp in bodies[-1] if sp["stage"] == "drain"]
+              == ["sigterm"], "spans client: the drain dump has no drain span")
+        steps, dispatches, packed, dense, rung = teardown_counts(text)
+        check(packed > 0 and dense == 0
+              and (packed == dispatches or self.device != "cuda"),
+              f"spans client: {packed} packed launches ({dense} dense) for "
+              f"{dispatches} dispatches")
+        return {"batches": len(self.jobs), "trees": shapes,
+                "dumps": reasons, "spans_on_route": len(doc["spans"]),
+                "exit_after_sigterm_s": took, "launches": packed,
+                "dispatches": dispatches}
+
+
+def phase_spans(torch, weights, dev) -> dict:
+    """Spans and causal traces on the card: ``spans_gated`` in process
+    while ``SpansClientLeg``'s ``run`` process serves its jobs beside
+    it, then the client leg's checks. "launches" is the gated on run's
+    count (the client's launches are its process's own)."""
+    t0 = time.perf_counter()
+    leg = SpansClientLeg(dev)
+    try:
+        leg.start()
+        out = {"gated": spans_gated(weights, dev)}
+        out["client"] = leg.finish()
+    finally:
+        leg.close()
+    out["launches"] = out["gated"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  spans: {out['seconds']:.3f} s")
+    return out
 
 
 # -- fault injection, exactly-once accounting, graceful drain -------------------
@@ -7572,6 +7964,17 @@ def main() -> int:
             entry["launches_metrics"] = metrics["launches"]
         print(json.dumps({"metrics": metrics}), flush=True)
         lap("metrics")
+    if "spans" in phases:
+        log("[spans] the span flight recorder: a gated service with spans "
+            "off and on (equal analyses, no orphan, every dispatch_issue "
+            "paired, coalesce links), beside a run process with "
+            "--metrics-port 0 --spans-dir: batch trees on /spans, the "
+            "SIGUSR2 and drain dumps")
+        sp = phase_spans(torch, weights, dev)
+        for entry in entries:
+            entry["launches_spans"] = sp["launches"]
+        print(json.dumps({"spans": sp}), flush=True)
+        lap("spans")
     if "faults" in phases:
         log("[faults] fault injection, exactly-once accounting and graceful "
             "drain: the ladder forced by device-step crashes, the client "

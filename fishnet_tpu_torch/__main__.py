@@ -13,6 +13,11 @@ The port of the JAX package's ``run`` and ``uci`` commands
   readiness probes (``/healthz``, ``/healthz/ready``) answer 503 with
   ``draining: true`` while ``/healthz/live`` stays 200, and
   ``fishnet_drain_state`` reads 1 (resilience/drain.py).
+  ``--metrics-port`` also turns span recording on: ``/spans`` serves
+  the flight recorder, SIGUSR2 dumps it as ``fishnet-spans/2`` JSONL
+  into ``--spans-dir`` (else ``$FISHNET_SPANS_DIR`` or
+  ``<tempdir>/fishnet-spans``), a drained exit dumps it once more, and
+  ``--spans-journal`` appends every batch-trace span to a file.
   ``--tenants N`` (N > 1) runs N acquire streams through the
   multi-tenant front end (sched/frontend.py): two priority lanes, DRR
   fairness across tenants and admission control that sheds analysis
@@ -349,7 +354,18 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         stats_file=Path(opt.stats_file) if opt.stats_file else None,
         no_stats_file=opt.no_stats_file,
     )
+    # --spans-dir / SpansDir steers where the flight recorder dumps its
+    # fishnet-spans-<pid>.jsonl (spans.default_path reads the env var;
+    # exporting it keeps child processes consistent with this one).
+    if opt.spans_dir is not None:
+        os.environ["FISHNET_SPANS_DIR"] = opt.spans_dir
     exporter = start_metrics(opt, stats, logger)
+    if opt.spans_journal is not None:
+        # Batch-span write-ahead: spans recorded between the last scrape
+        # and a SIGKILL survive on disk.
+        from fishnet_tpu_torch.telemetry.spans import RECORDER
+
+        RECORDER.journal_to(opt.spans_journal)
     # Deterministic fault injection (--fault-plan / FISHNET_FAULT_PLAN):
     # a testing aid — loudly flagged, never silently active. Installed
     # before the service is built, so its warm-up is under the plan too.
@@ -514,6 +530,11 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         # Flush the (interval-debounced) stats file and stop serving
         # scrapes before teardown completes.
         stats.flush()
+        if drain.draining():
+            from fishnet_tpu_torch import telemetry
+
+            if telemetry.enabled():
+                telemetry.RECORDER.dump(reason="drain")
         if exporter is not None:
             exporter.close()
     logger.fishnet_info(client.stats_summary())
@@ -521,8 +542,10 @@ async def run_client(opt: Opt, logger: Logger) -> None:
 
 def start_metrics(opt: Opt, stats: StatsRecorder, logger: Logger):
     """Live telemetry, opt-in through ``--metrics-port`` (or the
-    ``MetricsPort`` ini key): ``/metrics`` + ``/json`` on an
-    ``http.server`` thread, the stats recorder's collector registered.
+    ``MetricsPort`` ini key): ``/metrics``, ``/json`` and ``/spans`` on an
+    ``http.server`` thread, span recording on in the pipeline's hot
+    paths, SIGUSR2 armed to dump the flight recorder, and the stats
+    recorder's collector registered.
     The port file (``--metrics-port-file``) is written after bind, by
     an atomic rename, so a reader never sees a half-written number.
     Returns the exporter, or None."""
@@ -534,7 +557,8 @@ def start_metrics(opt: Opt, stats: StatsRecorder, logger: Logger):
     exporter = telemetry.start_exporter(opt.metrics_port)
     register_stats_collector(stats)
     logger.info(
-        f"Serving telemetry on http://127.0.0.1:{exporter.port}/metrics."
+        f"Serving telemetry on http://127.0.0.1:{exporter.port}/metrics "
+        "(SIGUSR2 dumps the span flight recorder)."
     )
     if opt.metrics_port_file is not None:
         tmp = f"{opt.metrics_port_file}.tmp"

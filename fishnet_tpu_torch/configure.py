@@ -3,13 +3,12 @@
 The port's copy of the ``run`` and ``uci`` parts of
 ``fishnet_tpu/configure.py``: the same flags under the same names and
 defaults (``--mesh``, ``--metrics-port`` / ``--metrics-port-file``,
-``--fault-plan``, ``--drain-deadline``, ``--tenants`` and
-``--lane-depth-limit`` among them, with their ini keys and errors), with
-the same precedence CLI > ``fishnet.ini`` (section ``[Fishnet]``), plus
-the port's ``--device cuda|cpu``. The interactive first-run dialog,
-systemd, update and the span flags (``--spans-dir``,
-``--spans-journal``) are not ported: a missing ini file is simply not
-read.
+``--spans-dir`` / ``--spans-journal``, ``--fault-plan``,
+``--drain-deadline``, ``--tenants`` and ``--lane-depth-limit`` among
+them, with their ini keys and errors), with the same precedence CLI >
+``fishnet.ini`` (section ``[Fishnet]``), plus the port's ``--device
+cuda|cpu``. The interactive first-run dialog, systemd and update are not
+ported: a missing ini file is simply not read.
 
 Durations parse like the reference (configure.rs:323-342): ``90s``,
 ``2h``, ``1d``, ``500ms``, bare seconds.
@@ -204,6 +203,17 @@ class Opt:
     #: File to write the exporter's BOUND port to once it is listening
     #: (one decimal integer), for ``--metrics-port 0``. None = none.
     metrics_port_file: Optional[str] = None
+    #: Directory for span flight-recorder JSONL dumps
+    #: (doc/observability.md). None = the ``FISHNET_SPANS_DIR`` /
+    #: ``FISHNET_SPANS_FILE`` environment, falling back to a
+    #: ``fishnet-spans/`` directory under the system tempdir — never
+    #: the process working directory.
+    spans_dir: Optional[str] = None
+    #: Batch-span journal file: every batch-trace span (the per-work-
+    #: unit lifecycle, not the device path) is appended and flushed
+    #: line-by-line, so a SIGKILLed process's final spans survive.
+    #: None = journaling off.
+    spans_journal: Optional[str] = None
     #: Deterministic fault plan (resilience/faults.py grammar). None =
     #: fault injection off (the default; sites pay one flag check).
     fault_plan: Optional[str] = None
@@ -335,6 +345,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-port-file", default=None,
                    help="Write the bound metrics port to this file once "
                         "listening (pairs with --metrics-port 0).")
+    p.add_argument("--spans-dir", default=None,
+                   help="Directory for span flight-recorder JSONL dumps "
+                        "(fishnet-spans-<pid>.jsonl). Default: "
+                        "$FISHNET_SPANS_DIR, else <tempdir>/fishnet-spans.")
+    p.add_argument("--spans-journal", default=None,
+                   help="Append every batch-trace span to this JSONL file "
+                        "(flushed per line) so spans recorded after the "
+                        "last scrape survive a SIGKILL. Default: off.")
     p.add_argument("--fault-plan", default=None,
                    help="Deterministic fault plan (resilience/faults.py "
                         "grammar), e.g. 'seed=7;net.acquire:nth=2:error'. "
@@ -399,6 +417,10 @@ def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
         opt.metrics_port = _parse_port(str(ns.metrics_port))
     if ns.metrics_port_file is not None:
         opt.metrics_port_file = ns.metrics_port_file
+    if ns.spans_dir is not None:
+        opt.spans_dir = ns.spans_dir
+    if ns.spans_journal is not None:
+        opt.spans_journal = ns.spans_journal
     if ns.fault_plan is not None:
         opt.fault_plan = _parse_fault_plan(ns.fault_plan)
     if ns.drain_deadline is not None:
@@ -461,6 +483,8 @@ _INI_FIELDS = (
     ("Device", "device", lambda v: _choice(v, "device", DEVICES)),
     ("MetricsPort", "metrics_port", lambda v: _parse_port(v)),
     ("MetricsPortFile", "metrics_port_file", str),
+    ("SpansDir", "spans_dir", str),
+    ("SpansJournal", "spans_journal", str),
     ("FaultPlan", "fault_plan", _parse_fault_plan),
     ("DrainDeadline", "drain_deadline", parse_duration),
     ("Tenants", "tenants", lambda v: _positive_int(v, "Tenants")),

@@ -36,6 +36,12 @@ Multi-tenant mode (sched/frontend.py): each tenant owns a stub/actor
 pair of its own (``channel(tenant=)``), its breaker named
 ``submit:<tenant>``, and a ``ShedAwarePacer`` that slows its acquires
 while the front end sheds (``fishnet_acquire_paced_total{tenant}``).
+
+Spans (telemetry/spans.py), gated on ``telemetry.enabled()``: a
+successful acquire records the batch trace's root, ``acquire``, under
+the ids derived from the batch id (``tracing.batch_root``; an empty
+acquire records it without a trace), and a completed analysis'
+submission records ``submit`` as a child of that root.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ from fishnet_tpu_torch.protocol.types import (
 from fishnet_tpu_torch.resilience import accounting as _accounting
 from fishnet_tpu_torch.resilience import faults as _faults
 from fishnet_tpu_torch.resilience.supervisor import CircuitBreaker
+from fishnet_tpu_torch.telemetry import tracing as _tracing
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger
 from fishnet_tpu_torch.version import PROTOCOL_VERSION, user_agent
@@ -659,6 +667,34 @@ class ApiActor:
             await self._handle_inner(msg)
             _REQUEST_SECONDS.observe(time.monotonic() - started, endpoint=msg.kind)
             _REQUESTS.inc(endpoint=msg.kind, outcome="ok")
+            if msg.kind == "acquire" and _telemetry.enabled():
+                # Batch-trace ROOT: _parse_acquired stashed the batch id
+                # on the message, and batch_root derives deterministic
+                # ids from it — so schedule (sched/queue.py) and the
+                # final submit below parent into the same tree with no
+                # shared registry. An empty acquire stays traceless.
+                if msg.batch_id:
+                    _SPANS.record(
+                        "acquire", started,
+                        trace=_tracing.batch_root(msg.batch_id),
+                        batch=msg.batch_id,
+                    )
+                else:
+                    _SPANS.record("acquire", started)
+            if (
+                msg.kind == "submit_analysis"
+                and msg.final
+                and msg.batch_id
+                and _telemetry.enabled()
+            ):
+                # The batch trace's terminal span: the completed
+                # analysis' submission round-trip, child of the
+                # deterministic acquire root.
+                _SPANS.record(
+                    "submit", started,
+                    trace=_tracing.batch_child(msg.batch_id),
+                    batch=msg.batch_id,
+                )
             if msg.kind == "submit_analysis" and self.breaker.record_success():
                 self.logger.info("Submit circuit breaker closed; draining.")
                 self._drain_parked()
@@ -737,6 +773,11 @@ class ApiActor:
             led = _accounting.get()
             if led is not None:
                 led.record_acquired(body.work.id)
+            if msg.kind == "acquire":
+                # Feed the acquire span's batch trace root (_handle):
+                # move submissions keep THEIR batch id — the chained
+                # acquire's new batch must not clobber retry accounting.
+                msg.batch_id = body.work.id
             if not self._fulfil(msg, Acquired.accepted(body)):
                 # Nobody is waiting for this job anymore: abort so the
                 # server can reassign immediately (api.rs:678-684).

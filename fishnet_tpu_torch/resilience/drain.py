@@ -8,15 +8,14 @@ exits 0. This module owns the *observable* half of that contract:
 
 * ``fishnet_drain_state`` gauge — 0 serving, 1 draining — so a fleet
   dashboard can see which processes are on the way out;
+* a ``drain`` EVENT span (telemetry/spans.py) marking when the drain
+  began, with its reason and deadline, when telemetry is on;
 * a ``/healthz`` readiness provider: while draining, readiness is 503
   (``draining: true`` in the body, with the reason, the seconds since
   the drain began, the deadline and the queue's remaining work) so an
   orchestrator stops routing work at a dying process, while
   ``/healthz/live`` stays 200 — the process is alive and flushing, not
   wedged (the liveness-vs-readiness split, telemetry/exporter.py).
-
-Left out against the JAX package: the ``drain`` event span, which
-belongs to the span flight recorder (not ported yet).
 
 Single-process behavior is unchanged when drain is never entered: the
 gauge sits at 0 and the readiness provider is only registered by the
@@ -97,6 +96,11 @@ def begin(
         _depth_fn = depth_fn
     _DRAIN_GAUGE.set(1)
     register_health_provider("drain", _provider)
+    if _telemetry.enabled():
+        fields = {"reason": reason}
+        if deadline is not None:
+            fields["deadline_s"] = deadline
+        _telemetry.RECORDER.record("drain", _since, **fields)
     return True
 
 

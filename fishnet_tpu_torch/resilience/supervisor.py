@@ -4,7 +4,8 @@ serving stack.
 The port's copy of ``fishnet_tpu/resilience/supervisor.py``, with its
 metrics (``fishnet_degradations_total{from,to}``,
 ``fishnet_pool_respawns_total``, ``fishnet_breaker_state{endpoint}``)
-and without its spans. Two policy objects:
+and its ``recover`` span (every supervised build, with the rung and
+whether it was a respawn, when telemetry is on). Two policy objects:
 
 * :class:`ServiceSupervisor` wraps a ``SearchService`` builder for
   ``TpuNnueEngineFactory``. When the factory rebuilds a dead service,
@@ -38,6 +39,7 @@ import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 from fishnet_tpu_torch import telemetry as _telemetry
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
 #: The rung names of the JAX package's lattice, best rung first.
 RUNGS = ("fused", "xla", "host-material")
@@ -56,6 +58,10 @@ _BREAKER_STATE = _telemetry.REGISTRY.gauge(
     "Circuit-breaker state: 0 closed, 1 open, 2 half-open.",
     labelnames=("endpoint",),
 )
+
+#: Span stage recorded around every supervised rebuild — the seventh
+#: stage next to the six pipeline stages (doc/observability.md).
+RECOVER_STAGE = "recover"
 
 #: Live breakers, by name, for the front end's shed policy and its
 #: /healthz serving-state view (sched/frontend.py). Weak references: a
@@ -289,10 +295,18 @@ class ServiceSupervisor:
             builds = self._builds
         if respawn:
             _RESPAWNS.inc()
+        t0 = time.monotonic()
         svc = self._builder(request)
+        realized = getattr(svc, "psqt_path", None)
         with self._lock:
             self._builds = builds + 1
             self._last_build = time.monotonic()
+        if _telemetry.enabled():
+            _SPANS.record(
+                RECOVER_STAGE, t0,
+                rung=realized or request or "auto",
+                respawn=int(respawn),
+            )
         if self._logger is not None and respawn:
             self._logger.info(f"Respawned search service (path {request}).")
         return svc

@@ -37,7 +37,9 @@ fails the driver, and with it the service's searches. Results are
 deduplicated by ticket id, so an at-least-once transport still yields
 exactly-once consumption.
 
-Left out against the JAX package: the spans.
+Spans: each answered ``wait`` records ``rpc_wait`` (ticket, family),
+as the JAX frontend does — the one span site the JAX package records
+without the ``telemetry.enabled()`` gate, kept so.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import numpy as np
 from fishnet_tpu_torch.chess.core import NativeCoreError
 from fishnet_tpu_torch.rpc import rings
 from fishnet_tpu_torch.search.service import SearchService
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
 __all__ = ["EvaluatorLostError", "EvaluatorRefusedError", "RemoteAzPlane",
            "RemoteBackend", "RemoteEvaluator"]
@@ -114,7 +117,8 @@ class _RpcClient:
         ``payload`` after an evaluator rebirth (host epoch moved) and
         raises :class:`EvaluatorLostError` only when the total timeout
         budget runs out: a requeue signal, never a silent hang."""
-        deadline = time.monotonic() + rings.timeout_s()
+        t0 = time.monotonic()
+        deadline = t0 + rings.timeout_s()
         host_epoch = self._link.host_epoch
         while True:
             with self._lock:
@@ -127,6 +131,11 @@ class _RpcClient:
                         floor = ticket - 8192
                         self._done = {t for t in self._done if t > floor}
             if got is not None:
+                _SPANS.record(
+                    "rpc_wait", t0, ticket=ticket,
+                    family="nnue" if kind == rings.KIND_NNUE_SUBMIT
+                    else "az",
+                )
                 return got
             now_epoch = self._link.host_epoch
             if now_epoch != host_epoch:

@@ -54,9 +54,11 @@ Run it: ``python -m fishnet_tpu_torch.rpc.host --nnue-file w.nnue
 --az-seed 0`` (``--device cuda`` by default; without a GPU that
 raises). ``--az-seed`` draws the port's own numpy parameters
 (``models/az.py:init_az_params``), not the JAX package's
-``jax.random`` ones. Left out against the JAX package: the host's
-``--metrics-port`` (its ``fishnet_rpc_*`` families are in the process's
-registry, but this entry point starts no exporter) and spans.
+``jax.random`` ones. ``--metrics-port`` (with ``--metrics-port-file``)
+serves the host's telemetry as the client's does — ``/metrics`` with
+its ``fishnet_rpc_*`` families, and ``/spans``: each backend's dispatch
+records a ``dispatch_issue`` span (width, n, slots, fill), as the JAX
+host's does.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess.core import NativeCoreError
 from fishnet_tpu_torch.device import DeviceLike, resolve_device
 from fishnet_tpu_torch.nnue import spec
@@ -80,6 +83,7 @@ from fishnet_tpu_torch.search.coalesce import (
     CoalesceBackend,
     _DispatchCoalescer,
 )
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
 __all__ = ["EvaluatorHost", "check_nnue_record", "main"]
 
@@ -256,6 +260,8 @@ class _HostNnueBackend(CoalesceBackend):
         return np.array(out.numpy(), dtype=np.int32)
 
     def _run(self, segs: List[Tuple]) -> np.ndarray:
+        tel = _telemetry.enabled()
+        t_span = time.monotonic() if tel else 0.0
         t0 = time.perf_counter()
         total = sum(len(s[1]) for s in segs)
         bucket = _pad_bucket(total)
@@ -270,6 +276,11 @@ class _HostNnueBackend(CoalesceBackend):
         rings.note("fused.slots.nnue", bucket)
         if bucket > total:
             rings.note("pad.rows", bucket - total)
+        if tel:
+            _SPANS.record(
+                "dispatch_issue", t_span, width=len(segs),
+                n=total, slots=bucket, fill=total / bucket,
+            )
         return values
 
     def _dispatch_eval(self, group: int, n: int, rows: int):
@@ -394,6 +405,8 @@ class _HostAzBackend(CoalesceBackend):
         return self._buckets[-1]
 
     def _run(self, segs: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        tel = _telemetry.enabled()
+        t_span = time.monotonic() if tel else 0.0
         t0 = time.perf_counter()
         rows = segs[0] if len(segs) == 1 else np.concatenate(segs)
         total = len(rows)
@@ -417,6 +430,11 @@ class _HostAzBackend(CoalesceBackend):
         rings.note("fused.slots.az", slots)
         if slots > total:
             rings.note("pad.rows", slots - total)
+        if tel:
+            _SPANS.record(
+                "dispatch_issue", t_span, width=len(segs),
+                n=total, slots=slots, fill=total / slots,
+            )
         if len(logits) == 1:
             return logits[0], values[0]
         return np.concatenate(logits), np.concatenate(values)
@@ -742,6 +760,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the microbatches are evaluated "
                         "(default cuda; without a GPU it refuses)")
+    parser.add_argument("--metrics-port", type=int, default=None,
+                        help="serve /metrics, /json, /spans and /healthz "
+                        "on this port (0: ephemeral); enables span "
+                        "recording. Default: off")
+    parser.add_argument("--metrics-port-file", default=None,
+                        help="write the bound metrics port to this file "
+                        "once listening")
     args = parser.parse_args(argv)
     if not args.nnue_file and args.az_seed is None:
         parser.error("nothing to serve: pass --nnue-file and/or --az-seed")
@@ -754,6 +779,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from fishnet_tpu_torch.nnue.torch_eval import params_from_weights
     from fishnet_tpu_torch.nnue.weights import NnueWeights
 
+    exporter = None
+    if args.metrics_port is not None:
+        exporter = _telemetry.start_exporter(args.metrics_port)
+        if args.metrics_port_file is not None:
+            # Written after bind, by an atomic rename: a reader never
+            # sees a half-written number.
+            tmp = f"{args.metrics_port_file}.tmp"
+            with open(tmp, "w", encoding="utf-8") as fp:
+                fp.write(f"{exporter.port}\n")
+            os.replace(tmp, args.metrics_port_file)
     try:
         device = resolve_device(args.device)
         nnue_params = az_params = az_cfg = None
@@ -776,6 +811,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     except (ValueError, RuntimeError, OSError) as err:
         sys.stderr.write(f"E: {err}\n")
+        if exporter is not None:
+            exporter.close()
         return 2
     # A supervisor's drain sends SIGTERM: leave the serve loop cleanly so
     # the process exits 0, like a draining frontend.
@@ -793,6 +830,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         host.close()
         signal.signal(signal.SIGTERM, previous)
+        if exporter is not None:
+            exporter.close()
     return 0
 
 

@@ -4,8 +4,8 @@ multiplexed into the shared coalescer/eval plane.
 The port's copy of ``fishnet_tpu/sched/frontend.py``, with its metrics
 (``fishnet_tenant_batches_acquired_total{tenant}``,
 ``fishnet_tenant_batches_shed_total{tenant}``), its ``queue.admit``
-fault site and its ``/healthz`` "serving" provider, without its
-``admit`` span.
+fault site, its ``/healthz`` "serving" provider and its ``admit`` span
+(a child of the batch trace's root, gated on ``telemetry.enabled()``).
 
 The reference client is one acquire stream feeding one queue; the
 north-star deployment is many request sources feeding one accelerator
@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import os
+import time
 import weakref
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -69,6 +70,8 @@ from fishnet_tpu_torch.sched.queue import (
     QueueStub,
     lane_of_work,
 )
+from fishnet_tpu_torch.telemetry import tracing as _tracing
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger
 from fishnet_tpu_torch.utils.stats import StatsRecorder
@@ -211,6 +214,8 @@ class FrontEnd:
         # Positions this batch will enqueue if admitted; known before
         # the (more expensive) legality replay.
         est = 1 if body.work.is_move else len(body.moves) + 1
+        tel = _telemetry.enabled()
+        t0 = time.monotonic() if tel else 0.0
         sched = self.state.scheduler
         decision = ADMIT
         try:
@@ -225,6 +230,12 @@ class FrontEnd:
             decision = self.shed_policy.admit(
                 lane, est,
                 sched.depth(LANE_THROUGHPUT), sched.depth(LANE_LATENCY),
+            )
+        if tel:
+            _SPANS.record(
+                "admit", t0, trace=_tracing.batch_child(context),
+                batch=context, tenant=ts.name, lane=lane,
+                decision=decision, positions=est,
             )
         if decision is SHED:
             ts.shed += 1

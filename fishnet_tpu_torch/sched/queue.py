@@ -8,8 +8,10 @@ The port's copy of ``fishnet_tpu/sched/queue.py``, with its metrics
 ``fishnet_lane_depth`` and ``fishnet_tenant_positions_served``), its
 ``queue.schedule`` fault site (a fault there drops the batch like an
 invalid one) and its exactly-once ledger calls (resilience/accounting.py:
-scheduled, stepped, requeued, flushed, invalid, abandoned), without its
-spans. ``QueueStub.depth`` is the drain's progress report. The
+scheduled, stepped, requeued, flushed, invalid, abandoned) and its
+spans (``schedule`` under the batch trace's root, ``queue_wait`` at each
+worker pull, gated on ``telemetry.enabled()``).
+``QueueStub.depth`` is the drain's progress report. The
 single-stream client queues positions in one FIFO deque, as the
 reference's ``VecDeque`` does: a move job waits behind the analysis
 positions queued before it. The multi-tenant front end
@@ -68,6 +70,8 @@ from fishnet_tpu_torch.resilience.shedding import (
     LANES,
 )
 from fishnet_tpu_torch.search import eval_cache
+from fishnet_tpu_torch.telemetry import tracing as _tracing
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 from fishnet_tpu_torch.utils.backoff import RandomizedBackoff
 from fishnet_tpu_torch.utils.logger import Logger, ProgressAt, QueueStatusBar
 from fishnet_tpu_torch.utils.stats import NpsRecorder, Stats, StatsRecorder
@@ -239,6 +243,10 @@ class PendingBatch:
     sources: List[object] = field(default_factory=list)
     #: Requeue generation (bounded by MAX_REQUEUE_GENERATIONS).
     generation: int = 0
+    #: The batch's ``schedule`` trace context (telemetry/tracing.py),
+    #: set when telemetry is on: ``queue_wait`` spans recorded at
+    #: worker-pull time chain under it. None with telemetry off.
+    trace: Optional[object] = None
     #: Owning tenant ("" in single-tenant mode) — routes submissions
     #: back through the acquiring tenant's api actor.
     tenant: str = ""
@@ -686,6 +694,18 @@ class QueueState:
             return False
         batch = self.pending.get(position.work.id)
         if not callback.done():
+            if _telemetry.enabled():
+                # "queue_wait" span: this position's dwell in the
+                # incoming queue, from batch enqueue to this pull — a
+                # child of the batch's schedule span (the context
+                # stashed on PendingBatch at accept time).
+                if batch is not None and batch.trace is not None:
+                    _SPANS.record(
+                        "queue_wait", batch.started_at,
+                        trace=batch.trace.child(),
+                        batch=position.work.id,
+                        position_id=position.position_id,
+                    )
             callback.set_result(position)
             if self.scheduler is not None and batch is not None:
                 self.scheduler.note_served(batch.tenant)
@@ -701,7 +721,10 @@ class QueueState:
         return True
 
     def add_incoming_batch(
-        self, batch: IncomingBatch, tenant: str = ""
+        self,
+        batch: IncomingBatch,
+        trace: Optional[object] = None,
+        tenant: str = "",
     ) -> None:
         batch_id = batch.work.id
         if batch_id in self.pending:
@@ -732,6 +755,7 @@ class QueueState:
             started_at=time.monotonic(),
             url=batch.url,
             sources=list(batch.positions),
+            trace=trace,
             tenant=tenant,
             lane=lane,
         )
@@ -1023,6 +1047,14 @@ class QueueActor:
 
     async def handle_acquired(self, body: AcquireResponseBody) -> None:
         context = body.work.id
+        # "schedule" span: trust-boundary replay + per-ply expansion +
+        # enqueue — the stage between acquire and the search pipeline.
+        # Its trace context parents into the batch trace by digest
+        # (tracing.batch_child: the acquire root's span id IS the
+        # deterministic trace id, no cross-actor plumbing needed).
+        tel = _telemetry.enabled()
+        t0 = time.monotonic() if tel else 0.0
+        sched_ctx = _tracing.batch_child(context) if tel else None
         try:
             # "queue.schedule" fault site: a failure here is a
             # trust-boundary failure — the batch is dropped like an
@@ -1042,12 +1074,22 @@ class QueueActor:
                 completed.into_analysis(),
                 final=True,
             )
+            if tel:
+                _SPANS.record(
+                    "schedule", t0, trace=sched_ctx,
+                    batch=context, outcome="all_skipped",
+                )
             return
         except (IncomingError, _faults.FaultInjected) as err:
             self.logger.warn(f"Ignoring invalid batch {context}: {err}")
             led = _accounting.get()
             if led is not None:
                 led.record_invalid(context, str(err))
+            if tel:
+                _SPANS.record(
+                    "schedule", t0, trace=sched_ctx,
+                    batch=context, outcome="invalid",
+                )
             return
         if self.state.shutdown_soon:
             # Accepted while shutting down (an in-flight acquire
@@ -1059,8 +1101,21 @@ class QueueActor:
             if led is not None:
                 led.record_abandoned(context, "shutdown_incoming")
             self.api.abort(context)
+            if tel:
+                _SPANS.record(
+                    "schedule", t0, trace=sched_ctx,
+                    batch=context, outcome="shutdown",
+                )
             return
-        self.state.add_incoming_batch(incoming, tenant=self.api.tenant)
+        self.state.add_incoming_batch(
+            incoming, trace=sched_ctx, tenant=self.api.tenant
+        )
+        if tel:
+            _SPANS.record(
+                "schedule", t0, trace=sched_ctx,
+                batch=context, outcome="accepted",
+                positions=len(incoming.positions),
+            )
 
     async def handle_move_submissions(self) -> None:
         while True:

@@ -24,8 +24,11 @@ Metrics: the JAX package's coalesce-width histogram, flush-error counter
 and service pad-row counter (``fishnet_dispatch_coalesce_width``,
 ``fishnet_coalesce_flush_errors_total``,
 ``fishnet_dispatch_pad_rows_total{path="service"}``), always on as
-there. Left out against the JAX package: spans and cost attribution
-(the port has no span recorder yet).
+there. Spans, gated on ``telemetry.enabled()`` as there: the ``coalesce``
+fan-in span of a fused dispatch, and the async pipeline's
+``dispatch_issue`` / ``dispatch_wait`` pair, each parented under the
+first ticket's ``device_step`` context (the ticket's ``trace``) and
+linking the others. Left out against the JAX package: cost attribution.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import numpy as np
 
 from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess.core import NativeCoreError
+from fishnet_tpu_torch.telemetry import tracing as _tracing
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
 #: Microbatches fused per device dispatch (1 = an uncoalesced solo
 #: dispatch). Observed once per dispatch — cheap per-thread cells, so
@@ -264,18 +269,25 @@ class _CoalesceTicket:
     dispatch ``values`` is a ``_FusedValues`` holder and
     ``start``/``seg_size`` locate this segment's slice.
 
+    ``trace`` carries the owning driver's ``device_step`` trace context
+    across the coalescer's thread handoffs: the pack and decode workers
+    parent their shared dispatch spans under it — context travels on
+    the ticket, never thread-local.
+
     ``hashes`` are the Zobrist hashes of the microbatch's entries (batch
     order), or None when the eval cache is off: the position-dedup and
     cache-fill keys of the fused planner. ``cache_mask``/``cache_vals``
     carry the driver's pre-dispatch probe, so the planner never probes
-    twice."""
+    twice. ``fill`` is the real-entries / shipped-slots ratio of the
+    dispatch the ticket rode, stamped by ``_execute`` (the
+    ``dispatch_issue`` span's field)."""
 
     __slots__ = ("group", "n", "rows", "values", "start", "seg_size",
-                 "acct", "error", "done", "hashes", "cache_mask",
-                 "cache_vals")
+                 "acct", "error", "done", "trace", "hashes", "cache_mask",
+                 "cache_vals", "fill")
 
-    def __init__(self, group: int, n: int, rows: int, hashes=None,
-                 cache_mask=None, cache_vals=None) -> None:
+    def __init__(self, group: int, n: int, rows: int, trace=None,
+                 hashes=None, cache_mask=None, cache_vals=None) -> None:
         self.group = group
         self.n = n
         self.rows = rows
@@ -285,9 +297,11 @@ class _CoalesceTicket:
         self.acct = None
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
+        self.trace = trace
         self.hashes = hashes
         self.cache_mask = cache_mask
         self.cache_vals = cache_vals
+        self.fill: Optional[float] = None
 
 
 class CoalesceBackend:
@@ -461,13 +475,15 @@ class _DispatchCoalescer:
                 self.MAX_LINGER_S, self._probe.fixed_ms / 1e3 / 16
             )
 
-    def submit(self, group: int, n: int, rows: int, hashes=None,
-               cache_mask=None, cache_vals=None) -> _CoalesceTicket:
-        """Park a stepped group's microbatch (with its eval-cache probe,
-        see ``_CoalesceTicket``) on its shard's list; returns its ticket.
+    def submit(self, group: int, n: int, rows: int, trace=None,
+               hashes=None, cache_mask=None,
+               cache_vals=None) -> _CoalesceTicket:
+        """Park a stepped group's microbatch (with its eval-cache probe
+        and its owner's ``device_step`` trace context, see
+        ``_CoalesceTicket``) on its shard's list; returns its ticket.
         Flushes (dispatches) on this thread when the shard's policy width
         is reached."""
-        ticket = _CoalesceTicket(group, n, rows, hashes=hashes,
+        ticket = _CoalesceTicket(group, n, rows, trace=trace, hashes=hashes,
                                  cache_mask=cache_mask, cache_vals=cache_vals)
         router = self._svc._router
         if router is not None:
@@ -561,6 +577,8 @@ class _DispatchCoalescer:
     def _execute(self, tickets: List[_CoalesceTicket]) -> None:
         svc = self._svc
         shard = self._shard_of(tickets[0].group)
+        tel = _telemetry.enabled()
+        t0 = time.monotonic() if tel else 0.0
         try:
             if len(tickets) == 1:
                 tk = tickets[0]
@@ -586,15 +604,40 @@ class _DispatchCoalescer:
         COALESCE_WIDTH.observe(len(tickets))
         # Tuple accts (the NNUE wire) carry each segment's shipped bucket
         # in acct[0]: bucket minus real entries is the padding. Dict
-        # accts (the AZ plane) count their pad rows themselves.
+        # accts (the AZ plane) count their pad rows themselves; a
+        # "slots" figure there only stamps the fill. The dispatch's fill
+        # lands on every ticket for the dispatch_issue span.
         slots = sum(tk.acct[0] for tk in tickets
                     if isinstance(tk.acct, tuple) and tk.acct)
+        dict_slots = sum(tk.acct.get("slots", 0) for tk in tickets
+                         if isinstance(tk.acct, dict))
         if slots > 0:
-            pad = slots - sum(tk.n for tk in tickets)
+            real = sum(tk.n for tk in tickets)
+            pad = slots - real
             if pad > 0:
                 PAD_ROWS.inc(pad, path="service")
+            for tk in tickets:
+                tk.fill = real / slots
+        elif dict_slots > 0:
+            fill = sum(tk.n for tk in tickets) / dict_slots
+            for tk in tickets:
+                tk.fill = fill
         for tk in tickets:
             tk.done.set()
+        if tel and len(tickets) > 1:
+            # Fan-in span: one fused dispatch belongs to every segment
+            # owner's step trace — parent under the first owner, link
+            # the rest (a critical-path analyzer re-attaches it).
+            ctxs = [tk.trace for tk in tickets if tk.trace is not None]
+            _SPANS.record(
+                "coalesce", t0,
+                trace=ctxs[0].child() if ctxs else None,
+                links=_tracing.links_for(ctxs[1:]) or None,
+                width=len(tickets),
+                groups=[tk.group for tk in tickets],
+                n=sum(tk.n for tk in tickets),
+                shard=shard,
+            )
 
 
 class _SeqAllocator:
@@ -779,6 +822,8 @@ class _AsyncDispatchPipeline:
                     break
                 if item is None:
                     continue
+                if q is self._decode_q:
+                    item = item[1]  # (seq, tickets, issue_ctx, links)
                 for tk in item:
                     if not tk.done.is_set():
                         tk.error = err
@@ -816,7 +861,9 @@ class _AsyncDispatchPipeline:
             self._slots.acquire()  # wait until fewer than depth in flight
             tickets, held = self._merge_queued(
                 item, max(len(item), co.width))
-            self.last_seq = self._next_seq()
+            seq = self.last_seq = self._next_seq()
+            tel = _telemetry.enabled()
+            t0 = time.monotonic() if tel else 0.0
             try:
                 co._execute(tickets)
             except BaseException as err:  # noqa: BLE001 - pipeline teardown
@@ -832,14 +879,36 @@ class _AsyncDispatchPipeline:
                 self._release()  # nothing went to the device
                 continue
             self._mark(+1)
-            self._decode_q.put(tickets)
+            issue_ctx = None
+            links = None
+            if tel:
+                # The shared dispatch span fans into every owner's step
+                # trace: parent under the first ticket's device_step
+                # context, link the rest. The context then rides the
+                # decode-queue item so the decode worker's dispatch_wait
+                # chains under it across the second thread handoff.
+                ctxs = [tk.trace for tk in tickets if tk.trace is not None]
+                if ctxs:
+                    issue_ctx = ctxs[0].child()
+                    links = _tracing.links_for(ctxs[1:]) or None
+                _SPANS.record(
+                    "dispatch_issue", t0, trace=issue_ctx, links=links,
+                    seq=seq, width=len(tickets),
+                    n=sum(tk.n for tk in tickets),
+                    fill=tickets[0].fill,
+                    shard=self._shard,
+                )
+            self._decode_q.put((seq, tickets, issue_ctx, links))
 
     def _decode_loop(self) -> None:
         self._svc._bind_worker(self._shard)
         while True:
-            tickets = self._decode_q.get()
-            if tickets is None:
+            item = self._decode_q.get()
+            if item is None:
                 return
+            seq, tickets, issue_ctx, links = item
+            tel = _telemetry.enabled()
+            t0 = time.monotonic() if tel else 0.0
             try:
                 values = tickets[0].values
                 if isinstance(values, _FusedValues):
@@ -852,3 +921,10 @@ class _AsyncDispatchPipeline:
                 COALESCE_ERRORS.inc()
             self._mark(-1)
             self._release()
+            if tel:
+                _SPANS.record(
+                    "dispatch_wait", t0,
+                    trace=issue_ctx.child() if issue_ctx else None,
+                    links=links, seq=seq, width=len(tickets),
+                    shard=self._shard,
+                )

@@ -25,9 +25,10 @@ the played-move subtree), and a pool-wide EXPANSION MEMO.
 The tree logic is the JAX package's line for line, so the same
 evaluator gives the same trees in both packages. Telemetry: the JAX
 package's ``fishnet_mcts_*`` families, process-wide totals and live
-gauges over every pool (``_collect_mcts_families``). Left out against
-it: spans and the control plane's leaf-width actuator (neither module
-is ported); the pool also reports through ``counters()``.
+gauges over every pool (``_collect_mcts_families``), and the
+``mcts_collect`` span of each step's leaf collection when telemetry is
+on. Left out against it: the control plane's leaf-width actuator (not
+ported); the pool also reports through ``counters()``.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess.board import Board
 from fishnet_tpu_torch.models.az import AzConfig, value_to_centipawns
 from fishnet_tpu_torch.models.az_encoding import board_planes, legal_policy_indices
 from fishnet_tpu_torch.search import eval_cache as _eval_cache
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
 __all__ = ["MctsConfig", "MctsLine", "MctsPool", "MctsResult"]
 
@@ -813,6 +816,9 @@ class MctsPool:
         keys: List[int] = []
         cap = self.cfg.batch_capacity
         served = 0
+        tel = _telemetry.enabled()
+        t0 = time.monotonic() if tel else 0.0
+        step_collisions = 0
         for s in searches:
             if s.done:
                 served += 1
@@ -822,7 +828,7 @@ class MctsPool:
                 break
             s.collect(room=room)
             served += 1
-            self._drain_counters(s)
+            step_collisions += self._drain_counters(s)[1]
             if s.pending:
                 contributors.append((s, len(s.pending)))
                 for item in s.pending:
@@ -834,6 +840,12 @@ class MctsPool:
         if not planes_list:
             return 0
         n_used = len(planes_list)
+        if tel:
+            _SPANS.record(
+                "mcts_collect", t0,
+                n=n_used, trees=len(contributors),
+                collisions=step_collisions,
+            )
 
         batch = self._batch_buf
         stacked = np.stack(planes_list)

@@ -81,6 +81,18 @@ on the mesh a plain error steps the group's shard down instead and the
 step goes out on the degraded path. With no plan the site is one
 attribute read.
 
+Spans (telemetry/spans.py), the JAX service's driver stages: with
+``telemetry.enabled()`` each driver step records ``pack`` (the root of a
+fresh step trace when the step emitted a batch), ``device_step`` (the
+host-side issue, with ``cache_skip=1`` on a whole-batch cache skip),
+``cache_probe`` and ``bounds_probe`` under it, and, when the batch is
+resolved, ``wire_decode`` and ``postprocess`` (``op="provide"``); the
+harvest records ``postprocess`` with ``op="harvest"``. The
+``device_step`` context rides the coalesce ticket to the pack and
+decode workers (search/coalesce.py). ``close()`` dumps the recorder
+(``reason="close"``), and a driver failing live searches dumps it too
+(``fail_all:...``). With telemetry off each step reads the flag once.
+
 External evaluator (``evaluator=``, the split plane's frontend,
 rpc/client.py, or ``parallel.mesh.ShardedEvaluator``): the service
 holds no device. Each group's step goes out
@@ -159,6 +171,8 @@ from fishnet_tpu_torch.search.coalesce import (
     _SeqAllocator,
     fit_dispatch_cost,
 )
+from fishnet_tpu_torch.telemetry import tracing as _tracing
+from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
 
 @dataclass
@@ -1283,6 +1297,9 @@ class SearchService(CoalesceBackend):
         # blocked in demand() needs the pack worker to set its ticket.
         for pipe in self._async_pipes:
             pipe.close()
+        if _telemetry.enabled():
+            # Clean-close flight-recorder dump.
+            _SPANS.dump(reason="close")
         if any(th.is_alive() for th in self._threads):
             # Driver stuck: leak the pool rather than free memory a
             # thread still dereferences.
@@ -1921,14 +1938,15 @@ class SearchService(CoalesceBackend):
         cache = self._eval_cache
         salt = self._cache_salt
         hash_ptrs = ptrs(self._hash_buf, ctypes.c_uint64)
-        # In-flight device evals per group: group -> (n, handle, the
-        # batch's hashes or None, its cache-hit mask or None), the
-        # handle a coalescer ticket when there is a coalescer, or the
-        # values themselves when the cache answered the whole batch.
+        # In-flight device evals per group: group -> (n, handle, its
+        # device_step trace context or None, the batch's hashes or None,
+        # its cache-hit mask or None), the handle a coalescer ticket
+        # when there is a coalescer, or the values themselves when the
+        # cache answered the whole batch.
         # Resolve group g's previous eval, wake its fibers, step them to
         # new leaves, dispatch (or park) the next eval — then move to
         # group g+1 while this one runs on the device.
-        inflight: Dict[int, Tuple[int, object, object, object]] = {}
+        inflight: Dict[int, Tuple[int, object, object, object, object]] = {}
         co = self._coalescer
 
         if self.device is not None and self.device.type == "cuda":
@@ -2008,10 +2026,16 @@ class SearchService(CoalesceBackend):
                 if self._stopping:
                     continue
 
+            # Flight-recorder gate, read once per iteration: one module
+            # attribute read when telemetry is off, and then no clock
+            # read and no trace context anywhere below.
+            tel = _telemetry.enabled()
+
             stepped = 0
             for g in groups:
                 if g in inflight:
-                    n_prev, handle, hb, hmask = inflight.pop(g)
+                    n_prev, handle, dctx, hb, hmask = inflight.pop(g)
+                    t0 = time.monotonic() if tel else 0.0
                     if isinstance(handle, _CoalesceTicket):
                         # Flushes the coalescer if the ticket is still
                         # parked, then waits for its dispatch; the
@@ -2030,11 +2054,24 @@ class SearchService(CoalesceBackend):
                         for i in np.flatnonzero(hmask).tolist():
                             self._held.fc_pool_tt_fill(
                                 self._pool, int(hb[i]), int(values[i]))
+                    if tel:
+                        _SPANS.record(
+                            "wire_decode", t0,
+                            trace=dctx.child() if dctx else None,
+                            group=g, n=n_prev,
+                        )
+                        t0 = time.monotonic()
                     rc = lib.fc_pool_provide(
                         self._pool, g,
                         values.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
                         n_prev,
                     )
+                    if tel:
+                        _SPANS.record(
+                            "postprocess", t0,
+                            trace=dctx.child() if dctx else None,
+                            group=g, n=n_prev, op="provide",
+                        )
                     if rc < 0:
                         raise NativeCoreError(
                             f"fc_pool_provide rejected {n_prev} values for "
@@ -2042,12 +2079,23 @@ class SearchService(CoalesceBackend):
                         )
                 # Advance this group's fibers; fill its eval batch.
                 rows = ctypes.c_int32()
+                t0 = time.monotonic() if tel else 0.0
                 n = lib.fc_pool_step(
                     self._pool, g, packed_ptrs[g], offset_ptrs[g],
                     bucket_ptrs[g], slot_ptrs[g],
                     parent_ptrs[g], material_ptrs[g], self._group_capacity,
                     self._shard_align, ctypes.byref(rows),
                 )
+                # Step-trace root: each eval microbatch gets a fresh
+                # trace at pack time; device_step chains under it and
+                # the context rides the coalesce ticket across the
+                # pack/decode worker handoffs.
+                step_ctx = _tracing.new_trace() if tel and n > 0 else None
+                if tel:
+                    _SPANS.record(
+                        "pack", t0, trace=step_ctx,
+                        group=g, n=n, rows=rows.value,
+                    )
                 stepped += n
                 if n > 0:
                     if self._params is None and self._evaluator is None:
@@ -2071,10 +2119,12 @@ class SearchService(CoalesceBackend):
                                 raise
                             except _faults.FaultInjected as err:
                                 self._degrade_shard_for(g, err)
+                    t0 = time.monotonic() if tel else 0.0
+                    dctx = step_ctx.child() if step_ctx is not None else None
                     hashes = hmask = hvals = None
                     if cache is not None:
                         hashes, hvals, hmask = self._probe_batch(
-                            g, n, hash_ptrs[g])
+                            g, n, hash_ptrs[g], dctx)
                         if hmask.all():
                             # Every entry known: no dispatch. The pool's
                             # device anchors are invalidated first, so
@@ -2086,28 +2136,47 @@ class SearchService(CoalesceBackend):
                                 self._cache_prewire_hits += n
                                 self._cache_skipped_dispatches += 1
                             inflight[g] = (n, np.array(hvals, copy=True),
-                                           hashes, hmask)
+                                           dctx, hashes, hmask)
+                            if tel:
+                                _SPANS.record(
+                                    "device_step", t0, trace=dctx,
+                                    group=g, n=n, cache_skip=1,
+                                )
                             continue
                     if co is not None:
                         inflight[g] = (n, co.submit(
-                            g, n, rows.value, hashes=hashes,
+                            g, n, rows.value, trace=dctx, hashes=hashes,
                             cache_mask=hmask, cache_vals=hvals),
-                            hashes, hmask)
+                            dctx, hashes, hmask)
                     else:
                         handle, acct = self._dispatch_eval(g, n, rows.value)
                         self._apply_acct(t, acct)
                         COALESCE_WIDTH.observe(1)
                         if acct[0] > n:
                             PAD_ROWS.inc(acct[0] - n, path="service")
-                        inflight[g] = (n, handle, hashes, hmask)
+                        inflight[g] = (n, handle, dctx, hashes, hmask)
+                    if tel:
+                        # The host-side issue: on the GPU the launch is
+                        # asynchronous, and the device's work shows in
+                        # wire_decode and dispatch_wait.
+                        _SPANS.record(
+                            "device_step", t0, trace=dctx, group=g, n=n
+                        )
 
             # Harvest this thread's finished searches.
             for g in groups:
+                t0 = time.monotonic() if tel else 0.0
+                harvested = 0
                 while True:
                     slot = lib.fc_pool_next_finished(self._pool, g)
                     if slot < 0:
                         break
                     self._finish_slot(t, slot)
+                    harvested += 1
+                if tel and harvested:
+                    _SPANS.record(
+                        "postprocess", t0, group=g, n=harvested, op="harvest"
+                    )
 
             if stepped == 0 and not inflight and all(
                 lib.fc_pool_active(self._pool, g) == 0 for g in groups
@@ -2118,21 +2187,30 @@ class SearchService(CoalesceBackend):
                     self._wakes[t].wait(timeout=0.05)
                     self._wakes[t].clear()
 
-    def _probe_batch(self, g: int, n: int, hash_ptr):
+    def _probe_batch(self, g: int, n: int, hash_ptr, dctx=None):
         """The pre-dispatch probe of group ``g``'s stepped batch: export
         its Zobrist hashes, probe the eval cache, seed the bounds tier's
         records for these positions into the pool TT, and feed the miss
-        history. Returns (raw hashes, cached values, hit mask), views of
-        the group's buffers valid until its next step."""
+        history. With ``dctx`` (the batch's ``device_step`` trace
+        context, None when telemetry is off) the ``cache_probe`` and
+        ``bounds_probe`` spans are recorded under it. Returns (raw
+        hashes, cached values, hit mask), views of the group's buffers
+        valid until its next step."""
         lib = self._lib
         salt = self._cache_salt
+        tel = dctx is not None
+        t0 = time.monotonic() if tel else 0.0
         lib.fc_pool_batch_hashes(self._pool, g, hash_ptr,
                                  self._group_capacity)
         hashes = self._hash_buf[g][:n]
         hvals, hmask = self._eval_cache.probe_block(
             hashes ^ salt, out=self._cache_val_buf[g][:n])
+        if tel:
+            _SPANS.record("cache_probe", t0, trace=dctx, group=g, n=n,
+                          hits=int(hmask.sum()))
         bcache = self._bounds_cache
         if bcache is not None:
+            t0 = time.monotonic() if tel else 0.0
             # Cached search facts land in the pool TT before the
             # dispatch: cutoffs and window narrowing for the native
             # search, best moves for its move ordering.
@@ -2145,6 +2223,9 @@ class SearchService(CoalesceBackend):
             if rows:
                 with self._lock:
                     self._bounds_seeded += len(rows)
+            if tel:
+                _SPANS.record("bounds_probe", t0, trace=dctx, group=g, n=n,
+                              hits=len(rows))
         self._miss_hist.record(g, int(hmask.sum()), n)
         if self._cache_steer:
             self._steer_prefetch(g)
@@ -2374,6 +2455,11 @@ class SearchService(CoalesceBackend):
             self._pending[t].clear()
             submissions = self._submissions[t]
             self._submissions[t] = []
+        if _telemetry.enabled() and (doomed or submissions):
+            # Crash forensics: a driver failing live searches dumps the
+            # flight recorder (the clean-drain call with nothing pending
+            # stays silent — close() makes the one clean-close dump).
+            _SPANS.dump(reason=f"fail_all:{err!r}"[:120])
         for pending in doomed:
             pending.loop.call_soon_threadsafe(_set_exc, pending.future, err)
         for item in submissions:

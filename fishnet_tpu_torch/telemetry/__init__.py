@@ -1,23 +1,31 @@
-"""Live telemetry, the metrics half: the registry and the Prometheus
-exposition server — the port of ``fishnet_tpu/telemetry/`` without its
-span flight recorder, traces, profiler and fleet layers.
+"""Live telemetry: the metrics registry, the Prometheus exposition and
+the span flight recorder — the port of ``fishnet_tpu/telemetry/``
+without its trace export, critical-path analysis, cost attribution,
+profiler and fleet layers.
 
 * :mod:`fishnet_tpu_torch.telemetry.registry` — Counter/Gauge/Histogram
   with per-thread cells aggregated at scrape time, plus pull-style
   collector callbacks adapting the port's existing counters;
+* :mod:`fishnet_tpu_torch.telemetry.spans` — a fixed-size ring of
+  monotonic-clock spans around the pipeline stages, dumped as JSONL on
+  SIGUSR2, driver crash, clean close and drain;
+* :mod:`fishnet_tpu_torch.telemetry.tracing` — the causal trace
+  contexts the spans carry (batch traces and step traces);
 * :mod:`fishnet_tpu_torch.telemetry.exporter` — ``/metrics``
-  (Prometheus text), ``/json`` and ``/healthz`` on a stdlib
+  (Prometheus text), ``/json``, ``/spans`` and ``/healthz`` on a stdlib
   ``http.server`` thread.
 
-The exported names follow doc/observability.md, the JAX package's
-contract, so a dashboard built for the JAX worker reads the port.
+The exported names, span stages and span fields follow
+doc/observability.md, the JAX package's contract, so a dashboard or a
+span consumer built for the JAX worker reads the port.
 
-Hot-path discipline: metric collection is pull-only, so a never-scraped
-process pays nothing beyond the always-on per-thread counter cells the
-JAX package has too. :func:`enabled` is the JAX package's span flag:
-``start_exporter`` flips it on, and nothing reads it yet (the span
-recorder is not ported); it stays so that the spans plug in without
-changing callers.
+Hot-path discipline: telemetry is **disabled by default**. Span
+instrumentation in the serving path is gated on :func:`enabled` (one
+module-attribute read when off); metric *collection* is pull-only, so a
+never-scraped process pays nothing beyond the always-on per-thread
+counter cells the JAX package has too. :func:`enable` is flipped once
+at startup by the ``--metrics-port`` wiring (``start_exporter``) or a
+test, before traffic starts.
 """
 
 from __future__ import annotations
@@ -36,6 +44,21 @@ from fishnet_tpu_torch.telemetry.registry import (  # noqa: F401 - public API
     histogram_quantiles,
     percentile,
     quantile_from_buckets,
+)
+from fishnet_tpu_torch.telemetry.spans import (  # noqa: F401 - public API
+    EVENT_STAGES,
+    RECORDER,
+    STAGES,
+    SpanRecorder,
+    install_signal_dump,
+)
+from fishnet_tpu_torch.telemetry.tracing import (  # noqa: F401 - public API
+    TraceContext,
+    batch_child,
+    batch_root,
+    links_for,
+    new_trace,
+    trace_id_for_batch,
 )
 
 _enabled = False
@@ -57,11 +80,13 @@ def disable() -> None:
 
 
 def start_exporter(port: int, host: str = "127.0.0.1"):
-    """The one-call opt-in: enable the flag and serve ``/metrics`` on
-    ``port`` (0 = ephemeral). Returns the :class:`MetricsExporter`. (The
-    JAX package also arms a SIGUSR2 span dump and the profiler here;
-    neither module is ported.)"""
+    """The one-call opt-in: enable span recording, arm the SIGUSR2 dump
+    (where the platform has it), and serve ``/metrics`` on ``port``
+    (0 = ephemeral). Returns the :class:`MetricsExporter`. (The JAX
+    package also arms its profiling plane here under
+    ``FISHNET_PROFILE=1``; the port has no profiler.)"""
     from fishnet_tpu_torch.telemetry.exporter import MetricsExporter
 
     enable()
+    install_signal_dump()
     return MetricsExporter(port=port, host=host)

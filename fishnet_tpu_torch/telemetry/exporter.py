@@ -19,10 +19,13 @@ Endpoints:
 * ``GET /healthz/ready`` — alias for ``/healthz`` (the readiness half).
 * ``GET /healthz/live`` — pure liveness: 200 ``ok`` as long as the
   process is up, even while draining or shedding.
+* ``GET /spans``   — the span flight recorder's rings as JSON:
+  ``{"pid", "monotonic_to_epoch", "spans"}`` (telemetry/spans.py), the
+  JAX exporter's body.
 
-The JAX exporter's ``/spans``, ``/trace`` and ``/profile`` read the
-span flight recorder and the sampling profiler, which the port does not
-have yet: they answer 404 with a body naming the missing module.
+The JAX exporter's ``/trace`` (Chrome trace export) and ``/profile``
+(the sampling profiler) read modules the port does not have yet: they
+answer 404 with a body naming the missing module.
 """
 
 from __future__ import annotations
@@ -42,8 +45,7 @@ _PROC_START_TIME = time.time()
 #: Routes of the JAX exporter whose modules the port lacks: path -> the
 #: missing module (the 404 body names it).
 NOT_PORTED: Dict[str, str] = {
-    "/spans": "telemetry.spans",
-    "/trace": "telemetry.spans and telemetry.trace_export",
+    "/trace": "telemetry.trace_export",
     "/profile": "telemetry.profiler",
 }
 
@@ -227,6 +229,23 @@ def _make_handler(registry: MetricsRegistry, exporter: "MetricsExporter"):
                         "application/json",
                         json.dumps(registry.render_json()).encode(),
                     ))
+                elif path == "/spans":
+                    import os as _os
+
+                    from fishnet_tpu_torch.telemetry.spans import RECORDER
+
+                    # pid + the monotonic->epoch anchor ride along so a
+                    # fleet aggregator can key span archives per process
+                    # incarnation and rebase every process's spans onto
+                    # one wall clock before stitching.
+                    body = json.dumps({
+                        "pid": _os.getpid(),
+                        "monotonic_to_epoch": round(
+                            RECORDER.epoch_offset, 6
+                        ),
+                        "spans": RECORDER.spans(),
+                    }).encode()
+                    self._send(200, "application/json", body)
                 elif path in NOT_PORTED:
                     self._send(404, "text/plain", (
                         f"{path}: not ported: fishnet_tpu_torch has no "

@@ -708,8 +708,8 @@ def test_snapshot_warm_restart_resolves_its_first_batch_before_the_wire(
     first = []
     probe = svc._probe_batch
 
-    def recorder(g, n, hash_ptr):
-        out = probe(g, n, hash_ptr)
+    def recorder(g, n, hash_ptr, dctx=None):
+        out = probe(g, n, hash_ptr, dctx)
         first.append(bool(out[2].all()))
         return out
 

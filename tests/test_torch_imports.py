@@ -42,7 +42,8 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "train.model", "train.trainer", "train.az_trainer",
              "train.checkpoint", "train.data", "train.selfplay",
              "parallel", "parallel.mesh", "train.sharding", "telemetry",
-             "telemetry.registry", "telemetry.exporter", "resilience",
+             "telemetry.registry", "telemetry.exporter", "telemetry.spans",
+             "telemetry.tracing", "resilience",
              "resilience.faults", "resilience.accounting",
              "resilience.drain", "resilience.shedding", "resilience.soak",
              "sched.frontend"):
