@@ -7076,22 +7076,32 @@ def overload_saturation(dev, url: str) -> dict:
                 summary = await saturate(client, lichess, OVERLOAD_SECONDS,
                                          overshoot=OVERLOAD_PLIES + 1,
                                          health_url=f"{url}/healthz")
-                # The stop cancels searches mid-step: read the counts
-                # once no dispatch is in flight and they stopped moving.
-                last, deadline = None, time.monotonic() + 30
+                # The stop cancels the workers mid-search, but a
+                # cancelled search runs on in the service, and may
+                # dispatch, until its driver harvests it. Read the counts
+                # once no search is left, no dispatch is in flight and
+                # two reads agree, from that one snapshot.
+                t_stop = time.monotonic()
+                live_at_stop = live_searches(svc)
+                last, deadline = None, t_stop + 60
                 while True:
                     c1 = svc.counters()
                     now = (c1["dispatches"], packed.launches,
-                           c1["inflight_dispatches"])
-                    if now == last and now[2] == 0:
+                           c1["inflight_dispatches"], live_searches(svc))
+                    if now == last and now[2] == 0 and now[3] == 0:
                         break
                     check(time.monotonic() < deadline,
-                          f"overload: the service never went quiet {now}")
+                          "overload: the service never went quiet "
+                          f"(dispatches, launches, in flight, searches) "
+                          f"{now}")
                     last = now
                     await asyncio.sleep(0.1)
+                summary["after_stop"] = {
+                    "searches": live_at_stop,
+                    "drained_s": time.monotonic() - t_stop}
                 summary["kernel"] = {
-                    "dispatches": c1["dispatches"] - c0["dispatches"],
-                    "launches": packed.launches,
+                    "dispatches": now[0] - c0["dispatches"],
+                    "launches": now[1],
                     "dense": ft_gather.ft_accumulate_cuda.launches,
                     "errors_moved": (ft_gather.kernel_errors(dev) - errors0
                                      if gpu else 0)}
@@ -7115,6 +7125,15 @@ def overload_saturation(dev, url: str) -> dict:
           f"overload: {kern}")
     check(kern["errors_moved"] == 0, f"overload: the error word moved {kern}")
     return summary
+
+
+def live_searches(svc) -> int:
+    """The searches ``svc`` still holds, running or queued. A caller's
+    cancellation stops its search, but the search stays in the service
+    until its driver harvests it."""
+    with svc._lock:
+        return (sum(len(p) for p in svc._pending)
+                + sum(len(q) for q in svc._submissions))
 
 
 def log_saturation(summary: dict) -> None:
@@ -7141,6 +7160,11 @@ def log_saturation(summary: dict) -> None:
         f"{None if health is None else health[0]}; {kern['launches']} "
         f"packed launches ({kern['dense']} dense) for {kern['dispatches']} "
         "dispatches")
+    stop = summary.get("after_stop")
+    if stop is not None:
+        log(f"  saturation: {stop['searches']} searches still in the service "
+            f"when the stop returned, none left {stop['drained_s']:.3f} s "
+            "later")
 
 
 def overload_soak(dev) -> dict:

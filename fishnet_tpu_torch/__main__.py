@@ -521,12 +521,15 @@ async def run_client(opt: Opt, logger: Logger) -> None:
                 eval_cache.save_snapshot(fingerprint=net_fp,
                                          az_fingerprint=az_fp)
     finally:
-        if opt.verbose:
-            logger.debug(_teardown_counters(engine_factory, warm))
         # Tear down the shared service before interpreter exit: a daemon
         # driver thread still inside native code when Python unwinds
         # takes the process down.
         engine_factory.close()
+        if opt.verbose:
+            # After close: an aborting stop leaves the cancelled searches
+            # in the service until its drivers harvest them, and they may
+            # still dispatch; once it is closed the counts are final.
+            logger.debug(_teardown_counters(engine_factory, warm))
         # Flush the (interval-debounced) stats file and stop serving
         # scrapes before teardown completes.
         stats.flush()

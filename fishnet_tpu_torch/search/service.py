@@ -748,6 +748,8 @@ class SearchService(CoalesceBackend):
                 self._router = ShardRouter(self._n_groups, self._n_shards)
                 self._shard_rungs = self._shard_rungs * self._n_shards
 
+        #: ``counters()`` as close() left them, read after the pool is freed.
+        self._closed_counters: Dict[str, int] = {}
         self._pool = self._lib.fc_pool_new(
             pool_slots, tt_bytes, self.net_path.encode(), self._n_groups
         )
@@ -1135,7 +1137,11 @@ class SearchService(CoalesceBackend):
 
     def counters(self) -> Dict[str, int]:
         """Cumulative eval-traffic counters: the native pool's (see cpp
-        SearchCounters) and this service's dispatch accounting."""
+        SearchCounters) and this service's dispatch accounting. After
+        close() they are the final counts, as close() read them once
+        every driver and worker had stopped."""
+        if not self._pool:
+            return dict(self._closed_counters)
         buf = (ctypes.c_uint64 * 13)()
         n = self._lib.fc_pool_counters(self._pool, buf, 13)
         out = {k: int(buf[i]) for i, k in enumerate((
@@ -1310,6 +1316,7 @@ class SearchService(CoalesceBackend):
             _telemetry.REGISTRY.unregister_collector(self._collector_token)
             self._collector_token = None
         if self._pool:
+            self._closed_counters = self.counters()
             self._lib.fc_pool_free(self._pool)
             self._pool = None
         if self._tmp is not None:

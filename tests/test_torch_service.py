@@ -143,6 +143,32 @@ def test_pipelined_groups_and_counters():
     assert svc.psqt_path == "xla"
 
 
+def test_counters_after_close_are_the_counts_at_close():
+    """close() frees the native pool; counters() then answers, each call
+    a copy, what close() read once every driver had stopped (the CLI's
+    teardown line reads the counts there)."""
+    svc = SearchService(weights=NnueWeights.random(seed=21), device="cpu",
+                        pool_slots=16, batch_capacity=128)
+
+    async def run():
+        return await asyncio.gather(*[
+            svc.search(fen, [], depth=2) for fen in DEPTH4_FENS
+        ])
+
+    try:
+        asyncio.run(run())
+        before = svc.counters()
+    finally:
+        svc.close()
+    after = svc.counters()
+    assert set(after) == set(before)
+    for key in ("eval_steps", "dispatches", "nodes", "bucket_slots"):
+        assert after[key] == before[key]
+    assert after["nodes"] > 0
+    after["nodes"] = -1
+    assert svc.counters()["nodes"] == before["nodes"]
+
+
 def test_device_and_rung_requests_are_checked():
     w = NnueWeights.random(seed=21)
     # A rung is a request the device must be able to run: "xla" (the
