@@ -132,16 +132,22 @@ two-logical-shard service's ``fishnet_shard_*`` == ``shard_report()``.
 ``start_exporter`` turns span recording on, so B measures scrape plus
 spans, and its burst's ``/spans`` passes ``span_checks``; the flag goes
 off when each exporter closes. ``spans`` runs the faults ladder's 8
-gated positions at 1000 nodes (width pinned to 4) with spans off, then
-on: the analyses equal bit for bit, packed launches == dispatches, and
-the spans hold no orphan, one ``pack`` root a step trace, every
-``dispatch_issue`` paired with its ``dispatch_wait`` by ``seq``, one
-``dispatch_issue`` per packed launch and ``width - 1`` links on every
-``coalesce`` span; beside it ``python -m fishnet_tpu_torch run
---metrics-port 0 --spans-dir D`` on 2 games x 20 plies at RUN_NODES and
-1 move job: each batch's complete tree on ``/spans``, a SIGUSR2 dump
-and, after SIGTERM, the ``drain`` span and the drain dump (its log in
-``chiprun_out/spans/``).
+gated positions at 1000 nodes (width pinned to 4) with spans and the
+cost plane off, then on: the analyses equal bit for bit, packed launches
+== dispatches, and the spans hold no orphan, one ``pack`` root a step
+trace, every ``dispatch_issue`` paired with its ``dispatch_wait`` by
+``seq``, one ``dispatch_issue`` per packed launch and ``width - 1``
+links on every ``coalesce`` span; the port's ``critical_path`` finds no
+orphan and covers at least 95% of the step traces' wall; the cost
+ledger holds one record a stepped microbatch, its tenants summing to
+its wall within 2%. Beside it ``FISHNET_PROFILE=1 python -m
+fishnet_tpu_torch run --metrics-port 0 --spans-dir D`` on 2 games x 20
+plies at RUN_NODES and 1 move job: each batch's complete tree on
+``/spans``; ``/profile`` with the driver, pack and decode roles and a
+non-empty collapsed text, ``/trace`` valid, the stage histogram and the
+tenants' device ms (== the measured total within 2%) on ``/metrics``;
+a SIGUSR2 dump and, after SIGTERM, the ``drain`` span and the drain
+dump (its log in ``chiprun_out/spans/``).
 ``faults`` drives every fault site of the port's path on the
 card: 8 gated positions at 1000 nodes through the supervised factory,
 crashed twice by ``service.device_step:nth=1:crash`` (the CLI's
@@ -5209,10 +5215,10 @@ def mesh_burst(weights, dev) -> list:
             co = svc._coalescer
             real = co._execute
 
-            def timed(tickets, _real=real):
+            def timed(tickets, _real=real, **kwargs):
                 t0 = time.perf_counter()
                 try:
-                    return _real(tickets)
+                    return _real(tickets, **kwargs)
                 finally:
                     name = threading.current_thread().name
                     if name.startswith("dispatch-pack"):
@@ -5720,6 +5726,12 @@ def metric_value(text: str, name: str, **labels) -> float:
     raise SmokeFailure(f"metrics: no sample {name}{labels}")
 
 
+def metric_total(text: str, name: str) -> float:
+    """The sum of every sample of ``name`` (all label sets)."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith((name + "{", name + " ")))
+
+
 def http_get(url: str) -> str:
     import urllib.request
 
@@ -6041,18 +6053,26 @@ def span_checks(spans, what: str, launches: Optional[int] = None) -> dict:
 
 def spans_gated(weights, dev) -> dict:
     """The gated service (the faults ladder's positions and nodes, the
-    coalescer's width pinned to SPANS_WIDTH) with spans off, then on
-    (``telemetry.enable()``, as ``start_exporter`` does): the analyses
-    equal bit for bit, packed launches == dispatches in both
-    (``gated_run``), and the on run's spans pass ``span_checks`` with
-    one ``dispatch_issue`` per packed launch. The launch counts are set
-    to 0 after the on run's warm-up and read after its last answer."""
+    coalescer's width pinned to SPANS_WIDTH) with spans and the cost
+    plane off, then both on (``telemetry.enable()`` and
+    ``cost.enable()``, as ``start_exporter`` does under
+    ``FISHNET_PROFILE=1``): the analyses equal bit for bit, packed
+    launches == dispatches in both (``gated_run``), and the on run's
+    spans pass ``span_checks`` with one ``dispatch_issue`` per packed
+    launch, have no orphan under the port's ``critical_path`` and a
+    ``report`` coverage of at least 0.95. The cost ledger records one
+    entry a stepped microbatch (the JAX ledger's count, one a ticket),
+    and its tenant shares sum to its measured wall within 2%. The launch
+    counts are set to 0 after the on run's warm-up and read after its
+    last answer."""
     import tempfile
 
     import torch
 
     from fishnet_tpu_torch import telemetry
     from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.telemetry import cost
+    from fishnet_tpu_torch.telemetry import critical_path as cp
     from fishnet_tpu_torch.telemetry.spans import RECORDER
 
     walks = random_lines(SPANS_WALKS, seed=13)
@@ -6068,6 +6088,8 @@ def spans_gated(weights, dev) -> dict:
         ft_gather.ft_accumulate_cuda.launches = 0
         mark["t0"] = time.monotonic()
 
+    cost.reset()
+    cost.enable()
     telemetry.enable()
     try:
         with whole_run_rings():
@@ -6077,6 +6099,8 @@ def spans_gated(weights, dev) -> dict:
             t_on = time.perf_counter() - t_on
     finally:
         telemetry.disable()
+        cost.disable()
+    ledger = cost.LEDGER.snapshot()
     launches = ft_gather.ft_accumulate_packed_cuda.launches
     held = RECORDER.spans()
     spans = [sp for sp in held if sp["t"] >= mark["t0"] - 1e-4]
@@ -6093,19 +6117,47 @@ def spans_gated(weights, dev) -> dict:
         f"{t_on:.3f} s (build, warm-up, searches and close; on, close() "
         f"dumps the {len(held)} spans the process holds: such a dump "
         f"takes {t_dump:.3f} s); packed launches {launches}")
-    check(on == off, "spans gated: the analyses with spans on differ from "
-                     "those with spans off")
+    check(on == off, "spans gated: the analyses with spans and the cost "
+                     "plane on differ from those with both off")
     check(c_on["dispatches"] == c_off["dispatches"] == launches > 0
           or torch.device(dev).type != "cuda",
           f"spans gated: {launches} launches, dispatches off "
           f"{c_off['dispatches']} on {c_on['dispatches']}")
     check(c_on["fused_dispatches"] > 0, "spans gated: no fused dispatch")
     report = span_checks(spans, "gated", launches=c_on["dispatches"])
-    log("  gated: the analyses with spans on == spans off, bit for bit")
+    traced = [sp for sp in spans if "trace_id" in sp]
+    orphans = cp.orphan_spans(traced)
+    attribution = cp.report(traced)
+    log(f"  gated: critical_path: {len(orphans)} orphan spans, report "
+        f"{attribution}")
+    check(orphans == [], f"spans gated: critical_path finds {len(orphans)} "
+                         "orphan spans")
+    check(attribution["coverage"] >= 0.95,
+          f"spans gated: critical_path coverage {attribution['coverage']}")
+    attributed = sum(ledger["tenant_device_ms"].values())
+    log(f"  gated: cost ledger {ledger['dispatches']} records (one a "
+        f"ticket) for {c_on['eval_steps']} eval steps in "
+        f"{c_on['dispatches']} dispatches; tenants "
+        f"{ledger['tenant_device_ms']} ms of {ledger['total_device_ms']:.3f} "
+        f"ms measured, wire bytes {ledger['tenant_wire_bytes']}, cache hits "
+        f"{ledger['tenant_cache_hits']}; card: {card_line()}")
+    check(ledger["dispatches"] == c_on["eval_steps"] > 0,
+          f"spans gated: the cost ledger holds {ledger['dispatches']} "
+          f"records for {c_on['eval_steps']} eval steps")
+    check(abs(attributed - ledger["total_device_ms"])
+          <= 0.02 * ledger["total_device_ms"],
+          f"spans gated: tenants' {attributed} ms against "
+          f"{ledger['total_device_ms']} ms measured")
+    log("  gated: the analyses with spans and the cost plane on == both "
+        "off, bit for bit")
     return {"launches": launches, "dispatches": c_on["dispatches"],
             "fused": c_on["fused_dispatches"], "seconds_off": t_off,
             "seconds_on": t_on, "held": len(held), "dump_s": t_dump,
-            "spans": report}
+            "spans": report, "critical_path": attribution,
+            "cost": {"records": ledger["dispatches"],
+                     "eval_steps": c_on["eval_steps"],
+                     "total_device_ms": ledger["total_device_ms"],
+                     "tenant_device_ms": ledger["tenant_device_ms"]}}
 
 
 class SpansClientLeg:
@@ -6121,8 +6173,11 @@ class SpansClientLeg:
     ``fishnet-spans/2`` dump into D; SIGTERM drains it, records the
     ``drain`` span, and it dumps at the service's close and once more
     (reason "drain") before it exits 0
-    with one packed launch per dispatch since its warm-up. Its log lands
-    in ``chiprun_out/spans/``."""
+    with one packed launch per dispatch since its warm-up. The process
+    runs with ``FISHNET_PROFILE=1``, so ``start_exporter`` arms the
+    profiler and the cost plane: ``profile_checks`` reads ``/profile``,
+    ``/trace`` and ``/metrics`` before the signals. Its log lands in
+    ``chiprun_out/spans/``."""
 
     def __init__(self, dev) -> None:
         import tempfile
@@ -6155,9 +6210,9 @@ class SpansClientLeg:
                VALID_KEY, "--max-backoff", "1", "--metrics-port", "0",
                "--metrics-port-file", self.port_file, "--spans-dir",
                self.spans_dir, "--device", self.device, "-v"]
-        env = dict(os.environ)
+        env = dict(os.environ, FISHNET_PROFILE="1")
         for var in ("FISHNET_SPANS_FILE", "FISHNET_SPANS_DIR",
-                    "FISHNET_FAULT_PLAN"):
+                    "FISHNET_FAULT_PLAN", "FISHNET_PROFILE_HZ"):
             env.pop(var, None)
         with open(self.log_path, "w", encoding="utf-8") as logf:
             self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
@@ -6187,6 +6242,52 @@ class SpansClientLeg:
                     elif bodies:
                         bodies[-1].append(rec)
         return headers, bodies
+
+    @staticmethod
+    def profile_checks(base: str) -> dict:
+        """The profiling plane of the running process: ``/profile``'s
+        samples include the driver, pack and decode roles and its
+        collapsed text is non-empty; ``/trace`` passes the port's
+        ``validate_chrome_trace``; ``/metrics`` carries the stage
+        histogram and the tenants' device ms, which sum to the measured
+        ``fishnet_cost_device_ms_total`` within 2%."""
+        from fishnet_tpu_torch.telemetry.trace_export import (
+            validate_chrome_trace,
+        )
+
+        prof = json.loads(http_get(f"{base}/profile"))
+        roles = prof["samples_by_role"]
+        collapsed = http_get(f"{base}/profile?format=collapsed")
+        trace = json.loads(http_get(f"{base}/trace"))
+        validate_chrome_trace(trace)
+        text = http_get(f"{base}/metrics")
+        families = exposition_families(text)
+        tenants = metric_total(text, "fishnet_tenant_device_ms_total")
+        total = metric_total(text, "fishnet_cost_device_ms_total")
+        duty = prof["self_seconds"] / prof["wall_seconds"]
+        log(f"  client: /profile {prof['samples']} samples at {prof['hz']} "
+            f"Hz over {prof['wall_seconds']} s, roles {roles}, "
+            f"{prof['distinct_stacks']} stacks, {len(collapsed.splitlines())} "
+            f"collapsed lines; the sampler's duty cycle (self_seconds / "
+            f"wall) {duty:.6f} on {card_line()}")
+        log(f"  client: /trace {len(trace['traceEvents'])} events, valid; "
+            f"/metrics tenants {tenants:.3f} ms of {total:.3f} ms measured "
+            f"over {metric_total(text, 'fishnet_cost_dispatches_total'):.0f} "
+            f"records, stages "
+            f"{sorted(prof['stages'])}")
+        check({"driver", "pack", "decode"} <= set(roles),
+              f"spans client: /profile roles {roles}")
+        check(collapsed.strip() != "", "spans client: /profile?format="
+                                       "collapsed is empty")
+        check("fishnet_stage_duration_seconds" in families
+              and "fishnet_tenant_device_ms_total" in families,
+              "spans client: /metrics lacks the stage histogram or the "
+              "tenants' device ms")
+        check(total > 0 and abs(tenants - total) <= 0.02 * total,
+              f"spans client: tenants' {tenants} ms against {total} ms")
+        return {"samples": prof["samples"], "roles": roles,
+                "duty_cycle": duty, "trace_events": len(trace["traceEvents"]),
+                "tenant_device_ms": tenants, "cost_device_ms": total}
 
     def finish(self) -> dict:
         from fishnet_tpu_torch.telemetry.tracing import trace_id_for_batch
@@ -6235,6 +6336,7 @@ class SpansClientLeg:
             check(shape == want and roots[0]["span_id"] == tid,
                   f"spans client: batch {bid}'s tree {shape} != {want}")
             shapes[bid] = shape
+        profile = self.profile_checks(base)
         proc.send_signal(signal.SIGUSR2)
         while not [h for h in self._dump()[0] if h["reason"] == "SIGUSR2"]:
             check(time.monotonic() < deadline, "spans client: no SIGUSR2 dump")
@@ -6272,7 +6374,7 @@ class SpansClientLeg:
         return {"batches": len(self.jobs), "trees": shapes,
                 "dumps": reasons, "spans_on_route": len(doc["spans"]),
                 "exit_after_sigterm_s": took, "launches": packed,
-                "dispatches": dispatches}
+                "dispatches": dispatches, "profile": profile}
 
 
 def phase_spans(torch, weights, dev) -> dict:
@@ -6290,7 +6392,7 @@ def phase_spans(torch, weights, dev) -> dict:
         leg.close()
     out["launches"] = out["gated"]["launches"]
     out["seconds"] = time.perf_counter() - t0
-    log(f"  spans: {out['seconds']:.3f} s")
+    log(f"  spans: {out['seconds']:.3f} s on {card_line()}")
     return out
 
 
@@ -7989,11 +8091,13 @@ def main() -> int:
         print(json.dumps({"metrics": metrics}), flush=True)
         lap("metrics")
     if "spans" in phases:
-        log("[spans] the span flight recorder: a gated service with spans "
-            "off and on (equal analyses, no orphan, every dispatch_issue "
-            "paired, coalesce links), beside a run process with "
-            "--metrics-port 0 --spans-dir: batch trees on /spans, the "
-            "SIGUSR2 and drain dumps")
+        log("[spans] the span flight recorder and the profiling plane: a "
+            "gated service with spans and the cost plane off and on (equal "
+            "analyses, no orphan, every dispatch_issue paired, coalesce "
+            "links, critical-path coverage, the ledger's sum), beside a "
+            "FISHNET_PROFILE=1 run process with --metrics-port 0 "
+            "--spans-dir: batch trees on /spans, /profile, /trace, cost on "
+            "/metrics, the SIGUSR2 and drain dumps")
         sp = phase_spans(torch, weights, dev)
         for entry in entries:
             entry["launches_spans"] = sp["launches"]
@@ -8040,6 +8144,7 @@ def main() -> int:
         phase_sweep(weights, dev)
         lap("sweep")
     log(f"card: {card_line()}")
+    log(f"whole run: {time.perf_counter() - T_START:.1f} s on {card_line()}")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

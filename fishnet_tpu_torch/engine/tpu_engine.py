@@ -115,9 +115,11 @@ class TpuNnueEngine(Engine):
                 movetime_seconds=movetime,
                 variant=position.variant,
                 skill_level=skill,
-                # The serving lane, as the JAX engine passes it (the
-                # port's service has no coalescer for it to steer).
+                # The serving lane, as the JAX engine passes it: a
+                # latency search keeps the coalescer from lingering.
                 lane="throughput" if work.is_analysis else "latency",
+                # The acquiring tenant, for the cost plane's owners.
+                tenant=getattr(position, "tenant", ""),
             )
         except EngineError:
             raise

@@ -30,8 +30,10 @@ from fishnet_tpu_torch.protocol.types import (
 class Position:
     """One position to search: root FEN plus the UCI moves leading to it
     (ipc.rs:16-26). ``position_id`` is the ply index within the batch.
-    ``tenant`` names the acquire stream the position arrived on; the
-    port's client is single-stream, so it is always "" here."""
+    ``tenant`` names the acquire stream the position arrived on (the
+    multi-tenant front end stamps it, sched/queue.py), so device cost is
+    attributable per tenant (telemetry/cost.py); "" in single-tenant
+    mode."""
 
     work: Work
     position_id: int

@@ -81,6 +81,7 @@ from fishnet_tpu_torch.search.coalesce import (
     _FusedValues,
     _SeqAllocator,
 )
+from fishnet_tpu_torch.telemetry import cost as _cost
 
 __all__ = ["AZ_RUNGS", "AzDispatchPlane"]
 
@@ -297,6 +298,10 @@ class AzDispatchPlane(CoalesceBackend):
         self._spec_budget = (
             DEFAULT_SPECULATION_BUDGET if budget is None else max(0, budget))
         self._closed = False
+        # Cost-plane tenant tag for this plane's dispatches (telemetry/
+        # cost.py): AZ leaf traffic is selfplay by default; a serving
+        # deployment mixing tenants can re-tag per plane.
+        self.cost_tenant = "selfplay"
         self._coalescer = _DispatchCoalescer(self, pinned_width=(
             coalesce_width if coalesce_width is not None
             else _env_int("FISHNET_AZ_COALESCE_WIDTH")))
@@ -442,7 +447,12 @@ class AzDispatchPlane(CoalesceBackend):
         self._ensure_pipe()
         self._staged[lane] = rows
         try:
-            ticket = self._coalescer.submit(lane, len(miss), rows=len(miss))
+            # Cost plane (telemetry/cost.py): AZ leaf traffic is all one
+            # workload family, owned by the plane's cost_tenant.
+            owners = ([((self.cost_tenant, "selfplay"), len(miss))]
+                      if _cost.enabled() else None)
+            ticket = self._coalescer.submit(lane, len(miss), rows=len(miss),
+                                            owners=owners)
             # demand() waits and raises dispatch errors; its slice uses
             # seg_size (0 on solo tickets), so the plane slices by n.
             self._coalescer.demand(ticket)

@@ -28,7 +28,11 @@ there. Spans, gated on ``telemetry.enabled()`` as there: the ``coalesce``
 fan-in span of a fused dispatch, and the async pipeline's
 ``dispatch_issue`` / ``dispatch_wait`` pair, each parented under the
 first ticket's ``device_step`` context (the ticket's ``trace``) and
-linking the others. Left out against the JAX package: cost attribution.
+linking the others. Cost attribution, gated on ``cost.enabled()`` as
+there (telemetry/cost.py): each physical dispatch is recorded once from
+its tickets' ``owners`` — inline in ``_execute`` on the sync path (the
+issue wall), from the decode worker after materialization on the async
+path (issue to results on the host).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import numpy as np
 
 from fishnet_tpu_torch import telemetry as _telemetry
 from fishnet_tpu_torch.chess.core import NativeCoreError
+from fishnet_tpu_torch.telemetry import cost as _cost
 from fishnet_tpu_torch.telemetry import tracing as _tracing
 from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
@@ -280,14 +285,21 @@ class _CoalesceTicket:
     carry the driver's pre-dispatch probe, so the planner never probes
     twice. ``fill`` is the real-entries / shipped-slots ratio of the
     dispatch the ticket rode, stamped by ``_execute`` (the
-    ``dispatch_issue`` span's field)."""
+    ``dispatch_issue`` span's field).
+
+    Cost attribution (telemetry/cost.py, only while the plane is on):
+    ``owners`` is the driver's ``[((tenant, family), n), ...]`` table
+    over the microbatch's entries; ``cost_t0`` is the async pipeline's
+    issue timestamp, stamped by ``_execute`` in defer mode so the decode
+    worker records the issue-to-materialize wall once per dispatch."""
 
     __slots__ = ("group", "n", "rows", "values", "start", "seg_size",
                  "acct", "error", "done", "trace", "hashes", "cache_mask",
-                 "cache_vals", "fill")
+                 "cache_vals", "owners", "cost_t0", "fill")
 
     def __init__(self, group: int, n: int, rows: int, trace=None,
-                 hashes=None, cache_mask=None, cache_vals=None) -> None:
+                 hashes=None, cache_mask=None, cache_vals=None,
+                 owners=None) -> None:
         self.group = group
         self.n = n
         self.rows = rows
@@ -301,6 +313,8 @@ class _CoalesceTicket:
         self.hashes = hashes
         self.cache_mask = cache_mask
         self.cache_vals = cache_vals
+        self.owners = owners
+        self.cost_t0 = 0.0
         self.fill: Optional[float] = None
 
 
@@ -476,15 +490,16 @@ class _DispatchCoalescer:
             )
 
     def submit(self, group: int, n: int, rows: int, trace=None,
-               hashes=None, cache_mask=None,
-               cache_vals=None) -> _CoalesceTicket:
-        """Park a stepped group's microbatch (with its eval-cache probe
-        and its owner's ``device_step`` trace context, see
-        ``_CoalesceTicket``) on its shard's list; returns its ticket.
+               hashes=None, cache_mask=None, cache_vals=None,
+               owners=None) -> _CoalesceTicket:
+        """Park a stepped group's microbatch (with its eval-cache probe,
+        its owner's ``device_step`` trace context and its cost owners,
+        see ``_CoalesceTicket``) on its shard's list; returns its ticket.
         Flushes (dispatches) on this thread when the shard's policy width
         is reached."""
         ticket = _CoalesceTicket(group, n, rows, trace=trace, hashes=hashes,
-                                 cache_mask=cache_mask, cache_vals=cache_vals)
+                                 cache_mask=cache_mask, cache_vals=cache_vals,
+                                 owners=owners)
         router = self._svc._router
         if router is not None:
             # The placement signal: a group's first note may re-home it,
@@ -574,11 +589,13 @@ class _DispatchCoalescer:
             return
         self._execute(tickets)
 
-    def _execute(self, tickets: List[_CoalesceTicket]) -> None:
+    def _execute(self, tickets: List[_CoalesceTicket],
+                 defer_cost: bool = False) -> None:
         svc = self._svc
         shard = self._shard_of(tickets[0].group)
         tel = _telemetry.enabled()
-        t0 = time.monotonic() if tel else 0.0
+        cost_on = _cost.enabled()
+        t0 = time.monotonic() if (tel or cost_on) else 0.0
         try:
             if len(tickets) == 1:
                 tk = tickets[0]
@@ -622,6 +639,17 @@ class _DispatchCoalescer:
             fill = sum(tk.n for tk in tickets) / dict_slots
             for tk in tickets:
                 tk.fill = fill
+        if cost_on:
+            # Record attribution ONCE per physical dispatch: inline on the
+            # sync path (the launch returns before the kernel ends, so
+            # this is the issue wall, and no device sync is added); the
+            # async pipeline defers to its decode worker, which sees the
+            # issue-to-materialize span.
+            if defer_cost:
+                for tk in tickets:
+                    tk.cost_t0 = t0
+            else:
+                _cost.note_tickets(tickets, time.monotonic() - t0)
         for tk in tickets:
             tk.done.set()
         if tel and len(tickets) > 1:
@@ -865,7 +893,7 @@ class _AsyncDispatchPipeline:
             tel = _telemetry.enabled()
             t0 = time.monotonic() if tel else 0.0
             try:
-                co._execute(tickets)
+                co._execute(tickets, defer_cost=True)
             except BaseException as err:  # noqa: BLE001 - pipeline teardown
                 # _execute already failed the batch's tickets; only
                 # non-Exception errors unwind to here. Mark the pipeline
@@ -921,6 +949,11 @@ class _AsyncDispatchPipeline:
                 COALESCE_ERRORS.inc()
             self._mark(-1)
             self._release()
+            if tickets and tickets[0].cost_t0:
+                # Deferred cost record (telemetry/cost.py): the wall from
+                # the pack worker's issue to the results on the host.
+                _cost.note_tickets(
+                    tickets, time.monotonic() - tickets[0].cost_t0)
             if tel:
                 _SPANS.record(
                     "dispatch_wait", t0,

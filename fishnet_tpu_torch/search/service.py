@@ -171,6 +171,7 @@ from fishnet_tpu_torch.search.coalesce import (
     _SeqAllocator,
     fit_dispatch_cost,
 )
+from fishnet_tpu_torch.telemetry import cost as _cost
 from fishnet_tpu_torch.telemetry import tracing as _tracing
 from fishnet_tpu_torch.telemetry.spans import RECORDER as _SPANS
 
@@ -946,6 +947,12 @@ class SearchService(CoalesceBackend):
         self._pending: List[Dict[int, _Pending]] = [{} for _ in range(T)]
         self._submissions: List[List[Tuple]] = [[] for _ in range(T)]
         self._cancelled_tokens: List[set] = [set() for _ in range(T)]
+        # Cost attribution (telemetry/cost.py): pool slot -> (tenant,
+        # family) for live searches, so a stepped batch's per-entry slot
+        # ids map back to owners. Written/popped under _lock at submit
+        # and finish; read lock-free on the owning driver only while the
+        # cost plane is enabled.
+        self._slot_owner: Dict[int, Tuple[str, str]] = {}
         self._lock = threading.Lock()
         self._warmup_lock = threading.Lock()
         self._warmed = False
@@ -992,12 +999,15 @@ class SearchService(CoalesceBackend):
         native search samples its best move among near-best lines (play
         jobs). ``lane="latency"`` (a best-move search) keeps the
         coalescer from lingering for sibling threads' microbatches while
-        it is in flight; ``tenant`` is accepted as the JAX service
-        accepts it and changes nothing here."""
+        it is in flight. ``tenant`` attributes this search's device cost
+        when the cost plane is on (telemetry/cost.py); the workload
+        family follows the lane (latency → best-move, throughput →
+        analysis)."""
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
         token = object()
         latency = lane == "latency"
+        owner = (tenant, "best-move" if latency else "analysis")
         with self._lock:
             if self._stopping:
                 raise NativeCoreError("search service is shut down")
@@ -1007,7 +1017,8 @@ class SearchService(CoalesceBackend):
             self._rr += 1
             self._submissions[t].append(
                 (root_fen, " ".join(moves), nodes, depth, multipv, future, loop,
-                 movetime_seconds, variant, token, stop_event, skill_level)
+                 movetime_seconds, variant, token, stop_event, skill_level,
+                 owner)
             )
         self._wakes[t].set()
         try:
@@ -1984,7 +1995,7 @@ class SearchService(CoalesceBackend):
                 self._submissions[t] = []
             for item in submissions:
                 (fen, moves, nodes, depth, multipv, future, loop, movetime,
-                 variant, token, stop_event, skill) = item
+                 variant, token, stop_event, skill, owner) = item
                 if token in cancelled:
                     continue
                 use_scalar = 1 if self.backend == "scalar" else 0
@@ -2022,6 +2033,7 @@ class SearchService(CoalesceBackend):
                 # poke) identity-checks this map before stopping a slot.
                 with self._lock:
                     pending[slot] = p
+                    self._slot_owner[slot] = owner
                 if movetime is not None:
                     loop.call_soon_threadsafe(
                         loop.call_later, movetime, self._maybe_stop, slot, p
@@ -2037,6 +2049,9 @@ class SearchService(CoalesceBackend):
             # attribute read when telemetry is off, and then no clock
             # read and no trace context anywhere below.
             tel = _telemetry.enabled()
+            # Cost-attribution gate, the same discipline: with the plane
+            # off, no owner table and no extra clock read below.
+            cost_on = _cost.enabled()
 
             stepped = 0
             for g in groups:
@@ -2132,6 +2147,12 @@ class SearchService(CoalesceBackend):
                     if cache is not None:
                         hashes, hvals, hmask = self._probe_batch(
                             g, n, hash_ptrs[g], dctx)
+                        if cost_on and hmask.any():
+                            # Credit cache hits (full or partial) to the
+                            # tenants whose entries hit — device work
+                            # they did not pay for.
+                            _cost.note_cache_hits(
+                                self._entry_owners(g, n, mask=hmask))
                         if hmask.all():
                             # Every entry known: no dispatch. The pool's
                             # device anchors are invalidated first, so
@@ -2150,13 +2171,21 @@ class SearchService(CoalesceBackend):
                                     group=g, n=n, cache_skip=1,
                                 )
                             continue
+                    owners = self._entry_owners(g, n) if cost_on else None
                     if co is not None:
                         inflight[g] = (n, co.submit(
                             g, n, rows.value, trace=dctx, hashes=hashes,
-                            cache_mask=hmask, cache_vals=hvals),
+                            cache_mask=hmask, cache_vals=hvals,
+                            owners=owners),
                             dctx, hashes, hmask)
                     else:
+                        t0c = time.monotonic() if cost_on else 0.0
                         handle, acct = self._dispatch_eval(g, n, rows.value)
+                        if cost_on:
+                            # The solo dispatch's issue wall, inline.
+                            _cost.note_dispatch(
+                                owners, n, _cost._acct_wire_bytes(acct),
+                                time.monotonic() - t0c)
                         self._apply_acct(t, acct)
                         COALESCE_WIDTH.observe(1)
                         if acct[0] > n:
@@ -2238,6 +2267,23 @@ class SearchService(CoalesceBackend):
             self._steer_prefetch(g)
         return hashes, hvals, hmask
 
+    def _entry_owners(self, g: int, n: int, mask=None):
+        """Cost-plane owner table for a stepped batch: counts the
+        ``(tenant, family)`` owners over group ``g``'s first ``n``
+        packed entries (``self._slot_buf[g]``, the per-entry slot ids
+        fc_pool_step just filled), optionally restricted to a boolean
+        ``mask`` over those entries. Runs on the owning driver only
+        when ``_cost.enabled()``."""
+        slots = self._slot_buf[g][:n]
+        if mask is not None:
+            slots = slots[np.asarray(mask, dtype=bool)]
+        counts: Dict[Tuple[str, str], int] = {}
+        owner_of = self._slot_owner
+        for s in slots:
+            o = owner_of.get(int(s), _cost.UNKNOWN_OWNER)
+            counts[o] = counts.get(o, 0) + 1
+        return list(counts.items())
+
     def _apply_acct(self, t: int, acct) -> None:
         size, feature_bytes, material_bytes = acct
         self._eval_steps[t] += 1
@@ -2257,6 +2303,7 @@ class SearchService(CoalesceBackend):
         )
         with self._lock:
             pending = self._pending[t].pop(slot, None)
+            self._slot_owner.pop(slot, None)
         if pending is None:
             lib.fc_pool_release(self._pool, slot)
             return

@@ -1,7 +1,7 @@
-"""Live telemetry: the metrics registry, the Prometheus exposition and
-the span flight recorder — the port of ``fishnet_tpu/telemetry/``
-without its trace export, critical-path analysis, cost attribution,
-profiler and fleet layers.
+"""Live telemetry: the metrics registry, the Prometheus exposition, the
+span flight recorder and the profiling plane — the port of
+``fishnet_tpu/telemetry/`` without its fleet layer (``fleet``,
+``stitch``) and its bench sentinel (``regress``).
 
 * :mod:`fishnet_tpu_torch.telemetry.registry` — Counter/Gauge/Histogram
   with per-thread cells aggregated at scrape time, plus pull-style
@@ -12,8 +12,18 @@ profiler and fleet layers.
 * :mod:`fishnet_tpu_torch.telemetry.tracing` — the causal trace
   contexts the spans carry (batch traces and step traces);
 * :mod:`fishnet_tpu_torch.telemetry.exporter` — ``/metrics``
-  (Prometheus text), ``/json``, ``/spans`` and ``/healthz`` on a stdlib
-  ``http.server`` thread.
+  (Prometheus text), ``/json``, ``/spans``, ``/trace``, ``/profile``
+  and ``/healthz`` on a stdlib ``http.server`` thread;
+* :mod:`fishnet_tpu_torch.telemetry.trace_export` — the spans as a
+  Chrome/Perfetto trace (``/trace`` and a CLI over dumps);
+* :mod:`fishnet_tpu_torch.telemetry.critical_path` — span-tree
+  reconstruction, orphan detection and wall-time attribution;
+* :mod:`fishnet_tpu_torch.telemetry.cost` — per-tenant / per-workload
+  device-time, wire-byte and cache-hit attribution;
+* :mod:`fishnet_tpu_torch.telemetry.profiler` — the sampling profiler
+  (``/profile``) and the stage-duration histograms;
+* :mod:`fishnet_tpu_torch.telemetry.slo` — declarative SLOs as
+  multi-window error-budget burn rates (a library).
 
 The exported names, span stages and span fields follow
 doc/observability.md, the JAX package's contract, so a dashboard or a
@@ -82,11 +92,16 @@ def disable() -> None:
 def start_exporter(port: int, host: str = "127.0.0.1"):
     """The one-call opt-in: enable span recording, arm the SIGUSR2 dump
     (where the platform has it), and serve ``/metrics`` on ``port``
-    (0 = ephemeral). Returns the :class:`MetricsExporter`. (The JAX
-    package also arms its profiling plane here under
-    ``FISHNET_PROFILE=1``; the port has no profiler.)"""
+    (0 = ephemeral). ``FISHNET_PROFILE=1`` additionally arms the
+    continuous profiling plane (sampling profiler + stage-duration
+    histograms + cost attribution — telemetry/profiler.py, cost.py).
+    Returns the :class:`MetricsExporter`."""
+    from fishnet_tpu_torch.telemetry import cost as _cost
+    from fishnet_tpu_torch.telemetry import profiler as _profiler
     from fishnet_tpu_torch.telemetry.exporter import MetricsExporter
 
     enable()
     install_signal_dump()
+    if _profiler.maybe_start_from_env() is not None:
+        _cost.enable()
     return MetricsExporter(port=port, host=host)

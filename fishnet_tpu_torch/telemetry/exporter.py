@@ -22,10 +22,17 @@ Endpoints:
 * ``GET /spans``   — the span flight recorder's rings as JSON:
   ``{"pid", "monotonic_to_epoch", "spans"}`` (telemetry/spans.py), the
   JAX exporter's body.
+* ``GET /profile`` — continuous-profiler snapshot (JSON: folded
+  stacks, per-role sample counts, stage-duration quantiles, the
+  sampler's own duty cycle). ``?format=collapsed`` returns the
+  classic ``role;frame;...;frame count`` text for ``flamegraph.pl``
+  or speedscope. 503 with a JSON hint while ``FISHNET_PROFILE`` is
+  not armed (telemetry/profiler.py).
+* ``GET /trace``   — the recorder's rings as a Chrome/Perfetto trace
+  (telemetry/trace_export.py; load the body at https://ui.perfetto.dev).
 
-The JAX exporter's ``/trace`` (Chrome trace export) and ``/profile``
-(the sampling profiler) read modules the port does not have yet: they
-answer 404 with a body naming the missing module.
+Every route of the JAX exporter but its fleet aggregator's
+``extra_routes`` is served, with the JAX exporter's bodies.
 """
 
 from __future__ import annotations
@@ -43,11 +50,8 @@ from fishnet_tpu_torch.telemetry.registry import REGISTRY, MetricsRegistry
 _PROC_START_TIME = time.time()
 
 #: Routes of the JAX exporter whose modules the port lacks: path -> the
-#: missing module (the 404 body names it).
-NOT_PORTED: Dict[str, str] = {
-    "/trace": "telemetry.trace_export",
-    "/profile": "telemetry.profiler",
-}
+#: missing module (the 404 body names it). Empty: every route is served.
+NOT_PORTED: Dict[str, str] = {}
 
 
 def register_process_info(registry: Optional[MetricsRegistry] = None) -> None:
@@ -217,7 +221,7 @@ def _make_handler(registry: MetricsRegistry, exporter: "MetricsExporter"):
             self._send(200, content_type, body)
 
         def do_GET(self) -> None:  # noqa: N802 - BaseHTTPRequestHandler API
-            path = self.path.partition("?")[0]
+            path, _, query = self.path.partition("?")
             try:
                 if path == "/metrics":
                     self._scrape(lambda: (
@@ -245,6 +249,23 @@ def _make_handler(registry: MetricsRegistry, exporter: "MetricsExporter"):
                         ),
                         "spans": RECORDER.spans(),
                     }).encode()
+                    self._send(200, "application/json", body)
+                elif path == "/profile":
+                    from fishnet_tpu_torch.telemetry import (
+                        profiler as _profiler,
+                    )
+
+                    status, content_type, body = (
+                        _profiler.render_endpoint(query)
+                    )
+                    self._send(status, content_type, body)
+                elif path == "/trace":
+                    from fishnet_tpu_torch.telemetry.spans import RECORDER
+                    from fishnet_tpu_torch.telemetry.trace_export import (
+                        chrome_trace,
+                    )
+
+                    body = json.dumps(chrome_trace(RECORDER.spans())).encode()
                     self._send(200, "application/json", body)
                 elif path in NOT_PORTED:
                     self._send(404, "text/plain", (

@@ -116,9 +116,8 @@ JOURNAL_FORMAT = "fishnet-spans-journal/1"
 #: magnitude hotter, so they stay ring-only.
 _GLOBAL_TRACE = re.compile(r"^[0-9a-f]{16}$")
 
-#: Stage-duration observer (the JAX package's telemetry/profiler.py installs
-#: one feeding ``fishnet_stage_duration_seconds{stage}``; the port has no
-#: profiler yet). None by default, so a
+#: Stage-duration observer (telemetry/profiler.py installs one feeding
+#: ``fishnet_stage_duration_seconds{stage}``). None by default, so a
 #: ``record()`` call pays exactly one module-attribute read for it —
 #: the same gate discipline as ``telemetry.enabled()``; with the
 #: profiling plane off there is zero extra hot-path work.

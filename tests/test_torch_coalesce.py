@@ -654,7 +654,7 @@ class _StubCoalescer:
         self.executed = []
         self.width = width
 
-    def _execute(self, tickets):
+    def _execute(self, tickets, defer_cost=False):
         with self._lock:
             self.executed.append(tickets)
         for tk in tickets:

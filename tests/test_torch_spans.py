@@ -264,7 +264,13 @@ def _get(url):
         return err.code, err.read()
 
 
-def test_spans_route_serves_the_jax_body_and_trace_stays_404():
+def test_spans_trace_and_profile_routes_serve_the_jax_bodies():
+    """``/spans`` serves the JAX body; ``/trace`` the recorder's rings as
+    the JAX exporter's Chrome trace; ``/profile`` the JAX profiler's
+    503 hint while the plane is off; and no route is left unported."""
+    from fishnet_tpu.telemetry import profiler as jax_profiler
+    from fishnet_tpu.telemetry.trace_export import validate_chrome_trace
+
     telemetry.enable()
     t0 = time.monotonic()
     RECORDER.record("acquire", t0, trace=tracing.batch_root("wk000042"),
@@ -280,15 +286,19 @@ def test_spans_route_serves_the_jax_body_and_trace_stays_404():
         mine = [s for s in doc["spans"] if s.get("batch") == "wk000042"]
         assert mine and mine[-1]["span_id"] == tracing.trace_id_for_batch(
             "wk000042")
-        for path, module in (("/trace", "telemetry.trace_export"),
-                             ("/profile", "telemetry.profiler")):
-            status, body = _get(f"{exporter.url}{path}")
-            assert status == 404 and module in body.decode()
-        assert exporter_mod.NOT_PORTED == {
-            "/trace": "telemetry.trace_export",
-            "/profile": "telemetry.profiler"}
+        status, body = _get(f"{exporter.url}/trace")
+        assert status == 200
+        trace = json.loads(body)
+        validate_chrome_trace(trace)
+        assert any(e["ph"] == "X" and e["name"] == "acquire"
+                   and e["args"].get("batch") == "wk000042"
+                   for e in trace["traceEvents"])
+        assert _get(f"{exporter.url}/profile") == (
+            503, jax_profiler.render_endpoint("")[2])
+        assert exporter_mod.NOT_PORTED == {}
     finally:
         exporter.close()
+        telemetry.disable()
 
 
 # -- the client's batch traces -------------------------------------------------
@@ -379,7 +389,8 @@ def test_the_port_records_nothing_with_telemetry_off():
 
 #: JAX span sites whose modules the port does not have yet: the control
 #: plane's actuator and the shared position tier's probe. (The JAX
-#: cluster, cost and profiler modules record no span.)
+#: cluster modules record no span, nor do cost and the profiler, which
+#: the port has.)
 UNPORTED_SITES = {("control/actuators.py", "control"),
                   ("search/service.py", "postier_probe")}
 #: Port modules that hold part of a JAX module: the coalescer and the

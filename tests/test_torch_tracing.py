@@ -141,7 +141,7 @@ def test_span_ids_unique_across_threads():
 class _StubCoalescer:
     width = 1
 
-    def _execute(self, tickets):
+    def _execute(self, tickets, defer_cost=False):
         for tk in tickets:
             tk.done.set()
 
@@ -287,13 +287,16 @@ def _step_traces(spans):
 
 
 def _jax_stages(fens, nodes):
-    """The stage set of the JAX service's spans on the same searches."""
+    """The stage set of the JAX service's spans on the same searches.
+    The JAX telemetry gate goes back to the state it was found in."""
+    was_on = jax_telemetry.enabled()
     jax_telemetry.enable()
     try:
         t0 = time.monotonic()
         _smoke_run(JaxWeights.random(seed=7), fens=fens, nodes=nodes)
     finally:
-        jax_telemetry.disable()
+        if not was_on:
+            jax_telemetry.disable()
     return {s["stage"] for s in _spans_since(JAX_RECORDER, t0)}
 
 
