@@ -1912,7 +1912,7 @@ def time_fused(torch, params, harness, k_segs: int) -> dict:
 def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
               hook=None, mesh_devices=None, pool_slots: int = 8,
               batch_capacity: int = 256, plan: Optional[str] = None,
-              ledger=None, **env):
+              ledger=None, after=None, **env):
     """``walks`` (move lists from the start position) searched at
     ``nodes`` nodes on one service (``pool_slots`` slots, 8 by default,
     in 4 groups, one driver thread, ``batch_capacity`` entries, prefetch
@@ -1920,7 +1920,8 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
     every search is submitted, so the schedule is a function of the
     submission sequence. ``env`` is set while the service is built (the
     hatches are read there), ``fresh`` starts from a cold eval cache,
-    ``hook(service)`` runs before the searches, ``mesh_devices`` is the
+    ``hook(service)`` runs before the searches and ``after(service)``
+    after the last answer, before the close, ``mesh_devices`` is the
     service's serving mesh, ``plan`` a fault plan installed from the
     gate's opening to the last answer, and ``ledger`` a batch ledger
     each search is acquired in and submitted to. On the card the packed
@@ -1963,6 +1964,8 @@ def gated_run(weights, dev, walks, nodes: int = 3000, fresh: bool = True,
         counters = svc.counters()
         if mesh_devices is not None:
             counters["shards"] = svc.shard_report()
+        if after is not None:
+            after(svc)
     finally:
         svc.gate.set()
         svc.close()
@@ -5968,6 +5971,14 @@ SPANS_WIDTH = "4"
 SPANS_CLIENT = (2, 20, 1)
 
 
+#: The fleet aggregator's poll interval over the client leg (the
+#: console's default), and the dispatch counters it is held to.
+FLEET_POLL_S = 0.5
+FLEET_COUNTERS = ("fishnet_dispatches_total",
+                  "fishnet_service_eval_steps_total",
+                  "fishnet_coalesced_dispatches_total")
+
+
 #: Spans a thread's ring holds while ``span_checks`` reads a run
 #: (``whole_run_rings``): the recorder keeps its newest DEFAULT_CAPACITY
 #: (4096) a thread, and a driver thread of the gated leg records more.
@@ -6150,7 +6161,8 @@ def spans_gated(weights, dev) -> dict:
           f"{ledger['total_device_ms']} ms measured")
     log("  gated: the analyses with spans and the cost plane on == both "
         "off, bit for bit")
-    return {"launches": launches, "dispatches": c_on["dispatches"],
+    return {"_off": off, "launches": launches,
+            "dispatches": c_on["dispatches"],
             "fused": c_on["fused_dispatches"], "seconds_off": t_off,
             "seconds_on": t_on, "held": len(held), "dump_s": t_dump,
             "spans": report, "critical_path": attribution,
@@ -6158,6 +6170,249 @@ def spans_gated(weights, dev) -> dict:
                      "eval_steps": c_on["eval_steps"],
                      "total_device_ms": ledger["total_device_ms"],
                      "tenant_device_ms": ledger["tenant_device_ms"]}}
+
+
+#: The controlled leg's scripted policy: one move a window, in this
+#: order, then none (six moves and the two reverts at shutdown fill the
+#: registry's 8-entry log, so the log holds every actuation).
+CONTROL_WALK = (("coalesce_width", 1), ("coalesce_width", 2),
+                ("coalesce_width", 4), ("coalesce_width", 8),
+                ("pipeline_depth", 1), ("pipeline_depth", 4))
+#: The controller's window (``Controller.start``'s period), as the JAX
+#: package's ``bench.py --control`` runs it.
+CONTROL_PERIOD_S = 0.1
+
+
+class ScriptedWalk:
+    """A ``Policy`` that walks CONTROL_WALK, one move a window, from the
+    first window in which the searches stepped: the actuations do not
+    depend on the host's stage shares, and each falls while the
+    searches run. Each window it also reads the coalescer's width
+    histogram (``width_buckets``) before its move lands: ``marks`` holds
+    (window, the width it sets or None, the buckets), so
+    ``width_intervals`` can tell which widths each K produced."""
+
+    def __init__(self, action) -> None:
+        self._action = action
+        self._moves = list(CONTROL_WALK)
+        self._live = False
+        self.marks = []
+
+    def decide(self, sig, knobs):
+        self._live = self._live or sig.counters.get("eval_steps", 0.0) > 0
+        move = self._moves.pop(0) if self._moves and self._live else None
+        self.marks.append((sig.window, move[1] if move is not None
+                           and move[0] == "coalesce_width" else None,
+                           width_buckets()))
+        if move is None:
+            return []
+        return [self._action(move[0], move[1], f"scripted walk, window "
+                                               f"{sig.window}")]
+
+
+def width_intervals(marks, end: dict) -> list:
+    """(first window, the width K in force, the widths seen) for each
+    stretch between two of ``ScriptedWalk.marks`` (the last ends at the
+    buckets ``end``): K is the walk's latest width move, None before its
+    first."""
+    out, k = [], None
+    for (window, set_k, b0), (_, _, b1) in zip(
+            marks, marks[1:] + [(None, None, end)]):
+        k = set_k if set_k is not None else k
+        out.append((window, k, widths_seen(b0, b1)))
+    return out
+
+
+def narrow_and_wide(intervals) -> tuple:
+    """From ``width_intervals``: the dispatches under K = 1 of one group
+    and of more, and those under a later K >= 2 that fused two or more
+    groups."""
+    one = [0.0, 0.0]
+    fused = 0.0
+    after_one = False
+    for _, k, seen in intervals:
+        after_one = after_one or k == 1
+        for bucket, n in seen.items():
+            many = float(bucket[1:].split(",")[0]) >= 1
+            if k == 1:
+                one[many] += n
+            elif after_one and k is not None and many:
+                fused += n
+    return one[0], one[1], fused
+
+
+def width_buckets() -> dict:
+    """The cumulative bucket counts of the coalescer's
+    ``fishnet_dispatch_coalesce_width`` histogram, by upper bound."""
+    from fishnet_tpu_torch.search.coalesce import COALESCE_WIDTH
+
+    return {float(sp.labels["le"]): sp.value
+            for sp in COALESCE_WIDTH.collect().samples
+            if sp.name.endswith("_bucket")}
+
+
+def widths_seen(before: dict, after: dict) -> dict:
+    """Dispatches a width bucket (``(lower, upper]``) gained between two
+    ``width_buckets`` reads."""
+    out, prev_bound, prev = {}, 0.0, 0.0
+    for bound in sorted(after):
+        cum = after[bound] - before.get(bound, 0.0)
+        if cum - prev > 0:
+            out[f"({prev_bound:g}, {bound:g}]"] = cum - prev
+        prev_bound, prev = bound, cum
+    return out
+
+
+def control_counts(registry) -> dict:
+    """``fishnet_control_actuations_total`` by (knob, direction) from the
+    in-process registry ``registry``."""
+    fams = {f.name: f for f in registry.collect()}
+    fam = fams.get("fishnet_control_actuations_total")
+    return {} if fam is None else {
+        (sp.labels["knob"], sp.labels["direction"]): sp.value
+        for sp in fam.samples}
+
+
+def count_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v - before.get(k, 0.0)}
+
+
+def spans_controlled(weights, dev, off) -> dict:
+    """The gated service once more, its coalescer's width left to its
+    policy (``FISHNET_COALESCE_WIDTH`` unset for this leg: the pin
+    outranks the controller), spans on, under a ``Controller`` at
+    CONTROL_PERIOD_S over ``standard_actuators(service=)`` kept to
+    ``coalesce_width`` and ``pipeline_depth`` (as ``bench.py --control``
+    runs it), whose ``ScriptedWalk`` moves K, the groups fused into one
+    launch of the kernel, and the launches in flight while the searches
+    run (from the first window in which they stepped). Gates: the
+    analyses equal ``off`` (the spans off leg's) bit for bit; packed
+    launches == dispatches (``gated_run``); while the walk held K = 1,
+    searches dispatched and every dispatch was one group's, but for
+    fewer than those and at most those in flight at the move and the
+    list parked under the old K (``narrow_and_wide``), and once it set
+    K to 2 or more some dispatch fused groups again, so K changed
+    mid-run both ways (the pinned leg's tail flushes fill every width
+    bucket, so a count of buckets cannot tell); every entry of the
+    registry's log has its ``control`` span and
+    ``fishnet_control_actuations_total`` moved by exactly the log; after
+    ``shutdown_controller`` the async depth is back at its bind-time
+    value and no width override is left on any shard (the probe policy
+    decides the width again, from the occupancy it has seen)."""
+    from collections import Counter
+
+    import torch
+
+    from fishnet_tpu_torch import telemetry
+    from fishnet_tpu_torch.control import actuators, controller, signals
+    from fishnet_tpu_torch.ops import ft_gather
+    from fishnet_tpu_torch.telemetry.spans import RECORDER
+
+    walks = random_lines(SPANS_WALKS, seed=13)
+    state = {}
+
+    def start(svc):
+        state["bind"] = (svc.coalesce_width(), svc.async_depth())
+        reg = actuators.ActuatorRegistry()
+        reg.register_all([
+            a for a in controller.standard_actuators(service=svc)
+            if a.name in ("coalesce_width", "pipeline_depth")])
+        collector = signals.SignalCollector(service=svc).attach()
+        collector.sample()  # window 1 takes the warm-up's counts
+        state["walk"] = ScriptedWalk(controller.Action)
+        ctrl = controller.Controller(collector, reg, policy=state["walk"])
+        state["counts"] = control_counts(telemetry.REGISTRY)
+        state["widths"] = width_buckets()
+        state["launches"] = ft_gather.ft_accumulate_packed_cuda.launches
+        state["t0"] = time.monotonic()
+        state["ctrl"] = ctrl.start(period_s=CONTROL_PERIOD_S)
+
+    def stop(svc):
+        ctrl = state.pop("ctrl")
+        state["live"] = (svc.coalesce_width(), svc.async_depth())
+        end = width_buckets()
+        state["widths"] = widths_seen(state["widths"], end)
+        state["intervals"] = width_intervals(state["walk"].marks, end)
+        controller.shutdown_controller(ctrl)
+        co = svc._coalescer
+        state["after"] = (svc.coalesce_width(), svc.async_depth(),
+                          dict(co._override))
+        state["policy"] = co.policy_width(0)
+        state["log"] = ctrl.registry.recent()
+        state["counts"] = count_delta(state["counts"],
+                                      control_counts(telemetry.REGISTRY))
+
+    telemetry.enable()
+    t0 = time.perf_counter()
+    try:
+        on, c_on = gated_run(weights, dev, walks, nodes=SPANS_NODES,
+                             hook=start, after=stop,
+                             FISHNET_COALESCE_WIDTH=None,
+                             FISHNET_NO_COALESCE=None)
+    finally:
+        telemetry.disable()
+        if "ctrl" in state:  # the run failed before ``stop``
+            controller.shutdown_controller(state["ctrl"], revert=False)
+    seconds = time.perf_counter() - t0
+    launches = ft_gather.ft_accumulate_packed_cuda.launches - state["launches"]
+    log_rows = [(e.knob, e.direction, e.window, repr(e.value))
+                for e in state["log"]]
+    spans = [(sp["knob"], sp["direction"], sp["window"], sp["value"])
+             for sp in RECORDER.spans()
+             if sp["stage"] == "control" and sp["t"] >= state["t0"] - 1e-4]
+    by_log = Counter((k, d) for k, d, _, _ in log_rows)
+    log(f"  controlled: {len(walks)} positions at {SPANS_NODES} nodes, "
+        f"width left to the policy under a controller at "
+        f"{CONTROL_PERIOD_S} s: {c_on['dispatches']} dispatches "
+        f"({c_on['fused_dispatches']} fused, {c_on['eval_steps']} eval "
+        f"steps), {launches} packed launches in {seconds:.3f} s; widths "
+        f"seen {state['widths']}, by window (first window, K, widths) "
+        f"{state['intervals']}; bind-time (width, depth) {state['bind']}, "
+        f"at the last answer {state['live']}, after shutdown "
+        f"{state['after'][:2]} (overrides {state['after'][2]}, the probe "
+        f"policy's width now {state['policy']}); log {log_rows}; "
+        f"control spans {len(spans)}; actuations_total moved "
+        f"{state['counts']}; card: {card_line()}")
+    check(on == off, "spans controlled: the analyses under the controller "
+                     "differ from the spans off leg's")
+    check(launches == c_on["dispatches"] > 0
+          or torch.device(dev).type != "cuda",
+          f"spans controlled: {launches} launches for "
+          f"{c_on['dispatches']} dispatches")
+    single, wider, fused = narrow_and_wide(state["intervals"])
+    stale = state["bind"][1] + 2
+    check(single > wider and wider <= stale,
+          f"spans controlled: under K = 1 {single} dispatches of one group "
+          f"and {wider} wider (fewer, and at most {stale}: those in flight "
+          f"at the move and the list parked under the old K); by window "
+          f"{state['intervals']}")
+    check(fused >= 1,
+          f"spans controlled: no fused dispatch once K went from 1 to 2 or "
+          f"more; by window {state['intervals']}")
+    check(len(log_rows) == len(CONTROL_WALK) + 2,
+          f"spans controlled: the log holds {log_rows}, not the walk's "
+          f"{len(CONTROL_WALK)} moves and two reverts")
+    check(Counter(spans) == Counter(log_rows),
+          f"spans controlled: control spans {spans} != the log {log_rows}")
+    check(state["counts"] == dict(by_log),
+          f"spans controlled: actuations_total moved {state['counts']}, "
+          f"the log {dict(by_log)}")
+    check(state["after"][1] == state["bind"][1]
+          and all(v is None for v in state["after"][2].values())
+          and state["after"][0] == state["policy"],
+          f"spans controlled: after shutdown (width, depth, overrides) "
+          f"{state['after']}, bind-time {state['bind']}, the policy's "
+          f"width {state['policy']}")
+    log("  controlled: the analyses under the controller == spans off, bit "
+        "for bit")
+    return {"seconds": seconds, "dispatches": c_on["dispatches"],
+            "fused": c_on["fused_dispatches"], "launches": launches,
+            "widths_seen": state["widths"],
+            "widths_by_window": [list(r) for r in state["intervals"]],
+            "bind": list(state["bind"]),
+            "after": list(state["after"][:2]),
+            "actuations": [list(r) for r in log_rows]}
 
 
 class SpansClientLeg:
@@ -6176,8 +6431,11 @@ class SpansClientLeg:
     with one packed launch per dispatch since its warm-up. The process
     runs with ``FISHNET_PROFILE=1``, so ``start_exporter`` arms the
     profiler and the cost plane: ``profile_checks`` reads ``/profile``,
-    ``/trace`` and ``/metrics`` before the signals. Its log lands in
-    ``chiprun_out/spans/``."""
+    ``/trace`` and ``/metrics`` before the signals. The process writes its
+    port file and its span journal into one directory, which a port
+    ``FleetAggregator`` in this process polls every FLEET_POLL_S from
+    ``start`` on (``fleet_checks``, ``fleet_after_exit``). Its log lands
+    in ``chiprun_out/spans/``."""
 
     def __init__(self, dev) -> None:
         import tempfile
@@ -6189,10 +6447,14 @@ class SpansClientLeg:
         out_dir.mkdir(parents=True, exist_ok=True)
         self.log_path = out_dir / "run.log"
         self.tmp = tempfile.mkdtemp(prefix="fishnet-spans-")
-        self.port_file = os.path.join(self.tmp, "metrics.port")
+        self.fleet_dir = os.path.join(self.tmp, "fleet")
+        os.makedirs(self.fleet_dir)
+        self.port_file = os.path.join(self.fleet_dir, "run.port")
+        self.journal = os.path.join(self.fleet_dir, "run.journal.jsonl")
         self.spans_dir = os.path.join(self.tmp, "spans")
         self.server = FakeServer()
         self.proc = None
+        self.agg = None
         self.jobs = {}
 
     def start(self) -> None:
@@ -6209,7 +6471,8 @@ class SpansClientLeg:
                "--no-stats-file", "--endpoint", self.server.endpoint, "--key",
                VALID_KEY, "--max-backoff", "1", "--metrics-port", "0",
                "--metrics-port-file", self.port_file, "--spans-dir",
-               self.spans_dir, "--device", self.device, "-v"]
+               self.spans_dir, "--spans-journal", self.journal, "--device",
+               self.device, "-v"]
         env = dict(os.environ, FISHNET_PROFILE="1")
         for var in ("FISHNET_SPANS_FILE", "FISHNET_SPANS_DIR",
                     "FISHNET_FAULT_PLAN", "FISHNET_PROFILE_HZ"):
@@ -6217,10 +6480,18 @@ class SpansClientLeg:
         with open(self.log_path, "w", encoding="utf-8") as logf:
             self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
                                          stderr=subprocess.STDOUT)
+        from fishnet_tpu_torch.telemetry import fleet
+
+        self.agg = fleet.FleetAggregator(
+            targets_fn=fleet.port_dir_targets(self.fleet_dir),
+            poll_interval=FLEET_POLL_S, journal_dir=self.fleet_dir).start()
+        self.agg_url = self.agg.serve(0).url
 
     def close(self) -> None:
         import shutil
 
+        if self.agg is not None:
+            self.agg.close()
         if self.proc is not None and self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
@@ -6337,6 +6608,7 @@ class SpansClientLeg:
                   f"spans client: batch {bid}'s tree {shape} != {want}")
             shapes[bid] = shape
         profile = self.profile_checks(base)
+        fleet = self.fleet_checks(base)
         proc.send_signal(signal.SIGUSR2)
         while not [h for h in self._dump()[0] if h["reason"] == "SIGUSR2"]:
             check(time.monotonic() < deadline, "spans client: no SIGUSR2 dump")
@@ -6371,10 +6643,170 @@ class SpansClientLeg:
               and (packed == dispatches or self.device != "cuda"),
               f"spans client: {packed} packed launches ({dense} dense) for "
               f"{dispatches} dispatches")
+        fleet.update(self.fleet_after_exit(fleet, packed, dispatches))
         return {"batches": len(self.jobs), "trees": shapes,
                 "dumps": reasons, "spans_on_route": len(doc["spans"]),
                 "exit_after_sigterm_s": took, "launches": packed,
-                "dispatches": dispatches, "profile": profile}
+                "dispatches": dispatches, "profile": profile,
+                "fleet": fleet}
+
+    def _federated(self) -> dict:
+        """The process's dispatch counters in the aggregator's federated
+        families, each sample labelled ``proc="run"``."""
+        fams = self.agg.federated_families()
+        out = {}
+        for name in FLEET_COUNTERS:
+            rows = fams[name].samples if name in fams else []
+            check(rows and all(sp.labels.get("proc") == "run" for sp in rows),
+                  f"spans fleet: {name} is not federated with proc=run")
+            out[name] = sum(sp.value for sp in rows)
+        return out
+
+    def fleet_checks(self, base: str) -> dict:
+        """The fleet plane over the running process, once its jobs are
+        done: ``/fleet`` lists it up, its pid its incarnation; at one
+        poll the federated dispatch counters equal the process's own
+        ``/json``, and the federated ``/metrics`` carries them with
+        ``proc="run"``; ``/fleet/trace`` is a valid Chrome trace with one
+        track group; ``/fleet/spans``, stitched from the polls' archive
+        and the journal, holds every submitted batch's trace, no batch
+        trace holds an orphan, and no step trace whose root the archive
+        holds does. A step trace lives only in the process's rings (it is
+        never journaled): one whose ``pack`` root a driver thread's full
+        ring dropped before a poll read it keeps its other spans as
+        orphans, counted and printed, and only a full ring may drop
+        one."""
+        from collections import Counter
+
+        from fishnet_tpu_torch.telemetry import critical_path as cp
+        from fishnet_tpu_torch.telemetry import stitch
+        from fishnet_tpu_torch.telemetry.spans import DEFAULT_CAPACITY
+        from fishnet_tpu_torch.telemetry.trace_export import (
+            validate_chrome_trace,
+        )
+        from fishnet_tpu_torch.telemetry.tracing import trace_id_for_batch
+
+        deadline = time.monotonic() + 30
+        while True:
+            doc = json.loads(http_get(f"{self.agg_url}/fleet"))
+            st = doc["procs"].get("run")
+            if st is not None and st["up"]:
+                break
+            check(time.monotonic() < deadline,
+                  f"spans fleet: /fleet never listed the process up: {doc}")
+            time.sleep(0.1)
+        check(st["pids"] == [self.proc.pid],
+              f"spans fleet: incarnations {st['pids']}, pid {self.proc.pid}")
+        for _ in range(20):
+            metrics = json.loads(http_get(f"{base}/json"))["metrics"]
+            own = {name: sum(sp["value"] for sp in metrics[name]["samples"])
+                   for name in FLEET_COUNTERS}
+            self.agg.poll_once()
+            fed = self._federated()
+            if fed == own:
+                break
+            time.sleep(0.2)
+        check(fed == own, f"spans fleet: federated {fed} != the process's "
+                          f"/json {own}")
+        text = http_get(f"{self.agg_url}/metrics")
+        exposition_families(text)
+        check(all(any(line.startswith(name + "{") and 'proc="run"' in line
+                      for line in text.splitlines())
+                  for name in FLEET_COUNTERS),
+              "spans fleet: the federated /metrics lacks proc=run counters")
+        trace = json.loads(http_get(f"{self.agg_url}/fleet/trace"))
+        validate_chrome_trace(trace)
+        groups = {ev["args"]["name"] for ev in trace["traceEvents"]
+                  if ev["ph"] == "M" and ev["name"] == "process_name"}
+        check(groups == {"run"}, f"spans fleet: track groups {groups}")
+        spans = json.loads(http_get(f"{self.agg_url}/fleet/spans"))["spans"]
+        traces = cp.group_traces(spans)
+        orphans = Counter(sp["trace_id"] for sp in cp.orphan_spans(spans))
+        batch = [tid for tid in traces if stitch.is_global_trace_id(tid)]
+        rootless = {tid for tid, sp in traces.items()
+                    if not any(s.get("span_id") == tid for s in sp)}
+        held = Counter(sp["thread"] for sp in json.loads(
+            http_get(f"{base}/spans"))["spans"])
+        full = sorted(th for th, n in held.items() if n >= DEFAULT_CAPACITY)
+        bad = {tid: n for tid, n in orphans.items()
+               if tid in batch or tid not in rootless}
+        missing = [bid for bid in self.jobs
+                   if trace_id_for_batch(bid) not in traces]
+        doc = json.loads(http_get(f"{self.agg_url}/fleet"))
+        st = doc["procs"]["run"]
+        log(f"  fleet: /fleet up, pid {st['pids']}, {doc['polls']} polls, "
+            f"{st['scrapes']} scrapes, {st['errors']} errors; federated "
+            f"{fed} == /json; /fleet/trace {len(trace['traceEvents'])} "
+            f"events, track groups {sorted(groups)}; /fleet/spans "
+            f"{len(spans)} spans in {len(traces)} traces ({len(batch)} "
+            f"batch traces); {sum(orphans.values())} orphan spans in "
+            f"{len(orphans)} step traces whose root the rings dropped "
+            f"({len(rootless - set(batch))} rootless step traces; the "
+            f"process's rings at capacity {DEFAULT_CAPACITY}: {full} of "
+            f"{dict(held)}); stitch {doc['stitch']}")
+        check(not missing, f"spans fleet: no stitched trace for {missing}")
+        check(not bad, f"spans fleet: orphan spans in batch traces or in "
+                       f"step traces that hold their root: {bad}")
+        check(not orphans or full, "spans fleet: step traces lost their "
+                                   "root, but no ring of the process is full")
+        return {"polls": doc["polls"], "scrapes": st["scrapes"],
+                "errors": st["errors"], "federated": fed,
+                "trace_events": len(trace["traceEvents"]),
+                "stitched_spans": len(spans), "traces": len(traces),
+                "batch_traces": len(batch),
+                "rootless_step_traces": len(rootless - set(batch)),
+                "orphans": sum(orphans.values()), "full_rings": full}
+
+    def fleet_after_exit(self, live: dict, packed: int,
+                         dispatches: int) -> dict:
+        """After the drained exit: the process reads up=0, the series of
+        its last scrape stay federated with ``proc="run"`` and unchanged
+        while its scrape age grows, and the dispatch counters federated
+        once its jobs were done (``fleet_checks``) equal its dispatches
+        and its packed launches at teardown. (Its drain closes the
+        service first, so its last scrapes no longer carry the service's
+        families.)"""
+        deadline = time.monotonic() + 30
+        while self.agg.fleet_doc()["procs"]["run"]["up"]:
+            check(time.monotonic() < deadline,
+                  "spans fleet: the exited process still reads up")
+            time.sleep(0.1)
+
+        def kept():
+            fams = self.agg.federated_families()
+            up = [sp.value for sp in fams["fishnet_fleet_proc_up"].samples
+                  if sp.labels.get("proc") == "run"]
+            age = [sp.value for sp in fams[
+                "fishnet_fleet_scrape_age_seconds"].samples
+                if sp.labels.get("proc") == "run"]
+            rows = sorted((sp.name, sorted(sp.labels.items()), sp.value)
+                          for fam in fams.values()
+                          if not fam.name.startswith("fishnet_fleet_")
+                          for sp in fam.samples
+                          if sp.labels.get("proc") == "run")
+            return up, age, rows
+
+        up, age0, rows0 = kept()
+        time.sleep(2 * FLEET_POLL_S)
+        _, age1, rows1 = kept()
+        st = self.agg.fleet_doc()["procs"]["run"]
+        fed = live["federated"]
+        log(f"  fleet after exit: up {up}, {len(rows0)} series kept "
+            f"({len({r[0] for r in rows0})} names), scrape age {age0} -> "
+            f"{age1} s; federated while serving {fed}, at teardown "
+            f"{dispatches} dispatches, {packed} packed launches; "
+            f"{st['scrapes']} scrapes, {st['errors']} errors "
+            f"({st['last_error']})")
+        check(up == [0.0], f"spans fleet: up {up} after the exit")
+        check(rows0 and rows0 == rows1,
+              "spans fleet: the exited process's series were not kept")
+        check(age1[0] > age0[0], f"spans fleet: scrape age {age0} -> {age1}")
+        check(fed["fishnet_dispatches_total"] == dispatches
+              and (packed == dispatches or self.device != "cuda"),
+              f"spans fleet: federated {fed}, at teardown {dispatches} "
+              f"dispatches and {packed} packed launches")
+        return {"series_kept": len(rows0), "scrapes_total": st["scrapes"],
+                "errors_total": st["errors"], "age_s": [age0[0], age1[0]]}
 
 
 def phase_spans(torch, weights, dev) -> dict:
@@ -6387,6 +6819,8 @@ def phase_spans(torch, weights, dev) -> dict:
     try:
         leg.start()
         out = {"gated": spans_gated(weights, dev)}
+        out["controlled"] = spans_controlled(weights, dev,
+                                             out["gated"].pop("_off"))
         out["client"] = leg.finish()
     finally:
         leg.close()
@@ -6960,22 +7394,34 @@ OVERLOAD_MOVE_EVERY = 4
 OVERLOAD_PLIES = 40
 OVERLOAD_HIGH = 256
 OVERLOAD_SECONDS = 30.0
+#: The saturation leg runs at its static watermarks (what a ``run`` user
+#: gets: no CLI flag builds a controller) until this many seconds in,
+#: then under the stock controller (``OverloadControl``).
+OVERLOAD_CONTROL_AT = 15.0
 
 
 async def saturate(client, lichess, seconds: float, overshoot: int,
-                   health_url: Optional[str] = None) -> dict:
+                   health_url: Optional[str] = None,
+                   switch: Optional[tuple] = None) -> dict:
     """Drive a started multi-tenant ``client`` (its server saturated by
-    ``lichess.auto_refill``) for ``seconds``, sampling the lane depths
-    and the shed flag every 20 ms, then ``stop(abort_pending=True)``.
-    With ``health_url``, ``/healthz`` there is scraped once while the
-    policy sheds. Returns the summary of the JAX package's
+    ``lichess.auto_refill``) for ``seconds``, sampling the lane depths,
+    the shed flag and the high watermark in force every 20 ms, then
+    ``stop(abort_pending=True)``. With ``health_url``, ``/healthz`` there
+    is scraped once while the policy sheds. With ``switch`` = (at, fn),
+    ``fn()`` runs once, on a worker thread, ``at`` seconds in, and
+    "halves" splits the lane maxima, the shed and admitted counts and
+    the served counts there. Returns the summary of the JAX package's
     ``bench.py --overload``: latencies on the server's clock (handed out
     -> move done, handed out -> first analysis report), shedding,
-    fairness (the DRR scheduler's served counts), the sampled lane
-    maxima against ``depth_bound`` (the high watermark plus
-    ``overshoot`` positions a tenant: admission is checked per batch
-    before its positions are pushed), the server's counts, and the
-    ledger's report when one is installed."""
+    fairness (the DRR scheduler's served counts), the server's counts,
+    the ledger's report when one is installed, and the throughput lane
+    against the watermark in force: a sample at which the lane grew
+    holds at most the highest watermark of that sample and the two
+    before it (an admission decided just before a move) plus
+    ``overshoot`` positions a tenant (admission is checked per batch
+    before its positions are pushed), while a lane that only drains,
+    after a watermark was lowered under it, is within its bound.
+    ``depth_bound`` is that bound at the highest watermark seen."""
     import urllib.error
     import urllib.request
 
@@ -6996,19 +7442,33 @@ async def saturate(client, lichess, seconds: float, overshoot: int,
     frontend = client._frontend
     check(frontend is not None, "saturate: the client has no front end")
     sched, policy = frontend.state.scheduler, frontend.shed_policy
-    max_depth = {LANE_LATENCY: 0, LANE_THROUGHPUT: 0}
-    samples = activations = 0
+    tenants = len(frontend.tenants)
+
+    def counts():
+        ts = frontend.tenants.values()
+        return {"shed": sum(t.shed for t in ts),
+                "admitted": sum(t.acquired for t in ts),
+                "served": dict(sched.served)}
+
+    samples = []  # (seconds in, throughput depth, latency depth, high)
+    activations = 0
     was_shedding = False
     health = None
+    split = None
     loop = asyncio.get_running_loop()
-    t_end = loop.time() + seconds
+    t0 = loop.time()
+    t_end = t0 + seconds
     while loop.time() < t_end:
-        for lane, depth in sched.depths().items():
-            max_depth[lane] = max(max_depth[lane], depth)
+        if switch is not None and split is None \
+                and loop.time() - t0 >= switch[0]:
+            split = (len(samples), counts())
+            await asyncio.to_thread(switch[1])
+        depths = sched.depths()
+        samples.append((loop.time() - t0, depths[LANE_THROUGHPUT],
+                        depths[LANE_LATENCY], policy.high_watermark))
         shedding = policy.shed_active
         activations += shedding and not was_shedding
         was_shedding = shedding
-        samples += 1
         if shedding and health is None and health_url is not None:
             health = await asyncio.to_thread(healthz)
         await asyncio.sleep(0.02)
@@ -7025,11 +7485,37 @@ async def saturate(client, lichess, seconds: float, overshoot: int,
                   "moves_completed": len(lichess.moves),
                   "aborted": len(lichess.aborted),
                   "jobs_synthesized": lichess.refill_count}
-    served = dict(sched.served)
-    positive = [v for v in served.values() if v > 0]
-    tenants = len(frontend.tenants)
-    depth_bound = policy.high_watermark + tenants * overshoot
+    end = counts()
+    served = end["served"]
+    slack = tenants * overshoot
+    over = []
+    for i, (t, depth, _, _) in enumerate(samples):
+        prev = samples[i - 1][1] if i else 0
+        bound = max(x[3] for x in samples[max(0, i - 2): i + 1]) + slack
+        if depth > prev and depth > bound:
+            over.append((round(t, 3), depth, bound))
+
+    def ratio(by_tenant):
+        positive = [v for v in by_tenant.values() if v > 0]
+        return max(positive) / min(positive) if len(positive) >= 2 else None
+
+    def part(lo, hi, c0, c1):
+        rows = samples[lo:hi]
+        served = {k: v - c0["served"].get(k, 0)
+                  for k, v in c1["served"].items()}
+        return {"max_throughput_depth": max((r[1] for r in rows), default=0),
+                "watermarks": sorted({r[3] for r in rows}),
+                "shed": c1["shed"] - c0["shed"],
+                "admitted": c1["admitted"] - c0["admitted"],
+                "served_by_tenant": served, "ratio": ratio(served)}
+
+    halves = None
+    if split is not None:
+        zero = {"shed": 0, "admitted": 0, "served": {}}
+        halves = {"before": part(0, split[0], zero, split[1]),
+                  "after": part(split[0], len(samples), split[1], end)}
     led = accounting.get()
+    highs = sorted({x[3] for x in samples})
     return {
         "tenants": tenants, "seconds": seconds,
         "latency": {
@@ -7040,27 +7526,25 @@ async def saturate(client, lichess, seconds: float, overshoot: int,
             "analysis_n": len(first_ms),
         },
         "shedding": {
-            "shed_total": sum(ts.shed for ts in frontend.tenants.values()),
-            "admitted_total": sum(ts.acquired
-                                  for ts in frontend.tenants.values()),
+            "shed_total": end["shed"], "admitted_total": end["admitted"],
             "shed_by_tenant": {ts.name: ts.shed
                                for ts in frontend.tenants.values()},
             "admitted_by_tenant": {ts.name: ts.acquired
                                    for ts in frontend.tenants.values()},
             "activations": activations, "policy": policy.snapshot(),
         },
-        "fairness": {
-            "served_by_tenant": served,
-            "ratio": (max(positive) / min(positive)
-                      if len(positive) >= 2 else None),
-        },
+        "fairness": {"served_by_tenant": served, "ratio": ratio(served)},
         "queue": {
-            "max_latency_depth": max_depth[LANE_LATENCY],
-            "max_throughput_depth": max_depth[LANE_THROUGHPUT],
-            "depth_bound": depth_bound,
-            "bounded": max_depth[LANE_THROUGHPUT] <= depth_bound,
-            "samples": samples,
+            "max_latency_depth": max((x[2] for x in samples), default=0),
+            "max_throughput_depth": max((x[1] for x in samples), default=0),
+            "depth_bound": (max(highs) if highs else policy.high_watermark)
+            + slack,
+            "watermarks": highs,
+            "over": over[:10],
+            "bounded": not over,
+            "samples": len(samples),
         },
+        "halves": halves,
         "health_while_shedding": health,
         "ledger": None if led is None else led.report(),
         "server": server,
@@ -7070,7 +7554,8 @@ async def saturate(client, lichess, seconds: float, overshoot: int,
 def overload_gates(summary: dict, lichess, what: str) -> None:
     """The saturation gates of the JAX package's overload smoke, plus the
     server's side: something shed and something admitted; the
-    throughput lane's sampled maximum within its bound; the ledger clean;
+    throughput lane never grew past the watermark in force plus a batch
+    a tenant (``saturate``'s "over" empty); the ledger clean;
     every job handed out submitted once or aborted back, none held; every
     move job handed out answered, unless the stop aborted it in flight
     or dropped the acquire that took it (none shed or lost); ``/healthz``
@@ -7087,9 +7572,9 @@ def overload_gates(summary: dict, lichess, what: str) -> None:
     check(shed["shed_total"] >= 1 and shed["admitted_total"] >= 1,
           f"{what}: shed {shed['shed_total']}, admitted "
           f"{shed['admitted_total']}")
-    check(queue["bounded"], f"{what}: the throughput lane reached "
-                            f"{queue['max_throughput_depth']} > "
-                            f"{queue['depth_bound']}")
+    check(queue["bounded"], f"{what}: the throughput lane grew past the "
+                            f"watermark in force plus a batch a tenant, "
+                            f"(seconds in, depth, bound) {queue['over']}")
     led = accounting.get()
     check(led is not None, f"{what}: no ledger installed")
     report = led.assert_clean()
@@ -7125,9 +7610,11 @@ def overload_saturation(dev, url: str) -> dict:
     unacquired jobs queued (every OVERLOAD_MOVE_EVERY-th a move job, the
     rest games of OVERLOAD_PLIES plies at RUN_NODES), under
     ``ShedPolicy(high_watermark=OVERLOAD_HIGH)`` with the batch ledger and
-    an exporter (``url``) on, for OVERLOAD_SECONDS (``saturate``), then
-    ``overload_gates`` with a bound of one game a tenant over the
-    watermark. The packed kernel's launch counts are zeroed after the
+    an exporter (``url``) on, for OVERLOAD_SECONDS (``saturate``): at
+    the static watermarks until OVERLOAD_CONTROL_AT, then under the stock
+    controller (``OverloadControl``, bound there), which may lower them.
+    Then ``overload_gates`` with a bound of one game a tenant over the
+    watermark in force. The packed kernel's launch counts are zeroed after the
     service's warm-up and read after the stop: one launch per device
     dispatch, no dense launch, the error word unmoved."""
     import torch
@@ -7175,9 +7662,22 @@ def overload_saturation(dev, url: str) -> dict:
                 packed.launches = packed.copy_launches = 0  # after warm-up
                 ft_gather.ft_accumulate_cuda.launches = 0
                 await client.start()
-                summary = await saturate(client, lichess, OVERLOAD_SECONDS,
-                                         overshoot=OVERLOAD_PLIES + 1,
-                                         health_url=f"{url}/healthz")
+                bound = []
+
+                def bind():
+                    bound.append(OverloadControl(svc, client, url))
+
+                try:
+                    summary = await saturate(
+                        client, lichess, OVERLOAD_SECONDS,
+                        overshoot=OVERLOAD_PLIES + 1,
+                        health_url=f"{url}/healthz",
+                        switch=(OVERLOAD_CONTROL_AT, bind))
+                finally:
+                    control = bound[0].finish() if bound else None
+                check(control is not None,
+                      "overload: the controller was never bound")
+                summary["control"] = control
                 # The stop cancels the workers mid-search, but a
                 # cancelled search runs on in the service, and may
                 # dispatch, until its driver harvests it. Read the counts
@@ -7229,6 +7729,119 @@ def overload_saturation(dev, url: str) -> dict:
     return summary
 
 
+class OverloadControl:
+    """The stock control plane over the saturation leg's own objects:
+    ``build_controller(service=, shed_policy=, scheduler=, slo_engine=
+    SLOEngine(default_slos()))`` (the service's width, depth and
+    prefetch, the shed watermarks, the DRR weights), paced at
+    CONTROL_PERIOD_S with the stock ``RuleProbePolicy``. ``finish``
+    stops the pacing and checks: ``fishnet_control_actuations_total`` on
+    the exporter at ``url`` moved as it did in the process's registry,
+    and by as many actuations as the registry numbered (its log's last
+    ``seq``), the log's entries among them; the exporter serves the
+    registry's actuation log; a port ``FleetAggregator`` on that
+    exporter renders the registry's last actuations in its control
+    panel; after ``shutdown_controller`` every knob is at its bind-time
+    value (the coalescer's width: no override left, its probe policy
+    decides). Actuations by knob, direction and reason (from the log)
+    are printed, not gated."""
+
+    def __init__(self, svc, client, url: str) -> None:
+        from fishnet_tpu_torch import telemetry
+        from fishnet_tpu_torch.control import controller
+        from fishnet_tpu_torch.telemetry.slo import SLOEngine, default_slos
+
+        frontend = client._frontend
+        self.svc, self.url = svc, url
+        self.shed = frontend.shed_policy
+        self.totals0 = self.scraped_totals()
+        self.counts0 = control_counts(telemetry.REGISTRY)
+        self.ctrl = controller.build_controller(
+            service=svc, shed_policy=self.shed,
+            scheduler=frontend.state.scheduler,
+            slo_engine=SLOEngine(default_slos()))
+        self.bind = self.ctrl.registry.snapshot()
+        self.ctrl.start(period_s=CONTROL_PERIOD_S)
+
+    def scraped_totals(self) -> dict:
+        """``fishnet_control_actuations_total`` by (knob, direction) on
+        the exporter's ``/metrics``."""
+        import re
+
+        out = {}
+        for line in http_get(f"{self.url}/metrics").splitlines():
+            if line.startswith("fishnet_control_actuations_total{"):
+                labels = dict(re.findall(r'(\w+)="([^"]*)"', line))
+                out[(labels["knob"], labels["direction"])] = float(
+                    line.rsplit(" ", 1)[1])
+        return out
+
+    def finish(self) -> dict:
+        from collections import Counter
+
+        from fishnet_tpu_torch import telemetry
+        from fishnet_tpu_torch.control import controller
+        from fishnet_tpu_torch.telemetry import fleet
+
+        ctrl = self.ctrl
+        ctrl.stop(revert=False)
+        recent = ctrl.registry.recent()
+        applied = recent[-1].seq if recent else 0
+        try:
+            text = http_get(f"{self.url}/metrics")
+            moved = count_delta(self.totals0, self.scraped_totals())
+            counted = count_delta(self.counts0,
+                                  control_counts(telemetry.REGISTRY))
+            log_lines = [line for line in text.splitlines()
+                         if line.startswith("fishnet_control_actuation_log{")]
+            agg = fleet.FleetAggregator(targets={"overload": self.url})
+            try:
+                agg.poll_once()
+                panel = fleet.render_console(agg, control=True)
+            finally:
+                agg.close()
+        finally:
+            controller.shutdown_controller(ctrl)
+        after = ctrl.registry.snapshot()
+        co = self.svc._coalescer
+        logged = Counter((e.knob, e.direction) for e in recent)
+        reasons = Counter((e.knob, e.direction, e.reason) for e in recent)
+        panel_rows = panel[panel.index("CONTROL PLANE"):].splitlines()
+        shown = [e for e in recent if any(
+            f"#{e.seq:>3} " in row and f" {e.knob} " in row
+            and row.rstrip().endswith(f"-> {e.value!r}")
+            for row in panel_rows)]
+        differ = {k: (self.bind[k], after[k]) for k in self.bind
+                  if k != "coalesce_width" and self.bind[k] != after[k]}
+        log(f"  control: {applied} actuations, exporter actuations_total "
+            f"moved {moved}, in process {counted}; the log's last "
+            f"{len(recent)} by (knob, direction, reason) {dict(reasons)}, "
+            f"{len(log_lines)} lines on /metrics, {len(shown)} in the fleet "
+            f"console's control panel; knobs at bind {self.bind}, after "
+            f"shutdown {after}")
+        check(moved == counted and sum(moved.values()) == applied,
+              f"overload control: actuations_total moved {moved} on the "
+              f"exporter, {counted} in process, the registry numbered "
+              f"{applied}")
+        check(all(n <= moved.get(k, 0) for k, n in logged.items())
+              and (applied > len(recent) or dict(logged) == moved),
+              f"overload control: the log {dict(logged)} against "
+              f"actuations_total's movement {moved}")
+        check(len(log_lines) == len(recent),
+              f"overload control: /metrics serves {len(log_lines)} log "
+              f"entries, the registry holds {len(recent)}")
+        check(len(shown) == len(recent),
+              f"overload control: the console's panel shows {len(shown)} of "
+              f"the registry's {len(recent)} last actuations:\n{panel}")
+        check(not differ and all(v is None for v in co._override.values()),
+              f"overload control: after shutdown the knobs {differ}, width "
+              f"overrides {co._override}")
+        return {"applied": applied,
+                "actuations": {f"{k}/{d}": n for (k, d), n in moved.items()},
+                "reasons": {f"{k}/{d}: {r}": n
+                            for (k, d, r), n in reasons.items()}}
+
+
 def live_searches(svc) -> int:
     """The searches ``svc`` still holds, running or queued. A caller's
     cancellation stops its search, but the search stays in the service
@@ -7253,6 +7866,11 @@ def log_saturation(summary: dict) -> None:
         f"{summary['fairness']['served_by_tenant']} (ratio "
         f"{summary['fairness']['ratio']}); ledger {summary['ledger']}; "
         f"server {summary['server']}; move jobs {summary.get('moves')}")
+    halves = summary.get("halves")
+    if halves is not None:
+        log(f"  saturation: before the controller (static watermarks) "
+            f"{halves['before']}; under it {halves['after']}; watermarks "
+            f"in force {summary['queue']['watermarks']}")
     log(f"  saturation: move (handed out -> move done) p50 "
         f"{lat['move_p50_ms']} ms, p99 {lat['move_p99_ms']} ms over "
         f"{lat['move_n']}; analysis first report p50 "

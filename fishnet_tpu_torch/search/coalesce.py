@@ -41,7 +41,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 
@@ -450,13 +450,45 @@ class _DispatchCoalescer:
             for s in range(self._n_shards):
                 self._recompute_width(s)
 
-    def set_width_override(self, width: Optional[int]) -> None:
-        """Force the policy width on every shard (None clears back to the
-        probe policy). An env pin (FISHNET_COALESCE_WIDTH) still wins."""
+    def set_width_override(self, width: Optional[int],
+                           shards: Optional[Iterable[int]] = None) -> None:
+        """Force the policy width on the given shards (None = every
+        shard; indices out of range are dropped; width None clears back
+        to the probe policy). An env pin (FISHNET_COALESCE_WIDTH) still
+        wins."""
         with self._lock:
-            for s in range(self._n_shards):
+            targets = (
+                range(self._n_shards) if shards is None
+                else [s for s in shards if 0 <= s < self._n_shards]
+            )
+            for s in targets:
                 self._override[s] = None if width is None else int(width)
                 self._recompute_width(s)
+
+    def policy_width(self, shard: int = 0) -> Optional[int]:
+        """The width the probe policy gives ``shard`` from the occupancy
+        it has seen, whatever override or env pin holds (None until the
+        warm-up probe lands)."""
+        with self._lock:
+            return self._policy_width(shard)
+
+    def _policy_width(self, shard: int) -> Optional[int]:
+        # Caller holds self._lock.
+        if self._probe is None:
+            return None
+        slots = self._occ_ema[shard]
+        if slots is None:
+            slots = 1.0
+        # On the mesh a shard only ever fuses the groups routed to it.
+        router = self._svc._router
+        n_groups = (
+            router.group_count(shard) if router is not None
+            else self._svc._n_groups
+        )
+        return choose_coalesce_width(
+            self._probe.fixed_ms, self._probe.marginal_ms_per_kslot,
+            slots, max(1, n_groups), cap=self.MAX_WIDTH,
+        )
 
     def _recompute_width(self, shard: int) -> None:
         # Caller holds self._lock (the router's lock is a leaf).
@@ -469,21 +501,10 @@ class _DispatchCoalescer:
             if self._svc.driver_threads > 1 and self._widths[shard] > 1:
                 self._linger_s = self.MAX_LINGER_S
             return
-        if self._probe is None:
+        width = self._policy_width(shard)
+        if width is None:
             return  # width stays 1 until the warm-up probe lands
-        slots = self._occ_ema[shard]
-        if slots is None:
-            slots = 1.0
-        # On the mesh a shard only ever fuses the groups routed to it.
-        router = self._svc._router
-        n_groups = (
-            router.group_count(shard) if router is not None
-            else self._svc._n_groups
-        )
-        self._widths[shard] = choose_coalesce_width(
-            self._probe.fixed_ms, self._probe.marginal_ms_per_kslot,
-            slots, max(1, n_groups), cap=self.MAX_WIDTH,
-        )
+        self._widths[shard] = width
         if self._svc.driver_threads > 1 and self._widths[shard] > 1:
             self._linger_s = min(
                 self.MAX_LINGER_S, self._probe.fixed_ms / 1e3 / 16

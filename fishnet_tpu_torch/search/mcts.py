@@ -39,7 +39,7 @@ import threading
 import time
 import weakref
 from collections import OrderedDict
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -723,6 +723,28 @@ class MctsPool:
 
     def warmup(self) -> None:
         self._evaluator.warmup(self.cfg.batch_capacity)
+
+    # -- the control plane's actuation seam (fishnet_tpu_torch/control) --
+
+    def leaf_width_max(self) -> int:
+        return self.cfg.leaves_per_step_max
+
+    def set_leaf_width_max(self, width: int) -> None:
+        """Re-bound the AIMD leaf-width ceiling. Live and reused searches
+        adopt it at once (a width above it is clamped down); the
+        collision-driven AIMD keeps floating underneath. Only the
+        ceiling moves, so a search's result stays a function of the
+        same visit budget."""
+        width = max(1, int(width))
+        with self._lock:
+            self.cfg = replace(self.cfg, leaves_per_step_max=width)
+            cap = max(width, self.cfg.leaves_per_step)
+            for s in list(self._searches.values()) + list(
+                self._reuse.values()
+            ):
+                s.cfg = self.cfg
+                if s.leaf_width > cap:
+                    s.leaf_width = cap
 
     def close(self) -> None:
         """Release the evaluator (the plane's pipelines when this pool

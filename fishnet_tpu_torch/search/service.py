@@ -130,7 +130,7 @@ import time
 import weakref
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -1253,11 +1253,13 @@ class SearchService(CoalesceBackend):
     # Bounded, revertible setters over scheduling only: none of them can
     # change what any position evaluates to.
 
-    def set_coalesce_width(self, width: Optional[int]) -> None:
-        """Force the coalesce policy width (None restores the probe
-        policy). No-op without a coalescer."""
+    def set_coalesce_width(self, width: Optional[int],
+                           shards: Optional[Iterable[int]] = None) -> None:
+        """Force the coalesce policy width on the given shards (None =
+        every shard; width None restores the probe policy). No-op
+        without a coalescer."""
         if self._coalescer is not None:
-            self._coalescer.set_width_override(width)
+            self._coalescer.set_width_override(width, shards=shards)
 
     def coalesce_width(self) -> Optional[int]:
         """The live coalesce width (None when coalescing is off)."""

@@ -1,7 +1,6 @@
 """Live telemetry: the metrics registry, the Prometheus exposition, the
-span flight recorder and the profiling plane — the port of
-``fishnet_tpu/telemetry/`` without its fleet layer (``fleet``,
-``stitch``) and its bench sentinel (``regress``).
+span flight recorder, the profiling plane and the fleet plane — the port
+of ``fishnet_tpu/telemetry/`` without its bench sentinel (``regress``).
 
 * :mod:`fishnet_tpu_torch.telemetry.registry` — Counter/Gauge/Histogram
   with per-thread cells aggregated at scrape time, plus pull-style
@@ -23,7 +22,12 @@ span flight recorder and the profiling plane — the port of
 * :mod:`fishnet_tpu_torch.telemetry.profiler` — the sampling profiler
   (``/profile``) and the stage-duration histograms;
 * :mod:`fishnet_tpu_torch.telemetry.slo` — declarative SLOs as
-  multi-window error-budget burn rates (a library).
+  multi-window error-budget burn rates (a library);
+* :mod:`fishnet_tpu_torch.telemetry.stitch` — cross-process trace
+  stitching and the fleet critical path;
+* :mod:`fishnet_tpu_torch.telemetry.fleet` — the fleet aggregator
+  (federated ``/metrics``, ``/fleet*``) and its console (``python -m
+  fishnet_tpu_torch.telemetry.fleet``).
 
 The exported names, span stages and span fields follow
 doc/observability.md, the JAX package's contract, so a dashboard or a

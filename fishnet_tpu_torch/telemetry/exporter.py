@@ -31,8 +31,8 @@ Endpoints:
 * ``GET /trace``   — the recorder's rings as a Chrome/Perfetto trace
   (telemetry/trace_export.py; load the body at https://ui.perfetto.dev).
 
-Every route of the JAX exporter but its fleet aggregator's
-``extra_routes`` is served, with the JAX exporter's bodies.
+Every route of the JAX exporter is served, with the JAX exporter's
+bodies; ``extra_routes`` mounts more (the fleet aggregator's ``/fleet*``).
 """
 
 from __future__ import annotations
@@ -148,15 +148,18 @@ def health_snapshot() -> Tuple[int, Optional[dict]]:
 
 class MetricsExporter:
     """Owns the HTTP server + its thread. ``port`` is the bound port
-    (useful with port 0 = ephemeral). (The JAX exporter's
-    ``extra_routes``, which its fleet aggregator mounts, waits for the
-    fleet.)"""
+    (useful with port 0 = ephemeral). ``extra_routes`` maps a path to a
+    zero-arg callable returning ``(status, content_type, body_bytes)``:
+    the fleet aggregator mounts ``/fleet*`` through it."""
 
     def __init__(
         self,
         port: int = 0,
         host: str = "127.0.0.1",
         registry: Optional[MetricsRegistry] = None,
+        extra_routes: Optional[
+            Dict[str, Callable[[], Tuple[int, str, bytes]]]
+        ] = None,
     ) -> None:
         registry = registry if registry is not None else REGISTRY
         register_process_info(registry)
@@ -168,7 +171,7 @@ class MetricsExporter:
         # refused with a 503 instead of scraping.
         self._scrape_guard = threading.Lock()
         self._closed = False
-        handler = _make_handler(registry, self)
+        handler = _make_handler(registry, self, extra_routes or {})
         self._server = ThreadingHTTPServer((host, port), handler)
         self._server.daemon_threads = True
         self.host = host
@@ -197,7 +200,11 @@ class MetricsExporter:
         self._registry.scrape_barrier()
 
 
-def _make_handler(registry: MetricsRegistry, exporter: "MetricsExporter"):
+def _make_handler(
+    registry: MetricsRegistry,
+    exporter: "MetricsExporter",
+    extra_routes: Dict[str, Callable[[], Tuple[int, str, bytes]]],
+):
     class _Handler(BaseHTTPRequestHandler):
         # Scrapers poll; access-logging them to stderr is pure noise.
         def log_message(self, fmt, *args):  # noqa: D401
@@ -258,6 +265,9 @@ def _make_handler(registry: MetricsRegistry, exporter: "MetricsExporter"):
                     status, content_type, body = (
                         _profiler.render_endpoint(query)
                     )
+                    self._send(status, content_type, body)
+                elif path in extra_routes:
+                    status, content_type, body = extra_routes[path]()
                     self._send(status, content_type, body)
                 elif path == "/trace":
                     from fishnet_tpu_torch.telemetry.spans import RECORDER

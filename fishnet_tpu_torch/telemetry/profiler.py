@@ -174,12 +174,15 @@ class SamplingProfiler:
 
     def _sample(self) -> None:
         frames = sys._current_frames()
+        # Never profile the profiler, and take its frame out before the
+        # walk: that frame holds ``frames`` in its locals, so leaving it
+        # in would make a reference cycle that keeps every walked frame,
+        # and the tensors in their locals, alive until the next cyclic
+        # collection, which then frees them inside some later walk.
+        frames.pop(threading.get_ident(), None)
         names = {t.ident: t.name for t in threading.enumerate()}
-        me = threading.get_ident()
         folded: List[Tuple[str, Tuple[str, ...]]] = []
         for ident, frame in frames.items():
-            if ident == me:
-                continue  # never profile the profiler
             role = role_of(names.get(ident, "?"))
             stack: List[str] = []
             f = frame

@@ -46,8 +46,9 @@ named machinery actually runs):
 * ``drain``       — the process entered graceful drain: stop acquiring,
   flush in-flight, abort the rest upstream (resilience/drain.py;
   fields: reason, deadline_s)
-* ``control``     — the JAX package's control plane (not ported; the
-  name stays in the contract)
+* ``control``     — one control-plane actuation: a knob moved or
+  reverted (control/actuators.py; fields: knob, direction, value,
+  window, reason)
 
 Recording is OFF by default: every instrumentation site is gated on
 ``fishnet_tpu_torch.telemetry.enabled()``, so with telemetry disabled

@@ -46,7 +46,9 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "telemetry.tracing", "resilience",
              "resilience.faults", "resilience.accounting",
              "resilience.drain", "resilience.shedding", "resilience.soak",
-             "sched.frontend"):
+             "sched.frontend", "control", "control.signals",
+             "control.actuators", "control.controller", "telemetry.stitch",
+             "telemetry.fleet"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

@@ -12,6 +12,7 @@ the port's gated service gives the same analyses, bit for bit, with the
 profiler, the cost plane and the spans on as with all of them off. Every
 test leaves both packages' planes off."""
 
+import gc
 import json
 import threading
 import time
@@ -159,6 +160,77 @@ def test_sampler_folds_named_threads():
         t.join(timeout=2)
 
 
+def _parked_threads(name, n, depth, box=None):
+    """``n`` threads named ``name-i``, each parked ``depth`` calls deep
+    until the returned event is set; ``box`` (a list) gets, from each,
+    a weak reference to an object that lives in the parked frame."""
+    import weakref
+
+    class Held:
+        pass
+
+    go, ready = threading.Event(), threading.Semaphore(0)
+
+    def park(k):
+        if k:
+            return park(k - 1)
+        held = Held()
+        if box is not None:
+            box.append(weakref.ref(held))
+        ready.release()
+        go.wait(10)
+
+    threads = [threading.Thread(target=park, args=(depth,), name=f"{name}-{i}",
+                                daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    for _ in threads:
+        assert ready.acquire(timeout=10)
+    return go, threads
+
+
+def test_sample_folds_as_jax():
+    """One walk over the same parked threads folds the same stacks under
+    the same roles in both packages' samplers."""
+    go, threads = _parked_threads("dispatch-pack-fold", 3, 20)
+    try:
+        port, ref = profiler.SamplingProfiler(), jax_profiler.SamplingProfiler()
+        port._sample()
+        ref._sample()
+    finally:
+        go.set()
+        for t in threads:
+            t.join(timeout=5)
+
+    def pack(prof):
+        return {k: n for k, n in prof._stacks.items() if k[0] == "pack"}
+
+    assert pack(port) and pack(port) == pack(ref)
+
+
+def test_sample_keeps_no_frame_alive():
+    """A walk makes no reference cycle: once a sampled thread's frames
+    return, what they held is freed at once, with the cyclic collector
+    off. The walk's own frame, which holds the frames it walked, must not
+    be among them, or every walked frame and the tensors in its locals
+    live until the next cyclic collection."""
+    box = []
+    prof = profiler.SamplingProfiler()
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        go, threads = _parked_threads("search-driver-cycle", 2, 5, box)
+        prof._sample()
+        go.set()
+        for t in threads:
+            t.join(timeout=5)
+        assert len(box) == 2 and [r() for r in box] == [None, None]
+    finally:
+        if was_on:
+            gc.enable()
+    assert prof.samples == 1
+
+
 def test_stage_observer_feeds_histogram():
     profiler.start(hz=10)
     spans.RECORDER.record("pack", time.monotonic() - 0.002)
@@ -260,6 +332,11 @@ def test_analyses_with_the_plane_on_equal_off(monkeypatch):
     torch.set_num_threads(1)
     try:
         off, c_off, _ = _port_run(_SMOKE_FENS[:4], 100)
+        # The off run's closed service is garbage in reference cycles:
+        # free it before the window, or the full collection that frees
+        # it (170-190 ms in a process that holds both packages) lands
+        # on whichever thread trips it, most often the sampler's walk.
+        gc.collect()
         prof = profiler.start(hz=profiler.DEFAULT_HZ)
         cost.enable()
         telemetry.enable()

@@ -42,6 +42,7 @@ from fishnet_tpu.resilience import drain as jax_drain
 from fishnet_tpu.resilience.supervisor import (
     ServiceSupervisor as JaxSupervisor,
 )
+from fishnet_tpu.rpc import host as jax_host_mod
 from fishnet_tpu.rpc.host import _HostNnueBackend as JaxHostBackend
 from fishnet_tpu.search import mcts as jax_mcts
 from fishnet_tpu.telemetry import critical_path as cp
@@ -58,6 +59,7 @@ from fishnet_tpu_torch.resilience.supervisor import (
     ServiceSupervisor,
     ladder_for,
 )
+from fishnet_tpu_torch.rpc import host as port_host_mod
 from fishnet_tpu_torch.rpc.host import _HostNnueBackend
 from fishnet_tpu_torch.search import mcts
 from fishnet_tpu_torch.telemetry import exporter as exporter_mod
@@ -387,12 +389,10 @@ def test_the_port_records_nothing_with_telemetry_off():
 
 # -- site parity -------------------------------------------------------------------
 
-#: JAX span sites whose modules the port does not have yet: the control
-#: plane's actuator and the shared position tier's probe. (The JAX
-#: cluster modules record no span, nor do cost and the profiler, which
-#: the port has.)
-UNPORTED_SITES = {("control/actuators.py", "control"),
-                  ("search/service.py", "postier_probe")}
+#: JAX span sites whose modules the port does not have yet: the shared
+#: position tier's probe. (The JAX cluster modules record no span, nor
+#: do cost and the profiler, which the port has.)
+UNPORTED_SITES = {("search/service.py", "postier_probe")}
 #: Port modules that hold part of a JAX module: the coalescer and the
 #: async pipeline live in search/service.py there.
 PORT_HOME = {"search/coalesce.py": "search/service.py"}
@@ -528,18 +528,25 @@ def test_mcts_collect_carries_the_jax_fields():
 
 
 @pytest.mark.parametrize("sizes", [(40,), (17, 40)], ids=["1seg", "2segs"])
-def test_host_dispatch_issue_carries_the_jax_fields(sizes):
+def test_host_dispatch_issue_carries_the_jax_fields(sizes, monkeypatch):
     """The split host's NNUE dispatch on the same segments records
-    ``dispatch_issue`` with the JAX host's width, n, slots and fill."""
+    ``dispatch_issue`` with the JAX host's width, n, slots and fill. Each
+    host records into a recorder of its own, so the JAX package's
+    process-wide recorder keeps no host span without a ``seq`` (the
+    JAX service's overlap report pairs every ``dispatch_issue`` it holds
+    by ``seq``)."""
     rng = np.random.default_rng(sum(sizes))
     segs = [_segment(rng, k) for k in sizes]
+    recorders = (jax_spans.SpanRecorder(), spans.SpanRecorder())
+    monkeypatch.setattr(jax_host_mod, "_SPANS", recorders[0])
+    monkeypatch.setattr(port_host_mod, "_SPANS", recorders[1])
     got = []
     for backend, mod, rec in (
             (JaxHostBackend(jax_params(JaxWeights.random(seed=5))),
-             jax_telemetry, jax_spans.RECORDER),
+             jax_telemetry, recorders[0]),
             (_HostNnueBackend(params_from_weights(NnueWeights.random(seed=5),
                                                   "cpu"),
-                              torch.device("cpu")), telemetry, RECORDER)):
+                              torch.device("cpu")), telemetry, recorders[1])):
         mod.enable()
         t0 = time.monotonic()
         try:
