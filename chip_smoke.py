@@ -19,12 +19,14 @@ then ``python -m fishnet_tpu_torch run`` as a subprocess — against a
 fake lichess server built on the standard library, and checks the
 position-keyed eval cache and the bounds tier: the kernel's copy-source
 mode against its plain version, the service with the cache off, cold
-and warm, position dedup, a snapshot restart and the bounds tier, then
-the burst and the ``run`` workload with the cache off, then on; runs
+and warm, position dedup, a snapshot restart and the bounds tier, the
+fleet position tier in process and in two processes sharing a segment,
+then the burst and the ``run`` workload with the cache off, then on; runs
 the split evaluator plane: an evaluator host process on the GPU serving
 search frontend processes over shared-memory rings; runs the AZ/MCTS
 family: the policy+value tower on the card, batched PUCT MCTS over the
-shared AZ dispatch plane and ``run --engine az-mcts``; trains: teacher
+shared AZ dispatch plane (and a run warmed from the fleet tier) and
+``run --engine az-mcts``; trains: teacher
 labels through the card's search, the NNUE and AZ trainers, self-play
 over the shared AZ plane and over an evaluator host, checkpoints; and
 runs the serving mesh: the kernel's partials mode, two launching
@@ -33,8 +35,9 @@ of the card, the per-shard ladder and drain, the legacy sharded
 evaluator; and drives the fault plane: the supervisor's ladder forced by
 injected device-step crashes, the client under a fault plan with the
 exactly-once batch ledger on, a shard-local device fault on the mesh, a
-``run`` process drained by SIGTERM, and ``rpc.detach`` on the split
-plane; and runs the multi-tenant front end: two tenants against the
+``run`` process drained by SIGTERM, ``rpc.detach`` on the split
+plane, and a supervised fleet of ``run`` processes under the canned
+chaos scenario; and runs the multi-tenant front end: two tenants against the
 scalar search, the soak harness, four tenants saturating the server
 under admission control.
 
@@ -57,6 +60,10 @@ checkout (it needs the package beside it).
 run, cli, cache, split, az, train, mesh, trainshard, metrics, spans,
 faults, overload; default all seventeen) limits a run to some phases
 while iterating on one of them; each phase starts from a cold eval cache.
+The parity checks (the parity phase's, and the coalesce phase's at its
+defaults) run in processes of their own beside the ``run`` and ``cli``
+phases and are read before the cache phase; the train phase's CPU
+labels start with the az phase.
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
 processes over shared-memory rings, after a two-process ring ping in
@@ -165,7 +172,12 @@ fishnet_tpu_torch run --drain-deadline 10s`` SIGTERM'd mid-run:
 readiness 503 with ``draining: true``, liveness 200,
 ``fishnet_drain_state`` 1, exit 0, no job held or submitted twice on the
 server; an evaluator host under ``rpc.detach:every=40:error`` and one
-frontend: resubmits, analyses == the monolith's. Its drain and host
+frontend: resubmits, analyses == the monolith's; from the phase's start
+to its end, the supervised fleet (``faults_fleet``: three ``run
+--engine tpu-nnue`` processes behind chaos proxies, PROC0 SIGKILLed,
+PROC1 partitioned, PROC2 SIGTERMed, the fleet tier on): the fleet ledger
+clean, a kill and a restart, drained exits 0, the fleet families, the
+final analyses == the scalar search. Its drain, fleet and host
 logs land in ``chiprun_out/faults/`` and ``chiprun_out/split/``.
 ``overload`` (last) runs the multi-tenant front end at the CLI's
 defaults: ``client_parity`` at two tenants and one worker, 2 games x 20
@@ -431,6 +443,74 @@ def random_lines(n: int, seed: int):
 VALID_KEY = "TESTKEY"
 
 
+class FleetUnit:
+    """One work unit's audit record: every handout to any process
+    ``(monotonic time, process key)``, its completions and who made the
+    last, every time the server took it back ``(time, reason)``, and
+    every stale submission it refused ``(time, process)``."""
+
+    def __init__(self) -> None:
+        self.handouts = []
+        self.completions = 0
+        self.completed_by = None
+        self.requeues = []
+        self.fences = []
+
+
+class FleetLedger:
+    """The server's exactly-once audit across PROCESSES (the
+    ``FleetLedger`` of ``tests/fake_server.py``): every work unit handed
+    to any process, and after kills, partitions and drains whether
+    anything was LOST (handed out, never completed, no longer queued
+    for reassignment) or DUPLICATED (completed more than once).
+    ``acquires_by_proc`` holds each process key's handout times, for
+    recovery times. Mutated under the server's lock."""
+
+    def __init__(self) -> None:
+        self.units = {}
+        self.acquires_by_proc = {}
+
+    def _unit(self, work_id: str) -> FleetUnit:
+        return self.units.setdefault(work_id, FleetUnit())
+
+    def record_handed(self, work_id: str, proc: str) -> None:
+        now = time.monotonic()
+        self._unit(work_id).handouts.append((now, proc))
+        self.acquires_by_proc.setdefault(proc, []).append(now)
+
+    def record_completed(self, work_id: str, proc: str) -> None:
+        unit = self._unit(work_id)
+        unit.completions += 1
+        unit.completed_by = proc
+
+    def record_fenced(self, work_id: str, proc: str) -> None:
+        self._unit(work_id).fences.append((time.monotonic(), proc))
+
+    def record_requeued(self, work_id: str, reason: str) -> None:
+        self._unit(work_id).requeues.append((time.monotonic(), reason))
+
+    def report(self, open_ids=()) -> dict:
+        """The audit; ``open_ids`` are the work ids still queued on the
+        server (awaiting reassignment): handed-but-uncompleted units
+        among them are in flight, not lost."""
+        open_set = set(open_ids)
+        units = self.units.items()
+        lost = [w for w, u in units
+                if u.handouts and u.completions == 0 and w not in open_set]
+        duplicated = [w for w, u in units if u.completions > 1]
+        return {
+            "handed": sum(1 for _, u in units if u.handouts),
+            "completed": sum(1 for _, u in units if u.completions > 0),
+            "lost": sorted(lost),
+            "duplicated": sorted(duplicated),
+            "reassigned": sum(1 for _, u in units if u.requeues),
+            "fenced": sum(len(u.fences) for _, u in units),
+            "multi_proc": sorted(w for w, u in units
+                                 if len({p for _, p in u.handouts}) > 1),
+            "clean": not lost and not duplicated,
+        }
+
+
 class FakeLichess:
     """In-memory fishnet job queue with the semantics of the handlers of
     ``tests/fake_server.py`` (which needs aiohttp; this one needs only
@@ -454,11 +534,31 @@ class FakeLichess:
     the ``add_analysis_job`` arguments of the n-th synthesized job (the
     defaults otherwise). Work ids are ``work_id_prefix`` and a counter;
     ``first_report_at`` holds when each job's first analysis report
-    (progress or final) arrived."""
+    (progress or final) arrived.
 
-    def __init__(self) -> None:
+    The fleet side of ``tests/fake_server.py``: ``fleet`` records every
+    handout, completion and requeue by process, a process being the
+    ``fishnet.apikey`` of its request bodies; ``require_key=False``
+    accepts any key. With ``reassign_after`` (seconds; None, the
+    default, is off) every acquire first puts back in the queue the
+    jobs handed out longer ago than that and not done (the server-side
+    timeout that rescues a SIGKILLed process's work), and a completing
+    submission from a process that is not the job's current holder, or
+    for a job already done, is fenced with a 404 and completes
+    nothing. ``hand_back=False`` (True, the JAX fake's behaviour, is the
+    default) never hands a job to a process that held it before: a job
+    put back while its holder still searches it waits for another
+    process, so no process searches one job twice."""
+
+    def __init__(self, require_key: bool = True) -> None:
         self.lock = threading.Lock()
-        self.jobs = []  # [{"body": ..., "user_queue": bool, "acquired": bool}]
+        self.require_key = require_key
+        self.fleet = FleetLedger()
+        self.reassign_after = None
+        self.hand_back = True
+        # [{"body", "user_queue", "acquired", "acquired_by", "held_by",
+        #   "last_handed"}]
+        self.jobs = []
         self.analyses = {}
         self.progress_reports = {}
         self.moves = {}
@@ -530,7 +630,8 @@ class FakeLichess:
         """Queue a job (the caller holds the lock)."""
         self.bodies[body["work"]["id"]] = body
         self.jobs.append({"body": body, "user_queue": user_queue,
-                          "acquired": False})
+                          "acquired": False, "acquired_by": None,
+                          "held_by": set(), "last_handed": 0.0})
 
     def _refill(self) -> None:
         """Top the queue back up to ``auto_refill`` unacquired jobs (the
@@ -553,25 +654,68 @@ class FakeLichess:
             self._append(body, False)
             pending += 1
 
-    def _hand_out(self, kind=None, slow: bool = False):
+    def _hand_out(self, proc: str, kind=None, slow: bool = False):
         for job in self.jobs:
             work = job["body"]["work"]
-            if job["acquired"] or (slow and job["user_queue"]):
+            if (job["acquired"] or (slow and job["user_queue"])
+                    or (not self.hand_back and proc in job["held_by"])):
                 continue
             if kind is None or work["type"] == kind:
+                now = time.monotonic()
                 job["acquired"] = True
-                self.handed_at.setdefault(work["id"], time.monotonic())
+                job["acquired_by"] = proc
+                job["held_by"].add(proc)
+                job["last_handed"] = now
+                self.handed_at.setdefault(work["id"], now)
+                self.fleet.record_handed(work["id"], proc)
                 return 202, job["body"]
         return 204, None
 
     def _done(self, work_id: str) -> None:
         self.jobs = [j for j in self.jobs if j["body"]["work"]["id"] != work_id]
 
+    def _reassign_stale(self) -> None:
+        """The reassignment sweep (the caller holds the lock)."""
+        if self.reassign_after is None:
+            return
+        now = time.monotonic()
+        for job in self.jobs:
+            if job["acquired"] and now - job["last_handed"] > self.reassign_after:
+                self.fleet.record_requeued(job["body"]["work"]["id"], "timeout")
+                job["acquired"] = False
+                job["acquired_by"] = None
+
+    def _fenced(self, work_id: str, proc: str) -> bool:
+        """Whether a completing submission from ``proc`` is stale (the
+        caller holds the lock): the sweep gave the job to another
+        process, or it is done. A job put back but not yet taken again
+        still accepts its holder's late submission: nobody else did the
+        work."""
+        if self.reassign_after is None:
+            return False
+        job = next((j for j in self.jobs
+                    if j["body"]["work"]["id"] == work_id), None)
+        stale = ((job is None and work_id in self.fleet.units)
+                 or (job is not None and job["acquired_by"] is not None
+                     and job["acquired_by"] != proc))
+        if stale:
+            self.fleet.record_fenced(work_id, proc)
+        return stale
+
+    def fleet_report(self) -> dict:
+        """The fleet ledger's audit, with the jobs still queued counted
+        as in flight (awaiting reassignment), not lost."""
+        with self.lock:
+            return self.fleet.report(
+                [j["body"]["work"]["id"] for j in self.jobs])
+
     def handle(self, method: str, path: str, query: dict, headers, body):
         """(status, JSON payload or None) for one request."""
         key = (body or {}).get("fishnet", {}).get("apikey")
-        authed = (headers.get("Authorization") == f"Bearer {VALID_KEY}"
+        authed = (not self.require_key
+                  or headers.get("Authorization") == f"Bearer {VALID_KEY}"
                   or key == VALID_KEY)
+        proc = key or "?"
         parts = path.strip("/").split("/")
         if parts[:1] != ["fishnet"] or len(parts) < 2:
             return 404, None
@@ -597,8 +741,9 @@ class FakeLichess:
                     return self.reject_with, None
                 if not authed:
                     return 401, None
+                self._reassign_stale()
                 self._refill()
-                return self._hand_out(slow=query.get("slow") == ["true"])
+                return self._hand_out(proc, slow=query.get("slow") == ["true"])
             if not authed:
                 return 401, None
             if route == "analysis":
@@ -607,22 +752,31 @@ class FakeLichess:
                 if analysis and analysis[0] is None:
                     self.progress_reports.setdefault(arg, []).append(body)
                 else:
+                    if self._fenced(arg, proc):
+                        return 404, None
                     self.analyses[arg] = body
                     self.submissions[arg] = self.submissions.get(arg, 0) + 1
                     self.completed_at.setdefault(arg, time.monotonic())
+                    self.fleet.record_completed(arg, proc)
                     self._done(arg)
                 return 204, None
             if route == "move":
+                if self._fenced(arg, proc):
+                    return 404, None
                 self.moves[arg] = body
                 self.submissions[arg] = self.submissions.get(arg, 0) + 1
                 self.move_done_at.setdefault(arg, time.monotonic())
+                self.fleet.record_completed(arg, proc)
                 self._done(arg)
-                return self._hand_out(kind="move")
+                return self._hand_out(proc, kind="move")
             if route == "abort":
                 self.aborted.append(arg)
                 for job in self.jobs:
                     if job["body"]["work"]["id"] == arg:
+                        if job["acquired"]:
+                            self.fleet.record_requeued(arg, "abort")
                         job["acquired"] = False
+                        job["acquired_by"] = None
                 return 204, None
         return 404, None
 
@@ -1300,6 +1454,85 @@ def phase_parity(weights, dev, positions: int = 20, **gpu_kw) -> dict:
         f"(scalar); GPU dispatches {counters['dispatches']} of "
         f"{counters['eval_steps']} steps, coalescer {counters['coalescer']}")
     return counters
+
+
+def parity_child(argv) -> int:
+    """One of ``ParityLeg``'s processes: ``phase_parity`` on the card
+    with the net of ``argv[0]`` and the keywords of the JSON ``argv[1]``;
+    its log lines, then "RESULT" and its service's counters and seconds
+    as one JSON line."""
+    import torch
+
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+
+    t0 = time.perf_counter()
+    counters = phase_parity(NnueWeights.load(argv[0]),
+                            torch.device("cuda", 0), **json.loads(argv[1]))
+    print("RESULT " + json.dumps({"counters": counters,
+                                  "seconds": time.perf_counter() - t0},
+                                 default=str), flush=True)
+    return 0
+
+
+class ParityLeg:
+    """Scalar parity checks (``phase_parity``: the parity phase's 20
+    positions, the coalesce phase's 8 at its defaults), each in a
+    process of its own on the card (``parity_child``), started together
+    once the coalesce phase's timings and burst are done and read before
+    the cache phase's copy-source timings. They are checks, not numbers,
+    one search at a time at some 3-5 ms a step on the card's host, so
+    they run beside the ``run`` and ``cli`` phases' work instead of
+    before it; their processes get the environment of ``__init__`` less
+    the HATCHES, and are killed if the script exits first."""
+
+    def __init__(self, weights, runs) -> None:
+        import atexit
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="fishnet-parity-")
+        self.net = os.path.join(self.dir, "net.nnue")
+        weights.save(self.net)
+        out_dir = ROOT / "chiprun_out" / "parity"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        env = leg_env()
+        self.procs = {}
+        for name, kw in runs:
+            path = out_dir / f"{name}.log"
+            with open(path, "w", encoding="utf-8") as out:
+                self.procs[name] = (subprocess.Popen(
+                    _child_cmd("parity_child", self.net, json.dumps(kw)),
+                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, env=env),
+                    path)
+        atexit.register(self.close)
+
+    def result(self, name: str) -> dict:
+        """Run ``name``'s counters, after its log lines; its failure
+        fails here."""
+        proc, path = self.procs[name]
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        got = None
+        for line in path.read_text(errors="replace").splitlines():
+            if line.startswith("RESULT "):
+                got = json.loads(line[len("RESULT "):])
+            elif line.startswith("["):
+                log(f"  ({name}) {line.split('] ', 1)[-1].strip()}")
+        check(rc == 0 and got is not None,
+              f"{name} parity: its process exited {rc} (log {path})")
+        log(f"  ({name}) {got['seconds']:.1f} s in its process")
+        return got["counters"]
+
+    def close(self) -> None:
+        import shutil
+
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def _graph(torch, fn, reps: int):
@@ -2100,9 +2333,12 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
     pipeline 2, coalescer and async pipeline on): a load burst must
     fuse dispatches, launch the packed kernel once per device dispatch
     and the dense mode never, and leave the kernel's error word as it
-    was; COALESCE_PARITY_POSITIONS positions at depth 4 one at a time
-    must equal the native scalar search; and eight gated concurrent searches must give the
-    same analyses coalesced (width 4, fused dispatches) as per group."""
+    was; and eight gated concurrent searches must give the same
+    analyses coalesced (width 4, fused dispatches) as per group. Its
+    scalar parity (COALESCE_PARITY_POSITIONS positions at depth 4 one at
+    a time, on a service at these defaults, equal to the native scalar
+    search) runs in ``ParityLeg`` with the driver threads returned
+    here."""
     import numpy as np
 
     from fishnet_tpu_torch.configure import parse_and_configure
@@ -2224,10 +2460,6 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
     check(dense == 0, "the default service launched the dense mode")
     check(errors == errors0, f"the kernel's error word moved: {errors0} -> "
                              f"{errors}")
-    parity = phase_parity(weights, dev, COALESCE_PARITY_POSITIONS,
-                          driver_threads=threads,
-                          pipeline_depth=2)
-    check(parity["coalescer"], "the parity service built no coalescer")
     fused_runs = [gated_searches(weights, dev, coalesce=True)
                   for _ in range(2)]
     plain_run = gated_searches(weights, dev, coalesce=False)
@@ -2241,7 +2473,7 @@ def phase_coalesce(torch, weights, params, dev) -> dict:
         f"{fused_runs[0][1]['eval_steps']} steps) == per group "
         f"({plain_run[1]['dispatches']} dispatches): the same analyses")
     return {"timings": timings, "worst": worst, "burst_nps": nps,
-            "fused_dispatches": c["fused_dispatches"],
+            "threads": threads, "fused_dispatches": c["fused_dispatches"],
             "dispatches": c["dispatches"], "eval_steps": c["eval_steps"],
             "steps": steps}
 
@@ -2570,6 +2802,250 @@ def cache_numbers(weights, dev) -> dict:
     return out
 
 
+def tier_env(path: str) -> dict:
+    """The fleet position tier on the segment ``path``: each tier leg
+    (cache, az and faults phases) has a file of its own, at the JAX
+    package's default geometry unless the leg says otherwise."""
+    return {"FISHNET_POSITION_TIER": "1", "FISHNET_POSITION_TIER_PATH": path}
+
+
+#: The reuse and scheduling hatches the main thread sets around the
+#: services it builds, never meant for a leg's own processes.
+HATCHES = ("FISHNET_NO_EVAL_CACHE", "FISHNET_NO_BOUNDS", "FISHNET_NO_DEDUP",
+           "FISHNET_COALESCE_WIDTH", "FISHNET_NO_COALESCE",
+           "FISHNET_POSITION_TIER", "FISHNET_POSITION_TIER_PATH",
+           "FISHNET_FAULT_PLAN")
+
+
+def leg_env() -> dict:
+    """This process's environment without the HATCHES: the environment a
+    leg started on a thread of its own gives its processes, whatever
+    the main thread has set at that moment."""
+    return {k: v for k, v in os.environ.items() if k not in HATCHES}
+
+
+def tier_delta(before: dict, after: dict, family: str) -> dict:
+    """The tier's counters of ``family`` between two ``stats()``: local
+    and fleet hits, misses, and the hit shares of the probes."""
+    got = {k: after.get(f"{k}.{family}", 0) - before.get(f"{k}.{family}", 0)
+           for k in ("hits.local", "hits.fleet", "misses.fleet")}
+    probes = sum(got.values())
+    got["probes"] = probes
+    got["local_share"] = got["hits.local"] / max(1, probes)
+    got["fleet_share"] = got["hits.fleet"] / max(1, probes)
+    return got
+
+
+def tier_hook(seen: dict):
+    """A ``gated_run`` hook noting in ``seen`` the service's host timers
+    (``host_timers``) and whether it holds the fleet tier."""
+    def hook(svc):
+        seen["timers"] = host_timers(svc)
+        seen["tier"] = svc._postier is not None
+    return hook
+
+
+def tier_summary(c: dict, seen: dict, before: dict, after: dict) -> dict:
+    timers = seen["timers"]
+    pack = timers.get("pack", [0, 0.0])
+    probe = timers.get("probe", [0, 0.0])
+    return {"dispatches": c["dispatches"],
+            "cache_prewire_hits": c["cache_prewire_hits"],
+            "cache_skipped_dispatches": c["cache_skipped_dispatches"],
+            "nnue": tier_delta(before, after, "nnue"),
+            "pack_ms_per_dispatch": pack[1] * 1e3 / max(1, pack[0]),
+            "probe_ms_per_call": probe[1] * 1e3 / max(1, probe[0])}
+
+
+def tier_runs(weights, dev, walks, quiet: dict, off) -> dict:
+    """The in-process NNUE tier leg on ``gated_run`` workloads at full
+    width: ``off`` is the phase's cold run with the tier off (its result
+    and its ``tier_hook`` notes); then the tier on, cold (a new
+    segment); on, warm (the process cache reset, the segment kept); and
+    on after a fresh attach of the same segment. The analyses must be
+    equal bit for bit; the warm run must take local tier hits and
+    dispatch less than the cold one; every tier-on service must hold the
+    attached segment (a silent tier-off would pass the equalities).
+    gated_run checks one packed launch per dispatch. Returns each run's
+    counters, tier counters and host timers (the pack worker's ms per
+    dispatch, the drivers' probe)."""
+    import tempfile
+
+    from fishnet_tpu_torch.cluster import position_tier
+
+    (analyses_off, c_off), seen_off = off
+    check(not seen_off["tier"], "tier off: the service held a tier")
+    out = {"off": tier_summary(c_off, seen_off, {}, {})}
+    analyses = {"off": analyses_off}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = tier_env(os.path.join(tmp, "tier.seg"))
+        for label, attach in (("cold", True), ("warm", False),
+                              ("attach", True)):
+            if attach:
+                position_tier.reset_tier()
+            seen = {}
+            before = position_tier.stats()
+            analyses[label], c = gated_run(weights, dev, walks,
+                                           hook=tier_hook(seen), **env,
+                                           **quiet)
+            after = position_tier.stats()
+            check(seen["tier"], f"tier {label}: the service held no tier")
+            if attach:
+                check(after.get("attach.fleet", 0)
+                      == before.get("attach.fleet", 0) + 1
+                      and after.get("attach.local", 0)
+                      == before.get("attach.local", 0),
+                      f"tier {label}: the segment did not attach: {after}")
+            out[label] = tier_summary(c, seen, before, after)
+        position_tier.reset_tier()
+    check(analyses["off"] == analyses["cold"] == analyses["warm"]
+          == analyses["attach"], "tier off / cold / warm / attach: the "
+                                 "analyses differ")
+    warm, cold = out["warm"], out["cold"]
+    check(warm["nnue"]["hits.local"] > 0
+          and warm["dispatches"] < cold["dispatches"],
+          f"the tier-warmed run did not reuse the segment: {warm}, {cold}")
+    out["dispatches_saved"] = cold["dispatches"] - warm["dispatches"]
+    card = card_line()
+    log(f"  fleet tier in process ({card}): off / cold / warm / attach: the "
+        f"same analyses; dispatches "
+        f"{' / '.join(str(out[k]['dispatches']) for k in analyses)} "
+        f"({out['dispatches_saved']} saved warm); tier NNUE hit share warm "
+        f"{warm['nnue']['local_share']:.4f} local of "
+        f"{warm['nnue']['probes']} probes, after a fresh attach "
+        f"{out['attach']['nnue']['local_share']:.4f}; pack worker ms per "
+        f"dispatch off {out['off']['pack_ms_per_dispatch']:.4f}, cold "
+        f"{cold['pack_ms_per_dispatch']:.4f}, warm "
+        f"{warm['pack_ms_per_dispatch']:.4f}; driver probe ms per call off "
+        f"{out['off']['probe_ms_per_call']:.4f}, cold "
+        f"{cold['probe_ms_per_call']:.4f}, warm "
+        f"{warm['probe_ms_per_call']:.4f}")
+    return out
+
+
+#: The two-process tier leg's searches: ``gated_run`` walks (seed, count)
+#: and nodes a search (fewer than the in-process leg's: the pair runs
+#: beside the phase's gated checks and slows them).
+TIER_PAIR = (23, 4, 1500)
+
+
+def cache_tier_child(argv) -> int:
+    """One process of the two-process tier leg: ``gated_run`` of the
+    TIER_PAIR walks on the device ``argv[2]`` with the net of ``argv[0]``
+    and the tier on the segment ``argv[1]`` (bounds tier off, as the
+    comparisons are); prints its analyses, dispatches, packed launches
+    and the tier's counters as one JSON line."""
+    from fishnet_tpu_torch.cluster import position_tier
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.ops import ft_gather
+
+    net, seg, dev = argv[0], argv[1], argv[2]
+    seed, walks, nodes = TIER_PAIR
+    launches = ft_gather.ft_accumulate_packed_cuda
+    seen = {}
+
+    def hook(svc):
+        seen["tier"] = svc._postier is not None
+        seen["before"] = launches.launches
+
+    analyses, c = gated_run(NnueWeights.load(net), dev,
+                            random_lines(walks, seed=seed), nodes=nodes,
+                            hook=hook, FISHNET_NO_BOUNDS="1",
+                            FISHNET_COALESCE_WIDTH="4",
+                            FISHNET_NO_COALESCE=None, **tier_env(seg))
+    print(json.dumps({"analyses": analyses, "dispatches": c["dispatches"],
+                      "launches": launches.launches - seen["before"],
+                      "attached": seen["tier"],
+                      "stats": position_tier.stats()}), flush=True)
+    return 0
+
+
+class TierPair:
+    """The two-process tier leg: process A, then process B, on the card,
+    sharing one segment (``cache_tier_child``), on a thread of its own
+    beside the cache phase's gated checks, as the split parity run, with
+    the environment taken at construction less the HATCHES (the main
+    thread sets them around its services meanwhile).
+    ``result`` gates: B's analyses equal A's; A attached and took no
+    fleet hit; B took fleet hits and dispatched less; each process
+    launched the packed kernel once per dispatch."""
+
+    def __init__(self, weights, dev):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="fishnet-tier-")
+        self.net = os.path.join(self.dir, "net.nnue")
+        weights.save(self.net)
+        self.dev = str(dev)
+        self.env = leg_env()
+        self._pool = ThreadPoolExecutor(1)
+        self._future = None
+
+    def _one(self, name: str) -> dict:
+        out_dir = ROOT / "chiprun_out" / "cache"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        err = out_dir / f"tier-{name}.log"
+        with open(err, "w", encoding="utf-8") as errf:
+            proc = subprocess.run(
+                _child_cmd("cache_tier_child", self.net,
+                           os.path.join(self.dir, "tier.seg"), self.dev),
+                stdout=subprocess.PIPE, stderr=errf, text=True, cwd=ROOT,
+                env=self.env, timeout=600)
+        check(proc.returncode == 0,
+              f"tier process {name} exited {proc.returncode} (log {err})")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    def _run(self) -> dict:
+        t0 = time.perf_counter()
+        a = self._one("A")
+        b = self._one("B")
+        return {"A": a, "B": b, "seconds": time.perf_counter() - t0}
+
+    def start(self) -> None:
+        self._future = self._pool.submit(self._run)
+
+    def result(self) -> dict:
+        got = self._future.result()
+        a, b = got["A"], got["B"]
+        fleet = tier_delta({}, b["stats"], "nnue")
+        check(a["attached"] and b["attached"]
+              and a["stats"].get("attach.fleet", 0) == 1
+              and b["stats"].get("attach.fleet", 0) == 1,
+              f"tier pair: a process did not attach: {a['stats']}, "
+              f"{b['stats']}")
+        check(b["analyses"] == a["analyses"],
+              "tier pair: process B's analyses differ from A's")
+        check(a["stats"].get("hits.fleet.nnue", 0) == 0
+              and fleet["hits.fleet"] > 0,
+              f"tier pair: fleet hits A {a['stats']}, B {b['stats']}")
+        check(b["dispatches"] < a["dispatches"],
+              f"tier pair: B dispatched {b['dispatches']}, A "
+              f"{a['dispatches']}")
+        check(a["launches"] == a["dispatches"]
+              and b["launches"] == b["dispatches"],
+              f"tier pair: launches A {a['launches']} / {a['dispatches']}, "
+              f"B {b['launches']} / {b['dispatches']} dispatches")
+        summary = {"dispatches": [a["dispatches"], b["dispatches"]],
+                   "launches": [a["launches"], b["launches"]],
+                   "fleet_share_B": fleet["fleet_share"],
+                   "probes_B": fleet["probes"],
+                   "seconds": got["seconds"]}
+        log(f"  fleet tier, two processes on the card ({card_line()}): B == "
+            f"A; B's fleet hit share {fleet['fleet_share']:.4f} of "
+            f"{fleet['probes']} tier probes (A 0); dispatches A "
+            f"{a['dispatches']}, B {b['dispatches']} "
+            f"({a['dispatches'] - b['dispatches']} saved); packed launches "
+            f"== dispatches in each; {got['seconds']:.1f} s beside the "
+            "gated checks")
+        return summary
+
+    def close(self) -> None:
+        import shutil
+
+        self._pool.shutdown(wait=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def phase_cache(torch, weights, params, dev, steps=None,
                 beside: Optional["SplitParity"] = None) -> dict:
     """The position-keyed eval cache and the bounds tier on the card.
@@ -2591,10 +3067,13 @@ def phase_cache(torch, weights, params, dev, steps=None,
     service seeds what the first harvested, the same in two identical
     such sequences. The comparisons run without the bounds tier
     (FISHNET_NO_BOUNDS=1), which changes what a search finds by design.
+    The fleet position tier: ``tier_runs`` in this process (off, cold,
+    warm, a fresh attach), and ``TierPair``'s two processes sharing one
+    segment, started after the kernel's timings beside the gated checks.
 
     Then ``cache_numbers``. ``beside`` (the split phase's parity run)
     starts after the kernel's timings and has ended before the numbers:
-    it runs beside the service-level checks alone."""
+    it runs beside the service-level checks alone, as the tier pair."""
     import tempfile
 
     import numpy as np
@@ -2607,12 +3086,16 @@ def phase_cache(torch, weights, params, dev, steps=None,
     timed = copy_source_kernel(torch, weights, params, dev, steps)
     if beside is not None:
         beside.start()
+    pair = TierPair(weights, dev)
+    pair.start()
 
     quiet = dict(FISHNET_NO_BOUNDS="1", FISHNET_COALESCE_WIDTH="4",
                  FISHNET_NO_COALESCE=None)
     walks = random_lines(8, seed=3)
     off = gated_run(weights, dev, walks, FISHNET_NO_EVAL_CACHE="1", **quiet)
-    cold = gated_run(weights, dev, walks, **quiet)
+    timed_cold = {}
+    cold = gated_run(weights, dev, walks, hook=tier_hook(timed_cold),
+                     **quiet)
     warm = gated_run(weights, dev, walks, fresh=False, **quiet)
     check(off[0] == cold[0] == warm[0],
           "cache off, cold and warm analyses differ")
@@ -2708,12 +3191,17 @@ def phase_cache(torch, weights, params, dev, steps=None,
         f"{sum(a[2] for a in sequences[0][0][0])} -> "
         f"{sum(a[2] for a in sequences[0][1][0])}); two sequences gave "
         "the same analyses")
+    tier = tier_runs(weights, dev, walks, quiet, (cold, timed_cold))
+    try:
+        tier["pair"] = pair.result()
+    finally:
+        pair.close()
     if beside is not None:
         beside.wait()
     fresh_cache()
     numbers = cache_numbers(weights, dev)
     fresh_cache()
-    return {"copy_src": timed, "numbers": numbers}
+    return {"copy_src": timed, "numbers": numbers, "tier": tier}
 
 
 def phase_sweep(weights, dev) -> None:
@@ -3731,6 +4219,7 @@ def az_parity(params, dev) -> dict:
         f"{cold['counters']['dispatch']['rows_dispatched']})")
     check(warm == cold["results"], "the warm replay's trees differ from cold")
     check(warm_c["prewire_hits"] > 0, "the warm replay had no pre-wire hit")
+    tier = az_tier(params, dev, cold)
     off = az_pool_run(params, dev, searches, visits, seed=31,
                       env={"FISHNET_NO_SPECULATION": "1"})
     log(f"  speculation off: == on {off['results'] == cold['results']}, "
@@ -3739,7 +4228,59 @@ def az_parity(params, dev) -> dict:
           and off["counters"]["dispatch"]["spec_rows"] == 0,
           "speculation changed the trees, or ran with the hatch set")
     return {"warm_prewire_hits": warm_c["prewire_hits"],
-            "spec_rows": cold["counters"]["dispatch"]["spec_rows"]}
+            "spec_rows": cold["counters"]["dispatch"]["spec_rows"],
+            "tier": tier}
+
+
+#: The az phase's tier segment: AZ-region slots (9360 bytes each).
+AZ_TIER_SLOTS = 8192
+
+
+def az_tier(params, dev, cold: dict) -> dict:
+    """The AZ fleet tier on the parity roots: a run with the tier on a
+    new segment, then one warmed from it (the process AZ cache reset by
+    ``az_pool_run``, the segment kept). Both must equal ``cold`` (the
+    tier-off run) bit for bit, the plane must hold the attached segment,
+    and the warmed run must take tier AZ hits."""
+    import tempfile
+
+    from fishnet_tpu_torch.cluster import position_tier
+
+    searches, visits = AZ_PARITY
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # The region holds the run's rows (~5900 with the speculative
+        # ones): at the JAX default of 256 slots the warmed run's own
+        # inserts evict the few rows left before it probes them.
+        env = {**tier_env(os.path.join(tmp, "tier.seg")),
+               "FISHNET_POSITION_TIER_AZ_CAPACITY": str(AZ_TIER_SLOTS)}
+        position_tier.reset_tier()
+        s0 = position_tier.stats()
+        for label in ("cold", "warm"):
+            before = position_tier.stats()
+            runs[label] = az_pool_run(params, dev, searches, visits, seed=31,
+                                      env=env)
+            runs[label]["az"] = tier_delta(before, position_tier.stats(),
+                                           "az")
+        position_tier.reset_tier()
+    s1 = position_tier.stats()
+    check(s1.get("attach.fleet", 0) == s0.get("attach.fleet", 0) + 1
+          and s1.get("attach.local", 0) == s0.get("attach.local", 0),
+          f"az tier: the segment did not attach: {s1}")
+    check(runs["cold"]["results"] == cold["results"]
+          and runs["warm"]["results"] == cold["results"],
+          "az tier: a tier-on run's trees differ from the tier-off run's")
+    az, d = runs["warm"]["az"], runs["warm"]["counters"]["dispatch"]
+    check(az["hits.local"] > 0, f"az tier: the warmed run took no tier "
+                                f"hit: {az}")
+    log(f"  AZ fleet tier ({card_line()}): cold and tier-warmed == tier off; "
+        f"warm: {az['hits.local']} tier AZ hits of {az['probes']} probes "
+        f"(share {az['local_share']:.4f}), {d['prewire_hits']} pre-wire "
+        f"hits, rows dispatched {d['rows_dispatched']} (cold "
+        f"{runs['cold']['counters']['dispatch']['rows_dispatched']})")
+    return {"hits": az["hits.local"], "probes": az["probes"],
+            "rows_dispatched": [runs[k]["counters"]["dispatch"]
+                                ["rows_dispatched"] for k in runs]}
 
 
 def drive_in_lockstep(pools, lines, visits):
@@ -4718,20 +5259,38 @@ def train_split(dev, tmp: str) -> dict:
     return row
 
 
-def phase_train(torch, dev) -> dict:
-    """The train phase: checks 1-5 of training on the card."""
+def start_train_cpu_labels() -> tuple:
+    """The train phase's CPU labels (``train_cpu_labels_child``, a check's
+    reference on the CPU alone): (the process, the path it writes, its
+    directory). The default run starts it with the az phase, so that it
+    has ended by the time the train phase's card work has."""
+    import atexit
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="train-cpu-")
+    path = os.path.join(tmp, "cpu-labels.npz")
+    child = subprocess.Popen(_child_cmd(
+        "train_cpu_labels_child", path,
+        json.dumps([TRAIN_LABELS, TRAIN_SERVICE, TRAIN_CPU_THREADS])))
+    atexit.register(_stop, child, signal.SIGTERM)
+    return child, path, tmp
+
+
+def phase_train(torch, dev, cpu: Optional[tuple] = None) -> dict:
+    """The train phase: checks 1-5 of training on the card; ``cpu`` the
+    CPU labels started ahead (``start_train_cpu_labels``), or started
+    here."""
+    import shutil
     import tempfile
 
     out = {}
-    with tempfile.TemporaryDirectory(prefix="train-") as tmp:
-        cpu_path = os.path.join(tmp, "cpu-labels.npz")
-        cpu_child = subprocess.Popen(_child_cmd(
-            "train_cpu_labels_child", cpu_path,
-            json.dumps([TRAIN_LABELS, TRAIN_SERVICE, TRAIN_CPU_THREADS])))
-        try:
+    cpu_child, cpu_path, cpu_dir = cpu or start_train_cpu_labels()
+    try:
+        with tempfile.TemporaryDirectory(prefix="train-") as tmp:
             out.update(train_steps(torch, dev, tmp, cpu_child, cpu_path))
-        finally:
-            _stop(cpu_child, signal.SIGTERM)
+    finally:
+        _stop(cpu_child, signal.SIGTERM)
+        shutil.rmtree(cpu_dir, ignore_errors=True)
     return out
 
 
@@ -7334,12 +7893,420 @@ def faults_rpc(net: str, rpc_dir: str, walks, want) -> dict:
             "seconds": seconds}
 
 
+#: The faults phase's supervised fleet: seconds of chaos after the canned
+#: plans are armed, the server's reassignment timeout and the clients'
+#: drain deadline (the JAX harness's settings); nodes a position, the
+#: searches a client runs at once (one: a search stopped by its node
+#: budget depends on the searches its pool ran before and beside it,
+#: and only a sequence of whole searches can be replayed by the scalar
+#: search, ``fleet_parity``), the distinct positions the server hands
+#: out (one a job, never twice; a run takes a few hundred), and the
+#: jobs held to the scalar search besides the reassigned ones.
+FLEET_SECONDS = 12.0
+FLEET_REASSIGN_AFTER = 2.0
+FLEET_DRAIN_DEADLINE = 5.0
+FLEET_NODES = 500
+FLEET_CONCURRENCY = 1
+FLEET_POSITIONS = 2048
+FLEET_PARITY_MORE = 16
+
+
+def fleet_positions(n: int, seed: int) -> list:
+    """``n`` FENs, each from a seeded random game of its own played by the
+    native core, at a random ply from 20 to 60: jobs of these positions
+    share no position (nor, with overwhelming odds, any position a
+    search of a few hundred nodes reaches), so a client's other searches
+    leave nothing in its TT that one of them reads. Two games that reach
+    the same placement, side, castling and en-passant square (the
+    position the search keys) keep the first."""
+    from fishnet_tpu_torch.chess.core import load
+
+    lib = load()
+    rnd = random.Random(seed)
+    err = ctypes.create_string_buffer(256)
+    buf = ctypes.create_string_buffer(8192)
+    fens, seen = [], set()
+    while len(fens) < n:
+        pos = lib.fc_pos_new(STARTPOS.encode(), 0, err, len(err))
+        try:
+            for _ in range(rnd.randrange(20, 61)):
+                if lib.fc_pos_outcome(pos) != 0:
+                    break
+                lib.fc_pos_legal_moves(pos, buf, len(buf))
+                lib.fc_pos_play_uci(pos, rnd.choice(buf.value.split()))
+            else:
+                if lib.fc_pos_outcome(pos) == 0:
+                    lib.fc_pos_fen(pos, buf, len(buf))
+                    fen = buf.value.decode()
+                    key = " ".join(fen.split()[:4])
+                    if key not in seen:
+                        seen.add(key)
+                        fens.append(fen)
+        finally:
+            lib.fc_pos_free(pos)
+    return fens
+
+
+def scalar_analyses(weights, bodies: dict, ids: list,
+                    workers: int) -> dict:
+    """The native scalar search's final analysis of each job of ``ids``
+    (its body in ``bodies``), through the port's client on the CPU
+    (bounds tier and fleet tier off), in one fresh service: the jobs
+    are queued at once, in the order of ``ids``, on a fake server of
+    their own, and ``workers`` searches run at a time."""
+    from fishnet_tpu_torch.client import Client
+    from fishnet_tpu_torch.engine.tpu_engine import TpuNnueEngineFactory
+    from fishnet_tpu_torch.search.service import SearchService
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    fresh_cache()
+    with env_vars(FISHNET_NO_BOUNDS="1", FISHNET_POSITION_TIER=None):
+        svc = SearchService(weights=weights, pool_slots=16,
+                            batch_capacity=64, tt_bytes=256 << 20,
+                            backend="scalar", device="cpu")
+    svc.set_prefetch(8, adaptive=False)
+    try:
+        with FakeServer() as server:
+            lichess = server.lichess
+            for i in ids:
+                lichess._add(json.loads(json.dumps(bodies[i])), False)
+            client = Client(
+                endpoint=server.endpoint, key=VALID_KEY, cores=1,
+                workers=workers, engine_factory=TpuNnueEngineFactory(svc),
+                logger=Logger(verbose=0, stderr=True), max_backoff=0.2)
+            asyncio.run(drive_client(client, lichess, list(ids), 900))
+            return {i: lichess.analyses[i]["analysis"] for i in ids}
+    finally:
+        svc.close()
+
+
+def fleet_sequences(sup, workdir: str) -> list:
+    """Each fleet incarnation's searches, in the order it ran them, as
+    (process name, work ids): the ids its client logged as finished
+    between its start-up banner and the next incarnation's (one search
+    at a time, FLEET_CONCURRENCY, so the order they finished in is the
+    order they ran in)."""
+    import re
+
+    finished = re.compile(r" (\S+) finished \(")
+    out = []
+    for name, handle in sup.procs.items():
+        text = (Path(workdir) / handle.log_path.name).read_text(
+            errors="replace")
+        runs = []
+        for line in text.splitlines():
+            if "fishnet-tpu-torch" in line and " connecting to " in line:
+                runs.append([])
+            elif runs:
+                found = finished.search(line)
+                if found:
+                    runs[-1].append(found.group(1))
+        out.extend((name, run) for run in runs)
+    return out
+
+
+def fleet_parity(weights, bodies: dict, analyses: dict,
+                 submitters: dict, sequences: list) -> dict:
+    """Final analyses the fleet submitted (``analyses``), held against
+    the native scalar search (``scalar_analyses``): the same score, best
+    move and depth per part. A search stopped by its node budget depends
+    on the searches its pool ran before it: they share its continuation
+    history (move ordering, ``cpp/src/search.h``) and its transposition
+    table, so a position whose iteration ends near the budget reports
+    depth d after one history and d - 1 after another. So the scalar
+    search replays the history: for each fleet incarnation that
+    submitted a held job (``sequences``, ``fleet_sequences``; the
+    process that submitted each job in ``submitters``), a fresh scalar
+    service runs that incarnation's searches one at a time, in its
+    order, up to its last held job. ``bad`` lists the jobs whose
+    analysis differs; ``unreplayed`` the held jobs their submitter's
+    log does not report as searched (the gate wants none);
+    ``replayed`` counts the searches run."""
+    ref, replayed = {}, 0
+    for proc, seq in sequences:
+        mine = [k for k, i in enumerate(seq)
+                if i in analyses and submitters[i] == proc]
+        if not mine:
+            continue
+        order = seq[:mine[-1] + 1]
+        got = scalar_analyses(weights, bodies, order, 1)
+        replayed += len(order)
+        ref.update((seq[k], got[seq[k]]) for k in mine)
+
+    def key(analysis):
+        return [(part["score"], part.get("pv", "").split(" ")[0],
+                 part["depth"]) for part in analysis]
+
+    bad = [(i, key(analyses[i]), key(ref[i])) for i in sorted(ref)
+           if key(analyses[i]) != key(ref[i])]
+    return {"jobs": len(analyses),
+            "parts": sum(len(a) for a in analyses.values()),
+            "replayed": replayed,
+            "unreplayed": sorted(set(analyses) - set(ref)),
+            "bad": bad[:5], "n_bad": len(bad)}
+
+
+def handed_to_submitter(sup, lichess, work_id: str) -> int:
+    """How many times the incarnation that completed ``work_id`` was
+    handed it: the handouts to its process after that process's last
+    spawn before the completion (the caller holds the server's lock)."""
+    unit = lichess.fleet.units[work_id]
+    proc, done = unit.completed_by, lichess.completed_at[work_id]
+    spawned = max(sup._t0 + t for t, p, k in sup.events
+                  if p == proc and k == "spawn" and sup._t0 + t <= done)
+    return sum(1 for t, p in unit.handouts
+               if p == proc and spawned <= t <= done)
+
+
+def fleet_launches(sup, workdir: str) -> dict:
+    """Each fleet process's teardown lines from its log in ``workdir``
+    (one an incarnation that exited on its own: every spawn but those
+    SIGKILLed), each as [dispatches, packed launches, dense launches]
+    since the incarnation's warm-up."""
+    import re
+
+    found = re.compile(r"since warm-up: eval_steps -?\d+, dispatches "
+                       r"(-?\d+), ft_gather launches: packed (-?\d+), "
+                       r"dense (-?\d+)")
+    out = {}
+    for name, handle in sup.procs.items():
+        text = (Path(workdir) / handle.log_path.name).read_text(
+            errors="replace")
+        out[name] = {
+            "spawns": handle.spawns,
+            "killed": sum(1 for _, p, k in sup.events
+                          if p == name and k in ("kill", "drain-sigkill")),
+            "counts": [[int(g) for g in m.groups()]
+                       for m in found.finditer(text)]}
+    return out
+
+
+def faults_fleet_child(argv) -> int:
+    """The supervised fleet on the card (``faults_fleet``): the canned
+    chaos scenario's three ``run --engine tpu-nnue`` processes on the
+    net ``argv[0]``, behind their chaos proxies, on the stdlib fake
+    server with the fleet ledger and a FLEET_REASSIGN_AFTER sweep, the
+    fleet position tier on one segment, the bounds tier off, and the
+    port's fleet aggregator over the supervisor's port files (``argv[1]``,
+    the logs too). The canned plans are armed once every process has
+    taken a job (a card client takes seconds to start, the plans' ticks
+    count from arming), then FLEET_SECONDS of chaos and the drain. The
+    server never hands a job back to a process that held it
+    (``hand_back=False``), so no process searches one job twice, and it
+    hands out analysis jobs only: a move job's search ends at its
+    movetime, and the searches after it in its pool could not be
+    replayed (``fleet_parity``). Each child logs at -v, so its teardown
+    line counts its launches. Prints the scenario's report, its audit
+    (``check_report``), the federated tier counters, and the scalar
+    parity of every final analysis, as one JSON line. Before the drain
+    it waits until every process restarted by the plans has taken a job
+    again: a client SIGTERMed while it starts has no handler yet and
+    does not exit 0."""
+    import urllib.request
+
+    from fishnet_tpu_torch import telemetry
+    from fishnet_tpu_torch.cluster import chaos
+    from fishnet_tpu_torch.cluster.supervisor import FleetSupervisor, ProcSpec
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+    from fishnet_tpu_torch.resilience.faults import FaultPlan
+    from fishnet_tpu_torch.telemetry.fleet import (
+        FleetAggregator,
+        port_dir_targets,
+    )
+    from fishnet_tpu_torch.utils.logger import Logger
+
+    net, workdir = argv[0], argv[1]
+    os.environ.update(tier_env(os.path.join(workdir, "tier.seg")))
+    os.environ["FISHNET_NO_BOUNDS"] = "1"
+    fens = fleet_positions(FLEET_POSITIONS, seed=61)
+    lichess = chaos.chaos_lichess(sys.modules[__name__], 3)
+    lichess.reassign_after = FLEET_REASSIGN_AFTER
+    lichess.hand_back = False
+    lichess.refill_move_every = 0
+    lichess.refill_limit = len(fens)
+    lichess.refill_analysis = lambda n: {
+        "position": fens[(n - 1) % len(fens)], "moves": "",
+        "nodes": FLEET_NODES}
+    specs = [ProcSpec(name=spec.name, extra_args=(
+                "--engine", "tpu-nnue", "--nnue-file", net,
+                "--search-concurrency", str(FLEET_CONCURRENCY), "-v"))
+             for spec in chaos.fleet_specs(3)]
+    exporter = telemetry.start_exporter(0)
+    report = {"ok": False}
+
+    def serving(sup) -> bool:
+        """Every process has taken a job since its latest spawn."""
+        for name in sup.procs:
+            spawned = sup._t0 + max(t for t, p, k in sup.events
+                                    if p == name and k == "spawn")
+            taken = lichess.fleet.acquires_by_proc.get(name, [])
+            if not taken or taken[-1] < spawned:
+                return False
+        return True
+
+    async def until_serving(sup, what: str) -> float:
+        t0 = time.monotonic()
+        while not serving(sup):
+            check(time.monotonic() - t0 < 300,
+                  f"fleet: a process took no job in 300 s {what}")
+            await asyncio.sleep(0.2)
+        return time.monotonic() - t0
+
+    async def scenario(server):
+        sup = FleetSupervisor(server.endpoint, specs, workdir=workdir,
+                              logger=Logger(verbose=0, stderr=True),
+                              tick_seconds=0.2,
+                              drain_deadline=FLEET_DRAIN_DEADLINE)
+        agg = None
+        await sup.start()
+        try:
+            agg = FleetAggregator(targets_fn=port_dir_targets(workdir),
+                                  poll_interval=0.3,
+                                  journal_dir=workdir).start()
+            report["ready_s"] = await until_serving(sup, "at start")
+            check(sup.restarts_total() == 0,
+                  f"fleet: a process died starting: {sup.events}")
+            for handle, plan in zip(sup.procs.values(), chaos.CANNED_SPECS):
+                handle.plan = handle.proxy.plan = FaultPlan.parse(plan)
+            t1 = time.monotonic()
+            await asyncio.sleep(FLEET_SECONDS)
+            report["chaos_s"] = time.monotonic() - t1
+            report["serving_again_s"] = await until_serving(
+                sup, "after its restart")
+            obs = await asyncio.to_thread(chaos.observed, agg)
+            fams = agg.federated_families()
+            obs["postier_attach"] = chaos.federated_by_proc(
+                fams, "fishnet_postier_attach_total")
+            report["fleet_observability"] = obs
+            t2 = time.monotonic()
+            exit_codes = await sup.drain()
+            report["drain_s"] = time.monotonic() - t2
+            report.update(chaos.scenario_report(sup, lichess, exit_codes))
+            return sup
+        except BaseException:
+            await sup.kill_all()
+            raise
+        finally:
+            if agg is not None:
+                agg.close()
+
+    try:
+        with FakeServer(lichess) as server:
+            sup = asyncio.run(scenario(server))
+        with urllib.request.urlopen(f"{exporter.url}/metrics",
+                                    timeout=10) as res:
+            chaos.check_report(report, res.read().decode())
+        with lichess.lock:
+            finals = {i: b["analysis"] for i, b in lichess.analyses.items()}
+            bodies = dict(lichess.bodies)
+            requeued = sorted(i for i, u in lichess.fleet.units.items()
+                              if u.requeues and i in finals)
+            submitters = {i: lichess.fleet.units[i].completed_by
+                          for i in finals}
+            held = requeued + [i for i in sorted(finals)
+                               if i not in requeued][:FLEET_PARITY_MORE]
+            searched = {i: handed_to_submitter(sup, lichess, i)
+                        for i in held}
+        report["reassigned_analyses"] = requeued
+        report["searched"] = searched
+        t3 = time.monotonic()
+        report["parity"] = fleet_parity(
+            NnueWeights.load(net), bodies, {i: finals[i] for i in held},
+            submitters, fleet_sequences(sup, workdir))
+        report["parity"]["seconds"] = time.monotonic() - t3
+        report["parity"]["reassigned"] = len(requeued)
+        report["launches"] = fleet_launches(sup, workdir)
+        report["ok"] = True
+    except (SmokeFailure, AssertionError) as err:
+        report["error"] = str(err)
+    finally:
+        exporter.close()
+        print(json.dumps(report), flush=True)
+    return 0
+
+
+def faults_fleet(net: str) -> dict:
+    """Run ``faults_fleet_child`` (its own process: the fleet's tier and
+    bounds settings go to its environment alone) and gate its report:
+    the audit passed (ledger clean, a kill and a restart, drained exits
+    0, the fleet families), every process attached the tier, every
+    final analysis submitted for a reassigned job and FLEET_PARITY_MORE
+    others, each searched once by the process that submitted it, equal
+    to the scalar search's replay of the searches that its incarnation
+    ran up to it (``fleet_parity``: at least four, at least one
+    reassigned), and each incarnation that exited on its own launched
+    the packed kernel once a dispatch, at least once, and the dense mode
+    never (``fleet_launches``)."""
+    out_dir = ROOT / "chiprun_out" / "faults" / "fleet"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(out_dir / "child.log", "w", encoding="utf-8") as errf:
+        proc = subprocess.run(
+            _child_cmd("faults_fleet_child", net, str(out_dir)),
+            stdout=subprocess.PIPE, stderr=errf, text=True, cwd=ROOT,
+            env=leg_env(), timeout=900)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"fleet: the child exited {proc.returncode} (log {out_dir})")
+    report = json.loads(lines[-1])
+    check(report.get("ok"), f"fleet: {report.get('error')} (log {out_dir})")
+    obs = report["fleet_observability"]
+    attach = obs["postier_attach"]
+    check(all(attach.get(p, {}).get("fleet", 0) >= 1
+              and attach.get(p, {}).get("local", 0) == 0
+              for p in ("PROC0", "PROC1", "PROC2")),
+          f"fleet: a process did not attach the tier: {attach}")
+    searched = report["searched"]
+    check(all(n == 1 for n in searched.values()),
+          f"fleet: a job was searched twice by the process that submitted "
+          f"it: {dict((i, n) for i, n in searched.items() if n != 1)}")
+    parity = report["parity"]
+    check(parity["jobs"] >= 4 and parity["n_bad"] == 0
+          and not parity["unreplayed"] and parity["reassigned"] >= 1,
+          f"fleet: scalar parity {parity}")
+    launches = report["launches"]
+    for name, seen in launches.items():
+        check(len(seen["counts"]) == seen["spawns"] - seen["killed"]
+              and all(d == packed > 0 and dense == 0
+                      for d, packed, dense in seen["counts"]),
+              f"fleet: {name}'s incarnations that exited on their own did "
+              f"not each launch the packed kernel once a dispatch: {seen}")
+    kinds = [k for _, _, k in report["events"]]
+    card = card_line()
+    log(f"  fleet ({card}): serving after {report['ready_s']:.3f} s, "
+        f"{report['chaos_s']:.3f} s of chaos, the restarted serving again "
+        f"{report['serving_again_s']:.3f} s after it, drain "
+        f"{report['drain_s']:.3f} s; events {kinds}; exits "
+        f"{report['exit_codes']}; restarts "
+        f"{report['restarts']}; ledger {report['fleet']}")
+    log(f"  fleet ({card}): recovery seconds {report['recovery']}; proxies "
+        f"{report['proxies']}")
+    log(f"  fleet ({card}): tier hits federated by the aggregator "
+        f"{obs['postier_hits']}; attach {attach}; parity: "
+        f"{parity['jobs']} final analyses ({parity['parts']} positions; "
+        f"every one of the {parity['reassigned']} reassigned jobs', each "
+        f"searched once by the process that submitted it) == the scalar "
+        f"search replaying each submitter's sequence ("
+        f"{parity['replayed']} searches in {parity['seconds']:.1f} s); "
+        f"[dispatches, packed, dense] an incarnation that exited "
+        f"on its own {dict((p, v['counts']) for p, v in launches.items())}; "
+        f"{seconds:.1f} s")
+    return {"seconds": seconds, "ready_s": report["ready_s"],
+            "recovery": report["recovery"], "proxies": report["proxies"],
+            "fleet": report["fleet"], "restarts": report["restarts"],
+            "postier_hits": obs["postier_hits"], "parity": parity,
+            "launches": launches, "exit_codes": report["exit_codes"]}
+
+
 def phase_faults(torch, weights, dev) -> dict:
     """Fault injection, exactly-once accounting and graceful drain on
     the card (``faults_ladder``, ``faults_client``, ``faults_mesh``,
-    ``DrainLeg``, ``faults_rpc``). The drain leg's process starts first
-    and idles while the in-process legs run; then it drains while the
-    split leg's processes run beside it. Each in-process leg zeroes the
+    ``DrainLeg``, ``faults_rpc``, ``faults_fleet``). The drain leg's
+    process starts first and idles while the in-process legs run; then
+    it drains while the split leg's processes run beside it. The
+    supervised fleet runs in processes of its own from the phase's start
+    to its end. Each in-process leg zeroes the
     kernel's launch counts just before its faulted run and reads them
     just after; "launches" holds those three counts (the drain's and the
     split host's launches are their processes' own)."""
@@ -7351,8 +8318,12 @@ def phase_faults(torch, weights, dev) -> dict:
     t0 = time.perf_counter()
     drain = DrainLeg(dev)
     rpc_dir = tempfile.mkdtemp(prefix="fishnet-faults-")
+    net = os.path.join(rpc_dir, "net.nnue")
+    weights.save(net)
+    beside = ThreadPoolExecutor(1)
     try:
         drain.start()
+        fleet = beside.submit(faults_fleet, net)
         walks = random_lines(FAULTS_WALKS, seed=13)
         out = {}
         out["ladder"], want = faults_ladder(weights, dev, walks)
@@ -7367,13 +8338,13 @@ def phase_faults(torch, weights, dev) -> dict:
                            for leg in ("ladder", "client", "mesh")}
         walks = random_lines(FAULTS_RPC_WALKS, seed=19)
         want = faults_rpc_monolith(weights, dev, walks)
-        net = os.path.join(rpc_dir, "net.nnue")
-        weights.save(net)
-        with ThreadPoolExecutor(2) as pool:
+        with ThreadPoolExecutor(1) as pool:
             rpc = pool.submit(faults_rpc, net, rpc_dir, walks, want)
             out["drain"] = drain.finish()
             out["rpc"] = rpc.result()
+        out["fleet"] = fleet.result()
     finally:
+        beside.shutdown(wait=True)
         drain.close()
         shutil.rmtree(rpc_dir, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
@@ -8547,10 +9518,6 @@ def main() -> int:
         serve = phase_serve(torch, weights, dev)
         check(serve["launches"] > 0, "the main path never launched the kernel")
         lap("serve")
-    if "parity" in phases:
-        log("[parity] GPU service vs native scalar evaluator")
-        phase_parity(weights, dev)
-        lap("parity")
     entries = []
     if "timing" in phases and serve is not None:
         log("[timing] ft_gather at the serving shape (B = 512)")
@@ -8568,6 +9535,14 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], fused["worst"])
             entry["fused_launches_defaults"] = fused["fused_dispatches"]
         lap("coalesce")
+    parity_runs = []
+    if "parity" in phases:
+        parity_runs.append(("parity", {}))
+    if fused is not None:
+        parity_runs.append(("coalesce", {
+            "positions": COALESCE_PARITY_POSITIONS,
+            "driver_threads": fused["threads"], "pipeline_depth": 2}))
+    parity = ParityLeg(weights, parity_runs) if parity_runs else None
     if "run" in phases:
         log("[run] the fishnet client over the tpu-nnue engine on the GPU, "
             "against a stdlib fake lichess")
@@ -8582,6 +9557,16 @@ def main() -> int:
         for entry in entries:
             entry["launches_cli"] = cli["launches"]
         lap("cli")
+    if parity is not None:
+        log("[parity] GPU service vs native scalar evaluator: the parity "
+            "phase's positions, and the coalesce phase's at its defaults, "
+            "each in a process of its own beside the run and cli phases")
+        for name, _ in parity_runs:
+            counters = parity.result(name)
+            check(name != "coalesce" or counters["coalescer"],
+                  "the coalesce parity service built no coalescer")
+        parity.close()
+        lap("parity")
     if "cache" in phases:
         log("[cache] the eval cache and the bounds tier: the kernel's "
             "copy-source mode, the service, then cache off / on numbers")
@@ -8624,6 +9609,7 @@ def main() -> int:
                 "mode": "dense, in-batch parents (the split host's)",
                 "split": facts})
         lap("split")
+    train_cpu = start_train_cpu_labels() if "train" in phases else None
     if "az" in phases:
         log("[az] the AZ/MCTS family: the policy+value tower on the card, "
             "batched PUCT MCTS over the shared AZ dispatch plane, the AZ "
@@ -8634,7 +9620,7 @@ def main() -> int:
         log("[train] training on the card: teacher labels through the "
             "kernel, the NNUE and AZ trainers at full width, self-play over "
             "the shared plane and the split plane's AZ half, checkpoints")
-        train = phase_train(torch, dev)
+        train = phase_train(torch, dev, train_cpu)
         train_batch = train.pop("_batch")
         export = train["nnue"]["export"]
         facts = {"label_launches": train["labels"]["launches"],

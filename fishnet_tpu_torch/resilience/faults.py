@@ -38,10 +38,10 @@ admission of an acquired batch, sched/frontend.py: a fault there sheds
 the batch), ``service.device_step`` (a driver thread right before its
 device dispatch, search/service.py) and ``rpc.detach`` (polled once per
 sweep of the split plane's evaluator host while at least one link is
-attached, rpc/host.py). The fleet sites ``proxy.*`` and ``proc.*`` (the
-cluster chaos proxy and fleet supervisor) parse, so a plan written for
-the JAX package loads here, but nothing of the port polls them: their
-modules are not ported.
+attached, rpc/host.py). The fleet sites ``proxy.*`` and ``proc.*`` are
+polled by the chaos proxy (cluster/proxy.py, per forwarded request) and
+the fleet supervisor (cluster/supervisor.py, per monitor tick) on each
+supervised process's own plan.
 
 Determinism: ``nth``/``every`` triggers depend only on the per-site
 call count; ``p`` triggers draw from the plan's own
@@ -68,8 +68,10 @@ from fishnet_tpu_torch import telemetry as _telemetry
 
 #: The injection-site registry, the JAX package's names. Plans naming an
 #: unknown site fail to parse. The ``proxy.*`` and ``proc.*`` sites are
-#: FLEET sites, polled by the JAX package's cluster chaos layer (not
-#: ported): they parse and never fire here.
+#: FLEET sites: the chaos proxy (cluster/proxy.py) polls ``proxy.*`` per
+#: forwarded request and the fleet supervisor (cluster/supervisor.py)
+#: ``proc.*`` per monitor tick, each on its process's own plan; nothing
+#: in a client process polls them.
 SITES = (
     "net.acquire",
     "net.submit",

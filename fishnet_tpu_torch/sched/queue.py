@@ -911,6 +911,14 @@ class QueueStub:
         cache = eval_cache.get_cache()
         if cache is not None:
             cache.advance_generation()
+            # The fleet tier shares the clock: any process's batch
+            # completion ages the whole segment, so fixed-slot
+            # replacement prefers positions no live batch is visiting.
+            from fishnet_tpu_torch.cluster import position_tier
+
+            tier = position_tier.get_tier()
+            if tier is not None:
+                tier.advance_generation()
         extra = []
         short = completed.variant.short_name()
         if short:

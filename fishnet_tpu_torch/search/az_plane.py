@@ -5,9 +5,12 @@ microbatches ride the same scheduling spine the NNUE family uses: the
 plane is a ``CoalesceBackend`` (search/coalesce.py) owning one
 ``_DispatchCoalescer``, lazily started ``_AsyncDispatchPipeline``s and
 the tower; each MctsPool registers a COALESCE LANE and pushes its
-per-step leaf microbatch through ``evaluate()``. The fleet position tier
-is not ported (``FISHNET_POSITION_TIER=1`` raises, as in the NNUE
-service).
+per-step leaf microbatch through ``evaluate()``. With the eval cache on,
+``FISHNET_POSITION_TIER=1`` attaches the fleet position tier
+(cluster/position_tier.py) when its AZ policy width is the net's: rows
+the process AZ cache misses are probed in the shared segment's AZ
+region, and every row the device computes (demand or speculative) is
+published to it.
 
 Shards (``devices=``, parallel/mesh.py ``serving_devices``): a replica
 of the tower per shard, a ``ShardRouter`` over the lanes, and per shard
@@ -231,12 +234,6 @@ class AzDispatchPlane(CoalesceBackend):
                  coalesce_width: Optional[int] = None,
                  force_rung: Optional[int] = None,
                  devices: Optional[Sequence] = None) -> None:
-        if (not _eval_cache.cache_disabled()
-                and os.environ.get("FISHNET_POSITION_TIER", "") == "1"):
-            raise NotImplementedError(
-                "FISHNET_POSITION_TIER=1: the fleet position tier "
-                "(fishnet_tpu/cluster/position_tier.py) is not ported to "
-                "fishnet_tpu_torch yet; unset it")
         self.cfg = cfg
         self.device = configure_backends(device)
         self._cap = int(cfg.batch_capacity)
@@ -261,6 +258,17 @@ class AzDispatchPlane(CoalesceBackend):
         if self._net.cfg != cfg.az:
             raise ValueError(f"params are a {self._net.cfg}, not {cfg.az}")
         self._salt = _eval_cache.az_net_fingerprint(params)
+        # FLEET POSITION TIER: AZ leaf traffic rides the shared segment's
+        # AZ region under the same salt. Probed only for rows the process
+        # AzEvalCache missed; the policy-width guard drops the tier on
+        # architecture drift rather than read misaligned rows.
+        self._postier = None
+        if not _eval_cache.cache_disabled():
+            from fishnet_tpu_torch.cluster import position_tier
+
+            tier = position_tier.get_tier()
+            if tier is not None and tier.az_policy_size == POLICY_SIZE:
+                self._postier = tier
         self._router = None
         if self._n_shards > 1:
             from fishnet_tpu_torch.parallel.mesh import ShardRouter
@@ -387,13 +395,16 @@ class AzDispatchPlane(CoalesceBackend):
 
     def _land_speculation(self, spec_keys, lg16, vals) -> None:
         """Materialize-time sink: speculative rows' exact fp16 payload
-        into the cache, so their next probe is a pre-wire hit."""
+        into the cache and the fleet tier, the stores a demand row
+        feeds, so their next probe is a pre-wire hit."""
         cache = _eval_cache.get_az_cache()
-        if cache is None:
-            return
         for j, key in enumerate(spec_keys):
-            cache.insert(key, (np.array(lg16[j], np.float16),
-                               np.float32(vals[j])))
+            lg_row = np.array(lg16[j], np.float16)
+            val = np.float32(vals[j])
+            if cache is not None:
+                cache.insert(key, (lg_row, val))
+            if self._postier is not None:
+                self._postier.insert_az(key, lg_row, float(val))
 
     # -- evaluation -----------------------------------------------------------
 
@@ -434,6 +445,23 @@ class AzDispatchPlane(CoalesceBackend):
                     out_logits[i] = lg16.astype(np.float32)
                     out_values[i] = val
                     hits += 1
+            # The fleet tier for the rows the process cache missed. A hit
+            # is the exact fp16 payload a sibling dispatched, so its fp32
+            # reconstruction is the bits this plane would compute; it is
+            # promoted into the process cache.
+            if self._postier is not None and miss:
+                still = []
+                for i in miss:
+                    ent = self._postier.probe_az(salted[i])
+                    if ent is None:
+                        still.append(i)
+                        continue
+                    lg16, val = ent
+                    out_logits[i] = lg16.astype(np.float32)
+                    out_values[i] = val
+                    cache.insert(salted[i], (lg16, np.float32(val)))
+                    hits += 1
+                miss = still
             with self._stats_lock:
                 self._prewire_hits += hits
                 if not miss:
@@ -466,6 +494,10 @@ class AzDispatchPlane(CoalesceBackend):
             for j, i in enumerate(miss):
                 cache.insert(salted[i], (seg.logits16[j].copy(),
                                          np.float32(seg.values[j])))
+                # Publish the freshly paid row fleet-wide.
+                if self._postier is not None:
+                    self._postier.insert_az(salted[i], seg.logits16[j],
+                                            float(seg.values[j]))
         return out_logits, out_values
 
     # -- CoalesceBackend surface --------------------------------------------

@@ -602,10 +602,13 @@ class SearchService(CoalesceBackend):
 
         The device backend uses the process-wide eval cache and the
         bounds tier (search/eval_cache.py) unless
-        ``FISHNET_NO_EVAL_CACHE=1`` / ``FISHNET_NO_BOUNDS=1``. The JAX
-        package's fleet position tier is not ported:
-        ``FISHNET_POSITION_TIER=1`` raises where the JAX service would
-        attach it.
+        ``FISHNET_NO_EVAL_CACHE=1`` / ``FISHNET_NO_BOUNDS=1``. With the
+        eval cache on, ``FISHNET_POSITION_TIER=1`` attaches the fleet
+        position tier (cluster/position_tier.py): the NNUE rows and the
+        bound records the process caches miss are probed in the shared
+        segment, its hits promoted into the process caches, and the
+        rows the device computed and the harvested bound records are
+        published to it.
 
         ``evaluator``: a callable ``(params, feats, buckets, parents,
         material) -> int32 [B]`` (or a lazy handle that ``np.asarray``
@@ -643,12 +646,6 @@ class SearchService(CoalesceBackend):
         # coalescer, the async pipeline, the eval cache and the bounds
         # tier all ride it (an external evaluator gets the dense wire).
         self._packed_wire = backend == "torch" and evaluator is None
-        if (self._packed_wire and not _eval_cache_mod.cache_disabled()
-                and os.environ.get("FISHNET_POSITION_TIER", "") == "1"):
-            raise NotImplementedError(
-                "FISHNET_POSITION_TIER=1: the fleet position tier "
-                "(fishnet_tpu/cluster/position_tier.py) is not ported to "
-                "fishnet_tpu_torch yet; unset it")
         if psqt_path not in (None,) + PSQT_PATHS:
             raise ValueError(f"unknown psqt_path request: {psqt_path!r}")
         self.device = (
@@ -917,6 +914,16 @@ class SearchService(CoalesceBackend):
         self._hash_buf = np.zeros((k, cap), dtype=np.uint64)
         self._cache_val_buf = np.zeros((k, cap), dtype=np.int32)
         self._miss_hist = _eval_cache_mod.MissHistory()
+        # FLEET POSITION TIER: the shared cross-process segment, probed
+        # only for rows the process cache missed (local -> fleet ->
+        # miss). None unless FISHNET_POSITION_TIER=1 attached a segment;
+        # keys carry the same net-fingerprint salt.
+        if self._eval_cache is not None:
+            from fishnet_tpu_torch.cluster import position_tier
+
+            self._postier = position_tier.get_tier()
+        else:
+            self._postier = None
         # BOUNDS TIER: cached search facts, seeded into the pool TT at
         # submit and per batch, harvested at _finish_slot. None with
         # FISHNET_NO_BOUNDS=1 (or the cache hatch).
@@ -2078,6 +2085,14 @@ class SearchService(CoalesceBackend):
                         for i in np.flatnonzero(hmask).tolist():
                             self._held.fc_pool_tt_fill(
                                 self._pool, int(hb[i]), int(values[i]))
+                        # Fleet-tier publish: only the rows this batch
+                        # paid for on the device (~hmask); pre-wire hits
+                        # are in the segment or the process cache.
+                        if self._postier is not None:
+                            paid = ~hmask
+                            if paid.any():
+                                self._postier.insert_nnue_block(
+                                    (hb ^ salt)[paid], values[paid])
                     if tel:
                         _SPANS.record(
                             "wire_decode", t0,
@@ -2227,13 +2242,15 @@ class SearchService(CoalesceBackend):
 
     def _probe_batch(self, g: int, n: int, hash_ptr, dctx=None):
         """The pre-dispatch probe of group ``g``'s stepped batch: export
-        its Zobrist hashes, probe the eval cache, seed the bounds tier's
-        records for these positions into the pool TT, and feed the miss
-        history. With ``dctx`` (the batch's ``device_step`` trace
-        context, None when telemetry is off) the ``cache_probe`` and
-        ``bounds_probe`` spans are recorded under it. Returns (raw
-        hashes, cached values, hit mask), views of the group's buffers
-        valid until its next step."""
+        its Zobrist hashes, probe the eval cache (then the fleet tier
+        for its misses), seed the bounds tier's records for these
+        positions (the process cache's, then the fleet tier's) into the
+        pool TT, and feed the miss history. With ``dctx`` (the batch's
+        ``device_step`` trace context, None when telemetry is off) the
+        ``cache_probe``, ``postier_probe`` and ``bounds_probe`` spans
+        are recorded under it. Returns (raw hashes, cached values, hit
+        mask), views of the group's buffers valid until its next
+        step."""
         lib = self._lib
         salt = self._cache_salt
         tel = dctx is not None
@@ -2241,18 +2258,46 @@ class SearchService(CoalesceBackend):
         lib.fc_pool_batch_hashes(self._pool, g, hash_ptr,
                                  self._group_capacity)
         hashes = self._hash_buf[g][:n]
+        salted = hashes ^ salt
         hvals, hmask = self._eval_cache.probe_block(
-            hashes ^ salt, out=self._cache_val_buf[g][:n])
+            salted, out=self._cache_val_buf[g][:n])
+        hits = int(hmask.sum())
         if tel:
             _SPANS.record("cache_probe", t0, trace=dctx, group=g, n=n,
-                          hits=int(hmask.sum()))
+                          hits=hits)
+        tier = self._postier
+        if tier is not None and hits < n:
+            # The fleet tier gets one shot at the rows the process cache
+            # missed. Its hits merge into hvals/hmask, so downstream they
+            # are local hits: the planner drops them pre-dispatch and the
+            # provide-time fill lands them in the pool TT. Each is
+            # promoted into the process cache, so the next probe of the
+            # position stays local.
+            t0 = time.monotonic() if tel else 0.0
+            local = hmask.copy()
+            fleet_hits = tier.probe_nnue_block(salted, hvals, hmask)
+            if tel:
+                _SPANS.record("postier_probe", t0, trace=dctx, group=g,
+                              n=n - hits, hits=fleet_hits)
+            if fleet_hits:
+                newly = hmask & ~local
+                self._eval_cache.insert_block(salted[newly], hvals[newly])
         bcache = self._bounds_cache
         if bcache is not None:
             t0 = time.monotonic() if tel else 0.0
             # Cached search facts land in the pool TT before the
             # dispatch: cutoffs and window narrowing for the native
-            # search, best moves for its move ordering.
-            bv, be, bd, bb, bmv = bcache.probe_bounds_block(hashes ^ salt)
+            # search, best moves for its move ordering. Misses fall
+            # through to the fleet tier's bounds region, whose hits are
+            # promoted into the process bounds cache.
+            bv, be, bd, bb, bmv = bcache.probe_bounds_block(salted)
+            if tier is not None and not bb.all():
+                pre = bb != 0
+                tier.probe_bounds_block(salted, bv, be, bd, bb, bmv)
+                for i in np.flatnonzero((bb != 0) & ~pre).tolist():
+                    bcache.insert_bound(int(salted[i]), int(bv[i]),
+                                        int(be[i]), int(bd[i]), int(bb[i]),
+                                        int(bmv[i]))
             rows = np.flatnonzero(bb).tolist()
             for i in rows:
                 self._held.fc_pool_tt_fill_bound(
@@ -2495,10 +2540,14 @@ class SearchService(CoalesceBackend):
         if hits <= 0:
             return
         rows = np.flatnonzero(bounds)
+        salted = karr ^ self._cache_salt
         self._bounds_cache.insert_bounds_block(
-            karr[rows] ^ self._cache_salt, values[rows], evals[rows],
+            salted[rows], values[rows], evals[rows],
             depths[rows], bounds[rows], mvbits[rows],
             [ucis[i] for i in rows.tolist()])
+        if self._postier is not None:
+            self._postier.insert_bounds_block(
+                salted, values, evals, depths, bounds, mvbits)
         with self._lock:
             self._bounds_harvested += int(hits)
 

@@ -364,7 +364,7 @@ def test_rows_do_not_depend_on_the_batch_shape(cfg, cap):
         assert torch.equal(l1[0], full_l[row]) and torch.equal(v1[0], full_v[row])
 
 
-def test_bucket_ladder_and_device_floor(monkeypatch):
+def test_bucket_ladder_and_device_floor(monkeypatch, tmp_path):
     assert _bucket_ladder(1024) == [32, 64, 128, 256, 512, 1024]
     assert _bucket_ladder(1024, az_plane.CUDA_MIN_BUCKET) == [256, 512, 1024]
     assert _bucket_ladder(64, az_plane.CUDA_MIN_BUCKET) == [64]
@@ -383,10 +383,28 @@ def test_bucket_ladder_and_device_floor(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MctsPool(init_az_params(0, TINY), MctsConfig(batch_capacity=64, az=TINY))
     monkeypatch.delenv("FISHNET_NO_SHARED_AZ_PLANE")
+    # FISHNET_POSITION_TIER=1 attaches the fleet tier with the eval cache
+    # on (the JAX plane's condition), and not with FISHNET_NO_EVAL_CACHE=1.
+    from fishnet_tpu_torch.cluster import position_tier
+
     monkeypatch.setenv("FISHNET_POSITION_TIER", "1")
-    with pytest.raises(NotImplementedError, match="position tier"):
-        AzDispatchPlane(init_az_params(0, TINY), MctsConfig(batch_capacity=64, az=TINY),
-                        device="cpu")
+    monkeypatch.setenv("FISHNET_POSITION_TIER_PATH", str(tmp_path / "t.seg"))
+    monkeypatch.setenv("FISHNET_POSITION_TIER_CAPACITY", "64")
+    monkeypatch.setenv("FISHNET_POSITION_TIER_AZ_CAPACITY", "8")
+    monkeypatch.setenv("FISHNET_POSITION_TIER_BOUNDS_CAPACITY", "64")
+    position_tier.reset_tier()
+    try:
+        for hatch, attached in (("0", True), ("1", False)):
+            monkeypatch.setenv("FISHNET_NO_EVAL_CACHE", hatch)
+            plane = AzDispatchPlane(init_az_params(0, TINY),
+                                    MctsConfig(batch_capacity=64, az=TINY),
+                                    device="cpu")
+            plane.close()
+            assert (plane._postier is not None) == attached
+            assert (plane._postier is position_tier.get_tier()) == attached
+    finally:
+        position_tier.reset_tier()
+    monkeypatch.delenv("FISHNET_NO_EVAL_CACHE")
     monkeypatch.delenv("FISHNET_POSITION_TIER")
     with pytest.raises(ValueError, match="not"):
         AzDispatchPlane(init_az_params(0, TINY), MctsConfig(batch_capacity=64),

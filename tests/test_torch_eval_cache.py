@@ -11,8 +11,8 @@ dispatch (values and every group's anchor and PSQT tables, persistent
 drops included). Then the service: cache off, cold and warm give the same
 analyses as each other and as the JAX service, with the same pre-wire
 counts; cross-group position dedup; the bounds tier's harvest then seed;
-a snapshot warm restart; the queue's generation tick; and the refusal of
-the fleet position tier. The NNUE is integer arithmetic: no tolerance.
+a snapshot warm restart; the queue's generation tick; and the condition
+on which the fleet position tier attaches. The NNUE is integer arithmetic: no tolerance.
 
 tests/conftest.py resets only the JAX package's cache, so every test here
 resets the port's before and after (the process-wide cache would
@@ -828,15 +828,26 @@ def test_prefetch_steering_follows_the_hit_rate_as_jax(monkeypatch):
     assert not svc._cache_steer
 
 
-def test_position_tier_is_refused_until_ported(monkeypatch):
-    """FISHNET_POSITION_TIER=1 asks for the JAX package's fleet tier,
-    which the port has not got: the service refuses at construction
-    (where the JAX service would attach it: with the eval cache on)."""
+def test_position_tier_is_refused_until_ported(monkeypatch, tmp_path):
+    """FISHNET_POSITION_TIER=1 attaches the fleet position tier where the
+    JAX service attaches it: with the eval cache on; with
+    FISHNET_NO_EVAL_CACHE=1 the service holds no tier."""
+    from fishnet_tpu_torch.cluster import position_tier
+
     monkeypatch.setenv("FISHNET_POSITION_TIER", "1")
-    with pytest.raises(NotImplementedError, match="fleet position tier"):
-        SearchService(weights=NnueWeights.random(seed=1), device="cpu",
-                      pool_slots=4, batch_capacity=64)
-    monkeypatch.setenv("FISHNET_NO_EVAL_CACHE", "1")
-    svc = SearchService(weights=NnueWeights.random(seed=1), device="cpu",
-                        pool_slots=4, batch_capacity=64)
-    svc.close()
+    monkeypatch.setenv("FISHNET_POSITION_TIER_PATH", str(tmp_path / "t.seg"))
+    monkeypatch.setenv("FISHNET_POSITION_TIER_CAPACITY", "64")
+    monkeypatch.setenv("FISHNET_POSITION_TIER_AZ_CAPACITY", "8")
+    monkeypatch.setenv("FISHNET_POSITION_TIER_BOUNDS_CAPACITY", "64")
+    position_tier.reset_tier()
+    try:
+        for hatch, attached in (("0", True), ("1", False)):
+            monkeypatch.setenv("FISHNET_NO_EVAL_CACHE", hatch)
+            svc = SearchService(weights=NnueWeights.random(seed=1),
+                                device="cpu", pool_slots=4, batch_capacity=64)
+            svc.close()
+            assert (svc._postier is not None) == attached
+            assert (svc._postier is position_tier.get_tier()) == attached
+        assert position_tier.stats().get("attach.fleet", 0) >= 1
+    finally:
+        position_tier.reset_tier()

@@ -48,7 +48,8 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "resilience.drain", "resilience.shedding", "resilience.soak",
              "sched.frontend", "control", "control.signals",
              "control.actuators", "control.controller", "telemetry.stitch",
-             "telemetry.fleet"):
+             "telemetry.fleet", "cluster", "cluster.proxy",
+             "cluster.supervisor", "cluster.chaos", "cluster.position_tier"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)

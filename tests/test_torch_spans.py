@@ -389,10 +389,10 @@ def test_the_port_records_nothing_with_telemetry_off():
 
 # -- site parity -------------------------------------------------------------------
 
-#: JAX span sites whose modules the port does not have yet: the shared
-#: position tier's probe. (The JAX cluster modules record no span, nor
-#: do cost and the profiler, which the port has.)
-UNPORTED_SITES = {("search/service.py", "postier_probe")}
+#: JAX span sites whose modules the port does not have yet: none since
+#: the fleet position tier's probe was ported. (The JAX cluster modules
+#: record no span, nor do cost and the profiler, which the port has.)
+UNPORTED_SITES = set()
 #: Port modules that hold part of a JAX module: the coalescer and the
 #: async pipeline live in search/service.py there.
 PORT_HOME = {"search/coalesce.py": "search/service.py"}
