@@ -63,7 +63,20 @@ while iterating on one of them; each phase starts from a cold eval cache.
 The parity checks (the parity phase's, and the coalesce phase's at its
 defaults) run in processes of their own beside the ``run`` and ``cli``
 phases and are read before the cache phase; the train phase's CPU
-labels start with the az phase.
+labels start with the az phase. With the ``cli`` phase two legs of the
+command line start there too, in processes of their own on the card,
+and are read after it, before the parity phase: ``python -m
+fishnet_tpu_torch verify-net --nnue-file NET -v`` (``VerifyNetLeg``:
+every stage passes, eval parity bit-exact on 200 positions, at least one
+dense launch, packed launches == the device service's dispatches, rung
+fused; the net cut short by 512 bytes exits 1 on ``layout FAIL``) and
+``python -m fishnet_tpu_torch run --engine uci`` whose engine child is
+the port's own ``uci -v`` on the card (``UciEngineLeg``: UCI_LEG_GAMES
+games at RUN_NODES, every analysis == the native scalar search replaying the
+child's command sequence, SIGINT -> exit 0, no child left, the child on
+``cuda:0`` at ``fused``, no CUDA context in the parent; the seconds from
+spawn to ``uciok`` printed; logs in ``chiprun_out/verify_net/`` and
+``chiprun_out/uci_engine/``).
 ``split`` runs the split evaluator plane: a host process on the card
 (``python -m fishnet_tpu_torch.rpc.host``'s main) serving frontend
 processes over shared-memory rings, after a two-process ring ping in
@@ -1533,6 +1546,391 @@ class ParityLeg:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def verify_net_lines(path: Path) -> dict:
+    """The stage lines, the verdict and the -v launch line of a
+    ``verify-net`` log."""
+    import re
+
+    text = path.read_text(errors="replace")
+    lines = text.splitlines()
+    stages = {line[:16].strip(): line[16:].strip() for line in lines
+              if line[:16].strip() in ("layout", "scalar load", "eval parity",
+                                       "search parity", "material probe")}
+    verdicts = [i for i, line in enumerate(lines)
+                if line.startswith("verify-net: ")]
+    found = re.search(r"verify-net launches: dense (\d+), packed (\d+), "
+                      r"dispatches since warm-up (\d+), rung (\S+)", text)
+    return {"stages": stages, "lines": lines, "verdicts": verdicts,
+            "launches": found}
+
+
+class VerifyNetLeg:
+    """``python -m fishnet_tpu_torch verify-net --no-conf --nnue-file NET
+    -v`` as a user starts it, on the card, in a process of its own beside
+    the ``run`` and ``cli`` phases, and the same on a copy of the net cut
+    short by 512 bytes. Started with ``ParityLeg``, on its saved net
+    (``net``; else ``weights`` saved here), read before the parity phase;
+    each process is killed if the script exits first."""
+
+    def __init__(self, weights, net: Optional[str] = None) -> None:
+        import atexit
+        import tempfile
+
+        self.dir = ROOT / "chiprun_out" / "verify_net"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.tmp = tempfile.mkdtemp(prefix="fishnet-verify-net-")
+        if net is None:
+            net = os.path.join(self.tmp, "net.nnue")
+            weights.save(net)
+        cut = Path(self.tmp) / "cut.nnue"
+        cut.write_bytes(Path(net).read_bytes()[:-512])
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for name, path in (("good", net), ("cut", str(cut))):
+            with open(self.dir / f"{name}.log", "w", encoding="utf-8") as out:
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "fishnet_tpu_torch", "verify-net",
+                     "--no-conf", "--nnue-file", path, "-v"],
+                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT,
+                    env=leg_env())
+        atexit.register(self.close)
+
+    def result(self) -> dict:
+        """Gate both runs: the net passes every stage (the material probe
+        is informational), eval parity bit-exact on all 200 positions, at
+        least one dense launch, packed launches == the service's
+        dispatches since its warm-up, rung fused; the cut net exits 1 on
+        ``layout FAIL`` with the re-export hint. Returns the launches and
+        the seconds."""
+        rcs = {}
+        for name, proc in self.procs.items():
+            try:
+                rcs[name] = proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rcs[name] = proc.wait()
+        seconds = time.perf_counter() - self.t0
+        good = verify_net_lines(self.dir / "good.log")
+        for line in good["lines"]:
+            log(f"  (verify-net) {line[:300]}")
+        stages, found = good["stages"], good["launches"]
+        check(rcs["good"] == 0, f"verify-net exited {rcs['good']} "
+                                f"(log {self.dir / 'good.log'})")
+        check(all(stages.get(s, "").startswith("PASS") for s in
+                  ("layout", "scalar load", "eval parity", "search parity"))
+              and stages.get("material probe", "")[:4] in ("PASS", "INFO"),
+              f"verify-net: a stage did not pass: {stages}")
+        check(stages["eval parity"] == "PASS  (200 positions, bit-exact)",
+              f"verify-net: eval parity {stages['eval parity']!r}")
+        check(good["verdicts"] and good["lines"][good["verdicts"][-1]]
+              == "verify-net: PASS"
+              and good["verdicts"][-1] == len(good["lines"]) - 2,
+              "verify-net: the run does not end with 'verify-net: PASS' "
+              "and its launch line")
+        check(found is not None, "verify-net: no launch line at -v")
+        dense, packed, dispatches = (int(found.group(i)) for i in (1, 2, 3))
+        rung = found.group(4)
+        check(dense >= 1, "verify-net: the eval stage never launched the "
+                          "dense kernel")
+        check(packed == dispatches and packed > 0,
+              f"verify-net: {packed} packed launches for {dispatches} "
+              "dispatches")
+        check(rung == "fused", f"verify-net: the service's rung is {rung}")
+        cut = verify_net_lines(self.dir / "cut.log")
+        check(rcs["cut"] == 1, f"verify-net on the cut net exited "
+                               f"{rcs['cut']}, not 1")
+        layout = cut["stages"].get("layout", "")
+        check(layout.startswith("FAIL") and "re-export" in layout
+              and cut["lines"][cut["verdicts"][-1]] == "verify-net: FAIL",
+              f"verify-net on the cut net: layout {layout!r}")
+        log(f"  verify-net ({card_line()}): every stage PASS, eval parity "
+            f"bit-exact on 200 positions; ft_gather launches: dense {dense} "
+            f"(the eval stage), packed {packed} == {dispatches} dispatches "
+            f"since the warm-up, rung {rung}; the net cut by 512 bytes "
+            f"exits 1 on 'layout FAIL' ({layout[6:120]}...); "
+            f"{seconds:.1f} s in its processes")
+        return {"dense": dense, "packed": packed, "dispatches": dispatches,
+                "seconds": seconds}
+
+    def close(self) -> None:
+        import shutil
+
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def uci_results(text: str) -> list:
+    """Each search of a UCI transcript, in order, as the client submits
+    it: (score, first pv move, depth), read as ``engine/uci.py`` reads
+    the engine's lines."""
+    from fishnet_tpu_torch.engine.uci import _parse_info_line
+    from fishnet_tpu_torch.protocol.types import Matrix
+
+    out, scores, pvs, depth = [], Matrix(), Matrix(), 0
+    for line in text.splitlines():
+        tokens = line.split()
+        if not tokens:
+            continue
+        if tokens[0] == "info":
+            fields = _parse_info_line(tokens)
+            if "bound" in fields:
+                continue
+            d, score = fields.get("depth"), fields.get("score")
+            multipv = int(fields.get("multipv", 1))
+            if isinstance(d, int) and score is not None:
+                scores.set(multipv, d, score)
+                pvs.set(multipv, d, fields.get("pv", []))
+                if multipv == 1:
+                    depth = max(depth, d)
+        elif tokens[0] == "bestmove":
+            best, pv = scores.best(), pvs.best() or []
+            out.append((None if best is None else best.to_json(),
+                        pv[0] if pv else "", depth))
+            scores, pvs, depth = Matrix(), Matrix(), 0
+    return out
+
+
+def uci_replay(weights, sent: list) -> list:
+    """The native scalar search's answers to one engine child's command
+    sequence ``sent`` (as the parent sent them), replayed in order
+    through the port's UciServer over one fresh scalar service (the
+    child's pool and TT sizes, bounds tier off, as in the child)."""
+    from fishnet_tpu_torch.search.service import SearchService
+
+    fresh_cache()
+    with env_vars(FISHNET_NO_BOUNDS="1", FISHNET_POSITION_TIER=None):
+        svc = SearchService(weights=weights, backend="scalar")
+    try:
+        out = Transcript()
+        asyncio.run(drive_uci(svc, sent, out))
+        return uci_results(out.text())
+    finally:
+        svc.close()
+
+
+#: The --engine uci leg's games (40 plies at RUN_NODES each): each game
+#: is ~40-50 s of lone searches through the child on the card, which the
+#: default run waits for after the ``cli`` phase; at 4 games the wait was
+#: 97-138 s and the run 736-986 s (PERF.md), too near the 1200 s limit
+#: for a slower host.
+UCI_LEG_GAMES = 2
+
+
+def uci_engine_child(argv) -> int:
+    """The ``--engine uci`` leg (``UciEngineLeg``), in a process of its
+    own: the stdlib fake lichess (``hand_back=False``) with
+    UCI_LEG_GAMES analysis games at RUN_NODES and no move job, and
+    ``python -m fishnet_tpu_torch run --no-conf --no-stats-file --engine
+    uci --engine-exe W --cores 1 --max-backoff 1 -v`` against it, W a
+    two-line sh script that execs ``python -m fishnet_tpu_torch uci -v``
+    with its stderr appended to ``argv[0]/child.log``; the child owns the
+    card, the bounds tier off in its environment. Once every job is
+    submitted, SIGINT; then the scalar replay of each child's command
+    sequence from the parent's log. Prints one JSON report."""
+    import re
+    import tempfile
+
+    from fishnet_tpu_torch.nnue.weights import NnueWeights
+
+    out_dir = Path(argv[0])
+    report = {"ok": False}
+    wrapper_dir = tempfile.mkdtemp(prefix="fishnet-uci-engine-")
+    wrapper = Path(wrapper_dir) / "engine.sh"
+    wrapper.write_text(
+        "#!/bin/sh\n"
+        f"exec {sys.executable} -m fishnet_tpu_torch uci -v "
+        f"2>>{out_dir / 'child.log'}\n")
+    wrapper.chmod(0o755)
+    lichess = FakeLichess()
+    lichess.hand_back = False
+    ids, _ = add_run_jobs(lichess, UCI_LEG_GAMES, 0, seed=37, nodes=RUN_NODES)
+    env = dict(leg_env(), FISHNET_NO_BOUNDS="1")
+    stamped = []  # (monotonic seconds, line) of the parent's output
+    try:
+        with FakeServer(lichess) as server:
+            t0 = time.monotonic()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "fishnet_tpu_torch", "run", "--no-conf",
+                 "--no-stats-file", "--engine", "uci", "--engine-exe",
+                 str(wrapper), "--cores", "1", "--max-backoff", "1", "-v",
+                 "--endpoint", server.endpoint, "--key", VALID_KEY],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=ROOT, env=env)
+
+            def pump():
+                for line in proc.stdout:
+                    stamped.append((time.monotonic(), line.rstrip("\n")))
+
+            reader = threading.Thread(target=pump, daemon=True)
+            reader.start()
+            try:
+                while not all(i in lichess.analyses for i in ids):
+                    check(proc.poll() is None,
+                          f"the parent exited early ({proc.returncode})")
+                    check(time.monotonic() - t0 < 600,
+                          "the jobs were not all submitted in 600 s")
+                    time.sleep(0.1)
+                report["submitted_s"] = time.monotonic() - t0
+                proc.send_signal(signal.SIGINT)
+                report["rc"] = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                reader.join(timeout=10)
+        (out_dir / "parent.log").write_text(
+            "\n".join(line for _, line in stamped) + "\n")
+        spawned, uciok, sent = {}, {}, {}
+        for t, line in stamped:
+            found = re.match(r"D: Spawned engine process (\d+):", line)
+            if found:
+                spawned[int(found.group(1))] = t
+                continue
+            found = re.match(r"D: <(\d+)> (<<|>>) (.*)$", line)
+            if found:
+                pid = int(found.group(1))
+                if found.group(2) == "<<":
+                    sent.setdefault(pid, []).append(found.group(3))
+                elif found.group(3) == "uciok":
+                    uciok.setdefault(pid, t)
+        report["spawn_to_uciok_s"] = {str(p): uciok[p] - spawned[p]
+                                      for p in spawned if p in uciok}
+        report["left"] = []
+        for pid in spawned:
+            try:
+                os.killpg(pid, 0)
+                report["left"].append(pid)
+            except ProcessLookupError:
+                pass
+        teardown = [line for _, line in stamped if "since warm-up:" in line]
+        report["teardown"] = teardown[-1] if teardown else None
+        report["cuda_context"] = [line for _, line in stamped
+                                  if line.startswith("D: cuda_context ")]
+        child_log = (out_dir / "child.log").read_text(errors="replace")
+        report["child_warm"] = re.findall(
+            r"UCI service warmed up on (\S+), rung (\S+)", child_log)
+        # The scalar replay, each child's sequence in one fresh service.
+        t1 = time.monotonic()
+        weights = NnueWeights.random(seed=0)
+        got = {}
+        for pid, lines in sent.items():
+            keys, position = [], None
+            for line in lines:
+                if line.startswith("position "):
+                    position = line
+                elif line.startswith("go"):
+                    toks = position.split()
+                    keys.append(tuple(toks[toks.index("moves") + 1:])
+                                if "moves" in toks else ())
+            answers = uci_replay(weights, lines)
+            check(len(answers) == len(keys),
+                  f"replay of {pid}: {len(answers)} answers to {len(keys)} go")
+            for key, answer in zip(keys, answers):
+                got.setdefault(key, []).append(answer)
+        report["replay_s"] = time.monotonic() - t1
+        want = {}
+        for i in ids:
+            body, parts = lichess.bodies[i], lichess.analyses[i]["analysis"]
+            moves = body["moves"].split()
+            for ply, part in enumerate(parts):
+                if part == {"skipped": True}:
+                    continue
+                want.setdefault(tuple(moves[:ply]), []).append(
+                    (part["score"], part.get("pv", "").split(" ")[0],
+                     part["depth"]))
+        bad = [(k, sorted(map(str, want[k])), sorted(map(str, got.get(k, []))))
+               for k in want if sorted(map(str, want[k]))
+               != sorted(map(str, got.get(k, [])))]
+        report.update(
+            searches=sum(len(v) for v in want.values()),
+            replayed=sum(len(v) for v in got.values()),
+            n_bad=len(bad), bad=bad[:3], children=len(spawned), ok=True)
+    except (SmokeFailure, AssertionError, OSError, ValueError) as err:
+        report["error"] = f"{type(err).__name__}: {err}"
+    finally:
+        import shutil
+
+        shutil.rmtree(wrapper_dir, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+    return 0
+
+
+class UciEngineLeg:
+    """``uci_engine_child`` in a process of its own beside the ``run`` and
+    ``cli`` phases (started with ``ParityLeg``, read before the parity
+    phase; killed if the script exits first)."""
+
+    def __init__(self) -> None:
+        import atexit
+
+        self.dir = ROOT / "chiprun_out" / "uci_engine"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        (self.dir / "child.log").write_text("")
+        self.t0 = time.perf_counter()
+        self.out = open(self.dir / "leg.log", "w", encoding="utf-8")
+        self.proc = subprocess.Popen(
+            _child_cmd("uci_engine_child", str(self.dir)),
+            stdout=subprocess.PIPE, stderr=self.out, text=True, cwd=ROOT,
+            env=leg_env())
+        atexit.register(self.close)
+
+    def result(self) -> dict:
+        """Gate the report: every job submitted; every analysis == the
+        scalar replay of the command sequence its child received; SIGINT
+        made the parent exit 0; no child pid left; the child's service on
+        cuda:0 at the fused rung after its warm-up; no CUDA context in the
+        parent (its teardown line). Returns the numbers."""
+        try:
+            text, _ = self.proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            text, _ = self.proc.communicate()
+        seconds = time.perf_counter() - self.t0
+        lines = text.strip().splitlines()
+        check(self.proc.returncode == 0 and lines,
+              f"uci engine leg: its process exited {self.proc.returncode} "
+              f"(log {self.dir})")
+        rep = json.loads(lines[-1])
+        check(rep.get("ok"), f"uci engine leg: {rep.get('error')} "
+                             f"(log {self.dir})")
+        check(rep["rc"] == 0, f"uci engine leg: the parent exited {rep['rc']}")
+        check(not rep["left"], f"uci engine leg: child pids left: {rep['left']}")
+        check(rep["child_warm"] and all(w == ["cuda:0", "fused"]
+                                        for w in rep["child_warm"]),
+              f"uci engine leg: the child's service: {rep['child_warm']}")
+        teardown = rep["teardown"] or ""
+        check("packed 0, dense 0; rung None" in teardown
+              and rep["cuda_context"] == ["D: cuda_context False"],
+              f"uci engine leg: the parent's teardown lines: {teardown!r}, "
+              f"{rep['cuda_context']}")
+        check(rep["n_bad"] == 0 and rep["searches"] == rep["replayed"] > 0,
+              f"uci engine leg: {rep['n_bad']} positions differ from the "
+              f"scalar replay ({rep['searches']} searched, "
+              f"{rep['replayed']} replayed): {rep['bad']}")
+        uciok = rep["spawn_to_uciok_s"]
+        log(f"  uci engine ({card_line()}): {UCI_LEG_GAMES} games "
+            f"({rep['searches']} positions at {RUN_NODES} nodes) submitted "
+            f"in {rep['submitted_s']:.1f} s through {rep['children']} "
+            f"engine child(ren) on cuda:0 at the fused rung; spawn -> uciok "
+            f"{', '.join(f'{s:.3f}' for s in uciok.values())} s (the "
+            f"handshake waits 30 s); == the scalar replay of each child's "
+            f"command sequence ({rep['replay_s']:.1f} s); SIGINT -> exit 0, "
+            f"no child left, the parent without a CUDA context; "
+            f"{seconds:.1f} s in its processes")
+        return {"seconds": seconds, "spawn_to_uciok_s": list(uciok.values()),
+                "searches": rep["searches"],
+                "submitted_s": rep["submitted_s"]}
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
 
 
 def _graph(torch, fn, reps: int):
@@ -9543,6 +9941,13 @@ def main() -> int:
             "positions": COALESCE_PARITY_POSITIONS,
             "driver_threads": fused["threads"], "pipeline_depth": 2}))
     parity = ParityLeg(weights, parity_runs) if parity_runs else None
+    verify_leg = uci_leg = None
+    if "cli" in phases:
+        # The CLI's verify-net and --engine uci legs, each in processes of
+        # its own on the card beside the run and cli phases.
+        verify_leg = VerifyNetLeg(weights,
+                                  None if parity is None else parity.net)
+        uci_leg = UciEngineLeg()
     if "run" in phases:
         log("[run] the fishnet client over the tpu-nnue engine on the GPU, "
             "against a stdlib fake lichess")
@@ -9557,6 +9962,23 @@ def main() -> int:
         for entry in entries:
             entry["launches_cli"] = cli["launches"]
         lap("cli")
+    if verify_leg is not None:
+        log("[verify-net] python -m fishnet_tpu_torch verify-net -v on the "
+            "card, and on the net cut short by 512 bytes, in processes of "
+            "their own beside the run and cli phases")
+        verified = verify_leg.result()
+        verify_leg.close()
+        for entry in entries:
+            entry["launches_verify_net"] = {"dense": verified["dense"],
+                                            "packed": verified["packed"]}
+        lap("verify-net")
+    if uci_leg is not None:
+        log("[uci-engine] python -m fishnet_tpu_torch run --engine uci, the "
+            "engine child the port's own uci command on the card, in "
+            "processes of their own beside the run and cli phases")
+        uci_leg.result()
+        uci_leg.close()
+        lap("uci-engine")
     if parity is not None:
         log("[parity] GPU service vs native scalar evaluator: the parity "
             "phase's positions, and the coalesce phase's at its defaults, "

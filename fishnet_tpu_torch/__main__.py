@@ -1,7 +1,7 @@
 """Command line of the PyTorch/CUDA port: ``python -m fishnet_tpu_torch``.
 
-The port of the JAX package's ``run`` and ``uci`` commands
-(fishnet_tpu/__main__.py), with the same flags plus ``--device``:
+The port of the JAX package's commands (fishnet_tpu/__main__.py), with
+the same flags plus ``--device``:
 
 * ``run`` (the default command) is the fishnet client: the API actor,
   the queue actor and the worker pull loops over the ``tpu-nnue``
@@ -27,8 +27,20 @@ The port of the JAX package's ``run`` and ``uci`` commands
   ``--fault-plan`` (or ``FISHNET_FAULT_PLAN``) installs a deterministic
   fault plan before the service is built (resilience/faults.py): a
   testing aid, logged at error level.
+  ``--engine uci --engine-exe EXE`` drives a UCI engine subprocess
+  per worker instead (engine/uci.py); this process then builds no
+  service and opens no device. ``--auto-update`` checks the release
+  channel at startup and every 5 h (update.py): a staged update drains
+  the client, then installs and execs again, but only after a clean
+  drain with no SIGINT or SIGTERM.
 * ``uci`` serves the batched NNUE search over UCI on stdin/stdout
   (logging goes to stderr: stdout belongs to the protocol).
+* ``configure`` runs the configuration dialog and writes ``fishnet.ini``
+  (a bare invocation without an ini file runs it too, then the client).
+* ``systemd`` / ``systemd-user`` print a unit file (systemd.py).
+* ``verify-net --nnue-file PATH`` checks a net against the native
+  evaluator on the device (verify_net.py).
+* ``license`` prints the license notice.
 
 With ``FISHNET_RPC=1`` either command is a split-plane FRONTEND: its
 searches run here and every eval microbatch rides a shared-memory ring
@@ -59,6 +71,38 @@ from fishnet_tpu_torch.sched.queue import BacklogOpt
 from fishnet_tpu_torch.utils.logger import Logger
 from fishnet_tpu_torch.utils.stats import StatsRecorder
 from fishnet_tpu_torch.version import __version__
+
+LICENSE_NOTICE = """\
+fishnet-tpu-torch is free software: you can redistribute it and/or modify it
+under the terms of the GNU General Public License as published by the
+Free Software Foundation, either version 3 of the License, or (at your
+option) any later version. It is distributed WITHOUT ANY WARRANTY; see
+https://www.gnu.org/licenses/gpl-3.0.html for the full text.
+"""
+
+
+def _check_key_over_network(endpoint: str, key: str) -> Optional[str]:
+    """Live key validation for the config dialog (configure.rs:474-492)."""
+    from fishnet_tpu_torch.net import api as api_mod
+
+    async def check() -> Optional[str]:
+        stub, actor = api_mod.channel(endpoint, key, Logger())
+        task = asyncio.ensure_future(actor.run())
+        try:
+            err = await asyncio.wait_for(stub.check_key(), timeout=15.0)
+            return None if err is None else str(err)
+        except asyncio.TimeoutError:
+            return None  # network error: accept, like the reference retry path
+        finally:
+            actor.stop()
+            task.cancel()
+
+    try:
+        return asyncio.run(check())
+    except Exception as err:  # server unreachable: don't block configuration
+        sys.stderr.write(f"W: Could not verify key: {err}\n")
+        return None
+
 
 def _visible_devices(opt: Opt) -> int:
     """The devices a mesh could span: the visible GPUs, or 1 with
@@ -239,6 +283,12 @@ def build_engine_factory(opt: Opt, logger: Logger,
         return factory
     if engine == "az-mcts":
         return build_az_factory(opt, logger, az_net)
+    if engine == "uci":
+        from fishnet_tpu_torch.engine.uci import UciEngineFactory
+
+        if not opt.engine_exe:
+            raise ConfigError("--engine uci requires --engine-exe")
+        return UciEngineFactory(opt.engine_exe, logger=logger)
     if engine == "mock":
         from fishnet_tpu_torch.engine.mock import MockEngineFactory
 
@@ -481,8 +531,38 @@ async def run_client(opt: Opt, logger: Logger) -> None:
 
         drain_guard = asyncio.create_task(deadline_guard())
 
+    # Periodic auto-update (main.rs:179-199): every 5 h re-check the
+    # release channel; a staged update drains work (shutdown_soon ->
+    # wait_drained ends the wait below) and the install and restart
+    # happen after teardown, the reference's drain-then-exec.
+    restart_to = None  # the UpdateStatus of a staged, deferred install
+
+    async def update_loop() -> None:
+        nonlocal restart_to
+        from fishnet_tpu_torch.update import (
+            UPDATE_INTERVAL_SECONDS,
+            apply_update,
+        )
+
+        while True:
+            await asyncio.sleep(UPDATE_INTERVAL_SECONDS)
+            try:
+                status = await apply_update(
+                    logger=logger, allow_default=True, defer_promote=True
+                )
+            except Exception as err:  # noqa: BLE001 - keep serving on failures
+                logger.error(f"Periodic update check failed: {err}")
+                continue
+            if status.updated:
+                logger.fishnet_info(
+                    f"Update {status.latest} staged; draining before restart ..."
+                )
+                restart_to = status
+                client.shutdown_soon()
+                return
+
     loop = asyncio.get_running_loop()
-    warm = (0, 0, 0)
+    warm = (0, 0, 0, 0)
     try:
         loop.add_signal_handler(signal.SIGINT, on_sigint)
         loop.add_signal_handler(signal.SIGTERM, on_sigterm)
@@ -501,6 +581,8 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         )
         await client.start()
         summary = asyncio.create_task(client.run_summary_loop())
+        updater = (asyncio.create_task(update_loop())
+                   if opt.auto_update else None)
         # Exit on explicit stop (second ^C / SIGTERM deadline) OR when a
         # first-^C drain completes on its own (main.rs:248-259).
         stop_task = asyncio.create_task(stop.wait())
@@ -509,7 +591,8 @@ async def run_client(opt: Opt, logger: Logger) -> None:
             await asyncio.wait({stop_task, drained_task},
                                return_when=asyncio.FIRST_COMPLETED)
         finally:
-            for t in (stop_task, drained_task, summary, drain_guard):
+            for t in (stop_task, drained_task, summary, updater,
+                      drain_guard):
                 if t is not None:
                     t.cancel()
             await client.stop(abort_pending=stop.is_set())
@@ -530,6 +613,11 @@ async def run_client(opt: Opt, logger: Logger) -> None:
             # in the service until its drivers harvest them, and they may
             # still dispatch; once it is closed the counts are final.
             logger.debug(_teardown_counters(engine_factory, warm))
+            # With --engine uci the engine children own the device: this
+            # process must never have opened a CUDA context.
+            import torch
+
+            logger.debug(f"cuda_context {torch.cuda.is_initialized()}")
         # Flush the (interval-debounced) stats file and stop serving
         # scrapes before teardown completes.
         stats.flush()
@@ -541,6 +629,33 @@ async def run_client(opt: Opt, logger: Logger) -> None:
         if exporter is not None:
             exporter.close()
     logger.fishnet_info(client.stats_summary())
+    # Install and restart only on a clean drain with no operator stop
+    # intent: a SIGTERM or a ^C must actually stop. After teardown, so
+    # no live engine has files swapped under it (update.promote_staged).
+    if (restart_to is not None and not stop.is_set() and sigints == 0
+            and sigterms == 0):
+        from fishnet_tpu_torch.update import (
+            default_install_root,
+            promote_staged,
+            restart_process,
+        )
+
+        ok = True
+        if restart_to.staged is not None:
+            try:
+                promote_staged(restart_to.staged, default_install_root())
+            except Exception as err:  # noqa: BLE001
+                logger.error(f"Update promotion failed: {err}")
+                ok = False
+        elif restart_to.command:
+            # An async subprocess: run_client is still on the event loop.
+            proc = await asyncio.create_subprocess_exec(*restart_to.command)
+            rc = await proc.wait()
+            if rc != 0:
+                logger.error(f"Update command failed with exit code {rc}.")
+                ok = False
+        if ok:
+            restart_process(logger, restart_to.latest)
 
 
 def start_metrics(opt: Opt, stats: StatsRecorder, logger: Logger):
@@ -573,11 +688,39 @@ def start_metrics(opt: Opt, stats: StatsRecorder, logger: Logger):
 
 def main(argv: Optional[List[str]] = None) -> int:
     try:
-        opt = configure_mod.parse_and_configure(argv)
+        opt = configure_mod.parse_and_configure(
+            argv, key_check=_check_key_over_network)
     except ConfigError as err:
         sys.stderr.write(f"E: {err}\n")
         return 2
 
+    # Under the unit commands stdout carries the unit: log to stderr.
+    logger = Logger(verbose=opt.verbose, stderr=opt.is_systemd())
+    if opt.command == "license":
+        print(LICENSE_NOTICE)
+        return 0
+    if opt.is_systemd():
+        from fishnet_tpu_torch import systemd as systemd_mod
+
+        if opt.command == "systemd":
+            systemd_mod.systemd_system(opt)
+        else:
+            systemd_mod.systemd_user(opt)
+        return 0
+    if opt.command == "configure":
+        return 0  # the dialog ran inside parse_and_configure
+    if opt.command == "verify-net":
+        if not opt.nnue_file:
+            sys.stderr.write("E: verify-net requires --nnue-file PATH\n")
+            return 2
+        from fishnet_tpu_torch.verify_net import run_cli
+
+        try:
+            return run_cli(str(opt.nnue_file), device=opt.resolved_device(),
+                           verbose=opt.verbose)
+        except (ValueError, RuntimeError) as err:  # no GPU, a bad --device
+            sys.stderr.write(f"E: {err}\n")
+            return 2
     if opt.resolved_command() == "uci":
         from fishnet_tpu_torch.uci_server import serve
 
@@ -588,6 +731,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         except (ValueError, RuntimeError, OSError) as err:
             sys.stderr.write(f"E: {err}\n")
             return 2
+        logger.debug(f"UCI service warmed up on "
+                     f"{getattr(service, 'device', None)}, rung "
+                     f"{service.psqt_path}")
         try:
             asyncio.run(serve(service))
         except KeyboardInterrupt:
@@ -596,7 +742,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             service.close()
         return 0
 
-    logger = Logger(verbose=opt.verbose)
+    if opt.auto_update:
+        from fishnet_tpu_torch.update import auto_update
+
+        auto_update(logger)
     try:
         asyncio.run(run_client(opt, logger))
     except KeyboardInterrupt:

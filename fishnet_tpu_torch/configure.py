@@ -1,14 +1,14 @@
 """CLI / config layer of the port.
 
-The port's copy of the ``run`` and ``uci`` parts of
-``fishnet_tpu/configure.py``: the same flags under the same names and
-defaults (``--mesh``, ``--metrics-port`` / ``--metrics-port-file``,
-``--spans-dir`` / ``--spans-journal``, ``--fault-plan``,
-``--drain-deadline``, ``--tenants`` and ``--lane-depth-limit`` among
-them, with their ini keys and errors), with the same precedence CLI >
-``fishnet.ini`` (section ``[Fishnet]``), plus the port's ``--device
-cuda|cpu``. The interactive first-run dialog, systemd and update are not
-ported: a missing ini file is simply not read.
+The port's copy of ``fishnet_tpu/configure.py``: the same commands
+(run, configure, systemd, systemd-user, uci, verify-net, license), the
+same flags under the same names and defaults (``--key-file``,
+``--auto-update``, ``--engine-exe``, ``--mesh``, ``--metrics-port`` /
+``--metrics-port-file``, ``--spans-dir`` / ``--spans-journal``,
+``--fault-plan``, ``--drain-deadline``, ``--tenants`` and
+``--lane-depth-limit`` among them, with their ini keys and errors), the
+same precedence CLI > ``fishnet.ini`` (section ``[Fishnet]``) >
+interactive first-run dialog, plus the port's ``--device cuda|cpu``.
 
 Durations parse like the reference (configure.rs:323-342): ``90s``,
 ``2h``, ``1d``, ``500ms``, bare seconds.
@@ -18,12 +18,13 @@ from __future__ import annotations
 
 import argparse
 import configparser
+import io
 import os
 import re
 import sys
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence, TextIO
+from typing import Callable, Optional, Sequence, TextIO
 from urllib.parse import urlsplit
 
 from fishnet_tpu_torch.version import __version__
@@ -31,8 +32,9 @@ from fishnet_tpu_torch.version import __version__
 DEFAULT_ENDPOINT = "https://lichess.org/fishnet"
 INI_SECTION = "Fishnet"
 
-COMMANDS = ("run", "uci")
-ENGINE_BACKENDS = ("tpu-nnue", "az-mcts", "mock")
+COMMANDS = ("run", "configure", "systemd", "systemd-user", "uci",
+            "verify-net", "license")
+ENGINE_BACKENDS = ("tpu-nnue", "az-mcts", "uci", "mock")
 DEVICES = ("cuda", "cpu")
 
 
@@ -52,6 +54,12 @@ def parse_endpoint(s: str) -> str:
     if parts.scheme not in ("http", "https") or not parts.netloc:
         raise ConfigError(f"invalid endpoint url: {s!r}")
     return s[:-1] if s.endswith("/") else s
+
+
+def endpoint_is_development(endpoint: str) -> bool:
+    """Any host other than lichess.org is a development endpoint
+    (configure.rs:115-119)."""
+    return urlsplit(endpoint).hostname != "lichess.org"
 
 
 def parse_key(s: str) -> str:
@@ -131,6 +139,20 @@ def parse_backlog(s: str) -> float:
     return parse_duration(s)
 
 
+def parse_toggle(s: str) -> Optional[bool]:
+    """Lenient y/n parsing for dialog answers (configure.rs:352-363).
+    Returns None for the empty string (take the default); raises on
+    unrecognized input."""
+    t = s.strip().lower()
+    if t in ("y", "j", "yes", "yep", "yay", "true", "t", "1", "ok"):
+        return True
+    if t in ("n", "no", "nop", "nope", "nay", "f", "false", "0"):
+        return False
+    if t == "":
+        return None
+    raise ConfigError(f"not a yes/no answer: {s!r}")
+
+
 def _positive_int(value: str, name: str) -> int:
     try:
         n = int(value)
@@ -158,12 +180,16 @@ def _choice(value: str, name: str, choices) -> str:
 class Opt:
     """Resolved options (reference ``Opt``, configure.rs:19-69)."""
 
-    #: None = bare invocation, which runs the client.
+    #: None = bare invocation (no command), which runs the client.
+    #: Distinct from an explicit ``run``: the first-run dialog triggers
+    #: for bare invocations only (configure.rs:421-423).
     command: Optional[str] = None
     verbose: int = 0
+    auto_update: bool = False
     conf: Optional[str] = None
     no_conf: bool = False
     key: Optional[str] = None
+    key_file: Optional[str] = None
     endpoint: Optional[str] = None
     cores: Optional[str] = None
     max_backoff: Optional[float] = None
@@ -172,6 +198,8 @@ class Opt:
     stats_file: Optional[str] = None
     no_stats_file: bool = False
     engine: Optional[str] = None
+    #: The UCI engine executable for ``--engine uci``.
+    engine_exe: Optional[str] = None
     nnue_file: Optional[str] = None
     #: Policy+value net checkpoint (.npz) for --engine az-mcts.
     az_net_file: Optional[str] = None
@@ -286,6 +314,9 @@ class Opt:
     def resolved_tenants(self) -> int:
         return self.tenants if self.tenants is not None else 1
 
+    def is_systemd(self) -> bool:
+        return self.command in ("systemd", "systemd-user")
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -296,12 +327,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version",
                    version=f"fishnet-tpu-torch {__version__}")
     p.add_argument("command", nargs="?", choices=COMMANDS, default=None,
-                   help="run (default): the fishnet client | uci: serve the "
-                        "engine over UCI on stdin/stdout")
+                   help="run (default): the fishnet client | configure: the "
+                        "configuration dialog | systemd | systemd-user: print "
+                        "a unit file | uci: serve the engine over UCI on "
+                        "stdin/stdout | verify-net: check a .nnue file against "
+                        "the native evaluator | license")
     p.add_argument("-v", "--verbose", action="count", default=0, help="Increase verbosity.")
+    p.add_argument("--auto-update", action="store_true", help="Install updates on startup and periodically.")
     p.add_argument("--conf", help="Configuration file (default: fishnet.ini).")
     p.add_argument("--no-conf", action="store_true", help="Do not use a configuration file.")
     p.add_argument("-k", "--key", "--apikey", dest="key", help="Fishnet key.")
+    p.add_argument("--key-file", help="File containing the fishnet key.")
     p.add_argument("--endpoint", help=f"HTTP endpoint (default: {DEFAULT_ENDPOINT}).")
     p.add_argument("--cores", "--threads", dest="cores", help="Worker count: a number, auto (n-1), or all.")
     p.add_argument("--max-backoff", help="Maximum randomized backoff when idle (default 30s).")
@@ -312,7 +348,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=ENGINE_BACKENDS, default=None,
                    help="Engine backend: tpu-nnue (default; batched GPU "
                         "evaluator), az-mcts (batched PUCT MCTS over a "
-                        "policy+value net on the GPU) or mock.")
+                        "policy+value net on the GPU), uci (a UCI engine "
+                        "subprocess, --engine-exe) or mock.")
+    p.add_argument("--engine-exe", help="UCI engine executable for --engine uci.")
     p.add_argument("--nnue-file", help="Path to HalfKAv2_hm .nnue weights (default: random, seed 0).")
     p.add_argument("--az-net-file", default=None,
                    help="Policy+value net checkpoint (.npz) for --engine "
@@ -379,13 +417,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _opt_from_namespace(ns: argparse.Namespace) -> Opt:
-    opt = Opt(command=ns.command, verbose=ns.verbose, conf=ns.conf,
-              no_conf=ns.no_conf, no_stats_file=ns.no_stats_file,
-              stats_file=ns.stats_file, nnue_file=ns.nnue_file,
-              engine=ns.engine, device=ns.device,
+    opt = Opt(command=ns.command, verbose=ns.verbose,
+              auto_update=ns.auto_update, conf=ns.conf, no_conf=ns.no_conf,
+              key_file=ns.key_file, no_stats_file=ns.no_stats_file,
+              stats_file=ns.stats_file, engine_exe=ns.engine_exe,
+              nnue_file=ns.nnue_file, engine=ns.engine, device=ns.device,
               az_net_file=ns.az_net_file)
     if ns.conf and ns.no_conf:
         raise ConfigError("--conf conflicts with --no-conf")
+    if ns.key and ns.key_file:
+        raise ConfigError("--key conflicts with --key-file")
     if ns.stats_file and ns.no_stats_file:
         raise ConfigError("--stats-file conflicts with --no-stats-file")
     if ns.key is not None:
@@ -473,6 +514,7 @@ _INI_FIELDS = (
     ("SystemBacklog", "system_backlog", parse_backlog),
     ("MaxBackoff", "max_backoff", parse_duration),
     ("Engine", "engine", lambda v: _choice(v, "engine backend", ENGINE_BACKENDS)),
+    ("EngineExe", "engine_exe", str),
     ("NnueFile", "nnue_file", str),
     ("AzNetFile", "az_net_file", str),
     ("Mesh", "mesh", parse_mesh),
@@ -503,6 +545,12 @@ def load_ini(path: Path) -> configparser.ConfigParser:
     return ini
 
 
+def write_ini(ini: configparser.ConfigParser, path: Path) -> None:
+    buf = io.StringIO()
+    ini.write(buf)
+    path.write_text(buf.getvalue())
+
+
 def merge_ini(opt: Opt, ini: configparser.ConfigParser) -> None:
     """Fill unset Opt fields from the ini (CLI wins, configure.rs:574-599)."""
     for ini_key, attr, parse in _INI_FIELDS:
@@ -512,16 +560,160 @@ def merge_ini(opt: Opt, ini: configparser.ConfigParser) -> None:
                 setattr(opt, attr, parse(raw))
 
 
+# ---------------------------------------------------------------------------
+# Interactive dialog (configure.rs:420-572)
+# ---------------------------------------------------------------------------
+
+INTRO = r"""#   _________         .    .
+#  (..       \_    ,  |\  /|
+#   \       O  \  /|  \ \/ /
+#    \______    \/ |   \  /      _____ _     _     _   _      _
+#       vvvv\    \ |   /  |     |  ___(_)___| |__ | \ | | ___| |_
+#       \^^^^  ==   \_/   |     | |_  | / __| '_ \|  \| |/ _ \ __|
+#        `\_   ===    \.  |     |  _| | \__ \ | | | |\  |  __/ |_
+#        / /\_   \ /      |     |_|   |_|___/_| |_|_| \_|\___|\__| {version} (gpu)
+#        |/   \_  \|      /
+#               \________/      Distributed GPU chess analysis for lichess.org
+""".format(version=__version__)
+
+
+KeyCheck = Callable[[str, str], Optional[str]]
+"""(endpoint, key) -> None if valid, else an error message. Network check."""
+
+
+def run_dialog(
+    opt: Opt,
+    ini: configparser.ConfigParser,
+    *,
+    input_fn: Callable[[], str],
+    output: TextIO,
+    key_check: Optional[KeyCheck] = None,
+) -> None:
+    """First-run / ``configure`` dialog: endpoint -> key -> cores ->
+    backlog (configure.rs:425-559). Mutates ``ini`` in place; the caller
+    merges and writes it."""
+
+    def ask(prompt: str) -> str:
+        output.write(prompt)
+        output.flush()
+        line = input_fn()
+        if line == "":  # EOF: stdin closed, e.g. piped invocation
+            raise ConfigError("stdin closed during configuration dialog")
+        return line.strip()
+
+    endpoint = opt.endpoint or (
+        ini.get(INI_SECTION, "Endpoint") if ini.has_option(INI_SECTION, "Endpoint") else DEFAULT_ENDPOINT
+    )
+
+    # Step 1: key (with optional live validation; '!' suffix skips it,
+    # configure.rs:437-492).
+    while True:
+        if ini.has_option(INI_SECTION, "Key"):
+            masked = "*" * len(ini.get(INI_SECTION, "Key"))
+            raw = ask(f"Personal fishnet key (append ! to force, default: keep {masked}): ")
+            required = False
+        elif endpoint_is_development(endpoint):
+            raw = ask("Personal fishnet key (append ! to force, probably not required): ")
+            required = False
+        else:
+            raw = ask("Personal fishnet key (append ! to force, https://lichess.org/get-fishnet): ")
+            required = True
+        if not raw:
+            if required:
+                output.write("Key required.\n")
+                continue
+            break
+        check = key_check
+        if raw.endswith("!"):
+            raw, check = raw[:-1], None
+        try:
+            key = parse_key(raw)
+        except ConfigError as err:
+            output.write(f"Invalid: {err}\n")
+            continue
+        if check is not None:
+            err_msg = check(endpoint, key)
+            if err_msg is not None:
+                output.write(f"Invalid: {err_msg}\n")
+                continue
+        ini.set(INI_SECTION, "Key", key)
+        break
+
+    # Step 2: cores (configure.rs:494-523).
+    all_cores = available_cores()
+    auto = resolve_cores("auto")
+    while True:
+        raw = ask(f"\nNumber of worker cores (default {auto}, max {all_cores}): ")
+        try:
+            spec = parse_cores(raw) if raw else "auto"
+        except ConfigError as err:
+            output.write(f"Invalid: {err}\n")
+            continue
+        if spec.isdigit() and int(spec) > all_cores:
+            output.write(f"At most {all_cores} logical cores available on your machine.\n")
+            continue
+        ini.set(INI_SECTION, "Cores", spec)
+        break
+
+    # Step 3: backlog (configure.rs:525-553).
+    output.write(
+        "\nYou can choose to not join unless a backlog is building up. Examples:\n"
+        "* Rented server exclusively for fishnet: choose no\n"
+        "* Running on a laptop: choose yes\n"
+    )
+    while True:
+        raw = ask("Would you prefer to keep your client idle? (default: no) ")
+        try:
+            answer = parse_toggle(raw)
+        except ConfigError:
+            continue
+        if answer:
+            ini.set(INI_SECTION, "UserBacklog", "short")
+            ini.set(INI_SECTION, "SystemBacklog", "long")
+        else:
+            ini.set(INI_SECTION, "UserBacklog", "0")
+            ini.set(INI_SECTION, "SystemBacklog", "0")
+        break
+
+
 def parse_and_configure(
-    argv: Optional[Sequence[str]] = None, output: Optional[TextIO] = None,
+    argv: Optional[Sequence[str]] = None,
+    *,
+    input_fn: Optional[Callable[[], str]] = None,
+    output: Optional[TextIO] = None,
+    key_check: Optional[KeyCheck] = None,
+    write: bool = True,
 ) -> Opt:
-    """Config resolution (configure.rs:380-613): parse the CLI, merge
-    the ini under it, cap cores at what the machine has."""
+    """Full config resolution (configure.rs:380-613): parse the CLI, read
+    the key file, maybe run the dialog (``input_fn`` reads one answer,
+    stdin by default; ``write`` saves the ini it fills), merge the ini
+    under the CLI, cap cores at what the machine has."""
     ns = build_parser().parse_args(argv)
     opt = _opt_from_namespace(ns)
     output = output or sys.stderr
-    if not opt.no_conf:
-        merge_ini(opt, load_ini(opt.conf_path()))
+
+    if not opt.is_systemd() and opt.key_file:
+        opt.key = parse_key(Path(opt.key_file).read_text().strip())
+
+    use_conf = opt.command == "configure" or (opt.command != "license" and not opt.no_conf)
+    if use_conf:
+        ini = load_ini(opt.conf_path())
+        file_found = opt.conf_path().exists()
+        # The dialog triggers for bare invocations and `configure` only:
+        # never for `run`, `uci` (stdin belongs to the GUI's handshake)
+        # or the non-interactive `verify-net`.
+        if (not file_found and opt.command not in ("run", "uci", "verify-net")) or opt.command == "configure":
+            if input_fn is None:
+                input_fn = sys.stdin.readline
+            output.write(INTRO)
+            output.write("\n### Configuration\n\n")
+            run_dialog(opt, ini, input_fn=input_fn, output=output, key_check=key_check)
+            if write:
+                write_ini(ini, opt.conf_path())
+                output.write(f"Configuration saved to {opt.conf_path()}.\n")
+        if not opt.is_systemd():
+            merge_ini(opt, ini)
+
     # Cap cores at what the machine has (configure.rs:602-612).
     if opt.cores and opt.cores.isdigit() and int(opt.cores) > available_cores():
         output.write(

@@ -1,6 +1,7 @@
 """The port imports torch, numpy and the standard library only: nothing of
-jax, flax, optax, orbax, aiohttp or the JAX package fishnet_tpu, and its entry
-points never fall back to the CPU on their own.
+jax, flax, optax, orbax, aiohttp, cryptography or the JAX package
+fishnet_tpu, and its entry points never fall back to the CPU on their own.
+Its packaging lists every subpackage.
 
 The import check runs in a subprocess: this test process has imported
 jax already (tests/conftest.py). With those imports blocked, the
@@ -17,7 +18,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "aiohttp", "fishnet_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "aiohttp", "cryptography",
+           "fishnet_tpu")
 
 _BLOCKED_RUN = r"""
 import importlib, io, pkgutil, runpy, sys
@@ -49,7 +51,9 @@ for name in ("search.eval_cache", "models.az", "models.az_encoding",
              "sched.frontend", "control", "control.signals",
              "control.actuators", "control.controller", "telemetry.stitch",
              "telemetry.fleet", "cluster", "cluster.proxy",
-             "cluster.supervisor", "cluster.chaos", "cluster.position_tier"):
+             "cluster.supervisor", "cluster.chaos", "cluster.position_tier",
+             "configure", "__main__", "engine.uci", "systemd", "verify_net",
+             "update", "utils.ed25519"):
     assert "fishnet_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -144,6 +148,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     w = NnueWeights.random(seed=0)
+    w.save(str(tmp_path / "w.nnue"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_weights(w)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -153,6 +158,15 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
         assert main(args + ["--no-conf", "--no-stats-file", "--endpoint",
                             "http://127.0.0.1:9/fishnet"]) == 2
         assert "no CUDA device" in capsys.readouterr().err
+    # So does `verify-net`, before it reads the net, and its library call.
+    assert main(["verify-net", "--no-conf", "--nnue-file",
+                 str(tmp_path / "w.nnue")]) == 2
+    captured = capsys.readouterr()
+    assert "no CUDA device" in captured.err and "layout" not in captured.out
+    from fishnet_tpu_torch.verify_net import verify_net
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        verify_net(str(tmp_path / "w.nnue"))
     from fishnet_tpu_torch.engine.az_engine import AzMctsService
     from fishnet_tpu_torch.models.az import AzConfig, init_az_params
     from fishnet_tpu_torch.search.az_plane import AzDispatchPlane
@@ -168,7 +182,6 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, capsys, tmp_path):
     # default): it exits 2 before it serves any link.
     from fishnet_tpu_torch.rpc import host as rpc_host
 
-    w.save(str(tmp_path / "w.nnue"))
     assert rpc_host.main(["--nnue-file", str(tmp_path / "w.nnue"),
                           "--dir", str(tmp_path / "rpc")]) == 2
     assert "no CUDA device" in capsys.readouterr().err
@@ -213,3 +226,22 @@ def test_mesh_entry_points_raise_without_a_gpu(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
     assert main(["uci", "--no-conf", "--device", "cpu", "--mesh", "1x2"]) == 2
     assert "--mesh 1x2 needs 2 devices, found 1" in capsys.readouterr().err
+
+
+def test_packaging_lists_every_subpackage():
+    """``pip install .`` ships what ``[tool.setuptools] packages`` lists:
+    every directory of the port with an ``__init__.py`` is there, and so
+    is the port's console script."""
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as fp:
+        project = tomllib.load(fp)
+    listed = set(project["tool"]["setuptools"]["packages"])
+    found = {
+        ".".join(init.parent.relative_to(ROOT).parts)
+        for init in (ROOT / "fishnet_tpu_torch").rglob("__init__.py")
+    }
+    assert {"fishnet_tpu_torch.control", "fishnet_tpu_torch.cluster"} <= found
+    assert found <= listed, sorted(found - listed)
+    assert (project["project"]["scripts"]["fishnet-tpu-torch"]
+            == "fishnet_tpu_torch.__main__:main")
